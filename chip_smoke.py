@@ -1,0 +1,532 @@
+#!/usr/bin/env python3
+"""Smoke check of the PyTorch/CUDA port (ray_lightning_tpu_torch) on one card.
+
+Run from the root of a checkout, on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (any failed check raises and the script exits non-zero without the
+final line):
+
+1. device — the card's name and power limit; TF32 is switched off for
+   matmuls and cuDNN so fp32 references mean fp32;
+2. build — every ``csrc/*.cu`` kernel compiled from the checkout with nvcc
+   (one process per source, all at once), timed;
+3. kernels — each kernel against its plain PyTorch version on the card, at
+   the shapes the main path gives it, with the stated tolerance; the
+   kernel's, the plain version's and a library call's times (CUDA events);
+4. main path — Llama-3-8B at full width and depth (random bf16 weights from
+   a seeded generator) served by the paged ``InferenceEngine``: 16
+   staggered requests of mixed lengths, some sharing a prefix, 32 new
+   tokens each. Every request must complete, every kernel must have
+   launched, and the launch counts must match the layer count. The same
+   requests are then served again under torch.profiler, which gives the
+   device time by class (the port's kernels, matmuls, the rest) and the
+   device's busy share;
+5. exactness — the same engine in fp32 at full width, cut to 2 layers: its
+   greedy tokens must equal iterated full ``forward`` calls through the
+   plain versions;
+6. the ``kernels`` JSON line, the card line, and the final
+   ``{"ok": true, ...}`` line.
+
+Timings are printed beside the card's name and power limit; they are this
+card's numbers, and the fields are described in PERF.md.
+"""
+import dataclasses
+import gc
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+T0 = time.perf_counter()
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+BF16_FLOPS = 989e12            # dense tensor-core bf16
+FP32_FLOPS = 67e12             # fp32 outside the tensor cores
+
+
+def log(msg):
+    print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters=20, warmup=3, cold=False):
+    """Mean device time of one call, from CUDA events around ``iters``
+    back-to-back calls (inputs stay hot in L2 where they fit). ``cold``
+    evicts L2 before each call by writing 64 MB and times each call alone:
+    for inputs the main path finds cold, as decode finds a layer's KV
+    cache."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    if cold:
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        events = []
+        for _ in range(iters):
+            flush.zero_()
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            fn()
+            pair[1].record()
+            events.append(pair)
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in events) / iters
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(bytes_moved, flops, flop_rate):
+    """Least time (ms) for the work: the larger of bytes over the HBM rate
+    and operations over the peak rate for their type."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def within(a, b, atol, rtol):
+    a, b = a.float(), b.float()
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+# --------------------------------------------------------------------- #
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------- #
+def check_rmsnorm(torch, F):
+    from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows_out = {}
+    for rows in (8, 512):
+        x = torch.randn(rows, 4096, generator=g, device="cuda").bfloat16()
+        w = (1 + 0.1 * torch.randn(4096, generator=g, device="cuda")).bfloat16()
+        got, want = rmsnorm(x, w, 1e-5), rmsnorm_plain(x, w, 1e-5)
+        # both round one fp32 value to bf16; sums in another order can
+        # move it by one bf16 ulp (2^-8 relative)
+        check(within(got, want, 1e-2, 1e-2), f"rmsnorm [{rows},4096] vs plain")
+        err = max_err(got, want)
+        lib = (time_ms(torch, lambda: F.rms_norm(x, (4096,), w, 1e-5))
+               if hasattr(F, "rms_norm") else None)
+        b, by = bound(2 * x.numel() * 2 + 4096 * 2, 4 * x.numel(), FP32_FLOPS)
+        rows_out[rows] = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: rmsnorm(x, w, 1e-5)),
+            plain_ms=time_ms(torch, lambda: rmsnorm_plain(x, w, 1e-5)),
+            bound_ms=b, bound_by=by, library_ms=lib,
+            shape=f"[{rows},4096] bf16",
+        )
+        log(f"rmsnorm [{rows},4096] bf16: max_abs_err {err:.3g} (tol 1e-2 + "
+            f"1e-2|ref|) kernel_ms {rows_out[rows]['ms']:.4f} plain_ms "
+            f"{rows_out[rows]['plain_ms']:.4f} library_ms(F.rms_norm) {lib} "
+            f"bound_ms {b:.5f} ({by})")
+    return rows_out[8]
+
+
+def check_flash(torch, F):
+    from ray_lightning_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases = [
+        ("causal bf16", 512, torch.bfloat16, None, 2e-2, 1e-4),
+        ("ragged 300 bf16", 300, torch.bfloat16, None, 2e-2, 1e-4),
+        ("window 128 bf16", 512, torch.bfloat16, 128, 2e-2, 1e-4),
+        ("causal fp32", 512, torch.float32, None, 1e-4, 1e-4),
+    ]
+    worst = 0.0
+    main = None
+    for name, S, dt, window, tol_o, tol_lse in cases:
+        q = torch.randn(1, 32, S, 128, generator=g, device="cuda").to(dt)
+        k = torch.randn(1, 8, S, 128, generator=g, device="cuda").to(dt)
+        v = torch.randn(1, 8, S, 128, generator=g, device="cuda").to(dt)
+        o, lse = flash_attention(q, k, v, causal=True, window=window)
+        po, plse = flash_attention_plain(q, k, v, True, None, window)
+        # bf16: the kernel rounds p to bf16 before P V (as the TPU kernel
+        # does) and O is rounded to bf16: 2e-2 on O; lse is fp32 on both
+        check(within(o, po, tol_o, tol_o), f"flash {name}: O vs plain")
+        check(within(lse, plse, tol_lse, tol_lse), f"flash {name}: lse vs plain")
+        err = max(max_err(o, po), max_err(lse, plse))
+        worst = max(worst, err)
+        log(f"flash {name} q[1,32,{S},128] kv[1,8,{S},128]: max_abs_err "
+            f"{err:.3g} (tol {tol_o} on O, {tol_lse} on lse)")
+        if name == "causal bf16":
+            kr = k.repeat_interleave(4, dim=1)
+            vr = v.repeat_interleave(4, dim=1)
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, kr, vr, is_causal=True))
+            pairs = S * (S + 1) // 2
+            nbytes = (q.numel() * 2 + k.numel() * 2 * 2 + q.numel() * 2
+                      + 32 * S * 4)
+            b, by = bound(nbytes, 4 * 32 * pairs * 128, BF16_FLOPS)
+            main = dict(
+                ms=time_ms(torch, lambda: flash_attention(q, k, v)),
+                plain_ms=time_ms(torch, lambda: flash_attention_plain(
+                    q, k, v, True, None, None)),
+                bound_ms=b, bound_by=by, library_ms=lib,
+                shape="q[1,32,512,128] kv[1,8,512,128] bf16 causal",
+            )
+            log(f"flash causal bf16 S=512: kernel_ms {main['ms']:.4f} "
+                f"plain_ms {main['plain_ms']:.4f} library_ms(SDPA) {lib:.4f} "
+                f"bound_ms {b:.5f} ({by})")
+    main["max_abs_err"] = worst
+    return main
+
+
+def check_paged(torch, F):
+    import numpy as np
+
+    from ray_lightning_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    B, hkv, G, hd, bs, maxb = 8, 8, 4, 128, 16, 64
+    n_blocks = B * maxb + 1
+    g = torch.Generator(device="cuda").manual_seed(3)
+    kc = torch.randn(n_blocks, hkv, bs, hd, generator=g, device="cuda").bfloat16()
+    vc = torch.randn(n_blocks, hkv, bs, hd, generator=g, device="cuda").bfloat16()
+    q = torch.randn(B, hkv, G, hd, generator=g, device="cuda")
+    pos = np.asarray([1000, 777, 512, 300, 128, 63, 16, 0], np.int32)
+    rng = np.random.default_rng(3)
+    perm = rng.permutation(np.arange(1, n_blocks))
+    tables = np.zeros((B, maxb), np.int32)  # trash-padded
+    used = 0
+    for b in range(B - 1):  # the last row is a free slot: all trash
+        need = int(pos[b]) // bs + 1
+        tables[b, :need] = perm[used:used + need]
+        used += need
+    t_tab = torch.from_numpy(tables).cuda()
+    t_pos = torch.from_numpy(pos).cuda()
+    got = paged_decode_attention(q, kc, vc, t_tab, t_pos)
+    want = paged_decode_attention_plain(q, kc, vc, t_tab, t_pos)
+    # fp32 accumulation on both sides over <= 1001 positions
+    check(within(got, want, 1e-4, 1e-4), "paged decode vs plain")
+    err = max_err(got, want)
+    # library yardstick: SDPA over the gathered, masked cache
+    C = maxb * bs
+    kk = kc[t_tab.long()].transpose(1, 2).reshape(B, hkv, C, hd).float()
+    vv = vc[t_tab.long()].transpose(1, 2).reshape(B, hkv, C, hd).float()
+    kk, vv = kk.repeat_interleave(G, dim=1), vv.repeat_interleave(G, dim=1)
+    qq = q.reshape(B, hkv * G, 1, hd)
+    mask = (torch.arange(C, device="cuda")[None, :] <= t_pos.long()[:, None])
+    mask = mask[:, None, None, :]
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask), cold=True)
+    positions = int((pos + 1).sum())
+    nbytes = (positions * hkv * hd * 2 * 2 + q.numel() * 4 * 2
+              + tables.nbytes + pos.nbytes)
+    b, by = bound(nbytes, 4 * hkv * G * hd * positions, FP32_FLOPS)
+    out = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: paged_decode_attention(q, kc, vc, t_tab, t_pos),
+                   cold=True),
+        plain_ms=time_ms(torch, lambda: paged_decode_attention_plain(
+            q, kc, vc, t_tab, t_pos), cold=True),
+        bound_ms=b, bound_by=by, library_ms=lib,
+        shape="8 rows x 8 KV heads x G 4, hd 128, bs 16, pos up to 1000, bf16 cache",
+    )
+    warm = time_ms(torch, lambda: paged_decode_attention(q, kc, vc, t_tab, t_pos))
+    log(f"paged decode (times with L2 flushed; kernel_ms {warm:.4f} with the "
+        f"cache hot in L2): max_abs_err {err:.3g} (tol 1e-4) kernel_ms "
+        f"{out['ms']:.4f} plain_ms {out['plain_ms']:.4f} library_ms(SDPA on "
+        f"gathered KV) {lib:.4f} bound_ms {b:.5f} ({by}, {nbytes / 1e6:.1f} MB)")
+    return out
+
+
+def check_argmax(torch):
+    from ray_lightning_tpu_torch.ops.paged_attention import (
+        blockwise_argmax,
+        blockwise_argmax_plain,
+        gumbel_noise,
+    )
+
+    B, V = 8, 128256
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(B, V, generator=g, device="cuda")
+    top = float(x.max()) + 1.0
+    for row, cols in ((0, (5, 100000)), (1, (64000, 127000)),
+                      (2, (0, V - 1)), (3, (4095, 4096, 4097))):
+        x[row, list(cols)] = top  # planted ties: the first one must win
+    noise = gumbel_noise((B, V), g, torch.device("cuda"))
+    errs = []
+    for name, nz in (("greedy", None), ("noisy", noise)):
+        got = blockwise_argmax(x, nz)
+        want = blockwise_argmax_plain(x, nz)
+        check(torch.equal(got, want), f"argmax {name} vs plain")
+        errs.append(int((got - want).abs().max()))
+    check([int(t) for t in blockwise_argmax(x)[:4]] == [5, 64000, 0, 4095],
+          "argmax keeps the first of tied maxima")
+    b, by = bound(B * V * 4 + B * 4, B * V, FP32_FLOPS)
+    out = dict(
+        max_abs_err=float(max(errs)),
+        ms=time_ms(torch, lambda: blockwise_argmax(x)),
+        plain_ms=time_ms(torch, lambda: blockwise_argmax_plain(x)),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.argmax(x, dim=-1)),
+        shape="[8,128256] fp32 greedy",
+    )
+    noisy_ms = time_ms(torch, lambda: blockwise_argmax(x, noise))
+    log(f"argmax [8,128256]: exact on greedy and noisy (planted ties) "
+        f"kernel_ms {out['ms']:.4f} noisy_ms {noisy_ms:.4f} plain_ms "
+        f"{out['plain_ms']:.4f} library_ms(torch.argmax) "
+        f"{out['library_ms']:.4f} bound_ms {b:.5f} ({by})")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phases 4 and 5: the serving path
+# --------------------------------------------------------------------- #
+def requests(rng, vocab, n, max_prompt, n_new, shared_len):
+    shared = rng.integers(0, vocab, shared_len).tolist()
+    out = []
+    for i in range(n):
+        length = int(rng.integers(max(4, max_prompt // 16), max_prompt + 1))
+        if i % 3 == 0:
+            tail = rng.integers(0, vocab, max(1, length - shared_len)).tolist()
+            prompt = (shared + tail)[:max_prompt]
+        else:
+            prompt = rng.integers(0, vocab, length).tolist()
+        out.append((prompt, n_new))
+    return out
+
+
+def serve(engine, reqs, first_wave):
+    comps = [engine.submit(p, max_new_tokens=n) for p, n in reqs[:first_wave]]
+    for _ in range(4):
+        engine.step()
+    comps += [engine.submit(p, max_new_tokens=n) for p, n in reqs[first_wave:]]
+    engine.run_until_idle()
+    return comps
+
+
+# substrings of device kernel names, for the device-time breakdown
+PORT_KERNEL_NAMES = {"rmsnorm_kernel": "rmsnorm", "flash_fwd_kernel": "flash_fwd",
+                     "paged_decode_": "paged_decode", "argmax_kernel": "argmax"}
+MATMUL_NAMES = ("gemm", "gemv", "xmma", "cutlass", "splitk", "nvjet")
+
+
+def profile_run(torch, engine, reqs, wall_s):
+    """Where the main path's device time goes: the same requests served
+    again under torch.profiler, each device event put in one class (each of
+    the port's kernels, cuBLAS matmuls, everything else). The prefix cache is
+    warm on this pass, which changes which blocks prefill writes, not what
+    it computes. The busy share is that device time over the wall time of
+    the unprofiled run."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        serve(engine, reqs, 8)
+        torch.cuda.synchronize()
+    classes = collections.Counter()
+    other = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+            continue
+        us = e.time_range.elapsed_us()
+        low = e.name.lower()
+        port = [v for k, v in PORT_KERNEL_NAMES.items() if k in e.name]
+        if port:
+            classes[port[0]] += us
+        elif any(k in low for k in MATMUL_NAMES):
+            classes["matmul"] += us
+        else:
+            classes["other"] += us
+            other[e.name[:60]] += us
+    busy_ms = sum(classes.values()) / 1e3
+    if busy_ms == 0:
+        log("profile: the profiler saw no device events; breakdown not measured")
+        return
+    log(f"profile of the main path's requests: device busy {busy_ms:.1f} ms of "
+        f"{wall_s * 1e3:.1f} ms wall ({busy_ms / (wall_s * 1e3):.1%} busy); "
+        + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in classes.most_common()))
+    log("profile, largest 'other' device events: " + "; ".join(
+        f"{name} {us / 1e3:.1f} ms" for name, us in other.most_common(6)))
+
+
+def main_path(torch, card):
+    import numpy as np
+
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = LlamaConfig.llama3_8b()
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params["layers"].values()) + \
+        params["embed"].numel() + params["lm_head"].numel()
+    log(f"llama3_8b: {n_params / 1e9:.2f} B params bf16 initialised in "
+        f"{time.perf_counter() - t:.1f}s, {torch.cuda.memory_allocated() / 2**30:.1f} "
+        "GiB allocated")
+    ecfg = EngineConfig(num_slots=8, max_prompt_len=512, max_len=1024,
+                        block_size=16)
+    engine = InferenceEngine(params, cfg, ecfg)
+    kv_gib = sum(v.numel() * v.element_size()
+                 for v in engine.pool.cache.values()) / 2**30
+    log(f"paged KV pool {tuple(engine.pool.cache['k'].shape)} x2 = "
+        f"{kv_gib:.2f} GiB")
+    # warm-up request (cuBLAS handles, allocator), not part of the run
+    serve(engine, [([1, 2, 3, 4], 2)], 1)
+    rng = np.random.default_rng(0)
+    reqs = requests(rng, cfg.vocab_size, 16, 512, 32, 256)
+    before = dict(engine.stats)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    comps = serve(engine, reqs, 8)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    prefills = engine.stats["prefills"] - before["prefills"]
+    steps = engine.stats["decode_steps"] - before["decode_steps"]
+    tokens = engine.stats["tokens_out"] - before["tokens_out"]
+    for comp, (prompt, n) in zip(comps, reqs):
+        check(comp.done and comp.finish_reason == "length",
+              f"{comp.request_id} did not complete ({comp.finish_reason})")
+        check(len(comp.tokens) == n and all(0 <= t < cfg.vocab_size
+                                            for t in comp.tokens),
+              f"{comp.request_id}: bad tokens")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+    L = cfg.n_layers
+    expect = {"rmsnorm": 2 * L * prefills + (2 * L + 1) * steps,
+              "flash_fwd": L * prefills, "paged_decode": L * steps,
+              "argmax": steps}
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    ttfts = sorted(c.ttft_s for c in comps)
+    log(f"main path on {card}: {len(comps)} requests ({prefills} prefills, "
+        f"{steps} decode steps, {tokens} tokens) in {elapsed:.3f}s -> "
+        f"{tokens / elapsed:.1f} tokens/s; TTFT median "
+        f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms max {ttfts[-1] * 1e3:.1f} ms; "
+        f"shared-prefix block hits {engine.pool.allocator.prefix_hits_total}")
+    log(f"launches: {counts} (per prefill: rmsnorm {2 * L}, flash_fwd {L}; "
+        f"per decode step: rmsnorm {2 * L + 1}, paged_decode {L}, argmax 1)")
+    profile_run(torch, engine, reqs, elapsed)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def exactness(torch):
+    import numpy as np
+
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        forward,
+        init_params,
+    )
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(5))
+    engine = InferenceEngine(params, cfg, EngineConfig(
+        num_slots=4, max_prompt_len=64, max_len=128, block_size=16))
+    reqs = requests(np.random.default_rng(5), cfg.vocab_size, 6, 64, 8, 32)
+    comps = serve(engine, reqs, 3)
+    for comp, (prompt, n) in zip(comps, reqs):
+        toks = list(prompt)
+        for _ in range(n):
+            logits = forward(params, torch.tensor([toks], device="cuda"), cfg,
+                             plain=True)
+            toks.append(int(torch.argmax(logits[0, -1].float())))
+        check(comp.tokens == toks[len(prompt):],
+              f"{comp.request_id}: engine {comp.tokens} != forward "
+              f"{toks[len(prompt):]}")
+    log(f"exactness: fp32 llama3_8b widths, 2 layers: {len(comps)} greedy "
+        "streams token-identical to iterated plain forward")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import torch.nn.functional as F
+
+    import ray_lightning_tpu_torch
+    from ray_lightning_tpu_torch import kernels
+
+    # the port under test is the checkout's own, never an installed copy
+    here = Path(__file__).resolve().parent
+    check(Path(ray_lightning_tpu_torch.__file__).resolve().parent.parent == here,
+          f"ray_lightning_tpu_torch imported from {ray_lightning_tpu_torch.__file__}, "
+          f"not from the checkout at {here}")
+
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"device: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
+        "TF32 off for matmul and cuDNN")
+
+    t = time.perf_counter()
+    libs = kernels.build()
+    log(f"built {len(libs)} kernel libraries in {time.perf_counter() - t:.1f}s: "
+        + ", ".join(p.name for p in libs))
+
+    results = {
+        "rmsnorm": check_rmsnorm(torch, F),
+        "flash_fwd": check_flash(torch, F),
+        "paged_decode": check_paged(torch, F),
+        "argmax": check_argmax(torch),
+    }
+    counts = main_path(torch, card)
+    exactness(torch)
+
+    entries = []
+    for k in kernels.KERNELS:
+        r = results[k.name]
+        entries.append({
+            "name": k.name, "route": "cuda",
+            "source": f"ray_lightning_tpu_torch/csrc/{k.source}",
+            "replaces": k.replaces, "launches": counts[k.name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"],
+        })
+    log(f"done in {time.perf_counter() - T0:.1f}s")
+    print(json.dumps({"kernels": entries}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,202 @@
+"""Kernels of the paged serving decode path, each beside its plain version:
+
+- paged decode attention (``csrc/paged_decode.cu``, the port of
+  ``ray_lightning_tpu/ops/paged_attention.py::_paged_decode_kernel``): one
+  query per row walks its block table; the gathered [B, Hkv, C, hd] cache is
+  never built;
+- the blockwise argmax sampler (``csrc/argmax.cu``, the port of
+  ``_argmax_kernel`` / ``_noisy_argmax_kernel``): greedy sampling is the
+  argmax with first-max tie-breaking, temperature sampling is the argmax of
+  the scaled logits plus Gumbel noise (the Gumbel-max identity). The noise is
+  an operand drawn by the caller's ``torch.Generator``: the port cannot
+  reproduce ``jax.random``, so temperature streams differ from the JAX
+  package's by design, while greedy streams do not.
+
+CPU tensors take the plain versions; CUDA tensors launch the kernels (or
+raise). top-k / top-p sampling stays on the plain sampler
+(``fused_sample_supported`` gates callers, as in the JAX engine).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from ray_lightning_tpu_torch.kernels import (
+    CudaKernel,
+    dtype_code,
+    require_cuda,
+    stream_of,
+)
+
+PAGED_DECODE_KERNEL = CudaKernel(
+    "paged_decode", "paged_decode.cu", "rlt_paged_decode",
+    [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    replaces="ray_lightning_tpu/ops/paged_attention.py:196",
+)
+# positions per block of the kernel's split over a row's positions
+PAGED_SPLIT = 64
+PAGED_GROUPS = (1, 2, 4, 8)
+PAGED_HEAD_DIMS = (32, 64, 128, 256)
+
+ARGMAX_KERNEL = CudaKernel(
+    "argmax", "argmax.cu", "rlt_argmax",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    replaces="ray_lightning_tpu/ops/paged_attention.py:272",
+)
+
+
+# --------------------------------------------------------------------- #
+# paged decode attention
+# --------------------------------------------------------------------- #
+def paged_decode_attention_plain(q, k_cache, v_cache, block_tables, pos,
+                                 sm_scale: Optional[float] = None):
+    """Gather each row's blocks into logical order, mask columns past
+    ``pos``, softmax in fp32 (the gather path of ``decode_step_paged``)."""
+    B, hkv, group, hd = q.shape
+    bs = k_cache.shape[2]
+    C = block_tables.shape[1] * bs
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    tables = block_tables.long()
+    kk = k_cache[tables].transpose(1, 2).reshape(B, hkv, C, hd).float()
+    vv = v_cache[tables].transpose(1, 2).reshape(B, hkv, C, hd).float()
+    logits = torch.einsum("bhgd,bhtd->bhgt", q.float(), kk) * scale
+    valid = torch.arange(C, device=q.device)[None, :] <= pos.long()[:, None]
+    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhgt,bhtd->bhgd", probs, vv)
+
+
+def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, block_tables: torch.Tensor,
+                           pos: torch.Tensor,
+                           sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B, Hkv, G, hd] fp32 (GQA-folded, one position per row); k/v
+    caches: [N, Hkv, bs, hd]; block_tables: [B, max_blocks] int32
+    (trash-padded); pos: [B] int32. Returns fp32 [B, Hkv, G, hd], the
+    attention of each row over its logical positions [0, pos[b]]."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_cache, v_cache, block_tables, pos, sm_scale
+        )
+    require_cuda("paged_decode_attention", q, k_cache, v_cache, block_tables,
+                 pos)
+    B, hkv, group, hd = q.shape
+    n, hkv_c, bs, hd_c = k_cache.shape
+    if q.dtype != torch.float32:
+        raise TypeError("paged_decode_attention: q must be float32")
+    if (hkv_c, hd_c) != (hkv, hd) or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"paged_decode_attention: q {tuple(q.shape)} does not match "
+            f"caches {tuple(k_cache.shape)} / {tuple(v_cache.shape)}"
+        )
+    if v_cache.dtype != k_cache.dtype:
+        raise TypeError("paged_decode_attention: k and v caches differ in dtype")
+    if (block_tables.dtype != torch.int32 or pos.dtype != torch.int32
+            or block_tables.shape[0] != B or pos.shape != (B,)):
+        raise ValueError(
+            "paged_decode_attention: block_tables [B, max_blocks] and pos [B] "
+            "must be int32"
+        )
+    if group not in PAGED_GROUPS or hd not in PAGED_HEAD_DIMS:
+        raise ValueError(
+            f"paged_decode_attention: the kernel takes GQA groups "
+            f"{PAGED_GROUPS} and head dims {PAGED_HEAD_DIMS}, got G={group}, "
+            f"hd={hd}"
+        )
+    code = dtype_code("paged_decode_attention", k_cache.dtype)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    max_blocks = block_tables.shape[1]
+    chunks = -(-max_blocks * bs // PAGED_SPLIT)
+    # per (row, KV head, chunk): the chunk's max and sum per query head and
+    # its unnormalised output, merged by the kernel's second pass
+    scratch = torch.empty(B * hkv * chunks * group * (hd + 2),
+                          dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    PAGED_DECODE_KERNEL.launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), B, hkv, group, hd, bs, max_blocks, PAGED_SPLIT,
+        float(scale), code, stream_of(q),
+    )
+    return out
+
+
+# --------------------------------------------------------------------- #
+# blockwise argmax sampler
+# --------------------------------------------------------------------- #
+def blockwise_argmax_plain(x: torch.Tensor,
+                           noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """argmax over the last axis of ``x (+ noise)`` in fp32, first maximum
+    on ties; [B] int32."""
+    v = x.float() if noise is None else x.float() + noise.float()
+    return torch.argmax(v, dim=-1).to(torch.int32)
+
+
+def blockwise_argmax(x: torch.Tensor,
+                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x, noise: [B, V] fp32 -> [B] int32, the first maximum of x + noise."""
+    if x.device.type == "cpu":
+        return blockwise_argmax_plain(x, noise)
+    tensors = (x,) if noise is None else (x, noise)
+    require_cuda("blockwise_argmax", *tensors)
+    if x.dim() != 2 or any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("blockwise_argmax: x (and noise) must be [B, V] float32")
+    if noise is not None and noise.shape != x.shape:
+        raise ValueError("blockwise_argmax: noise must match x's shape")
+    B, V = x.shape
+    out = torch.empty((B,), dtype=torch.int32, device=x.device)
+    ARGMAX_KERNEL.launch(
+        x.data_ptr(), None if noise is None else noise.data_ptr(),
+        out.data_ptr(), B, V, stream_of(x),
+    )
+    return out
+
+
+def fused_greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy sampling: [B, V] fp32 -> [B] int32, equal to
+    ``torch.argmax(logits, -1)`` including first-max ties."""
+    return blockwise_argmax(logits, None)
+
+
+def fused_sample_supported(temperature: float, top_k: Optional[int],
+                           top_p: Optional[float]) -> bool:
+    """Greedy and plain-temperature sampling run on the kernel; top-k /
+    top-p filtering keeps the plain sampler."""
+    if top_k is not None and top_k > 0:
+        return False
+    if top_p is not None and 0.0 < top_p < 1.0:
+        return False
+    return True
+
+
+def gumbel_noise(shape, generator: torch.Generator,
+                 device: torch.device) -> torch.Tensor:
+    """Standard Gumbel noise, -log(-log(U)) with U uniform in [tiny, 1)."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def fused_sample(logits: torch.Tensor, generator: torch.Generator,
+                 temperature: float, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None) -> torch.Tensor:
+    """The kernel sampler for the configs ``fused_sample_supported``
+    admits: greedy is the argmax; temperature > 0 is the argmax of
+    ``logits / temperature`` plus Gumbel noise from ``generator``."""
+    if not fused_sample_supported(temperature, top_k, top_p):
+        raise ValueError(
+            "fused_sample supports greedy and plain-temperature sampling "
+            "only (top_k/top_p filtering keeps the plain sampler); gate "
+            "callers with fused_sample_supported()"
+        )
+    if temperature <= 0.0:
+        return fused_greedy_sample(logits)
+    scaled = logits / temperature
+    noise = gumbel_noise(scaled.shape, generator, scaled.device)
+    return blockwise_argmax(scaled, noise)

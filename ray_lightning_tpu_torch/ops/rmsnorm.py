@@ -1,0 +1,53 @@
+"""RMSNorm: the hand-written CUDA kernel (``csrc/rmsnorm.cu``, the port of
+``ray_lightning_tpu/ops/rmsnorm.py::_rmsnorm_pallas``) for CUDA tensors and
+its plain PyTorch version for CPU tensors. fp32 accumulation, one cast at the
+end, as the JAX reference (``ops/rmsnorm.py:13-17``)."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ray_lightning_tpu_torch.kernels import (
+    CudaKernel,
+    dtype_code,
+    require_cuda,
+    stream_of,
+)
+
+RMSNORM_KERNEL = CudaKernel(
+    "rmsnorm", "rmsnorm.cu", "rlt_rmsnorm_fwd",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    replaces="ray_lightning_tpu/ops/rmsnorm.py:37",
+)
+
+
+def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    xf = x.float()
+    scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * scale * weight.float()).to(dtype)
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x: [..., D], weight: [D] of x's dtype. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (or raise)."""
+    if x.device.type == "cpu":
+        return rmsnorm_plain(x, weight, eps)
+    require_cuda("rmsnorm", x, weight)
+    code = dtype_code("rmsnorm", x.dtype)
+    dim = x.shape[-1]
+    if weight.dtype != x.dtype or weight.shape != (dim,):
+        raise ValueError(
+            f"rmsnorm: weight must be [{dim}] of {x.dtype}, got "
+            f"{list(weight.shape)} of {weight.dtype}"
+        )
+    out = torch.empty_like(x)
+    RMSNORM_KERNEL.launch(
+        x.data_ptr(), weight.data_ptr(), out.data_ptr(), x.numel() // dim,
+        dim, float(eps), code, stream_of(x),
+    )
+    return out

@@ -1,0 +1,205 @@
+"""The port's ops (ray_lightning_tpu_torch/ops/) against the JAX package's.
+
+Same numpy inputs through both; the JAX side runs its Pallas kernels in
+interpret mode (RMSNorm through its reference, which is what it runs off
+TPU), the port its plain versions (CPU tensors). fp32 throughout, so the
+tolerances only absorb summation order: 1e-6 for the elementwise ops,
+2e-5 for attention (sums over up to 64 keys).
+"""
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_lightning_tpu.ops import paged_attention as jpa
+from ray_lightning_tpu.ops import rope as jrope
+from ray_lightning_tpu.ops.rmsnorm import _rmsnorm_ref
+from ray_lightning_tpu_torch.ops import attention as tattn
+from ray_lightning_tpu_torch.ops import paged_attention as tpa
+from ray_lightning_tpu_torch.ops import rope as trope
+from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
+
+# the package's ops/__init__ re-exports a function named `attention`
+jattn = importlib.import_module("ray_lightning_tpu.ops.attention")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Small shapes run fastest on two threads; restore the process's count
+    for the test files that share this worker."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+LLAMA3 = {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+          "high_freq_factor": 4.0, "original_max_position_embeddings": 64}
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+def test_rmsnorm_matches_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 5, 96)).astype(np.float32)
+    w = rng.standard_normal((96,)).astype(np.float32)
+    want = np.asarray(_rmsnorm_ref(jnp.asarray(x), jnp.asarray(w), 1e-5))
+    got = rmsnorm(_t(x), _t(w), 1e-5).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got, rmsnorm_plain(_t(x), _t(w), 1e-5).numpy())
+
+
+@pytest.mark.parametrize("scaling", [None, {"rope_type": "linear", "factor": 4.0},
+                                     LLAMA3], ids=["default", "linear", "llama3"])
+@pytest.mark.parametrize("head_dim", [32, 128])
+def test_rope_matches_jax(scaling, head_dim):
+    jc, js = jrope.rope_angles(96, head_dim, 500000.0, offset=3, scaling=scaling)
+    tc, ts = trope.rope_angles(96, head_dim, 500000.0, offset=3,
+                               scaling=scaling, device="cpu")
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=1e-6)
+    x = np.random.default_rng(1).standard_normal(
+        (2, 96, 3, head_dim)).astype(np.float32)
+    want = np.asarray(jrope.apply_rope(jnp.asarray(x), jc, js))
+    got = trope.apply_rope(_t(x), tc, ts).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["yarn", "longrope", "dynamic"])
+def test_rope_unported_kinds_raise(kind):
+    with pytest.raises(NotImplementedError):
+        trope.rope_angles(8, 16, scaling={"rope_type": kind, "factor": 2.0},
+                          device="cpu")
+
+
+FLASH_CASES = {
+    "causal": dict(hq=4, hkv=4, d=32, causal=True, window=None),
+    "full": dict(hq=4, hkv=4, d=32, causal=False, window=None),
+    "gqa": dict(hq=8, hkv=2, d=32, causal=True, window=None),
+    "window": dict(hq=4, hkv=2, d=32, causal=True, window=24),
+    "hd64": dict(hq=4, hkv=2, d=64, causal=True, window=None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_forward_matches_jax_interpret(case):
+    c = FLASH_CASES[case]
+    rng = np.random.default_rng(2)
+    S = 64
+    q = rng.standard_normal((2, c["hq"], S, c["d"])).astype(np.float32)
+    k = rng.standard_normal((2, c["hkv"], S, c["d"])).astype(np.float32)
+    v = rng.standard_normal((2, c["hkv"], S, c["d"])).astype(np.float32)
+    scale = 1.0 / np.sqrt(c["d"])
+    # 16-row blocks: a 4 x 4 grid, so block skipping and the online
+    # softmax across blocks are exercised on the JAX side
+    want_o = jattn.attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=c["causal"],
+        impl="flash", interpret=True, block_q=16, block_k=16,
+        window=c["window"],
+    )
+    _, want_lse = jattn._flash_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), c["causal"], scale,
+        True, (16, 16), c["window"],
+    )
+    o, lse = tattn.flash_attention(_t(q), _t(k), _t(v), causal=c["causal"],
+                                   window=c["window"])
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                               rtol=2e-5, atol=2e-5)
+    ref = tattn.attention(_t(q), _t(k), _t(v), causal=c["causal"],
+                          window=c["window"])
+    np.testing.assert_allclose(ref.numpy(), o.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_attention_window_rules():
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(NotImplementedError):
+        tattn.attention(q, q, q, causal=False, window=4)
+    with pytest.raises(ValueError):
+        tattn.attention(q, q, q, window=0)
+    with pytest.raises(ValueError):
+        tattn.flash_attention(q, q[:, :, :4], q[:, :, :4])
+
+
+def test_paged_decode_matches_jax_interpret():
+    """Shapes of the JAX kernel's own test, plus a free slot on an
+    all-trash table row (pos 0) and positions on block boundaries."""
+    rng = np.random.default_rng(2)
+    B, Hkv, G, hd, bs, nblk, maxb = 6, 2, 2, 16, 8, 12, 4
+    q = rng.standard_normal((B, Hkv, G, hd)).astype(np.float32)
+    kc = rng.standard_normal((nblk, Hkv, bs, hd)).astype(np.float32)
+    vc = rng.standard_normal((nblk, Hkv, bs, hd)).astype(np.float32)
+    tables = rng.integers(1, nblk, (B, maxb)).astype(np.int32)
+    tables[3] = 0  # free slot: trash row
+    pos = np.asarray([5, 17, 30, 0, 15, 16], np.int32)
+    want = jpa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(tables), jnp.asarray(pos), interpret=True,
+    )
+    got = tpa.paged_decode_attention(_t(q), _t(kc), _t(vc), _t(tables), _t(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_greedy_argmax_matches_jax_with_ties():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((5, 512)).astype(np.float32)
+    want = np.asarray(jpa.fused_greedy_sample(jnp.asarray(x), interpret=True))
+    np.testing.assert_array_equal(tpa.fused_greedy_sample(_t(x)).numpy(), want)
+    assert tpa.fused_greedy_sample(_t(x)).dtype == torch.int32
+    # tie-break: the first maximum wins, on both sides
+    t = np.zeros((1, 512), np.float32)
+    t[0, 7] = t[0, 300] = 3.0
+    assert int(jpa.fused_greedy_sample(jnp.asarray(t), interpret=True)[0]) == 7
+    assert int(tpa.fused_greedy_sample(_t(t))[0]) == 7
+
+
+def test_noisy_argmax_matches_jax_on_same_noise():
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((4, 1024)) / 0.8).astype(np.float32)
+    noise = rng.gumbel(size=(4, 1024)).astype(np.float32)
+    want = np.asarray(jpa._blockwise_argmax(jnp.asarray(x), jnp.asarray(noise),
+                                            interpret=True))
+    got = tpa.blockwise_argmax(_t(x), _t(noise)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("top_k,top_p,expect", [
+    (None, None, True), (0, 1.0, True), (5, None, False), (None, 0.9, False),
+])
+def test_fused_sample_supported_matches_jax(top_k, top_p, expect):
+    assert tpa.fused_sample_supported(0.7, top_k, top_p) is expect
+    assert jpa.fused_sample_supported(0.7, top_k, top_p) is expect
+    if not expect:
+        with pytest.raises(ValueError):
+            tpa.fused_sample(torch.zeros(1, 8), torch.Generator(), 0.7,
+                             top_k, top_p)
+
+
+def test_fused_temperature_sample_is_gumbel_argmax():
+    x = torch.randn(3, 257, generator=torch.Generator().manual_seed(1))
+    got = tpa.fused_sample(x, torch.Generator().manual_seed(9), 0.8)
+    noise = tpa.gumbel_noise(x.shape, torch.Generator().manual_seed(9), "cpu")
+    want = torch.argmax(x / 0.8 + noise, dim=-1).to(torch.int32)
+    torch.testing.assert_close(got, want)
+
+
+@pytest.mark.parametrize("op", ["rmsnorm", "flash", "paged", "argmax"])
+def test_wrappers_refuse_non_cpu_non_cuda_tensors(op):
+    """Only a CPU tensor takes the plain version; anything else must be a
+    CUDA tensor for the kernel."""
+    m = torch.empty((2, 4, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        if op == "rmsnorm":
+            rmsnorm(m, torch.empty((16,), device="meta"))
+        elif op == "flash":
+            tattn.flash_attention(m, m, m)
+        elif op == "paged":
+            tpa.paged_decode_attention(
+                m, m, m, torch.empty((2, 3), dtype=torch.int32, device="meta"),
+                torch.empty((2,), dtype=torch.int32, device="meta"),
+            )
+        else:
+            tpa.blockwise_argmax(m[0, 0])

@@ -1,0 +1,54 @@
+"""Rules the port keeps: no file of ray_lightning_tpu_torch/, nor
+chip_smoke.py, imports JAX or anything of the JAX package (the machine with
+the card has no JAX), and importing the package builds nothing."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "ray_lightning_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+BANNED = ("jax", "jaxlib", "flax", "optax", "ray_lightning_tpu")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_jax(path):
+    bad = [m for m in _imported_roots(path)
+           if m.split(".")[0] in BANNED]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_without_jax_or_a_build():
+    """A fresh interpreter imports every module of the port with JAX made
+    unimportable, and no kernel library is loaded or built by the import."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ray_lightning_tpu'] = None\n"
+        "import ray_lightning_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from ray_lightning_tpu_torch import kernels\n"
+        "assert not kernels._LIBS, kernels._LIBS\n"
+        "assert len(kernels.KERNELS) == 4, kernels.KERNELS\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
