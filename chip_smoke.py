@@ -13,21 +13,34 @@ final line):
 2. build — every ``csrc/*.cu`` kernel compiled from the checkout with nvcc
    (one process per source, all at once), timed;
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it, with the stated tolerance; the
-   kernel's, the plain version's and a library call's times (CUDA events);
-4. main path — Llama-3-8B at full width and depth (random bf16 weights from
-   a seeded generator) served by the paged ``InferenceEngine``: 16
-   staggered requests of mixed lengths, some sharing a prefix, 32 new
-   tokens each. Every request must complete, every kernel must have
-   launched, and the launch counts must match the layer count. The same
-   requests are then served again under torch.profiler, which gives the
-   device time by class (the port's kernels, matmuls, the rest) and the
-   device's busy share;
-5. exactness — the same engine in fp32 at full width, cut to 2 layers: its
-   greedy tokens must equal iterated full ``forward`` calls through the
-   plain versions;
-6. the ``kernels`` JSON line, the card line, and the final
-   ``{"ok": true, ...}`` line.
+   the shapes the main paths give it (and, for the flash backward pair, at
+   odd ones: ragged S, a window, non-causal, fp32), with the stated
+   tolerance; the kernel's, the plain version's and a library call's times
+   (CUDA events);
+4. serving main path — Llama-3-8B at full width and depth (random bf16
+   weights from a seeded generator) served by the paged
+   ``InferenceEngine``: 16 staggered requests of mixed lengths, some
+   sharing a prefix, 32 new tokens each. Every request must complete, every
+   serving kernel must have launched, and the launch counts must match the
+   layer count. The same requests are then served again under
+   torch.profiler, which gives the device time by class (the port's
+   kernels, matmuls, the rest) and the device's busy share;
+5. serving exactness — the same engine in fp32 at full width, cut to 2
+   layers: its greedy tokens must equal iterated full ``forward`` calls
+   through the plain versions;
+6. training main path — ``Trainer.fit`` of ``LlamaModule(LlamaConfig.
+   small())`` (0.89 B parameters, full width and depth, bf16, per-layer
+   remat, chunked loss) on ``SyntheticLMDataModule`` at batch 8 x 2048:
+   one warm-up step, 10 measured steps, one step under torch.profiler,
+   then validation. Every loss must be finite, the last below the first,
+   and the launch counts must match the layer count; step time, tokens/s,
+   MFU, peak memory and the profiled step's device time by class;
+7. training exactness — fp32, the small widths cut to 2 layers, batch 2 x
+   2048: the loss and every gradient through the kernels must match
+   ``plain=True`` on the card, and three Trainer steps must give the same
+   losses;
+8. the ``kernels`` JSON line (launches from both main paths), the card
+   line, and the final ``{"ok": true, ...}`` line.
 
 Timings are printed beside the card's name and power limit; they are this
 card's numbers, and the fields are described in PERF.md.
@@ -35,6 +48,7 @@ card's numbers, and the fields are described in PERF.md.
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -122,28 +136,33 @@ def check_rmsnorm(torch, F):
 
     g = torch.Generator(device="cuda").manual_seed(1)
     rows_out = {}
-    for rows in (8, 512):
-        x = torch.randn(rows, 4096, generator=g, device="cuda").bfloat16()
-        w = (1 + 0.1 * torch.randn(4096, generator=g, device="cuda")).bfloat16()
+    # serving: a decode step's [8,4096] and a prefill's [512,4096];
+    # training: every token of a batch of 8 x 2048 at dim 2048
+    for rows, dim in ((8, 4096), (512, 4096), (16384, 2048)):
+        x = torch.randn(rows, dim, generator=g, device="cuda").bfloat16()
+        w = (1 + 0.1 * torch.randn(dim, generator=g, device="cuda")).bfloat16()
         got, want = rmsnorm(x, w, 1e-5), rmsnorm_plain(x, w, 1e-5)
         # both round one fp32 value to bf16; sums in another order can
         # move it by one bf16 ulp (2^-8 relative)
-        check(within(got, want, 1e-2, 1e-2), f"rmsnorm [{rows},4096] vs plain")
+        check(within(got, want, 1e-2, 1e-2), f"rmsnorm [{rows},{dim}] vs plain")
         err = max_err(got, want)
-        lib = (time_ms(torch, lambda: F.rms_norm(x, (4096,), w, 1e-5))
+        lib = (time_ms(torch, lambda: F.rms_norm(x, (dim,), w, 1e-5))
                if hasattr(F, "rms_norm") else None)
-        b, by = bound(2 * x.numel() * 2 + 4096 * 2, 4 * x.numel(), FP32_FLOPS)
+        b, by = bound(2 * x.numel() * 2 + dim * 2, 4 * x.numel(), FP32_FLOPS)
         rows_out[rows] = dict(
             max_abs_err=err, ms=time_ms(torch, lambda: rmsnorm(x, w, 1e-5)),
             plain_ms=time_ms(torch, lambda: rmsnorm_plain(x, w, 1e-5)),
             bound_ms=b, bound_by=by, library_ms=lib,
-            shape=f"[{rows},4096] bf16",
+            shape=f"[{rows},{dim}] bf16",
         )
-        log(f"rmsnorm [{rows},4096] bf16: max_abs_err {err:.3g} (tol 1e-2 + "
+        log(f"rmsnorm [{rows},{dim}] bf16: max_abs_err {err:.3g} (tol 1e-2 + "
             f"1e-2|ref|) kernel_ms {rows_out[rows]['ms']:.4f} plain_ms "
             f"{rows_out[rows]['plain_ms']:.4f} library_ms(F.rms_norm) {lib} "
             f"bound_ms {b:.5f} ({by})")
-    return rows_out[8]
+    out = dict(rows_out[8])
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows_out.values())
+    out["at_training_shape"] = rows_out[16384]
+    return out
 
 
 def check_flash(torch, F):
@@ -194,8 +213,142 @@ def check_flash(torch, F):
             log(f"flash causal bf16 S=512: kernel_ms {main['ms']:.4f} "
                 f"plain_ms {main['plain_ms']:.4f} library_ms(SDPA) {lib:.4f} "
                 f"bound_ms {b:.5f} ({by})")
+    # the training path's shape: q [8,16,2048,128], kv [8,8,2048,128]
+    q = torch.randn(8, 16, 2048, 128, generator=g, device="cuda").bfloat16()
+    k = torch.randn(8, 8, 2048, 128, generator=g, device="cuda").bfloat16()
+    v = torch.randn(8, 8, 2048, 128, generator=g, device="cuda").bfloat16()
+    o, lse = flash_attention(q, k, v)
+    po, plse = flash_attention_plain(q, k, v, True, None, None)
+    check(within(o, po, 2e-2, 2e-2), "flash training shape: O vs plain")
+    check(within(lse, plse, 1e-4, 1e-4), "flash training shape: lse vs plain")
+    err = max(max_err(o, po), max_err(lse, plse))
+    worst = max(worst, err)
+    del po, plse
+    kr, vr = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
+    pairs = 8 * 16 * 2048 * 2049 // 2
+    b, by = bound(q.numel() * 2 * 2 + k.numel() * 2 * 2 + lse.numel() * 4,
+                  4 * pairs * 128, BF16_FLOPS)
+    main["at_training_shape"] = dict(
+        shape="q[8,16,2048,128] kv[8,8,2048,128] bf16 causal",
+        ms=time_ms(torch, lambda: flash_attention(q, k, v), iters=10),
+        plain_ms=time_ms(torch, lambda: flash_attention_plain(
+            q, k, v, True, None, None), iters=5, warmup=1),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kr, vr, is_causal=True), iters=10),
+        bound_ms=b, bound_by=by, max_abs_err=err,
+    )
+    t = main["at_training_shape"]
+    log(f"flash at the training shape {t['shape']}: max_abs_err {err:.3g} "
+        f"kernel_ms {t['ms']:.3f} plain_ms {t['plain_ms']:.3f} "
+        f"library_ms(SDPA) {t['library_ms']:.3f} bound_ms {b:.4f} ({by})")
+    del q, k, v, o, lse, kr, vr
+    torch.cuda.empty_cache()
     main["max_abs_err"] = worst
     return main
+
+
+def check_flash_bwd(torch, F):
+    """The dQ and dK/dV kernels against the plain backward on the same O and
+    lse (the forward kernel's), at the training shape and at odd ones.
+    Returns the two kernels' entries, timed at the training shape."""
+    from ray_lightning_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    bf, f32 = torch.bfloat16, torch.float32
+    # fp32: sums in another order, 1e-4 of each gradient's max. bf16: both
+    # sides round P and dS to bf16 before the products, from fp32 scores
+    # summed in another order, so a rounding may fall the other way; two
+    # bf16 ulps of the max (2^-7) bound that
+    cases = [  # name, B, Hq, Hkv, S, dtype, causal, window
+        ("training causal bf16", 8, 16, 8, 2048, bf, True, None),
+        ("ragged 300 bf16", 2, 16, 8, 300, bf, True, None),
+        ("window 128 bf16", 2, 16, 8, 512, bf, True, 128),
+        ("non-causal bf16", 2, 16, 8, 512, bf, False, None),
+        ("causal fp32", 2, 16, 8, 512, f32, True, None),
+    ]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    timed = None
+    for name, B, hq, hkv, S, dt, causal, window in cases:
+        q = torch.randn(B, hq, S, 128, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, hkv, S, 128, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, hkv, S, 128, generator=g, device="cuda").to(dt)
+        do = torch.randn(B, hq, S, 128, generator=g, device="cuda").to(dt)
+        o, lse = flash_attention(q, k, v, causal=causal, window=window)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal, None, window)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, None,
+                                         window)
+        tol = 1e-4 if dt == f32 else 2.0 ** -7
+        rel = []
+        for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+            peak = float(b.float().abs().max())
+            check(peak > 0, f"flash bwd {name}: plain {gname} is all zero")
+            err = max_err(a, b)
+            check(err <= tol * peak,
+                  f"flash bwd {name}: {gname} max err {err:.3g} > {tol:.3g} "
+                  f"x max {peak:.3g}")
+            worst["dq" if gname == "dq" else "dkv"] = max(
+                worst["dq" if gname == "dq" else "dkv"], err)
+            rel.append(err / peak)
+        log(f"flash bwd {name} q[{B},{hq},{S},128] kv[{B},{hkv},{S},128]: "
+            f"max err / max |grad| dq {rel[0]:.3g} dk {rel[1]:.3g} dv "
+            f"{rel[2]:.3g} (tol {tol:.3g})")
+        if timed is None:
+            timed = (q, k, v, o, lse, do, B, hq, S)
+        else:
+            del q, k, v, o, lse, do, got, want
+
+    q, k, v, o, lse, do, B, hq, S = timed
+    scale = 1.0 / 128 ** 0.5
+    delta = (o.float() * do.float()).sum(dim=-1, keepdim=True)
+    dq_ms = time_ms(torch, lambda: flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, True, scale, None), iters=10)
+    dkv_ms = time_ms(torch, lambda: flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, True, scale, None), iters=10)
+    plain_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, True, scale, None), iters=5, warmup=1)
+    # library yardstick: SDPA's backward over repeat-interleaved KV, as
+    # its forward + backward minus its forward
+    kr = k.repeat_interleave(2, dim=1).requires_grad_()
+    vr = v.repeat_interleave(2, dim=1).requires_grad_()
+    qr = q.detach().clone().requires_grad_()
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        torch.autograd.grad(out, (qr, kr, vr), do)
+
+    lib_ms = (time_ms(torch, sdpa_fwd_bwd, iters=10)
+              - time_ms(torch, sdpa_fwd, iters=10))
+    del kr, vr, qr
+    pairs = B * hq * S * (S + 1) // 2  # causal (row, key) pairs
+    in_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 \
+        + 2 * lse.numel() * 4
+    b_dq, by_dq = bound(in_bytes + q.numel() * 2, 3 * 2 * pairs * 128,
+                        BF16_FLOPS)
+    b_dkv, by_dkv = bound(in_bytes + 2 * k.numel() * 2, 4 * 2 * pairs * 128,
+                          BF16_FLOPS)
+    shape = f"q[{B},{hq},{S},128] kv[{B},{hq // 2},{S},128] bf16 causal"
+    common = dict(plain_ms=plain_ms, library_ms=lib_ms, shape=shape,
+                  plain_and_library_compute="dq, dk and dv together")
+    log(f"flash bwd at the training shape {shape}: dq kernel_ms {dq_ms:.3f} "
+        f"(bound {b_dq:.4f}, {by_dq}) dkv kernel_ms {dkv_ms:.3f} (bound "
+        f"{b_dkv:.4f}, {by_dkv}); plain backward (dq+dk+dv) {plain_ms:.3f} ms; "
+        f"library_ms (SDPA backward, fwd+bwd minus fwd) {lib_ms:.3f}")
+    del timed, q, k, v, o, lse, do, delta
+    torch.cuda.empty_cache()
+    return (dict(common, max_abs_err=worst["dq"], ms=dq_ms, bound_ms=b_dq,
+                 bound_by=by_dq),
+            dict(common, max_abs_err=worst["dkv"], ms=dkv_ms, bound_ms=b_dkv,
+                 bound_by=by_dkv))
 
 
 def check_paged(torch, F):
@@ -327,6 +480,8 @@ def serve(engine, reqs, first_wave):
 
 # substrings of device kernel names, for the device-time breakdown
 PORT_KERNEL_NAMES = {"rmsnorm_kernel": "rmsnorm", "flash_fwd_kernel": "flash_fwd",
+                     "flash_bwd_dq_kernel": "flash_bwd_dq",
+                     "flash_bwd_dkv_kernel": "flash_bwd_dkv",
                      "paged_decode_": "paged_decode", "argmax_kernel": "argmax"}
 MATMUL_NAMES = ("gemm", "gemv", "xmma", "cutlass", "splitk", "nvjet")
 
@@ -415,12 +570,13 @@ def main_path(torch, card):
         check(len(comp.tokens) == n and all(0 <= t < cfg.vocab_size
                                             for t in comp.tokens),
               f"{comp.request_id}: bad tokens")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("rmsnorm", "flash_fwd", "paged_decode", "argmax"):
+        check(counts[name] > 0, f"kernel {name} was not launched on the main path")
     L = cfg.n_layers
+    # the backward kernels belong to the training path
     expect = {"rmsnorm": 2 * L * prefills + (2 * L + 1) * steps,
               "flash_fwd": L * prefills, "paged_decode": L * steps,
-              "argmax": steps}
+              "argmax": steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     check(counts == expect, f"launch counts {counts} != {expect}")
     ttfts = sorted(c.ttft_s for c in comps)
     log(f"main path on {card}: {len(comps)} requests ({prefills} prefills, "
@@ -470,6 +626,246 @@ def exactness(torch):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# phases 7 and 8: the training path
+# --------------------------------------------------------------------- #
+TRAIN_STEPS = 10  # measured steps, after one warm-up step
+TRAIN_BATCH = 8
+TRAIN_VAL_BATCHES = 2
+
+
+def device_breakdown(torch, prof, wall_ms):
+    """Device time of a profiled window by class (each port kernel, cuBLAS
+    matmuls, the rest) and the idle share of ``wall_ms``."""
+    import collections
+
+    classes = collections.Counter()
+    other = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+            continue
+        us = e.time_range.elapsed_us()
+        port = [v for k, v in PORT_KERNEL_NAMES.items() if k in e.name]
+        if port:
+            classes[port[0]] += us
+        elif any(k in e.name.lower() for k in MATMUL_NAMES):
+            classes["matmul"] += us
+        else:
+            classes["other"] += us
+            other[e.name[:60]] += us
+    return classes, other
+
+
+def train_main_path(torch, card):
+    """Trainer.fit of LlamaConfig.small() at batch 8 x 2048 in bf16 on the
+    card: one warm-up step, TRAIN_STEPS measured steps, one profiled step,
+    then the validation at the epoch's end (max_steps stops the epoch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.callbacks import Callback
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+
+    cfg = LlamaConfig.small()
+    total = TRAIN_STEPS + 2
+    profiled = total - 1  # batch index of the profiled step
+
+    class StepClock(Callback):
+        """CUDA events at every step's start and end (no host sync), the
+        step's loss as a device tensor, and torch.profiler around one
+        step."""
+
+        def __init__(self):
+            self.starts, self.losses = [], []
+            self.end = None
+            self.prof = None
+            self.prof_wall_ms = None
+
+        def on_train_batch_start(self, trainer, module, batch, batch_idx):
+            if batch_idx == profiled:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.start()
+                self._t = time.perf_counter()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.starts.append(ev)
+
+        def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
+            self.losses.append(outputs["loss"])
+            if batch_idx == profiled - 1:
+                self.end = torch.cuda.Event(enable_timing=True)
+                self.end.record()
+            if batch_idx == profiled:
+                torch.cuda.synchronize()
+                self.prof_wall_ms = (time.perf_counter() - self._t) * 1e3
+                self.prof.stop()
+
+    clock = StepClock()
+    module = LlamaModule(cfg, lr=3e-4, warmup_steps=2, total_steps=total)
+    dm = SyntheticLMDataModule(cfg, batch_size=TRAIN_BATCH,
+                               n_train=TRAIN_BATCH * 32,
+                               n_val=TRAIN_BATCH * TRAIN_VAL_BATCHES)
+    trainer = Trainer(device="cuda", max_steps=total, logger=False,
+                      enable_checkpointing=False, seed=0, callbacks=[clock])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    trainer.fit(module, datamodule=dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    losses = [float(x) for x in clock.losses]
+    check(len(losses) == total, f"{len(losses)} train steps, expected {total}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    val_loss = float(trainer.callback_metrics["val_loss"])
+    check(math.isfinite(val_loss), f"val_loss {val_loss}")
+    L, nv = cfg.n_layers, TRAIN_VAL_BATCHES
+    # per train step: forward + remat recompute run every layer's two norms
+    # and its flash forward twice; the final norm (outside the remat
+    # region) once; backward launches the two backward kernels per layer.
+    # Validation runs the forward alone.
+    expect = {"rmsnorm": (4 * L + 1) * total + (2 * L + 1) * nv,
+              "flash_fwd": 2 * L * total + L * nv,
+              "flash_bwd_dq": L * total, "flash_bwd_dkv": L * total,
+              "paged_decode": 0, "argmax": 0}
+    check(counts == expect, f"training launch counts {counts} != {expect}")
+
+    # step i's time: from its start event to the next step's start event
+    # (the device's time for the step, idle gaps included)
+    starts = clock.starts[:profiled] + [clock.end]
+    step_ms = [a.elapsed_time(b) for a, b in zip(starts[1:-1], starts[2:])]
+    med = sorted(step_ms)[len(step_ms) // 2]
+    tokens = TRAIN_BATCH * cfg.max_seq
+    flops = cfg.flops_per_token() * tokens
+    first_ms = starts[0].elapsed_time(starts[1])
+    log(f"training main path on {card}: LlamaConfig.small() "
+        f"({cfg.num_params() / 1e9:.3f} B params, bf16, remat, loss_chunks "
+        f"{cfg.loss_chunks}) batch {TRAIN_BATCH} x {cfg.max_seq}; fit of "
+        f"{total} steps + {nv} val batches in {fit_s:.1f}s; first step "
+        f"{first_ms:.1f} ms; median step {med:.1f} ms over {len(step_ms)} "
+        f"steps (min {min(step_ms):.1f}, max {max(step_ms):.1f}) -> "
+        f"{tokens / (med / 1e3):.0f} tokens/s, MFU "
+        f"{flops / (med / 1e3) / BF16_FLOPS:.2%} of 989 TFLOP/s "
+        f"({cfg.flops_per_token():.4g} FLOP/token); peak memory "
+        f"{peak_gib:.2f} GiB")
+    log(f"training losses: {[round(x, 4) for x in losses]}; val_loss "
+        f"{val_loss:.4f}")
+    log(f"training launches: {counts} (per step: rmsnorm {4 * L + 1}, "
+        f"flash_fwd {2 * L}, flash_bwd_dq {L}, flash_bwd_dkv {L}; per val "
+        f"batch: rmsnorm {2 * L + 1}, flash_fwd {L})")
+
+    classes, other = device_breakdown(torch, clock.prof, clock.prof_wall_ms)
+    busy_ms = sum(classes.values()) / 1e3
+    if busy_ms == 0:
+        log("training profile: the profiler saw no device events; breakdown "
+            "not measured")
+    else:
+        wall = clock.prof_wall_ms
+        log(f"training profile of one step: wall {wall:.1f} ms, device busy "
+            f"{busy_ms:.1f} ms, idle {max(wall - busy_ms, 0.0):.1f} ms "
+            f"({max(wall - busy_ms, 0.0) / wall:.1%}); "
+            + ", ".join(f"{k} {v / 1e3:.1f} ms ({v / 1e3 / wall:.1%})"
+                        for k, v in classes.most_common()))
+        log("training profile, largest 'other' device events: " + "; ".join(
+            f"{name} {us / 1e3:.1f} ms" for name, us in other.most_common(8)))
+    del trainer, module, clock
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_exactness(torch):
+    """fp32, the small widths cut to 2 layers, batch 2 x 2048, remat and the
+    chunked loss: the loss and every gradient through the kernels against
+    plain=True on the card, then three Trainer steps each way."""
+    from ray_lightning_tpu_torch.callbacks import Callback
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        SyntheticLMDataModule,
+        init_params,
+        lm_loss,
+    )
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(LlamaConfig.small(), n_layers=2,
+                              dtype=torch.float32)
+    check(cfg.remat and cfg.loss_chunks == 8, "exactness config")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7))
+    leaves = list(tree_leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(8))
+    out = []
+    for plain in (False, True):
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(True)
+        loss, _ = lm_loss(params, tokens, cfg, plain=plain)
+        loss.backward()
+        out.append((loss.item(), [t.grad for t in leaves]))
+    (loss_k, g_k), (loss_p, g_p) = out
+    # fp32 on both sides; sums in another order: 1e-4 relative
+    check(abs(loss_k - loss_p) <= 1e-4 * abs(loss_p),
+          f"fp32 loss {loss_k} vs plain {loss_p}")
+    worst = 0.0
+    for a, b in zip(g_k, g_p):
+        peak = float(b.abs().max())
+        check(peak > 0, "a plain gradient leaf is all zero")
+        rel = max_err(a, b) / peak
+        worst = max(worst, rel)
+        check(rel <= 1e-4, f"gradient leaf {tuple(a.shape)}: rel err {rel:.3g}")
+    del params, leaves, out, g_k, g_p
+    gc.collect()
+
+    class PlainLlama(LlamaModule):
+        def training_step(self, params, batch, batch_idx):
+            loss, logs = lm_loss(params, self._tokens_of(batch), self.config,
+                                 plain=True)
+            self.log("train_loss", loss, on_step=True, on_epoch=True)
+            self.log("train_ppl", logs["ppl"], on_step=True, on_epoch=False)
+            return loss
+
+    dm = SyntheticLMDataModule(cfg, batch_size=2, n_train=8)
+    dm.setup("fit")
+    traj = []
+    for cls in (LlamaModule, PlainLlama):
+        losses = []
+
+        class Collect(Callback):
+            def on_train_batch_end(self, trainer, module, outputs, batch, i):
+                losses.append(float(outputs["loss"]))
+
+        trainer = Trainer(device="cuda", max_steps=3, logger=False,
+                          enable_checkpointing=False, seed=0,
+                          callbacks=[Collect()])
+        trainer.fit(cls(cfg, lr=1e-4, warmup_steps=0, total_steps=3),
+                    train_dataloaders=dm.train_dataloader())
+        traj.append(losses)
+        del trainer
+        gc.collect()
+    check(len(traj[0]) == 3 and all(
+        abs(a - b) <= 1e-4 * abs(b) for a, b in zip(*traj)),
+        f"3-step trainer losses: kernels {traj[0]} vs plain {traj[1]}")
+    check(traj[0][2] != traj[0][0], "the trainer steps changed nothing")
+    log(f"training exactness: fp32 small widths, 2 layers, batch 2 x "
+        f"{cfg.max_seq}, remat, loss_chunks 8: loss {loss_k:.6f} vs plain "
+        f"{loss_p:.6f}; worst gradient leaf err {worst:.3g} of its max (tol "
+        f"1e-4); 3 trainer steps: kernels {traj[0]} plain {traj[1]}")
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -504,20 +900,30 @@ def main():
         "paged_decode": check_paged(torch, F),
         "argmax": check_argmax(torch),
     }
-    counts = main_path(torch, card)
+    results["flash_bwd_dq"], results["flash_bwd_dkv"] = check_flash_bwd(torch, F)
+    check(set(results) == {k.name for k in kernels.KERNELS},
+          f"kernel checks {sorted(results)} do not cover every kernel")
+    by_path = {"serving": main_path(torch, card)}
     exactness(torch)
+    by_path["training"] = train_main_path(torch, card)
+    train_exactness(torch)
 
     entries = []
     for k in kernels.KERNELS:
         r = results[k.name]
+        launches = {path: c[k.name] for path, c in by_path.items()}
+        check(sum(launches.values()) > 0,
+              f"kernel {k.name} launched on no main path")
         entries.append({
             "name": k.name, "route": "cuda",
             "source": f"ray_lightning_tpu_torch/csrc/{k.source}",
-            "replaces": k.replaces, "launches": counts[k.name],
+            "replaces": k.replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"],
+            **{key: r[key] for key in ("shape", "plain_and_library_compute",
+                                       "at_training_shape") if key in r},
         })
     log(f"done in {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": entries}))

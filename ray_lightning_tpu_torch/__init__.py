@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of ray_lightning_tpu for one NVIDIA H100.
 
 This package imports torch and numpy, never JAX and nothing of
-``ray_lightning_tpu``. Its first slice is the paged serving path of the
-Llama family: prefill (flash attention), paged decode and the argmax
-sampler, each kernel hand-written in CUDA C++ for ``sm_90a``
-(``csrc/``) beside its plain PyTorch version. Entry points run on the card
-unless the caller passes ``device="cpu"``.
+``ray_lightning_tpu``. It holds two slices of the Llama family: the paged
+serving path (prefill with flash attention, paged decode and the argmax
+sampler) and the single-device training step (``core.Trainer.fit`` on
+``models.llama.LlamaModule``: forward, backward through the flash-attention
+backward kernels, AdamW). Each kernel is hand-written in CUDA C++ for
+``sm_90a`` (``csrc/``) beside its plain PyTorch version. Entry points run
+on the card unless the caller passes ``device="cpu"``.
 """

@@ -1,0 +1,146 @@
+"""Host-side data pipeline (``ray_lightning_tpu/core/data.py``): datasets,
+the batch loader and collation. Batches are numpy until the Trainer moves
+them to the device in one copy per array.
+
+The shuffle plan is the JAX package's, ``np.random.default_rng(seed +
+epoch).permutation``, so the port and the JAX package see the same batches
+in the same order. Loader worker threads (``num_workers``) and the
+rank-sharding ``DistributedSampler`` are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+class Dataset:
+    """Minimal map-style dataset protocol."""
+
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+    def __getitem__(self, idx: int):
+        raise NotImplementedError
+
+
+class TensorDataset(Dataset):
+    def __init__(self, *arrays):
+        if not arrays or any(len(a) != len(arrays[0]) for a in arrays):
+            raise ValueError("TensorDataset needs arrays of one length")
+        self.arrays = [np.asarray(a) for a in arrays]
+
+    def __len__(self):
+        return len(self.arrays[0])
+
+    def __getitem__(self, idx):
+        items = tuple(a[idx] for a in self.arrays)
+        return items[0] if len(items) == 1 else items
+
+
+class DictDataset(Dataset):
+    def __init__(self, **arrays):
+        if len({len(v) for v in arrays.values()}) != 1:
+            raise ValueError("DictDataset needs arrays of one length")
+        self.arrays = {k: np.asarray(v) for k, v in arrays.items()}
+
+    def __len__(self):
+        return len(next(iter(self.arrays.values())))
+
+    def __getitem__(self, idx):
+        return {k: v[idx] for k, v in self.arrays.items()}
+
+
+def _to_numpy(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def default_collate(items: Sequence[Any]):
+    """Stack a list of samples into a batch, keeping tuple/dict structure."""
+    first = items[0]
+    if isinstance(first, dict):
+        return {k: default_collate([it[k] for it in items]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(default_collate(list(col)) for col in zip(*items))
+    return np.stack([_to_numpy(it) for it in items])
+
+
+def _to_numpy_tree(batch):
+    """Convert any torch tensors in a (possibly nested) batch to numpy."""
+    if isinstance(batch, torch.Tensor):
+        return batch.detach().cpu().numpy()
+    if isinstance(batch, dict):
+        return {k: _to_numpy_tree(v) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_to_numpy_tree(v) for v in batch)
+    return batch
+
+
+class DataLoader:
+    """Map-style batch loader emitting numpy batches. Accepts this package's
+    :class:`Dataset` or any object with ``__len__``/``__getitem__``."""
+
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 drop_last: bool = False, collate_fn: Optional[Callable] = None,
+                 seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.collate_fn = collate_fn or default_collate
+        self.seed = seed
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return math.ceil(n / self.batch_size)
+
+    def __iter__(self):
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            indices = rng.permutation(len(self.dataset)).tolist()
+        else:
+            indices = list(range(len(self.dataset)))
+        bs = self.batch_size
+        stop = len(indices) - len(indices) % bs if self.drop_last else len(indices)
+        for start in range(0, stop, bs):
+            chunk = indices[start:start + bs]
+            yield _to_numpy_tree(self.collate_fn([self.dataset[i] for i in chunk]))
+
+
+class _ForeignLoader:
+    """Wraps an arbitrary iterable (e.g. a torch DataLoader) into numpy."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def set_epoch(self, epoch: int) -> None:
+        sampler = getattr(self.loader, "sampler", None)
+        if sampler is not None and hasattr(sampler, "set_epoch"):
+            sampler.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield _to_numpy_tree(batch)
+
+
+def ensure_loader(loader):
+    """Normalise user-supplied loaders to an object with this module's
+    iteration API."""
+    if loader is None or isinstance(loader, (DataLoader, _ForeignLoader)):
+        return loader
+    if hasattr(loader, "__iter__"):
+        return _ForeignLoader(loader)
+    raise TypeError(f"Cannot use {type(loader)!r} as a dataloader")

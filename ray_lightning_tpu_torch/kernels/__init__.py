@@ -153,6 +153,21 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: kernel inputs must be contiguous")
 
 
+def refuse_untracked_grad(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel writes its outputs through a raw pointer, so autograd never
+    sees it: called with grad mode on and an input that requires grad, it
+    would return a result with no gradient path and ``backward()`` would
+    quietly give wrong gradients. Raise instead; the ops' autograd Functions
+    call the kernels with grad mode off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is invisible to autograd and an input "
+            "requires grad; call the op through its autograd Function "
+            "(ops.attention.attention, ops.rmsnorm.rmsnorm) or under "
+            "torch.no_grad()"
+        )
+
+
 def dtype_code(name: str, dtype: torch.dtype) -> int:
     if dtype not in DTYPE_CODES:
         raise TypeError(

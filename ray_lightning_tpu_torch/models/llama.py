@@ -1,39 +1,54 @@
 """The Llama decoder family in PyTorch: the dense path of
-``ray_lightning_tpu/models/llama.py``.
+``ray_lightning_tpu/models/llama.py``, its training loss and its
+LightningModule.
 
 Parameters are a plain dict with the JAX package's layout: stacked
 ``[L, in, out]`` layer leaves applied as ``x @ W``, so the converter
-(``models/convert.py``) moves tensors without transposing them. Training-only
-features (mixture of experts, pipeline / tensor / sequence parallelism,
-rematerialisation) are not part of the port yet: ``LlamaConfig.from_dict``
-refuses a MoE config, and ``forward`` takes no mesh.
+(``models/convert.py``) moves tensors without transposing them. Mixture of
+experts and the pipeline / tensor / sequence-parallel paths are not part of
+the port yet: ``LlamaConfig.from_dict`` refuses a MoE config, and
+``forward`` takes no mesh. Rematerialisation is per layer
+(``torch.utils.checkpoint``, the JAX ``remat_policy="nothing"``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ray_lightning_tpu_torch.core.data import DataLoader, DictDataset
+from ray_lightning_tpu_torch.core.datamodule import LightningDataModule
+from ray_lightning_tpu_torch.core.module import LightningModule
 from ray_lightning_tpu_torch.device import DeviceLike, resolve_device
 from ray_lightning_tpu_torch.ops.attention import attention, reference_attention
+from ray_lightning_tpu_torch.ops.losses import (
+    chunked_softmax_cross_entropy,
+    masked_softmax_cross_entropy,
+)
 from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
 from ray_lightning_tpu_torch.ops.rope import (
     apply_rope,
     normalize_rope_scaling,
     rope_angles,
 )
+from ray_lightning_tpu_torch.utils.tree import tree_leaves
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# JAX LlamaConfig fields that only steer training or sharding; the port's
-# inference path has nothing to set with them
-_TRAINING_FIELDS = (
-    "remat", "remat_policy", "attn_impl", "flash_block_q", "flash_block_k",
-    "expert_top_k", "capacity_factor", "moe_aux_weight", "loss_chunks",
-    "ring_load_balance", "pp_microbatches", "pp_schedule",
+_DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
+
+# JAX LlamaConfig fields that steer only what the port does not have (the
+# TPU kernels' block sizes, MoE routing, the ring and pipeline paths)
+_UNPORTED_FIELDS = (
+    "attn_impl", "flash_block_q", "flash_block_k", "expert_top_k",
+    "capacity_factor", "moe_aux_weight", "ring_load_balance",
+    "pp_microbatches", "pp_schedule",
 )
 
 
@@ -56,8 +71,25 @@ class LlamaConfig:
     sliding_window: int = 0
     # qkv projection bias (Qwen2-family checkpoints)
     attn_bias: bool = False
+    # per-layer rematerialisation in training: "nothing" recomputes the
+    # whole layer in backward; "dots" (keep the matmul outputs) is not
+    # ported yet
+    remat: bool = True
+    remat_policy: str = "nothing"
+    # sequence-chunked LM loss (ops/losses.py): 0/1 = monolithic logits
+    loss_chunks: int = 0
 
     def __post_init__(self):
+        if self.remat_policy == "dots":
+            raise NotImplementedError(
+                "remat_policy='dots' is not ported yet (ROADMAP.md, queue 1); "
+                "use 'nothing'"
+            )
+        if self.remat_policy != "nothing":
+            raise ValueError(
+                f"remat_policy={self.remat_policy!r}: expected 'nothing' or "
+                "'dots'"
+            )
         if self.dtype not in _DTYPES.values():
             raise TypeError(
                 f"dtype {self.dtype}: the port runs float32 or bfloat16"
@@ -83,28 +115,52 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.dim // self.n_heads
 
+    def to_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["dtype"] = _DTYPE_NAMES[self.dtype]
+        return d
+
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "LlamaConfig":
-        """Build from a JAX ``LlamaConfig.to_dict()``. Training-only fields
-        are dropped; a mixture-of-experts config is refused."""
+        """Build from a ``to_dict()`` of this class or of the JAX
+        ``LlamaConfig``. Fields of what the port lacks (kernel block sizes,
+        MoE routing, ring and pipeline knobs) are dropped; a
+        mixture-of-experts config is refused."""
         d = dict(d)
         if d.pop("n_experts", 0):
             raise NotImplementedError(
                 "mixture-of-experts configs are not ported yet (dense path "
                 "only)"
             )
-        for key in _TRAINING_FIELDS:
+        for key in _UNPORTED_FIELDS:
             d.pop(key, None)
         if isinstance(d.get("dtype"), str):
             d["dtype"] = _DTYPES[d["dtype"]]
         return LlamaConfig(**d)
+
+    def num_params(self) -> int:
+        d, f, v = self.dim, self.ffn_dim, self.vocab_size
+        per_layer = (
+            d * (self.n_heads * self.head_dim)  # wq
+            + 2 * d * (self.n_kv_heads * self.head_dim)  # wk, wv
+            + (self.n_heads * self.head_dim) * d  # wo
+            + 3 * d * f  # gate, up, down
+            + 2 * d  # norms (qkv biases are not counted, as in JAX)
+        )
+        return v * d * 2 + self.n_layers * per_layer + d
+
+    def flops_per_token(self) -> float:
+        """Training FLOPs per token ~ 6 N plus the attention term (the JAX
+        package's formula)."""
+        return (6.0 * self.num_params()
+                + 12.0 * self.n_layers * self.dim * self.max_seq)
 
     # ---- presets (the JAX package's widths) ----
     @staticmethod
     def tiny() -> "LlamaConfig":
         return LlamaConfig(
             vocab_size=512, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
-            ffn_dim=256, max_seq=128,
+            ffn_dim=256, max_seq=128, remat=False,
         )
 
     @staticmethod
@@ -116,7 +172,9 @@ class LlamaConfig:
 
     @staticmethod
     def small() -> "LlamaConfig":
-        return LlamaConfig()
+        """~0.89 B, seq 2048: the JAX package's single-device training
+        config, with the sequence-chunked loss."""
+        return LlamaConfig(loss_chunks=8)
 
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
@@ -200,11 +258,18 @@ def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin,
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
-            plain: bool = False) -> torch.Tensor:
+            plain: bool = False, return_hidden: bool = False) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] in ``cfg.dtype`` (the JAX
-    ``forward`` without its MoE auxiliary loss). ``plain=True`` runs the
-    kernels' plain versions even on CUDA tensors: the reference that tests
-    and the chip check hold the kernel path against."""
+    ``forward`` without its MoE auxiliary loss). With ``return_hidden`` the
+    result is instead the final-norm hidden states [B, S, D]: the chunked
+    loss applies the head itself, one sequence chunk at a time.
+
+    With ``cfg.remat`` and grad mode on, each layer runs under
+    ``torch.utils.checkpoint``: backward recomputes it (the flash forward
+    and the layer's two norms run again) instead of keeping its
+    activations. ``plain=True`` runs the kernels' plain versions even on
+    CUDA tensors: the reference that tests and the chip check hold the
+    kernel path against."""
     S = tokens.shape[1]
     dev = tokens.device
     cos, sin = rope_angles(S, cfg.head_dim, cfg.rope_theta,
@@ -216,10 +281,159 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
     def attn_fn(q, k, v):
         return attn(q, k, v, causal=True, window=window)
 
+    names = list(params["layers"])
+
+    def layer_fn(x, *leaves):
+        return _decoder_layer(x, dict(zip(names, leaves)), cfg, cos, sin,
+                              attn_fn, norm)[0]
+
+    # unbind once: its backward stacks the L layer gradients in one op,
+    # where per-layer indexing would add L full-size zero-padded gradients
+    per_layer = [params["layers"][k].unbind(0) for k in names]
+    remat = cfg.remat and torch.is_grad_enabled()
     x = params["embed"][tokens.long()]
     for i in range(cfg.n_layers):
-        x, _ = _decoder_layer(x, layer_params(params, i), cfg, cos, sin,
-                              attn_fn, norm)
+        leaves = [t[i] for t in per_layer]
+        if remat:
+            x = checkpoint(layer_fn, x, *leaves, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer_fn(x, *leaves)
     x = norm(x, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return x
     return x @ params["lm_head"]
 
+
+def lm_loss(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
+            plain: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (``models/llama.py::lm_loss``): the full
+    sequence is fed, targets are the tokens rolled by one, and the last
+    position is masked out. With ``cfg.loss_chunks > 1`` the loss is
+    computed over sequence chunks (``ops/losses.py``). Returns (loss,
+    {"loss", "ppl"})."""
+    tokens = tokens.long()
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    if cfg.loss_chunks > 1:
+        h = forward(params, tokens, cfg, plain=plain, return_hidden=True)
+        total, count = chunked_softmax_cross_entropy(
+            h, params["lm_head"], targets, mask, cfg.loss_chunks
+        )
+    else:
+        logits = forward(params, tokens, cfg, plain=plain)
+        total, count = masked_softmax_cross_entropy(logits, targets, mask)
+    ce = total / count
+    return ce, {"loss": ce, "ppl": torch.exp(ce)}
+
+
+def _warmup_cosine(step: int, peak: float, warmup: int, decay: int) -> float:
+    """``optax.warmup_cosine_decay_schedule(0, peak, warmup, decay)`` at
+    optimizer step ``step`` (optax's count: the first update sees 0)."""
+    if step < warmup:
+        return peak * step / warmup
+    frac = min(step - warmup, decay - warmup) / (decay - warmup)
+    return peak * 0.5 * (1.0 + math.cos(math.pi * frac))
+
+
+class LlamaModule(LightningModule):
+    """The flagship LightningModule: decoder-LM pretraining step
+    (``models/llama.py::LlamaModule``)."""
+
+    def __init__(self, config: Optional[LlamaConfig] = None, lr: float = 3e-4,
+                 warmup_steps: int = 100, total_steps: int = 10000,
+                 weight_decay: float = 0.1):
+        super().__init__()
+        if isinstance(config, dict):  # rebuilt from checkpoint hparams
+            config = LlamaConfig.from_dict(config)
+        self.config = config or LlamaConfig.tiny()
+        self.lr = lr
+        self.warmup_steps = warmup_steps
+        self.total_steps = total_steps
+        self.weight_decay = weight_decay
+        self.hparams.update(
+            config=self.config.to_dict(),
+            lr=lr, warmup_steps=warmup_steps, total_steps=total_steps,
+            weight_decay=weight_decay,
+        )
+
+    def init_params(self, generator: torch.Generator, device: DeviceLike = None):
+        return init_params(self.config, generator, device)
+
+    def _tokens_of(self, batch):
+        if isinstance(batch, dict):
+            return batch["input_ids"]
+        return batch
+
+    def training_step(self, params, batch, batch_idx):
+        loss, logs = lm_loss(params, self._tokens_of(batch), self.config)
+        self.log("train_loss", loss, on_step=True, on_epoch=True)
+        self.log("train_ppl", logs["ppl"], on_step=True, on_epoch=False)
+        return loss
+
+    def validation_step(self, params, batch, batch_idx):
+        loss, logs = lm_loss(params, self._tokens_of(batch), self.config)
+        self.log("val_loss", loss)
+        self.log("val_ppl", logs["ppl"])
+
+    def predict_step(self, params, batch, batch_idx):
+        return forward(params, self._tokens_of(batch), self.config)
+
+    def configure_optimizers(self):
+        """AdamW (b1 0.9, b2 0.95, eps 1e-8, weight decay on every leaf)
+        with a warm-up + cosine schedule, as ``optax.adamw(
+        warmup_cosine_decay_schedule(0, lr, warmup, max(total, warmup + 1)))``:
+        ``LambdaLR`` counts optimizer steps as optax does, so the first
+        update uses lr 0."""
+        opt = torch.optim.AdamW(list(tree_leaves(self.params)), lr=self.lr,
+                                betas=(0.9, 0.95), eps=1e-8,
+                                weight_decay=self.weight_decay)
+        warmup = self.warmup_steps
+        decay = max(self.total_steps, warmup + 1)
+        peak = self.lr
+
+        def factor(step):
+            return _warmup_cosine(step, peak, warmup, decay) / peak if peak else 0.0
+
+        sched = torch.optim.lr_scheduler.LambdaLR(opt, factor)
+        return {"optimizer": opt, "lr_scheduler": sched}
+
+    def flops_per_sample(self) -> float:
+        return self.config.flops_per_token() * self.config.max_seq
+
+    def tokens_per_sample(self) -> int:
+        return self.config.max_seq
+
+
+class SyntheticLMDataModule(LightningDataModule):
+    """Learnable synthetic token streams (arithmetic progressions), the JAX
+    package's numpy streams from the same seed."""
+
+    def __init__(self, cfg: LlamaConfig, batch_size: int = 8, n_train: int = 256,
+                 n_val: int = 64, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.n_train = n_train
+        self.n_val = n_val
+        self.seed = seed
+
+    def _make(self, n, seed):
+        rng = np.random.default_rng(seed)
+        starts = rng.integers(0, self.cfg.vocab_size, size=(n, 1))
+        steps = rng.integers(1, 4, size=(n, 1))
+        seq = (starts + steps * np.arange(self.cfg.max_seq)[None, :]) % self.cfg.vocab_size
+        return DictDataset(input_ids=seq.astype(np.int32))
+
+    def setup(self, stage):
+        self.train_data = self._make(self.n_train, self.seed)
+        self.val_data = self._make(self.n_val, self.seed + 1)
+
+    def train_dataloader(self):
+        return DataLoader(self.train_data, batch_size=self.batch_size,
+                          shuffle=True, drop_last=True)
+
+    def val_dataloader(self):
+        return DataLoader(self.val_data, batch_size=self.batch_size,
+                          drop_last=True)

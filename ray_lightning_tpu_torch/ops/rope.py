@@ -69,7 +69,13 @@ def rope_angles(seq_len: int, head_dim: int, theta: float = 500000.0,
             inv_freq = inv_freq / float(scaling["factor"])
     positions = torch.arange(offset, offset + seq_len, dtype=torch.float32)
     angles = positions[:, None] * inv_freq[None, :]
-    return torch.cos(angles).to(device), torch.sin(angles).to(device)
+    dev = torch.device(device)
+    tables = (torch.cos(angles), torch.sin(angles))
+    if dev.type == "cuda":
+        # from pinned memory the copy is asynchronous; a pageable copy
+        # would make the host wait for the stream on every forward
+        return tuple(t.pin_memory().to(dev, non_blocking=True) for t in tables)
+    return tuple(t.to(dev) for t in tables)
 
 
 def rotate(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

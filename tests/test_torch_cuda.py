@@ -122,6 +122,159 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         rmsnorm(torch.zeros(8, 4, device=cuda).t(), torch.zeros(8, device=cuda))
 
 
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / (want.abs().max() + 1e-12))
+
+
+@pytest.mark.parametrize("B,hq,hkv,S,d,causal,window", [
+    (1, 4, 4, 77, 64, True, None), (2, 8, 1, 77, 64, True, None),
+    (1, 8, 8, 300, 128, True, None), (2, 8, 1, 300, 64, False, None),
+    (1, 8, 2, 300, 128, True, 100), (1, 4, 4, 300, 64, True, 17),
+    (1, 2, 2, 17, 32, True, None),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels(cuda, B, hq, hkv, S, d, causal, window, dtype):
+    """dQ and dK/dV kernels against flash_attention_bwd_plain on the same
+    O and lse. fp32: 1e-4 relative to each gradient's max (sums in another
+    order). bf16: both sides round P and dS to bf16 before the products,
+    but from fp32 scores summed in another order, so a rounding can fall
+    the other way; 2^-7 of the max (two bf16 ulps) bounds that."""
+    from ray_lightning_tpu_torch.ops.attention import (
+        FLASH_BWD_DKV_KERNEL,
+        FLASH_BWD_DQ_KERNEL,
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(B, hq, S, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, hkv, S, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, hkv, S, d, generator=g, device=cuda).to(dtype)
+    do = torch.randn(B, hq, S, d, generator=g, device=cuda).to(dtype)
+    o, lse = flash_attention(q, k, v, causal=causal, window=window)
+    before = (FLASH_BWD_DQ_KERNEL.launches, FLASH_BWD_DKV_KERNEL.launches)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal, None, window)
+    assert (FLASH_BWD_DQ_KERNEL.launches, FLASH_BWD_DKV_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, None,
+                                     window if window and window < S else None)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == dtype
+        assert b.float().abs().max() > 0, name
+        assert _rel(a, b) <= tol, name
+
+
+def test_raw_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
+    """The kernels write through raw pointers, invisible to autograd: with
+    grad mode on, the raw wrappers refuse inputs that require grad, while
+    the differentiable entries (attention, rmsnorm) go through their
+    autograd Functions and the raw wrappers work under no_grad."""
+    from ray_lightning_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_fwd
+
+    q = torch.randn(1, 2, 16, 32, device=cuda, requires_grad=True)
+    x = torch.randn(4, 32, device=cuda, requires_grad=True)
+    w = torch.ones(32, device=cuda)
+    with pytest.raises(RuntimeError, match="autograd"):
+        flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="autograd"):
+        rmsnorm_fwd(x, w)
+    with torch.no_grad():
+        o, lse = flash_attention(q, q, q)
+        rmsnorm_fwd(x, w)
+    with pytest.raises(RuntimeError, match="autograd"):
+        flash_attention_bwd(q, q, q, o, lse, torch.ones_like(o))
+    assert rmsnorm(x, w).requires_grad
+    from ray_lightning_tpu_torch.ops.attention import attention
+    assert attention(q, q, q).requires_grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_differentiable_ops_on_card_match_plain_autograd(cuda, dtype):
+    """attention() and rmsnorm() on the card (kernel forward, kernel or
+    reference-formula backward) give the gradients of autograd over their
+    plain versions: 1e-4 relative in fp32, 2^-7 in bf16 (roundings of P,
+    dS and the bf16 outputs)."""
+    from ray_lightning_tpu_torch.ops.attention import attention, reference_attention
+    from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    base = [torch.randn(2, h, 100, 64, generator=g, device=cuda).to(dtype)
+            for h in (8, 2, 2)]
+    do = torch.randn(2, 8, 100, 64, generator=g, device=cuda).to(dtype)
+    grads = []
+    for fn in (attention, reference_attention):
+        leaves = [t.clone().requires_grad_() for t in base]
+        torch.autograd.backward(fn(*leaves, causal=True), do)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= tol
+    x = torch.randn(3, 50, 256, generator=g, device=cuda).to(dtype)
+    w = (1 + 0.1 * torch.randn(256, generator=g, device=cuda)).to(dtype)
+    dy = torch.randn(3, 50, 256, generator=g, device=cuda).to(dtype)
+    grads = []
+    for fn in (rmsnorm, rmsnorm_plain):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        torch.autograd.backward(fn(xr, wr, 1e-5), dy)
+        grads.append((xr.grad, wr.grad))
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= tol
+
+
+def test_training_on_card_matches_plain(cuda):
+    """lm_loss and every gradient of a 2-layer fp32 model with remat and the
+    chunked loss: the kernel path against plain=True on the card, 1e-4
+    relative to each leaf's max; then a Trainer fit on the card launches
+    every training kernel."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        SyntheticLMDataModule,
+        init_params,
+        lm_loss,
+    )
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32,
+                              remat=True, loss_chunks=4)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    results = []
+    for plain in (False, True):
+        leaves = list(tree_leaves(params))
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(True)
+        loss, _ = lm_loss(params, tokens, cfg, plain=plain)
+        loss.backward()
+        results.append((loss.detach(), [t.grad.clone() for t in leaves]))
+    assert abs(float(results[0][0]) - float(results[1][0])) <= 1e-4 * float(
+        results[1][0])
+    for a, b in zip(results[0][1], results[1][1]):
+        assert _rel(a, b) <= 1e-4
+
+    kernels.reset_launch_counts()
+    module = LlamaModule(cfg, lr=1e-3, warmup_steps=1, total_steps=4)
+    trainer = Trainer(device=cuda, max_steps=3, logger=False,
+                      enable_checkpointing=False, seed=0)
+    trainer.fit(module, datamodule=SyntheticLMDataModule(cfg, batch_size=2,
+                                                         n_train=8, n_val=2))
+    counts = kernels.launch_counts()
+    for name in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[name] > 0, name
+    assert np.isfinite(float(trainer.callback_metrics["val_loss"]))
+
+
 def test_engine_on_card_matches_engine_on_cpu(cuda):
     from ray_lightning_tpu_torch import kernels
     from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
@@ -141,9 +294,14 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
         comps = [engine.submit(p, max_new_tokens=6) for p in prompts]
         engine.run_until_idle()
         streams.append([c.tokens for c in comps])
-        counts = kernels.launch_counts().values()
+        counts = kernels.launch_counts()
         if device == "cpu":
-            assert set(counts) == {0}  # CPU tensors take the plain versions
+            # CPU tensors take the plain versions
+            assert set(counts.values()) == {0}
         else:
-            assert 0 not in counts  # every kernel ran on the card
+            # every serving kernel ran on the card; the backward kernels
+            # belong to training
+            assert all(counts[n] > 0 for n in
+                       ("rmsnorm", "flash_fwd", "paged_decode", "argmax"))
+            assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0
     assert streams[0] == streams[1]

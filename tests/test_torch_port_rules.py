@@ -45,7 +45,7 @@ def test_port_imports_without_jax_or_a_build():
         "    importlib.import_module(m.name)\n"
         "from ray_lightning_tpu_torch import kernels\n"
         "assert not kernels._LIBS, kernels._LIBS\n"
-        "assert len(kernels.KERNELS) == 4, kernels.KERNELS\n"
+        "assert len(kernels.KERNELS) == 6, kernels.KERNELS\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
