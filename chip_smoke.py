@@ -11,12 +11,15 @@ final line):
 1. device — the card's name and power limit; TF32 is switched off for
    matmuls and cuDNN so fp32 references mean fp32;
 2. build — every ``csrc/*.cu`` kernel compiled from the checkout with nvcc
-   (one process per source, all at once), timed;
+   (one process per source, all at once), timed; the flash backward
+   kernels' registers and spills (``nvcc -Xptxas -v``): the tensor-core
+   instantiations must not spill;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it (and, for the flash backward pair, at
-   odd ones: ragged S, a window, non-causal, fp32), with the stated
-   tolerance; the kernel's, the plain version's and a library call's times
-   (CUDA events);
+   odd ones: ragged S, a window, non-causal, GQA group 4 at head dim 64,
+   fp32), with the stated tolerance; the kernel's, the plain version's and
+   a library call's times (CUDA events), and the backward pair's TFLOP/s
+   and share of its bound;
 4. serving main path — Llama-3-8B at full width and depth (random bf16
    weights from a seeded generator) served by the paged
    ``InferenceEngine``: 16 staggered requests of mixed lengths, some
@@ -126,6 +129,27 @@ def max_err(a, b):
 def within(a, b, atol, rtol):
     a, b = a.float(), b.float()
     return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def report_registers(kernels):
+    """Registers and spills of the flash backward kernels (nvcc -Xptxas
+    -v); the tensor-core (bf16) instantiations must not spill."""
+    import re
+
+    usage = kernels.resource_usage("flash_bwd.cu")
+    tc = 0
+    for mangled, u in sorted(usage.items()):
+        m = re.search(r"(flash_bwd_d\w*?_kernel_(?:bf16|f32))(?:ILi(\d+)E)?",
+                      mangled)
+        label = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                 if m else mangled)
+        log(f"ptxas {label}: {u['registers']} registers, spill stores "
+            f"{u['spill_stores']} B, spill loads {u['spill_loads']} B")
+        if "kernel_bf16" in mangled:
+            tc += 1
+            check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
+                  f"{label} spills registers")
+    check(tc == 4, f"expected 4 bf16 backward instantiations, found {tc}")
 
 
 # --------------------------------------------------------------------- #
@@ -265,20 +289,22 @@ def check_flash_bwd(torch, F):
     # sides round P and dS to bf16 before the products, from fp32 scores
     # summed in another order, so a rounding may fall the other way; two
     # bf16 ulps of the max (2^-7) bound that
-    cases = [  # name, B, Hq, Hkv, S, dtype, causal, window
-        ("training causal bf16", 8, 16, 8, 2048, bf, True, None),
-        ("ragged 300 bf16", 2, 16, 8, 300, bf, True, None),
-        ("window 128 bf16", 2, 16, 8, 512, bf, True, 128),
-        ("non-causal bf16", 2, 16, 8, 512, bf, False, None),
-        ("causal fp32", 2, 16, 8, 512, f32, True, None),
+    cases = [  # name, B, Hq, Hkv, S, head dim, dtype, causal, window
+        ("training causal bf16", 8, 16, 8, 2048, 128, bf, True, None),
+        ("ragged 300 bf16", 2, 16, 8, 300, 128, bf, True, None),
+        ("ragged 129 bf16", 2, 16, 8, 129, 128, bf, True, None),
+        ("window 128 bf16", 2, 16, 8, 512, 128, bf, True, 128),
+        ("non-causal bf16", 2, 16, 8, 512, 128, bf, False, None),
+        ("group 4 hd 64 bf16", 2, 32, 8, 512, 64, bf, True, None),
+        ("causal fp32", 2, 16, 8, 512, 128, f32, True, None),
     ]
     worst = {"dq": 0.0, "dkv": 0.0}
     timed = None
-    for name, B, hq, hkv, S, dt, causal, window in cases:
-        q = torch.randn(B, hq, S, 128, generator=g, device="cuda").to(dt)
-        k = torch.randn(B, hkv, S, 128, generator=g, device="cuda").to(dt)
-        v = torch.randn(B, hkv, S, 128, generator=g, device="cuda").to(dt)
-        do = torch.randn(B, hq, S, 128, generator=g, device="cuda").to(dt)
+    for name, B, hq, hkv, S, hd, dt, causal, window in cases:
+        q = torch.randn(B, hq, S, hd, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, hkv, S, hd, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, hkv, S, hd, generator=g, device="cuda").to(dt)
+        do = torch.randn(B, hq, S, hd, generator=g, device="cuda").to(dt)
         o, lse = flash_attention(q, k, v, causal=causal, window=window)
         got = flash_attention_bwd(q, k, v, o, lse, do, causal, None, window)
         want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, None,
@@ -295,7 +321,7 @@ def check_flash_bwd(torch, F):
             worst["dq" if gname == "dq" else "dkv"] = max(
                 worst["dq" if gname == "dq" else "dkv"], err)
             rel.append(err / peak)
-        log(f"flash bwd {name} q[{B},{hq},{S},128] kv[{B},{hkv},{S},128]: "
+        log(f"flash bwd {name} q[{B},{hq},{S},{hd}] kv[{B},{hkv},{S},{hd}]: "
             f"max err / max |grad| dq {rel[0]:.3g} dk {rel[1]:.3g} dv "
             f"{rel[2]:.3g} (tol {tol:.3g})")
         if timed is None:
@@ -332,10 +358,9 @@ def check_flash_bwd(torch, F):
     pairs = B * hq * S * (S + 1) // 2  # causal (row, key) pairs
     in_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 \
         + 2 * lse.numel() * 4
-    b_dq, by_dq = bound(in_bytes + q.numel() * 2, 3 * 2 * pairs * 128,
-                        BF16_FLOPS)
-    b_dkv, by_dkv = bound(in_bytes + 2 * k.numel() * 2, 4 * 2 * pairs * 128,
-                          BF16_FLOPS)
+    flops_dq, flops_dkv = 3 * 2 * pairs * 128, 4 * 2 * pairs * 128
+    b_dq, by_dq = bound(in_bytes + q.numel() * 2, flops_dq, BF16_FLOPS)
+    b_dkv, by_dkv = bound(in_bytes + 2 * k.numel() * 2, flops_dkv, BF16_FLOPS)
     shape = f"q[{B},{hq},{S},128] kv[{B},{hq // 2},{S},128] bf16 causal"
     common = dict(plain_ms=plain_ms, library_ms=lib_ms, shape=shape,
                   plain_and_library_compute="dq, dk and dv together")
@@ -343,6 +368,13 @@ def check_flash_bwd(torch, F):
         f"(bound {b_dq:.4f}, {by_dq}) dkv kernel_ms {dkv_ms:.3f} (bound "
         f"{b_dkv:.4f}, {by_dkv}); plain backward (dq+dk+dv) {plain_ms:.3f} ms; "
         f"library_ms (SDPA backward, fwd+bwd minus fwd) {lib_ms:.3f}")
+    for kname, ms, flops, b in (("dq", dq_ms, flops_dq, b_dq),
+                                ("dkv", dkv_ms, flops_dkv, b_dkv)):
+        log(f"flash bwd {kname} at the training shape: {flops / ms / 1e9:.1f} "
+            f"TFLOP/s ({flops / 1e12:.4f} TFLOP in {ms:.4f} ms), "
+            f"{b / ms:.2%} of its bound")
+    log(f"flash bwd pair: {dq_ms + dkv_ms:.3f} ms, "
+        f"{(dq_ms + dkv_ms) / lib_ms:.2f}x SDPA's backward")
     del timed, q, k, v, o, lse, do, delta
     torch.cuda.empty_cache()
     return (dict(common, max_abs_err=worst["dq"], ms=dq_ms, bound_ms=b_dq,
@@ -893,6 +925,7 @@ def main():
     libs = kernels.build()
     log(f"built {len(libs)} kernel libraries in {time.perf_counter() - t:.1f}s: "
         + ", ".join(p.name for p in libs))
+    report_registers(kernels)
 
     results = {
         "rmsnorm": check_rmsnorm(torch, F),

@@ -1,93 +1,102 @@
 // Flash-attention backward for Hopper (sm_90a): a dQ kernel and a dK/dV kernel.
 //
 // Replaces the two Pallas kernels of ray_lightning_tpu/ops/attention.py that
-// _flash_bwd launches: _bwd_dq_kernel (pallas_call at line 427) and
-// _bwd_dkv_kernel (pallas_call at line 451). Both recompute the scores from Q,
-// K and the forward's per-row logsumexp instead of storing the S x S matrix:
+// _flash_bwd launches: _bwd_dq_kernel (lines 172-213, pallas_call at 427) and
+// _bwd_dkv_kernel (lines 223-274, pallas_call at 451). Both recompute the
+// scores from Q, K and the forward's per-row logsumexp instead of storing the
+// S x S matrix:
 //   S  = Q K^T * scale, masked          P  = exp(S - lse)
 //   dP = dO V^T                         dS = P * (dP - delta) * scale
 //   dQ = dS K      dK = dS^T Q      dV = P^T dO
 // with delta = rowsum(dO * O) computed by the caller (the TPU code computes it
 // outside its kernels too). Causal or full attention, an optional sliding
 // window (position i attends [i - W + 1, i]), GQA (query head h reads KV head
-// h / group).
+// h / group), any S (no block-divisibility rule) and any head dim up to 128.
 //
-// Bound on the H100: at the training shape (q [8,16,2048,128], kv
-// [8,8,2048,128], bf16, causal) dQ does three products and dK/dV four over
-// ~2.1 M causal (row, key) pairs per head, ~0.2 and ~0.28 TFLOP, against
-// ~270 MB of inputs and outputs each: on the tensor cores the operations
-// would bound them (~0.2-0.3 ms). These first kernels do their products with
-// fp32 FMAs out of shared memory, one output tile per block, so in practice
-// the FMA rate and shared-memory bandwidth bound them; wgmma tiles with TMA
-// loads are the later step.
+// Bound on the H100: operations. Per causal (row, key) pair the dQ kernel
+// does three products of 2 * 128 FLOP (S, dP, dS K) and the dK/dV kernel four
+// (S^T, dP^T, P^T dO, dS^T Q). At the training shape (q [8,16,2048,128], kv
+// [8,8,2048,128], bf16, causal: 2.7e8 pairs) that is ~0.21 and ~0.28 TFLOP,
+// 0.21 and 0.28 ms at the 989 TFLOP/s of the bf16 tensor cores, against
+// ~0.1 ms to move the ~270 MB of inputs and outputs.
 //
-// Design. The TPU walks a sequential grid axis and carries its accumulator in
-// VMEM scratch across the steps; here that axis is a loop inside one block,
-// and the accumulators live in registers.
-//  - dQ: one block of 256 threads per (batch, query head, 64-row query tile).
-//    Each query row belongs to 4 neighbouring lanes of one warp; each lane
-//    computes 16 of a key tile's scores and owns 32 of the row's dQ columns.
-//    The loop over 64-key tiles stops at the causal bound and, under a
-//    window, starts at the tile that holds the band's lower edge of the
-//    tile's first row (the TPU's _block_active skip, as loop bounds).
-//  - dK/dV: one block of 256 threads per (batch, KV head, 64-key tile). Each
-//    key row belongs to 4 lanes. The loop walks every (group member, query
-//    tile) pair, query head = kv_head * group + member as in
-//    _q_index_map_for_dkv, so the GQA sum happens in the fp32 accumulators
-//    and dK, dV come out [B, Hkv, S, hd] directly. Query tiles fully above
-//    the diagonal, or below the band, are skipped by the loop bound. No
-//    atomics: every output element has one writer, so the result is
-//    deterministic.
-//  - Roundings as on the TPU: dS is rounded to the input type before dS K
-//    (attention.py:206) and before dS^T Q (:266); P is rounded to dO's type
-//    before P^T dO (:260). Accumulation is fp32; dQ, dK, dV are stored in the
-//    input type.
-//  - Masks as _mask_scores: pure causal masks with -inf, a window with the
-//    finite -1e30 (once lse is known both give P = 0). Key columns past S are
-//    -inf; query rows past S are never read from lse/delta (their P is 0 in
-//    dK/dV) and never stored (dQ). No lane padding of hd and no
-//    block-divisibility rule: ragged last tiles are masked here.
-//  - Shared memory is ~145 KB (dQ) and ~162 KB (dK/dV) per block, over the
-//    48 KB default, so each launch raises the kernel's dynamic limit first.
+// bf16 (the training path): every product runs on the tensor cores as
+// wgmma.mma_async (m64nNk16, bf16 in, fp32 accumulators in registers):
+//  - Tiles stay bf16 in shared memory, in 64-column panels of 128-byte rows
+//    whose 16-byte chunks are XOR-swizzled by row (chunk ^ (row & 7)): the
+//    layout of wgmma's 128-byte swizzle, so every operand is read straight
+//    from the tile through a descriptor. They arrive by 16-byte cp.async
+//    into a two-stage ring: the next K/V tile (dQ) or the next
+//    Q/dO/lse/delta tile (dK/dV) lands while the current one computes. Head
+//    dims below the panel width are zero-filled, which is exact; rows past S
+//    are zero-filled too.
+//  - A block is one warpgroup (four warps) and owns 64 output rows (query
+//    rows in dQ, key rows in dK/dV); each warp holds 16 of them and the same
+//    16 rows of S and dP (S^T and dP^T in dK/dV). So the fp32 accumulators
+//    of S and dP become P and dS in registers (mask, exp2(s * scale * log2e
+//    - lse * log2e), p (dp - delta) scale), are rounded to bf16 and packed
+//    straight into the register A operand of the next product: no
+//    shared-memory round trip. The rounding is the TPU kernels': dS before
+//    dS K and dS^T Q (attention.py:206, :266), P before P^T dO (:260), while
+//    dS is formed from the unrounded fp32 P.
+//  - One copy of each tile serves both ways: K (in dQ) and Q, dO (in dK/dV)
+//    are the K-major B of S = Q K^T (S^T = K Q^T, dP^T = V dO^T) and, with
+//    wgmma's transpose flag, the MN-major B of dS K (P^T dO, dS^T Q).
+//  - dQ: one block per (batch, query head, 64-row query tile), walking the
+//    64-key tiles from the window's lower edge to the causal bound (the TPU's
+//    _block_active skip, as loop bounds). dK/dV: one block per (batch, KV
+//    head, 64-key tile), walking every (group member, 64-row query tile) pair
+//    (query head = kv_head * group + member, as _q_index_map_for_dkv), so the
+//    GQA sum stays in the fp32 accumulators and dK, dV come out [B, Hkv, S,
+//    hd] directly. No atomics: every output element has one writer, so the
+//    result is deterministic. The tile index is the slow grid dimension and
+//    the heaviest tiles come first (dQ's last query tiles, dK/dV's first key
+//    tiles under a causal mask), so the grid does not end on a long tail.
+//  - Masks as _mask_scores: a masked pair gets P = 0, which is exactly what
+//    the TPU's -inf (causal) and -1e30 (window) give once lse is known. Only a
+//    warp whose 16 x 64 (dQ) or 16 x 32 (dK/dV) piece crosses the diagonal,
+//    a window edge or the ragged last key tile evaluates the per-element
+//    mask; interior pieces skip it. Query rows past S read lse = +inf, so
+//    their P and dS are exactly 0 in dK/dV; rows past S are never stored.
+//  - Shared memory: 97 KB (dQ) and 98 KB (dK/dV) per block at head dim 128,
+//    so two blocks (two warpgroups) fit on an SM and one block's softmax
+//    work overlaps the other's products. dK/dV computes S^T and dP^T for 32
+//    query rows at a time, so its dK and dV accumulators (128 registers a
+//    thread) fit beside them without spills.
+//
+// fp32 (the exactness checks): the tensor cores would take fp32 operands as
+// TF32 (~1e-3 relative), so fp32 inputs keep plain fp32 FMAs out of shared
+// memory, one thread group per row, as exact as the plain version up to the
+// order of the sums.
 #include <cmath>
+#include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-// round an fp32 value to T and back (the TPU kernels' .astype(dtype))
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f<T>(from_f<T>(v));
-}
+constexpr int kDMax = 128;         // largest head dim
 
+// ------------------------------------------------------------------------ //
+// fp32: plain FMAs (exact up to summation order)
+// ------------------------------------------------------------------------ //
 constexpr int kBQ = 64;            // query rows per tile
 constexpr int kBK = 64;            // keys per tile
 constexpr int kThreads = 256;      // 4 lanes per row
-constexpr int kDMax = 128;         // largest head dim
 constexpr int kCols = kDMax / 4;   // output columns per lane
 constexpr int kPer = kBK / 4;      // scores per lane per tile (kBQ == kBK)
 
-// rows [r0, r0 + 64) of a [seq, hd] slab into shared memory [64][hd + 1] as
-// fp32; rows past seq read as 0
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+// rows [r0, r0 + 64) of a [seq, hd] slab into shared memory [64][hd + 1];
+// rows past seq read as 0
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           int r0, int seq, int hd) {
   const int ld = hd + 1;
   for (int i = threadIdx.x; i < 64 * hd; i += kThreads) {
     const int rr = i / hd;
     const int c = i - rr * hd;
     const int g = r0 + rr;
-    dst[rr * ld + c] = g < seq ? to_f<T>(src[static_cast<long>(g) * hd + c]) : 0.f;
+    dst[rr * ld + c] = g < seq ? src[static_cast<long>(g) * hd + c] : 0.f;
   }
 }
 
@@ -105,13 +114,12 @@ __device__ __forceinline__ float mask_score(float s, int row, int col, int seq,
   return s;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int hq, int hkv, int seq, int hd,
-                    float scale, int causal, int window) {
+flash_bwd_dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dq, int hq, int hkv, int seq, int hd,
+                        float scale, int causal, int window) {
   const int q0 = blockIdx.x * kBQ;
   const int bh = blockIdx.y;
   const int b = bh / hq;
@@ -126,7 +134,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dos = qs + kBQ * ld;     // [kBQ][hd + 1]
   float* ks = dos + kBQ * ld;     // [kBK][hd + 1]
   float* vs = ks + kBK * ld;      // [kBK][hd + 1]
-  float* dss = vs + kBK * ld;     // [kBQ][kBK + 1], dS rounded to T
+  float* dss = vs + kBK * ld;     // [kBQ][kBK + 1]
 
   const int tid = threadIdx.x;
   const int r = tid >> 2;         // query row within the tile
@@ -134,8 +142,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = q0 + r;
   const bool row_ok = row < seq;
 
-  load_tile<T>(qs, q + q_off, q0, seq, hd);
-  load_tile<T>(dos, dout + q_off, q0, seq, hd);
+  load_tile(qs, q + q_off, q0, seq, hd);
+  load_tile(dos, dout + q_off, q0, seq, hd);
   const float lse_r = row_ok ? lse[static_cast<long>(bh) * seq + row] : 0.f;
   const float delta_r = row_ok ? delta[static_cast<long>(bh) * seq + row] : 0.f;
 
@@ -153,8 +161,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's K, V and dS are no longer read
-    load_tile<T>(ks, k + kv_off, k0, seq, hd);
-    load_tile<T>(vs, v + kv_off, k0, seq, hd);
+    load_tile(ks, k + kv_off, k0, seq, hd);
+    load_tile(vs, v + kv_off, k0, seq, hd);
     __syncthreads();
 
     float s[kPer], dp[kPer];
@@ -177,7 +185,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = lane4 + 4 * j;
       const float sc = mask_score(s[j] * scale, row, k0 + c, seq, causal, window);
       const float p = expf(sc - lse_r);
-      dss[r * (kBK + 1) + c] = round_to<T>(p * (dp[j] - delta_r) * scale);
+      dss[r * (kBK + 1) + c] = p * (dp[j] - delta_r) * scale;
     }
     __syncwarp();  // the row's dS is written by its own 4 lanes
     for (int c = 0; c < kBK; ++c) {
@@ -192,22 +200,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (row_ok) {
-    T* out = dq + q_off + static_cast<long>(row) * hd;
+    float* out = dq + q_off + static_cast<long>(row) * hd;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) {
       const int d = lane4 + 4 * i;
-      if (d < hd) out[d] = from_f<T>(acc[i]);
+      if (d < hd) out[d] = acc[i];
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int hq, int hkv,
-                     int seq, int hd, float scale, int causal, int window) {
+flash_bwd_dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv, int hq,
+                         int hkv, int seq, int hd, float scale, int causal,
+                         int window) {
   const int k0 = blockIdx.x * kBK;
   const int bhk = blockIdx.y;
   const int b = bhk / hkv;
@@ -221,8 +229,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* vs = ks + kBK * ld;       // [kBK][hd + 1]
   float* qs = vs + kBK * ld;       // [kBQ][hd + 1]
   float* dos = qs + kBQ * ld;      // [kBQ][hd + 1]
-  float* ps = dos + kBQ * ld;      // [kBK][kBQ + 1], P rounded to T
-  float* dss = ps + kBK * (kBQ + 1);   // [kBK][kBQ + 1], dS rounded to T
+  float* ps = dos + kBQ * ld;      // [kBK][kBQ + 1]
+  float* dss = ps + kBK * (kBQ + 1);   // [kBK][kBQ + 1]
   float* lses = dss + kBK * (kBQ + 1); // [kBQ]
   float* deltas = lses + kBQ;          // [kBQ]
 
@@ -231,8 +239,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane4 = tid & 3;
   const int col = k0 + c;
 
-  load_tile<T>(ks, k + kv_off, k0, seq, hd);
-  load_tile<T>(vs, v + kv_off, k0, seq, hd);
+  load_tile(ks, k + kv_off, k0, seq, hd);
+  load_tile(vs, v + kv_off, k0, seq, hd);
 
   // query tiles that can see this key tile
   int qlo = 0;
@@ -255,8 +263,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = qlo; qt < qhi; ++qt) {
       const int q0 = qt * kBQ;
       __syncthreads();  // the previous tile's Q, dO, P and dS are no longer read
-      load_tile<T>(qs, q + q_off, q0, seq, hd);
-      load_tile<T>(dos, dout + q_off, q0, seq, hd);
+      load_tile(qs, q + q_off, q0, seq, hd);
+      load_tile(dos, dout + q_off, q0, seq, hd);
       if (tid < kBQ) {
         const int gr = q0 + tid;
         lses[tid] = gr < seq ? lse[bh * seq + gr] : 0.f;
@@ -290,8 +298,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           p = expf(sc - lses[rr]);
           ds = p * (dp[j] - deltas[rr]) * scale;
         }
-        ps[c * (kBQ + 1) + rr] = round_to<T>(p);
-        dss[c * (kBQ + 1) + rr] = round_to<T>(ds);
+        ps[c * (kBQ + 1) + rr] = p;
+        dss[c * (kBQ + 1) + rr] = ds;
       }
       __syncwarp();  // the key row's P and dS are written by its own 4 lanes
       for (int rr = 0; rr < kBQ; ++rr) {
@@ -312,19 +320,569 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (col < seq) {
-    T* dko = dk + kv_off + static_cast<long>(col) * hd;
-    T* dvo = dv + kv_off + static_cast<long>(col) * hd;
+    float* dko = dk + kv_off + static_cast<long>(col) * hd;
+    float* dvo = dv + kv_off + static_cast<long>(col) * hd;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) {
       const int d = lane4 + 4 * i;
       if (d < hd) {
-        dko[d] = from_f<T>(dka[i]);
-        dvo[d] = from_f<T>(dva[i]);
+        dko[d] = dka[i];
+        dvo[d] = dva[i];
       }
     }
   }
 }
 
+// ------------------------------------------------------------------------ //
+// bf16: tensor cores (wgmma), cp.async ring, swizzled panels
+// ------------------------------------------------------------------------ //
+using bf16 = __nv_bfloat16;
+
+constexpr int kTile = 64;          // rows of every tile (queries or keys)
+constexpr int kWarps = 4;          // 16 output rows each
+constexpr int kTC = kWarps * 32;   // threads per block
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk `ch` (8 bf16 columns) of row `r` in a
+// [kTile x kD] tile: 64-column panels of 128-byte rows, chunks XOR-swizzled by
+// the row's low three bits
+__device__ __forceinline__ uint32_t tile_off(int r, int ch) {
+  return ((ch >> 3) * kTile + r) * 128 + (((ch & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// rows [r0, r0 + kTile) of a [seq, hd] bf16 slab into a tile; rows past seq
+// and columns past hd (up to kD) are zero. `vec`: hd % 8 == 0 and the slab is
+// 16-byte aligned, so every chunk is one 16-byte cp.async; otherwise the
+// chunks are assembled element by element (synchronous stores).
+template <int kD>
+__device__ __forceinline__ void load_tile_bf16(unsigned char* tile, const bf16* __restrict__ src,
+                                               int r0, int seq, int hd, bool vec) {
+  constexpr int kChunks = kD / 8;
+  const uint32_t base = smem_addr(tile);
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kTC) {
+    const int r = i / kChunks;
+    const int ch = i % kChunks;
+    const int g = r0 + r;
+    const int c = ch * 8;
+    const uint32_t off = tile_off(r, ch);
+    if (vec) {
+      const bool in = g < seq && c < hd;
+      cp_async16(base + off, in ? src + static_cast<long>(g) * hd + c : src, in ? 16 : 0);
+    } else {
+      __align__(16) bf16 w[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        w[e] = (g < seq && c + e < hd) ? src[static_cast<long>(g) * hd + c + e]
+                                       : __float2bfloat16(0.f);
+      }
+      *reinterpret_cast<uint4*>(tile + off) = *reinterpret_cast<const uint4*>(w);
+    }
+  }
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), swizzle mode 1
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+// K-major operand (the k index runs along a tile row): rows r0.. of the
+// tile, k16 step kk. Eight-row groups lie 1024 bytes apart; a k16 step is
+// 32 bytes inside a 128-byte row, four steps per panel.
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return gmma_desc(tile + ((kk >> 2) * kTile + r0) * 128 + (kk & 3) * 32, 16, 1024);
+}
+// MN-major operand (the n index runs along a tile row; wgmma's transpose
+// flag): tile rows k0..k0+15 are the k index, the 64 columns of panel p the n
+// index. Eight-row k groups lie 1024 bytes apart (stride offset); the next
+// 64 columns would be a panel away (leading offset).
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int k0, int p) {
+  return gmma_desc(tile + (p * kTile + k0) * 128, kTile * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the fence / wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+#define RLT_D8(b) "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), \
+                  "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+
+// d[64 x 32] += A[64 x 16] B[16 x 32], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : RLT_D8(0), RLT_D8(8)
+      : "l"(da), "l"(db), "r"(1));
+}
+// d[64 x 64] += A[64 x 16] B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : RLT_D8(0), RLT_D8(8), RLT_D8(16), RLT_D8(24)
+      : "l"(da), "l"(db), "r"(1));
+}
+// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers (each warp's 16 rows
+// as an m16n8k16 A fragment), B MN-major in shared memory (transposed)
+__device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : RLT_D8(0), RLT_D8(8), RLT_D8(16), RLT_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef RLT_D8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the A fragment of k16 step kc from an accumulator whose n8 tile j sits in
+// r[4j .. 4j + 3] (rows g and g + 8, columns 2t and 2t + 1): n8 tiles 2kc and
+// 2kc + 1 rounded to bf16
+template <int N>
+__device__ __forceinline__ void acc_to_a(const float (&r)[N], int kc, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(r[8 * kc + 0], r[8 * kc + 1]);
+  a[1] = pack_bf16(r[8 * kc + 2], r[8 * kc + 3]);
+  a[2] = pack_bf16(r[8 * kc + 4], r[8 * kc + 5]);
+  a[3] = pack_bf16(r[8 * kc + 6], r[8 * kc + 7]);
+}
+
+// keep (row, col) under the TPU's mask (col < seq is checked by the caller
+// where it matters)
+__device__ __forceinline__ bool keep_pair(int row, int col, int seq, int causal,
+                                          int window) {
+  if (col >= seq) return false;
+  if (!causal) return true;
+  if (window > 0) return row >= col && row - col < window;
+  return row >= col;
+}
+
+// the dynamic shared memory from its first 1024-byte boundary: the 128-byte
+// swizzle repeats every 1024 bytes of address, so tiles start on one (the
+// launch asks for 1 KB more)
+__device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
+  const uint32_t a = smem_addr(raw);
+  return raw + (((a + 1023u) & ~1023u) - a);
+}
+
+// wait for this thread's copies up to the newest `N` groups, make them (and
+// any plain stores) visible to wgmma's reads, then to the whole block
+template <int N>
+__device__ __forceinline__ void tiles_arrived() {
+  cp_async_wait<N>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kTC, 2)
+flash_bwd_dq_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int hq, int hkv, int seq, int hd,
+                         float scale, int causal, int window, int vec) {
+  constexpr int kBytes = kTile * kD * 2;
+  constexpr int kP = kD / 64;              // 64-column panels
+  extern __shared__ unsigned char smem_tc[];
+  unsigned char* qs = smem_1k(smem_tc);    // resident Q
+  unsigned char* dos = qs + kBytes;        // resident dO
+  unsigned char* ring = dos + kBytes;      // stage s: K at 2s, V at 2s + 1
+
+  const int n_qt = (seq + kTile - 1) / kTile;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kTile;  // heaviest first
+  const int bh = blockIdx.x;
+  const int b = bh / hq;
+  const int h = bh - b * hq;
+  const int hk = h / (hq / hkv);
+  const long q_off = static_cast<long>(bh) * seq * hd;
+  const long kv_off = (static_cast<long>(b) * hkv + hk) * seq * hd;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;          // fragment row (and row + 8)
+  const int tq = lane & 3;           // fragment column pair
+  const int r_lo = q0 + warp * 16;   // this warp's first query row
+  const float sl2 = scale * kLog2e;
+
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + gr + 8 * i;
+    lse2[i] = row < seq ? lse[static_cast<long>(bh) * seq + row] * kLog2e : 0.f;
+    dlt[i] = row < seq ? delta[static_cast<long>(bh) * seq + row] : 0.f;
+  }
+
+  int lo = 0;
+  int hi = (seq + kTile - 1) / kTile;
+  if (causal) {
+    hi = min(q0 + kTile - 1, seq - 1) / kTile + 1;
+    if (window > 0) lo = max(q0 - (window - 1), 0) / kTile;
+  }
+
+  load_tile_bf16<kD>(qs, q + q_off, q0, seq, hd, vec);
+  load_tile_bf16<kD>(dos, dout + q_off, q0, seq, hd, vec);
+  cp_async_commit();
+  load_tile_bf16<kD>(ring, k + kv_off, lo * kTile, seq, hd, vec);
+  load_tile_bf16<kD>(ring + kBytes, v + kv_off, lo * kTile, seq, hd, vec);
+  cp_async_commit();
+
+  const uint32_t sq = smem_addr(qs);
+  const uint32_t sdo = smem_addr(dos);
+  const int n_k16 = (hd + 15) / 16;  // k16 steps over the head dim that hold data
+
+  float acc[kP][32];                 // dQ: panel p, n8 tile j at [4j, 4j + 4)
+#pragma unroll
+  for (int p = 0; p < kP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+
+  for (int kt = lo; kt < hi; ++kt) {
+    const int st = (kt - lo) & 1;
+    if (kt + 1 < hi) {
+      unsigned char* nxt = ring + (st ^ 1) * 2 * kBytes;
+      load_tile_bf16<kD>(nxt, k + kv_off, (kt + 1) * kTile, seq, hd, vec);
+      load_tile_bf16<kD>(nxt + kBytes, v + kv_off, (kt + 1) * kTile, seq, hd, vec);
+      cp_async_commit();
+      tiles_arrived<1>();
+    } else {
+      tiles_arrived<0>();
+    }
+    const uint32_t sk = smem_addr(ring + st * 2 * kBytes);
+    const uint32_t sv = sk + kBytes;
+    const int k0 = kt * kTile;
+
+    // S = Q K^T and dP = dO V^T: 64 query rows x 64 keys, K-major operands
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) { s[i] = 0.f; dp[i] = 0.f; }
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      if (kk < n_k16) {
+        wgmma_ss_n64(s, desc_k(sq, 0, kk), desc_k(sk, 0, kk));
+        wgmma_ss_n64(dp, desc_k(sdo, 0, kk), desc_k(sv, 0, kk));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P and dS in registers; the mask only where this warp's piece needs it
+    const bool need_mask = (causal && k0 + kTile - 1 > r_lo) ||
+                           (causal && window > 0 && r_lo + 15 - k0 >= window) ||
+                           k0 + kTile > seq;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int e = i & 3;
+      const int row = r_lo + gr + 8 * (e >> 1);
+      const int col = k0 + 8 * (i >> 2) + 2 * tq + (e & 1);
+      float p = exp2f(s[i] * sl2 - lse2[e >> 1]);
+      if (need_mask && !keep_pair(row, col, seq, causal, window)) p = 0.f;
+      s[i] = p * (dp[i] - dlt[e >> 1]) * scale;  // dS, fp32
+    }
+
+    // dQ += dS K: dS (rounded to bf16) is the A operand from registers, K
+    // the MN-major B
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      acc_to_a(s, kc, a[kc]);
+      fence_regs(a[kc]);
+    }
+#pragma unroll
+    for (int p = 0; p < kP; ++p) fence_regs(acc[p]);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+      for (int p = 0; p < kP; ++p) wgmma_rs_n64_t(acc[p], a[kc], desc_mn(sk, 16 * kc, p));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < kP; ++p) fence_regs(acc[p]);
+    __syncthreads();  // this stage is refilled by the next iteration's load
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + gr + 8 * i;
+    if (row >= seq) continue;
+    bf16* out = dq + q_off + static_cast<long>(row) * hd;
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 64 * p + 8 * j + 2 * tq;
+        if (c >= hd) continue;
+        const float lo_v = acc[p][4 * j + 2 * i], hi_v = acc[p][4 * j + 2 * i + 1];
+        if ((hd & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(lo_v, hi_v);
+        } else {
+          out[c] = __float2bfloat16(lo_v);
+          if (c + 1 < hd) out[c + 1] = __float2bfloat16(hi_v);
+        }
+      }
+    }
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kTC, 2)
+flash_bwd_dkv_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int hq,
+                          int hkv, int seq, int hd, float scale, int causal,
+                          int window, int vec) {
+  constexpr int kBytes = kTile * kD * 2;
+  constexpr int kP = kD / 64;
+  extern __shared__ unsigned char smem_tc[];
+  unsigned char* ks = smem_1k(smem_tc);     // resident K
+  unsigned char* vs = ks + kBytes;          // resident V
+  unsigned char* ring = vs + kBytes;        // stage s: Q at 2s, dO at 2s + 1
+  float* rows = reinterpret_cast<float*>(ring + 4 * kBytes);  // [stage][lse, delta][kTile]
+
+  const int k0 = blockIdx.y * kTile;  // the first key tiles see the most queries
+  const int bhk = blockIdx.x;
+  const int b = bhk / hkv;
+  const int hk = bhk - b * hkv;
+  const int group = hq / hkv;
+  const long kv_off = static_cast<long>(bhk) * seq * hd;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int tq = lane & 3;
+  const int c_lo = k0 + warp * 16;  // this warp's first key
+  const float sl2 = scale * kLog2e;
+
+  // query tiles that can see this key tile
+  int qlo = 0;
+  int qhi = (seq + kTile - 1) / kTile;
+  if (causal) {
+    qlo = k0 / kTile;
+    if (window > 0) {
+      const int k_last = min(k0 + kTile - 1, seq - 1);
+      qhi = min(k_last + window - 1, seq - 1) / kTile + 1;
+    }
+  }
+  const int n_q = qhi - qlo;
+  const int n_pairs = group * n_q;
+
+  // Q, dO, lse (+inf past seq, so P = 0 there) and delta of pair `i` into
+  // ring stage `st`
+  auto load_pair = [&](int i, int st) {
+    const int mem = i / n_q;
+    const int q0 = (qlo + i % n_q) * kTile;
+    const long bh = static_cast<long>(b) * hq + hk * group + mem;
+    unsigned char* stage = ring + st * 2 * kBytes;
+    load_tile_bf16<kD>(stage, q + bh * seq * hd, q0, seq, hd, vec);
+    load_tile_bf16<kD>(stage + kBytes, dout + bh * seq * hd, q0, seq, hd, vec);
+    float* rs = rows + st * 2 * kTile;
+    if (threadIdx.x < 2 * kTile) {
+      const int which = threadIdx.x / kTile;  // 0: lse, 1: delta
+      const int r = threadIdx.x % kTile;
+      const int g = q0 + r;
+      float* dst = rs + which * kTile + r;
+      if (g < seq) {
+        cp_async4(smem_addr(dst), (which ? delta : lse) + bh * seq + g);
+      } else {
+        *dst = which ? 0.f : INFINITY;
+      }
+    }
+  };
+
+  load_tile_bf16<kD>(ks, k + kv_off, k0, seq, hd, vec);
+  load_tile_bf16<kD>(vs, v + kv_off, k0, seq, hd, vec);
+  if (n_pairs > 0) load_pair(0, 0);
+  cp_async_commit();
+
+  const uint32_t sk = smem_addr(ks);
+  const uint32_t sv = smem_addr(vs);
+  const int n_k16 = (hd + 15) / 16;
+
+  float dka[kP][32], dva[kP][32];
+#pragma unroll
+  for (int p = 0; p < kP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) { dka[p][i] = 0.f; dva[p][i] = 0.f; }
+
+  for (int i = 0; i < n_pairs; ++i) {
+    const int st = i & 1;
+    if (i + 1 < n_pairs) {
+      load_pair(i + 1, st ^ 1);
+      cp_async_commit();
+      tiles_arrived<1>();
+    } else {
+      tiles_arrived<0>();
+    }
+    const uint32_t sq = smem_addr(ring + st * 2 * kBytes);
+    const uint32_t sdo = sq + kBytes;
+    const float* lses = rows + st * 2 * kTile;
+    const float* deltas = lses + kTile;
+    const int q0 = (qlo + i % n_q) * kTile;
+
+    // two halves of 32 query rows, to bound the live registers
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n0 = half * 32;  // first query row of the half, in the tile
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 32 query rows
+      float s[16], dp[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) { s[j] = 0.f; dp[j] = 0.f; }
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        if (kk < n_k16) {
+          wgmma_ss_n32(s, desc_k(sk, 0, kk), desc_k(sq, n0, kk));
+          wgmma_ss_n32(dp, desc_k(sv, 0, kk), desc_k(sdo, n0, kk));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T (into s) and dS^T (into dp), fp32; the mask only where needed
+      const int qh = q0 + n0;
+      const bool need_mask = (causal && c_lo + 15 > qh) ||
+                             (causal && window > 0 && qh + 31 - c_lo >= window);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int e = j & 3;
+        const int key = c_lo + gr + 8 * (e >> 1);
+        const int rl = n0 + 8 * (j >> 2) + 2 * tq + (e & 1);  // query row in the tile
+        float p = exp2f(s[j] * sl2 - lses[rl] * kLog2e);
+        if (need_mask && !keep_pair(q0 + rl, key, seq, causal, window)) p = 0.f;
+        s[j] = p;
+        dp[j] = p * (dp[j] - deltas[rl]) * scale;
+      }
+
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T (rounded to bf16) are
+      // the A operands from registers, dO and Q the MN-major B
+      uint32_t ap[2][4], ads[2][4];
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        acc_to_a(s, kc, ap[kc]);
+        acc_to_a(dp, kc, ads[kc]);
+        fence_regs(ap[kc]);
+        fence_regs(ads[kc]);
+      }
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        fence_regs(dva[p]);
+        fence_regs(dka[p]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          wgmma_rs_n64_t(dva[p], ap[kc], desc_mn(sdo, n0 + 16 * kc, p));
+          wgmma_rs_n64_t(dka[p], ads[kc], desc_mn(sq, n0 + 16 * kc, p));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        fence_regs(dva[p]);
+        fence_regs(dka[p]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's load
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = c_lo + gr + 8 * i;
+    if (key >= seq) continue;
+    bf16* dko = dk + kv_off + static_cast<long>(key) * hd;
+    bf16* dvo = dv + kv_off + static_cast<long>(key) * hd;
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 64 * p + 8 * j + 2 * tq;
+        if (c >= hd) continue;
+        const int r = 4 * j + 2 * i;
+        if ((hd & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(dko + c) =
+              __floats2bfloat162_rn(dka[p][r], dka[p][r + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dvo + c) =
+              __floats2bfloat162_rn(dva[p][r], dva[p][r + 1]);
+        } else {
+          dko[c] = __float2bfloat16(dka[p][r]);
+          dvo[c] = __float2bfloat16(dva[p][r]);
+          if (c + 1 < hd) {
+            dko[c + 1] = __float2bfloat16(dka[p][r + 1]);
+            dvo[c + 1] = __float2bfloat16(dva[p][r + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------------ //
+// launchers
+// ------------------------------------------------------------------------ //
 template <typename Kernel>
 int raise_smem_limit(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -333,40 +891,86 @@ int raise_smem_limit(Kernel kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int batch, int hq,
-              int hkv, int seq, int hd, float scale, int causal, int window,
-              cudaStream_t s) {
-  const int ld = hd + 1;
-  const size_t smem = sizeof(float) * (2 * kBQ * ld + 2 * kBK * ld + kBQ * (kBK + 1));
-  const int err = raise_smem_limit(flash_bwd_dq_kernel<T>, smem);
+// every bf16 slab 16-byte aligned with rows of whole 16-byte chunks
+bool vec_ok(int hd, std::initializer_list<const void*> ptrs) {
+  if (hd % 8 != 0) return false;
+  for (const void* p : ptrs) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  }
+  return true;
+}
+
+template <int kD>
+int launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, int batch, int hq,
+                   int hkv, int seq, int hd, float scale, int causal, int window,
+                   cudaStream_t s) {
+  // Q, dO, two stages of K and V, and the 1 KB alignment slack
+  const size_t smem = 6 * kTile * kD * 2 + 1024;
+  const int err = raise_smem_limit(flash_bwd_dq_kernel_bf16<kD>, smem);
   if (err != 0) return err;
-  const dim3 grid((seq + kBQ - 1) / kBQ, batch * hq);
-  flash_bwd_dq_kernel<T><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  const dim3 grid(batch * hq, (seq + kTile - 1) / kTile);
+  flash_bwd_dq_kernel_bf16<kD><<<grid, kTC, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), hq, hkv, seq, hd, scale, causal, window);
+      static_cast<bf16*>(dq), hq, hkv, seq, hd, scale, causal, window,
+      vec_ok(hd, {q, k, v, dout}) ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv, int batch,
-               int hq, int hkv, int seq, int hd, float scale, int causal,
-               int window, cudaStream_t s) {
+template <int kD>
+int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv,
+                    int batch, int hq, int hkv, int seq, int hd, float scale,
+                    int causal, int window, cudaStream_t s) {
+  // K, V, two stages of Q and dO, two stages of lse and delta, and the 1 KB
+  // alignment slack
+  const size_t smem = 6 * kTile * kD * 2 + 4 * kTile * sizeof(float) + 1024;
+  const int err = raise_smem_limit(flash_bwd_dkv_kernel_bf16<kD>, smem);
+  if (err != 0) return err;
+  const dim3 grid(batch * hkv, (seq + kTile - 1) / kTile);
+  flash_bwd_dkv_kernel_bf16<kD><<<grid, kTC, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq, hkv, seq, hd, scale,
+      causal, window, vec_ok(hd, {q, k, v, dout}) ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dq, int batch, int hq,
+                  int hkv, int seq, int hd, float scale, int causal, int window,
+                  cudaStream_t s) {
+  const int ld = hd + 1;
+  const size_t smem = sizeof(float) * (2 * kBQ * ld + 2 * kBK * ld + kBQ * (kBK + 1));
+  const int err = raise_smem_limit(flash_bwd_dq_kernel_f32, smem);
+  if (err != 0) return err;
+  const dim3 grid((seq + kBQ - 1) / kBQ, batch * hq);
+  flash_bwd_dq_kernel_f32<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), hq, hkv, seq, hd, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, int batch,
+                   int hq, int hkv, int seq, int hd, float scale, int causal,
+                   int window, cudaStream_t s) {
   const int ld = hd + 1;
   const size_t smem = sizeof(float) *
       (2 * kBK * ld + 2 * kBQ * ld + 2 * kBK * (kBQ + 1) + 2 * kBQ);
-  const int err = raise_smem_limit(flash_bwd_dkv_kernel<T>, smem);
+  const int err = raise_smem_limit(flash_bwd_dkv_kernel_f32, smem);
   if (err != 0) return err;
   const dim3 grid((seq + kBK - 1) / kBK, batch * hkv);
-  flash_bwd_dkv_kernel<T><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_bwd_dkv_kernel_f32<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), hq, hkv, seq, hd, scale,
+      static_cast<float*>(dk), static_cast<float*>(dv), hq, hkv, seq, hd, scale,
       causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -389,12 +993,15 @@ extern "C" int rlt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (batch <= 0 || seq <= 0) return static_cast<int>(cudaGetLastError());
   if (bad_shape(hq, hkv, hd)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    return launch_dq<float>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, seq,
-                            hd, scale, causal, window, s);
+    return launch_dq_f32(q, k, v, dout, lse, delta, dq, batch, hq, hkv, seq, hd,
+                         scale, causal, window, s);
   }
   if (dtype == 1) {
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, batch, hq,
-                                    hkv, seq, hd, scale, causal, window, s);
+    return hd <= 64
+        ? launch_dq_bf16<64>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, seq,
+                             hd, scale, causal, window, s)
+        : launch_dq_bf16<128>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, seq,
+                              hd, scale, causal, window, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -411,12 +1018,15 @@ extern "C" int rlt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (batch <= 0 || seq <= 0) return static_cast<int>(cudaGetLastError());
   if (bad_shape(hq, hkv, hd)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv,
-                             seq, hd, scale, causal, window, s);
+    return launch_dkv_f32(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, seq,
+                          hd, scale, causal, window, s);
   }
   if (dtype == 1) {
-    return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, batch,
-                                     hq, hkv, seq, hd, scale, causal, window, s);
+    return hd <= 64
+        ? launch_dkv_bf16<64>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv,
+                              seq, hd, scale, causal, window, s)
+        : launch_dkv_bf16<128>(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv,
+                               seq, hd, scale, causal, window, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

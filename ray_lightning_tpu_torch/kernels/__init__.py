@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -94,6 +95,49 @@ def build(sources: Optional[Iterable[str]] = None) -> List[Path]:
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return [library_path(n) for n in names]
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def resource_usage(source: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of every kernel in ``csrc/<source>``, as
+    ``nvcc -Xptxas -v`` reports them (a cubin compiled under the build
+    directory with the library's flags, not linked), by mangled kernel name:
+    ``{"registers": n, "spill_stores": bytes, "spill_loads": bytes}``.
+    Raises ``RuntimeError`` with the compiler's output if the compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cubin = BUILD_DIR / f"{Path(source).stem}.ptxas.cubin"
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run(
+        [_nvcc(), *flags, "-Xptxas", "-v", "--cubin", "-o", str(cubin),
+         str(CSRC_DIR / source)],
+        capture_output=True, text=True,
+    )
+    output = proc.stdout + proc.stderr
+    cubin.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v {source} failed:\n{output}")
+    usage: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in output.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            usage[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = _PTXAS_SPILLS.search(line)
+        if m:
+            usage[name]["spill_stores"] = int(m.group(1))
+            usage[name]["spill_loads"] = int(m.group(2))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
 
 
 def load_library(source: str) -> ctypes.CDLL:

@@ -6,8 +6,9 @@ without the conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
-Shapes are small and deliberately odd (ragged tiles, head dim 64, groups
-of 1 and 8, block sizes 8 and 32, a vocabulary that is no power of two),
+Shapes are small and deliberately odd (ragged tiles and lengths one off a
+tile edge, head dims from 17 to 128, groups of 1 to 8, windows across a
+tile edge, block sizes 8 and 32, a vocabulary that is no power of two),
 beside the main-path shapes chip_smoke.py checks.
 """
 import dataclasses
@@ -127,11 +128,32 @@ def _rel(got, want):
     return float((got - want).abs().max() / (want.abs().max() + 1e-12))
 
 
+def _bwd_inputs(cuda, B, hq, hkv, S, d, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, hq, S, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, hkv, S, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, hkv, S, d, generator=g, device=cuda).to(dtype)
+    do = torch.randn(B, hq, S, d, generator=g, device=cuda).to(dtype)
+    return q, k, v, do
+
+
 @pytest.mark.parametrize("B,hq,hkv,S,d,causal,window", [
     (1, 4, 4, 77, 64, True, None), (2, 8, 1, 77, 64, True, None),
     (1, 8, 8, 300, 128, True, None), (2, 8, 1, 300, 64, False, None),
     (1, 8, 2, 300, 128, True, 100), (1, 4, 4, 300, 64, True, 17),
     (1, 2, 2, 17, 32, True, None),
+    # the 64-row tiles' edges: one row short of a tile, exact, one over
+    (1, 4, 2, 63, 128, True, None), (1, 4, 2, 64, 128, True, None),
+    (1, 4, 2, 65, 128, True, None), (1, 4, 2, 127, 128, False, None),
+    (1, 4, 2, 128, 128, True, None), (1, 4, 2, 129, 128, True, None),
+    # head dims zero-padded to the 128-column panels; 36 and 17 are no
+    # multiple of 8, so their tiles load element by element (17: odd stores)
+    (1, 4, 2, 200, 80, True, None), (2, 4, 4, 150, 96, False, None),
+    (1, 4, 2, 100, 36, True, None), (1, 2, 1, 70, 17, True, None),
+    # group 4 at Llama-3-8B's 32 / 8 heads
+    (1, 32, 8, 256, 128, True, None),
+    # windows whose edges fall inside a tile
+    (1, 4, 2, 300, 128, True, 70), (1, 8, 2, 129, 96, True, 65),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_kernels(cuda, B, hq, hkv, S, d, causal, window, dtype):
@@ -148,11 +170,7 @@ def test_flash_backward_kernels(cuda, B, hq, hkv, S, d, causal, window, dtype):
         flash_attention_bwd_plain,
     )
 
-    g = torch.Generator(device=cuda).manual_seed(4)
-    q = torch.randn(B, hq, S, d, generator=g, device=cuda).to(dtype)
-    k = torch.randn(B, hkv, S, d, generator=g, device=cuda).to(dtype)
-    v = torch.randn(B, hkv, S, d, generator=g, device=cuda).to(dtype)
-    do = torch.randn(B, hq, S, d, generator=g, device=cuda).to(dtype)
+    q, k, v, do = _bwd_inputs(cuda, B, hq, hkv, S, d, dtype, 4)
     o, lse = flash_attention(q, k, v, causal=causal, window=window)
     before = (FLASH_BWD_DQ_KERNEL.launches, FLASH_BWD_DKV_KERNEL.launches)
     got = flash_attention_bwd(q, k, v, o, lse, do, causal, None, window)
@@ -165,6 +183,24 @@ def test_flash_backward_kernels(cuda, B, hq, hkv, S, d, causal, window, dtype):
         assert a.shape == b.shape and a.dtype == dtype
         assert b.float().abs().max() > 0, name
         assert _rel(a, b) <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_are_deterministic(cuda, dtype):
+    """Every output element of the backward kernels has one writer (no
+    atomics), so two launches on the same inputs give bitwise-equal dQ, dK
+    and dV."""
+    from ray_lightning_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+
+    q, k, v, do = _bwd_inputs(cuda, 2, 8, 2, 300, 128, dtype, 6)
+    o, lse = flash_attention(q, k, v, causal=True)
+    first = flash_attention_bwd(q, k, v, o, lse, do, True)
+    second = flash_attention_bwd(q, k, v, o, lse, do, True)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_raw_kernel_wrappers_refuse_inputs_that_require_grad(cuda):

@@ -152,6 +152,48 @@ def test_flash_backward_plain_matches_jax_kernels_in_bf16(case):
         assert _rel(g.float().numpy(), np.asarray(w, np.float32)) <= 2.0 ** -7, name
 
 
+# the shapes where the card tests hold the tensor-core backward kernels
+# against the plain version: head dims that are not a power of two (the JAX
+# flash path lane-pads them to 128) and a ragged S, which impl="flash"
+# refuses, so its gradient comes from impl="reference"
+EDGE_CASES = {
+    "hd80": dict(S=48, d=80, window=None, impl="flash"),
+    "hd96_window": dict(S=48, d=96, window=20, impl="flash"),
+    "ragged77": dict(S=77, d=64, window=None, impl="reference"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_flash_backward_plain_matches_jax_at_kernel_edges(case):
+    """fp32: flash_attention_bwd_plain against jax.grad of the JAX attention
+    (interpreted Pallas kernels in 16-row blocks, or the einsum reference
+    for the ragged length), GQA group 2, causal; 1e-4 relative to each
+    gradient's max (sums in other orders)."""
+    c = EDGE_CASES[case]
+    rng = np.random.default_rng(11)
+    q, do = (rng.standard_normal((1, 4, c["S"], c["d"])).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((1, 2, c["S"], c["d"])).astype(np.float32)
+            for _ in range(2))
+    extra = (dict(interpret=True, block_q=16, block_k=16)
+             if c["impl"] == "flash" else {})
+
+    def loss(q, k, v):
+        out = jattn.attention(q, k, v, causal=True, impl=c["impl"],
+                              window=c["window"], **extra)
+        return jnp.sum(out * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    o, lse = tattn.flash_attention(_t(q), _t(k), _t(v), True, None,
+                                   c["window"])
+    got = tattn.flash_attention_bwd_plain(_t(q), _t(k), _t(v), o, lse, _t(do),
+                                          True, None, c["window"])
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape, name
+        assert _rel(g.numpy(), w) < 1e-4, f"d{name}"
+
+
 def test_flash_backward_checks_its_inputs():
     q = torch.zeros(1, 2, 8, 16)
     lse = torch.zeros(1, 2, 8, 1)
