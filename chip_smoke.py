@@ -11,15 +11,17 @@ final line):
 1. device — the card's name and power limit; TF32 is switched off for
    matmuls and cuDNN so fp32 references mean fp32;
 2. build — every ``csrc/*.cu`` kernel compiled from the checkout with nvcc
-   (one process per source, all at once), timed; the flash backward
-   kernels' registers and spills (``nvcc -Xptxas -v``): the tensor-core
-   instantiations must not spill;
+   (one process per source, all at once), timed; the flash kernels'
+   registers and spills (``nvcc -Xptxas -v``): the tensor-core (bf16)
+   instantiations, two forward and four backward, must not spill;
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the shapes the main paths give it (and, for the flash backward pair, at
-   odd ones: ragged S, a window, non-causal, GQA group 4 at head dim 64,
+   the shapes the main paths give it (and, for the flash kernels, at odd
+   ones: ragged S, a window, non-causal, GQA group 4 at head dim 64,
    fp32), with the stated tolerance; the kernel's, the plain version's and
-   a library call's times (CUDA events), and the backward pair's TFLOP/s
-   and share of its bound;
+   a library call's times (CUDA events around the replay of a CUDA graph
+   of the calls, so the host's launch rate is out of them; the kernel's
+   eager back-to-back time beside it as ``ms_eager``), and the flash
+   kernels' TFLOP/s and share of their bound;
 4. serving main path — Llama-3-8B at full width and depth (random bf16
    weights from a seeded generator) served by the paged
    ``InferenceEngine``: 16 staggered requests of mixed lengths, some
@@ -82,35 +84,60 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters=20, warmup=3, cold=False):
+def time_ms(torch, fn, iters=20, warmup=3, cold=False, graph=True):
     """Mean device time of one call, from CUDA events around ``iters``
-    back-to-back calls (inputs stay hot in L2 where they fit). ``cold``
-    evicts L2 before each call by writing 64 MB and times each call alone:
-    for inputs the main path finds cold, as decode finds a layer's KV
-    cache."""
-    for _ in range(warmup):
+    calls. ``graph``: the calls are captured once in a CUDA graph and the
+    events time its replay, so the time is the device's alone; otherwise
+    they time back-to-back eager calls, which read the host's launch rate
+    wherever a call takes the device less time than the host takes to issue
+    it. Inputs stay hot in L2 where they fit. ``cold`` writes 64 MB before
+    each call to evict L2 (for inputs the main path finds cold, as decode
+    finds a layer's KV cache) and subtracts that write's own time, measured
+    the same way."""
+    if not cold:
+        return _timed(torch, fn, iters, warmup, graph)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def flushed():
+        flush.zero_()
         fn()
-    torch.cuda.synchronize()
-    if cold:
-        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-        events = []
-        for _ in range(iters):
-            flush.zero_()
-            pair = (torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-            pair[0].record()
+
+    return (_timed(torch, flushed, iters, warmup, graph)
+            - _timed(torch, flush.zero_, iters, warmup, graph))
+
+
+def _timed(torch, fn, iters, warmup, graph):
+    # warm-up on a side stream, so allocations and library handles are made
+    # before any capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
             fn()
-            pair[1].record()
-            events.append(pair)
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in events) / iters
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()  # the first replay uploads the graph
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+    else:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
     torch.cuda.synchronize()
+    # cuBLAS keeps a workspace for every stream it has run on (here the side
+    # and the capture streams): free them, or they stay allocated and count
+    # in the training path's peak memory
+    torch._C._cuda_clearCublasWorkspaces()
     return start.elapsed_time(end) / iters
 
 
@@ -132,24 +159,28 @@ def within(a, b, atol, rtol):
 
 
 def report_registers(kernels):
-    """Registers and spills of the flash backward kernels (nvcc -Xptxas
-    -v); the tensor-core (bf16) instantiations must not spill."""
+    """Registers and spills of the flash kernels (nvcc -Xptxas -v); the
+    tensor-core (bf16) instantiations, two of the forward and four of the
+    backward, must not spill."""
     import re
 
-    usage = kernels.resource_usage("flash_bwd.cu")
-    tc = 0
-    for mangled, u in sorted(usage.items()):
-        m = re.search(r"(flash_bwd_d\w*?_kernel_(?:bf16|f32))(?:ILi(\d+)E)?",
-                      mangled)
-        label = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
-                 if m else mangled)
-        log(f"ptxas {label}: {u['registers']} registers, spill stores "
-            f"{u['spill_stores']} B, spill loads {u['spill_loads']} B")
-        if "kernel_bf16" in mangled:
-            tc += 1
-            check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
-                  f"{label} spills registers")
-    check(tc == 4, f"expected 4 bf16 backward instantiations, found {tc}")
+    tc = {"flash_fwd.cu": 0, "flash_bwd.cu": 0}
+    for source in tc:
+        usage = kernels.resource_usage(source)
+        for mangled, u in sorted(usage.items()):
+            m = re.search(r"(flash_\w*?_kernel_(?:bf16|f32))(?:ILi(\d+)E)?",
+                          mangled)
+            label = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                     if m else mangled)
+            log(f"ptxas {label}: {u['registers']} registers, spill stores "
+                f"{u['spill_stores']} B, spill loads {u['spill_loads']} B")
+            if "kernel_bf16" in mangled:
+                tc[source] += 1
+                check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
+                      f"{label} spills registers")
+    check(tc == {"flash_fwd.cu": 2, "flash_bwd.cu": 4},
+          f"expected 2 bf16 forward and 4 bf16 backward instantiations, "
+          f"found {tc}")
 
 
 # --------------------------------------------------------------------- #
@@ -175,12 +206,14 @@ def check_rmsnorm(torch, F):
         b, by = bound(2 * x.numel() * 2 + dim * 2, 4 * x.numel(), FP32_FLOPS)
         rows_out[rows] = dict(
             max_abs_err=err, ms=time_ms(torch, lambda: rmsnorm(x, w, 1e-5)),
+            ms_eager=time_ms(torch, lambda: rmsnorm(x, w, 1e-5), graph=False),
             plain_ms=time_ms(torch, lambda: rmsnorm_plain(x, w, 1e-5)),
             bound_ms=b, bound_by=by, library_ms=lib,
             shape=f"[{rows},{dim}] bf16",
         )
         log(f"rmsnorm [{rows},{dim}] bf16: max_abs_err {err:.3g} (tol 1e-2 + "
-            f"1e-2|ref|) kernel_ms {rows_out[rows]['ms']:.4f} plain_ms "
+            f"1e-2|ref|) kernel_ms {rows_out[rows]['ms']:.4f} (eager "
+            f"{rows_out[rows]['ms_eager']:.4f}) plain_ms "
             f"{rows_out[rows]['plain_ms']:.4f} library_ms(F.rms_norm) {lib} "
             f"bound_ms {b:.5f} ({by})")
     out = dict(rows_out[8])
@@ -190,34 +223,42 @@ def check_rmsnorm(torch, F):
 
 
 def check_flash(torch, F):
+    """The forward kernel against its plain version at the prefill shape,
+    at odd ones (ragged S, a window, non-causal, GQA group 4 at head dim 64,
+    fp32) and at the training shape; timed at the prefill and the training
+    shapes."""
     from ray_lightning_tpu_torch.ops.attention import (
         flash_attention,
         flash_attention_plain,
     )
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    cases = [
-        ("causal bf16", 512, torch.bfloat16, None, 2e-2, 1e-4),
-        ("ragged 300 bf16", 300, torch.bfloat16, None, 2e-2, 1e-4),
-        ("window 128 bf16", 512, torch.bfloat16, 128, 2e-2, 1e-4),
-        ("causal fp32", 512, torch.float32, None, 1e-4, 1e-4),
+    bf, f32 = torch.bfloat16, torch.float32
+    # bf16: the kernel rounds P to bf16 before P V (as the TPU kernel does)
+    # and O is rounded to bf16: 2e-2 on O; lse is fp32 on both sides
+    cases = [  # name, B, Hq, Hkv, S, head dim, dtype, causal, window, tol on O
+        ("causal bf16", 1, 32, 8, 512, 128, bf, True, None, 2e-2),
+        ("ragged 300 bf16", 1, 32, 8, 300, 128, bf, True, None, 2e-2),
+        ("ragged 129 bf16", 1, 32, 8, 129, 128, bf, True, None, 2e-2),
+        ("window 128 bf16", 1, 32, 8, 512, 128, bf, True, 128, 2e-2),
+        ("non-causal bf16", 1, 32, 8, 512, 128, bf, False, None, 2e-2),
+        ("group 4 hd 64 bf16", 2, 32, 8, 512, 64, bf, True, None, 2e-2),
+        ("causal fp32", 1, 32, 8, 512, 128, f32, True, None, 1e-4),
     ]
     worst = 0.0
     main = None
-    for name, S, dt, window, tol_o, tol_lse in cases:
-        q = torch.randn(1, 32, S, 128, generator=g, device="cuda").to(dt)
-        k = torch.randn(1, 8, S, 128, generator=g, device="cuda").to(dt)
-        v = torch.randn(1, 8, S, 128, generator=g, device="cuda").to(dt)
-        o, lse = flash_attention(q, k, v, causal=True, window=window)
-        po, plse = flash_attention_plain(q, k, v, True, None, window)
-        # bf16: the kernel rounds p to bf16 before P V (as the TPU kernel
-        # does) and O is rounded to bf16: 2e-2 on O; lse is fp32 on both
+    for name, B, hq, hkv, S, hd, dt, causal, window, tol_o in cases:
+        q = torch.randn(B, hq, S, hd, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, hkv, S, hd, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, hkv, S, hd, generator=g, device="cuda").to(dt)
+        o, lse = flash_attention(q, k, v, causal=causal, window=window)
+        po, plse = flash_attention_plain(q, k, v, causal, None, window)
         check(within(o, po, tol_o, tol_o), f"flash {name}: O vs plain")
-        check(within(lse, plse, tol_lse, tol_lse), f"flash {name}: lse vs plain")
+        check(within(lse, plse, 1e-4, 1e-4), f"flash {name}: lse vs plain")
         err = max(max_err(o, po), max_err(lse, plse))
         worst = max(worst, err)
-        log(f"flash {name} q[1,32,{S},128] kv[1,8,{S},128]: max_abs_err "
-            f"{err:.3g} (tol {tol_o} on O, {tol_lse} on lse)")
+        log(f"flash {name} q[{B},{hq},{S},{hd}] kv[{B},{hkv},{S},{hd}]: "
+            f"max_abs_err {err:.3g} (tol {tol_o} on O, 1e-4 on lse)")
         if name == "causal bf16":
             kr = k.repeat_interleave(4, dim=1)
             vr = v.repeat_interleave(4, dim=1)
@@ -229,14 +270,19 @@ def check_flash(torch, F):
             b, by = bound(nbytes, 4 * 32 * pairs * 128, BF16_FLOPS)
             main = dict(
                 ms=time_ms(torch, lambda: flash_attention(q, k, v)),
+                ms_eager=time_ms(torch, lambda: flash_attention(q, k, v),
+                                 graph=False),
                 plain_ms=time_ms(torch, lambda: flash_attention_plain(
                     q, k, v, True, None, None)),
                 bound_ms=b, bound_by=by, library_ms=lib,
                 shape="q[1,32,512,128] kv[1,8,512,128] bf16 causal",
             )
             log(f"flash causal bf16 S=512: kernel_ms {main['ms']:.4f} "
-                f"plain_ms {main['plain_ms']:.4f} library_ms(SDPA) {lib:.4f} "
-                f"bound_ms {b:.5f} ({by})")
+                f"(eager {main['ms_eager']:.4f}) plain_ms "
+                f"{main['plain_ms']:.4f} library_ms(SDPA) {lib:.4f} "
+                f"bound_ms {b:.5f} ({by}); {b / main['ms']:.2%} of its bound, "
+                f"{main['ms'] / lib:.2f}x SDPA")
+        del q, k, v, o, lse, po, plse
     # the training path's shape: q [8,16,2048,128], kv [8,8,2048,128]
     q = torch.randn(8, 16, 2048, 128, generator=g, device="cuda").bfloat16()
     k = torch.randn(8, 8, 2048, 128, generator=g, device="cuda").bfloat16()
@@ -250,11 +296,14 @@ def check_flash(torch, F):
     del po, plse
     kr, vr = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
     pairs = 8 * 16 * 2048 * 2049 // 2
+    flops = 4 * pairs * 128
     b, by = bound(q.numel() * 2 * 2 + k.numel() * 2 * 2 + lse.numel() * 4,
-                  4 * pairs * 128, BF16_FLOPS)
+                  flops, BF16_FLOPS)
     main["at_training_shape"] = dict(
         shape="q[8,16,2048,128] kv[8,8,2048,128] bf16 causal",
         ms=time_ms(torch, lambda: flash_attention(q, k, v), iters=10),
+        ms_eager=time_ms(torch, lambda: flash_attention(q, k, v), iters=10,
+                         graph=False),
         plain_ms=time_ms(torch, lambda: flash_attention_plain(
             q, k, v, True, None, None), iters=5, warmup=1),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -263,8 +312,12 @@ def check_flash(torch, F):
     )
     t = main["at_training_shape"]
     log(f"flash at the training shape {t['shape']}: max_abs_err {err:.3g} "
-        f"kernel_ms {t['ms']:.3f} plain_ms {t['plain_ms']:.3f} "
-        f"library_ms(SDPA) {t['library_ms']:.3f} bound_ms {b:.4f} ({by})")
+        f"kernel_ms {t['ms']:.4f} (eager {t['ms_eager']:.4f}) plain_ms "
+        f"{t['plain_ms']:.3f} library_ms(SDPA) {t['library_ms']:.4f} "
+        f"bound_ms {b:.4f} ({by})")
+    log(f"flash fwd at the training shape: {flops / t['ms'] / 1e9:.1f} "
+        f"TFLOP/s ({flops / 1e12:.4f} TFLOP in {t['ms']:.4f} ms), "
+        f"{b / t['ms']:.2%} of its bound, {t['ms'] / t['library_ms']:.2f}x SDPA")
     del q, k, v, o, lse, kr, vr
     torch.cuda.empty_cache()
     main["max_abs_err"] = worst
@@ -332,6 +385,11 @@ def check_flash_bwd(torch, F):
     q, k, v, o, lse, do, B, hq, S = timed
     scale = 1.0 / 128 ** 0.5
     delta = (o.float() * do.float()).sum(dim=-1, keepdim=True)
+    eager = {}
+    for kname, fn in (("dq", flash_attention_bwd_dq),
+                      ("dkv", flash_attention_bwd_dkv)):
+        eager[kname] = time_ms(torch, lambda: fn(
+            q, k, v, do, lse, delta, True, scale, None), iters=10, graph=False)
     dq_ms = time_ms(torch, lambda: flash_attention_bwd_dq(
         q, k, v, do, lse, delta, True, scale, None), iters=10)
     dkv_ms = time_ms(torch, lambda: flash_attention_bwd_dkv(
@@ -364,8 +422,9 @@ def check_flash_bwd(torch, F):
     shape = f"q[{B},{hq},{S},128] kv[{B},{hq // 2},{S},128] bf16 causal"
     common = dict(plain_ms=plain_ms, library_ms=lib_ms, shape=shape,
                   plain_and_library_compute="dq, dk and dv together")
-    log(f"flash bwd at the training shape {shape}: dq kernel_ms {dq_ms:.3f} "
-        f"(bound {b_dq:.4f}, {by_dq}) dkv kernel_ms {dkv_ms:.3f} (bound "
+    log(f"flash bwd at the training shape {shape}: dq kernel_ms {dq_ms:.4f} "
+        f"(eager {eager['dq']:.4f}; bound {b_dq:.4f}, {by_dq}) dkv kernel_ms "
+        f"{dkv_ms:.4f} (eager {eager['dkv']:.4f}; bound "
         f"{b_dkv:.4f}, {by_dkv}); plain backward (dq+dk+dv) {plain_ms:.3f} ms; "
         f"library_ms (SDPA backward, fwd+bwd minus fwd) {lib_ms:.3f}")
     for kname, ms, flops, b in (("dq", dq_ms, flops_dq, b_dq),
@@ -377,10 +436,10 @@ def check_flash_bwd(torch, F):
         f"{(dq_ms + dkv_ms) / lib_ms:.2f}x SDPA's backward")
     del timed, q, k, v, o, lse, do, delta
     torch.cuda.empty_cache()
-    return (dict(common, max_abs_err=worst["dq"], ms=dq_ms, bound_ms=b_dq,
-                 bound_by=by_dq),
-            dict(common, max_abs_err=worst["dkv"], ms=dkv_ms, bound_ms=b_dkv,
-                 bound_by=by_dkv))
+    return (dict(common, max_abs_err=worst["dq"], ms=dq_ms,
+                 ms_eager=eager["dq"], bound_ms=b_dq, bound_by=by_dq),
+            dict(common, max_abs_err=worst["dkv"], ms=dkv_ms,
+                 ms_eager=eager["dkv"], bound_ms=b_dkv, bound_by=by_dkv))
 
 
 def check_paged(torch, F):
@@ -431,6 +490,8 @@ def check_paged(torch, F):
         max_abs_err=err,
         ms=time_ms(torch, lambda: paged_decode_attention(q, kc, vc, t_tab, t_pos),
                    cold=True),
+        ms_eager=time_ms(torch, lambda: paged_decode_attention(
+            q, kc, vc, t_tab, t_pos), cold=True, graph=False),
         plain_ms=time_ms(torch, lambda: paged_decode_attention_plain(
             q, kc, vc, t_tab, t_pos), cold=True),
         bound_ms=b, bound_by=by, library_ms=lib,
@@ -439,7 +500,8 @@ def check_paged(torch, F):
     warm = time_ms(torch, lambda: paged_decode_attention(q, kc, vc, t_tab, t_pos))
     log(f"paged decode (times with L2 flushed; kernel_ms {warm:.4f} with the "
         f"cache hot in L2): max_abs_err {err:.3g} (tol 1e-4) kernel_ms "
-        f"{out['ms']:.4f} plain_ms {out['plain_ms']:.4f} library_ms(SDPA on "
+        f"{out['ms']:.4f} (eager {out['ms_eager']:.4f}) plain_ms "
+        f"{out['plain_ms']:.4f} library_ms(SDPA on "
         f"gathered KV) {lib:.4f} bound_ms {b:.5f} ({by}, {nbytes / 1e6:.1f} MB)")
     return out
 
@@ -471,6 +533,7 @@ def check_argmax(torch):
     out = dict(
         max_abs_err=float(max(errs)),
         ms=time_ms(torch, lambda: blockwise_argmax(x)),
+        ms_eager=time_ms(torch, lambda: blockwise_argmax(x), graph=False),
         plain_ms=time_ms(torch, lambda: blockwise_argmax_plain(x)),
         bound_ms=b, bound_by=by,
         library_ms=time_ms(torch, lambda: torch.argmax(x, dim=-1)),
@@ -478,7 +541,8 @@ def check_argmax(torch):
     )
     noisy_ms = time_ms(torch, lambda: blockwise_argmax(x, noise))
     log(f"argmax [8,128256]: exact on greedy and noisy (planted ties) "
-        f"kernel_ms {out['ms']:.4f} noisy_ms {noisy_ms:.4f} plain_ms "
+        f"kernel_ms {out['ms']:.4f} (eager {out['ms_eager']:.4f}) noisy_ms "
+        f"{noisy_ms:.4f} plain_ms "
         f"{out['plain_ms']:.4f} library_ms(torch.argmax) "
         f"{out['library_ms']:.4f} bound_ms {b:.5f} ({by})")
     return out
@@ -955,7 +1019,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{key: r[key] for key in ("shape", "plain_and_library_compute",
+            **{key: r[key] for key in ("ms_eager", "shape",
+                                       "plain_and_library_compute",
                                        "at_training_shape") if key in r},
         })
     log(f"done in {time.perf_counter() - T0:.1f}s")

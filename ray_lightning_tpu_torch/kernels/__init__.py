@@ -2,7 +2,8 @@
 
 Every ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface, under
-``build/torch_kernels/`` at the root of the checkout, at first use. The
+``build/torch_kernels/`` at the root of the checkout, at first use, and
+again when the source or a shared header (``csrc/*.cuh``) is newer. The
 library loads with ``ctypes``; every pointer and the stream pass as
 ``ctypes.c_void_p``. Each C entry point launches on PyTorch's current stream
 and returns ``cudaGetLastError()``; :meth:`CudaKernel.launch` raises when it
@@ -58,14 +59,18 @@ def library_path(source: str) -> Path:
 
 
 def _stale(source: str) -> bool:
+    """The library is missing, or older than its source or than any shared
+    header (``csrc/*.cuh``) the sources may include."""
     lib = library_path(source)
-    src = CSRC_DIR / source
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    inputs = [CSRC_DIR / source, *CSRC_DIR.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build(sources: Optional[Iterable[str]] = None) -> List[Path]:
-    """Compile the given ``csrc`` sources (default: all of them) that are
-    missing or older than their source, one nvcc process per source, all
+    """Compile the given ``csrc`` sources (default: all of them) whose
+    library is missing or stale (``_stale``), one nvcc process per source, all
     started together. Raises ``RuntimeError`` with the compiler's output if
     any build fails. Returns the library paths."""
     names = sorted(

@@ -47,24 +47,69 @@ def test_rmsnorm_kernel(cuda, dtype, shape):
     _close(got, rmsnorm_plain(x, w, 1e-5), 1e-5 if dtype == torch.float32 else 2e-2)
 
 
+def _flash_inputs(cuda, B, hq, hkv, S, d, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, hq, S, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, hkv, S, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, hkv, S, d, generator=g, device=cuda).to(dtype)
+    return q, k, v
+
+
 @pytest.mark.parametrize("S,hq,hkv,d,causal,window", [
     (1, 4, 4, 64, True, None), (65, 8, 2, 64, True, None),
     (130, 4, 1, 128, False, None), (200, 8, 8, 32, True, 17),
     (64, 32, 8, 128, True, 64),
+    # the bf16 kernel's 64-key tiles and 128-row blocks: one short of an
+    # edge, exact, one over
+    (63, 4, 2, 128, True, None), (64, 4, 2, 128, True, None),
+    (65, 4, 2, 128, True, None), (127, 4, 2, 128, True, None),
+    (128, 4, 2, 128, True, None), (129, 4, 2, 128, True, None),
+    (255, 4, 2, 128, True, None), (256, 4, 2, 128, True, None),
+    (257, 4, 2, 128, True, None),
+    # head dims zero-padded to the 64- or 128-column panels; 36 and 17 are
+    # no multiple of 8, so they load and store element by element
+    (150, 4, 2, 17, True, None), (150, 4, 2, 36, True, None),
+    (200, 4, 2, 80, True, None), (200, 4, 4, 96, False, None),
+    # group 4 at Llama-3-8B's 32 / 8 heads
+    (256, 32, 8, 128, True, None),
+    # windows whose edges fall inside a tile
+    (300, 4, 2, 128, True, 70), (129, 8, 2, 96, True, 65),
+    # non-causal, ragged
+    (65, 4, 2, 128, False, None), (257, 8, 2, 64, False, None),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel(cuda, S, hq, hkv, d, causal, window, dtype):
-    from ray_lightning_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+    """The forward kernel against flash_attention_plain: 1e-4 on O in fp32
+    (sums in another order), 2e-2 in bf16 (P and O rounded to bf16), 1e-4
+    on lse (fp32 on both sides). One launch per call."""
+    from ray_lightning_tpu_torch.ops.attention import (
+        FLASH_FWD_KERNEL,
+        flash_attention,
+        flash_attention_plain,
+    )
 
-    g = torch.Generator(device=cuda).manual_seed(1)
-    q = torch.randn(2, hq, S, d, generator=g, device=cuda).to(dtype)
-    k = torch.randn(2, hkv, S, d, generator=g, device=cuda).to(dtype)
-    v = torch.randn(2, hkv, S, d, generator=g, device=cuda).to(dtype)
+    q, k, v = _flash_inputs(cuda, 2, hq, hkv, S, d, dtype, 1)
+    before = FLASH_FWD_KERNEL.launches
     o, lse = flash_attention(q, k, v, causal=causal, window=window)
+    assert FLASH_FWD_KERNEL.launches == before + 1
     po, plse = flash_attention_plain(q, k, v, causal, None,
                                      window if window and window < S else None)
+    assert o.dtype == dtype and lse.shape == (2, hq, S, 1)
     _close(o, po, 1e-4 if dtype == torch.float32 else 2e-2)
     _close(lse, plse, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_is_deterministic(cuda, dtype):
+    """Every output element of the forward kernel has one writer, so two
+    launches on the same inputs give bitwise-equal O and lse."""
+    from ray_lightning_tpu_torch.ops.attention import flash_attention
+
+    q, k, v = _flash_inputs(cuda, 2, 8, 2, 300, 128, dtype, 7)
+    first = flash_attention(q, k, v, causal=True)
+    second = flash_attention(q, k, v, causal=True)
+    for name, a, b in zip(("o", "lse"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("group,bs", [(1, 8), (4, 16), (8, 32)])

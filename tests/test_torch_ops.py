@@ -81,6 +81,9 @@ FLASH_CASES = {
     "gqa": dict(hq=8, hkv=2, d=32, causal=True, window=None),
     "window": dict(hq=4, hkv=2, d=32, causal=True, window=24),
     "hd64": dict(hq=4, hkv=2, d=64, causal=True, window=None),
+    "group4": dict(hq=16, hkv=4, d=32, causal=True, window=None),
+    # a window's edge inside the 16-row blocks
+    "window20": dict(hq=4, hkv=2, d=32, causal=True, window=20),
 }
 
 
