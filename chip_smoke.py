@@ -11,17 +11,22 @@ final line):
 1. device — the card's name and power limit; TF32 is switched off for
    matmuls and cuDNN so fp32 references mean fp32;
 2. build — every ``csrc/*.cu`` kernel compiled from the checkout with nvcc
-   (one process per source, all at once), timed; the flash kernels'
-   registers and spills (``nvcc -Xptxas -v``): the tensor-core (bf16)
-   instantiations, two forward and four backward, must not spill;
+   (one process per source, all at once), timed; registers and spills
+   (``nvcc -Xptxas -v``): the flash kernels' tensor-core (bf16)
+   instantiations, two forward and four backward, and every instantiation
+   of the paged decode and RMSNorm kernels must not spill;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it (and, for the flash kernels, at odd
    ones: ragged S, a window, non-causal, GQA group 4 at head dim 64,
    fp32), with the stated tolerance; the kernel's, the plain version's and
    a library call's times (CUDA events around the replay of a CUDA graph
    of the calls, so the host's launch rate is out of them; the kernel's
-   eager back-to-back time beside it as ``ms_eager``), and the flash
-   kernels' TFLOP/s and share of their bound;
+   eager back-to-back time beside it as ``ms_eager``), every kernel's
+   share of its bound and the flash kernels' TFLOP/s. RMSNorm is timed at
+   the decode, prefill and training shapes and at [1,64] (the practical
+   floor of a launch); paged decode at ragged positions and at the full
+   cache, bitwise repeatable, and replayed from a CUDA graph at new
+   positions, bitwise equal to eager calls;
 4. serving main path — Llama-3-8B at full width and depth (random bf16
    weights from a seeded generator) served by the paged
    ``InferenceEngine``: 16 staggered requests of mixed lengths, some
@@ -158,10 +163,26 @@ def within(a, b, atol, rtol):
     return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
 
 
+def _template_label(mangled, names):
+    """``name<type,ints>`` from a mangled instantiation of one of ``names``
+    (``f`` is float, ``13__nv_bfloat16`` bf16), else the mangled name."""
+    import re
+
+    m = re.search(r"(%s)I(f|13__nv_bfloat16)((?:L[ib]\d+E)*)E" % "|".join(names),
+                  mangled)
+    if not m:
+        return mangled
+    args = ["f32" if m.group(2) == "f" else "bf16",
+            *re.findall(r"L[ib](\d+)E", m.group(3))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
 def report_registers(kernels):
-    """Registers and spills of the flash kernels (nvcc -Xptxas -v); the
-    tensor-core (bf16) instantiations, two of the forward and four of the
-    backward, must not spill."""
+    """Registers and spills (nvcc -Xptxas -v) of the flash kernels, one line
+    each: the tensor-core (bf16) instantiations, two of the forward and four
+    of the backward, must not spill; and of every instantiation of the paged
+    decode (dtype x G x hd) and RMSNorm kernels, one line per source: none
+    may spill."""
     import re
 
     tc = {"flash_fwd.cu": 0, "flash_bwd.cu": 0}
@@ -181,6 +202,26 @@ def report_registers(kernels):
     check(tc == {"flash_fwd.cu": 2, "flash_bwd.cu": 4},
           f"expected 2 bf16 forward and 4 bf16 backward instantiations, "
           f"found {tc}")
+    # dtype x G x hd; dtype x (5 vector lengths x (3 warps a row with w
+    # staged + 4 warps a row with w in registers) + the scalar kernel)
+    expect = {"paged_decode.cu": (("paged_decode_kernel",), 32),
+              "rmsnorm.cu": (("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel"), 42)}
+    # the instantiations the main paths launch: decode, prefill, training
+    main_path = ("paged_decode_kernel<bf16,4,128>", "rmsnorm_vec_kernel<bf16,4,4,0>",
+                 "rmsnorm_vec_kernel<bf16,16,1,1>", "rmsnorm_vec_kernel<bf16,8,1,1>")
+    for source, (names, count) in expect.items():
+        usage = {_template_label(k, names): u
+                 for k, u in kernels.resource_usage(source).items()}
+        spills = [k for k, u in usage.items()
+                  if u["spill_stores"] or u["spill_loads"]]
+        regs = [u["registers"] for u in usage.values()]
+        log(f"ptxas {source}: {len(usage)} instantiations, {min(regs)}-"
+            f"{max(regs)} registers, spills in {spills or 'none'}; "
+            + ", ".join(f"{k} {usage[k]['registers']} registers"
+                        for k in main_path if k in usage))
+        check(len(usage) == count,
+              f"{source}: {len(usage)} instantiations, expected {count}")
+        check(not spills, f"{source}: {spills} spill registers")
 
 
 # --------------------------------------------------------------------- #
@@ -200,25 +241,41 @@ def check_rmsnorm(torch, F):
         # both round one fp32 value to bf16; sums in another order can
         # move it by one bf16 ulp (2^-8 relative)
         check(within(got, want, 1e-2, 1e-2), f"rmsnorm [{rows},{dim}] vs plain")
+        check(torch.equal(got, rmsnorm(x, w, 1e-5)),
+              f"rmsnorm [{rows},{dim}]: two launches differ")
         err = max_err(got, want)
         lib = (time_ms(torch, lambda: F.rms_norm(x, (dim,), w, 1e-5))
                if hasattr(F, "rms_norm") else None)
         b, by = bound(2 * x.numel() * 2 + dim * 2, 4 * x.numel(), FP32_FLOPS)
-        rows_out[rows] = dict(
+        # a practical ceiling: torch's copy kernel moving x's bytes once each way
+        y = torch.empty_like(x)
+        copy = time_ms(torch, lambda: y.copy_(x))
+        r = rows_out[rows] = dict(
             max_abs_err=err, ms=time_ms(torch, lambda: rmsnorm(x, w, 1e-5)),
             ms_eager=time_ms(torch, lambda: rmsnorm(x, w, 1e-5), graph=False),
             plain_ms=time_ms(torch, lambda: rmsnorm_plain(x, w, 1e-5)),
-            bound_ms=b, bound_by=by, library_ms=lib,
+            bound_ms=b, bound_by=by, library_ms=lib, copy_ms=copy,
             shape=f"[{rows},{dim}] bf16",
         )
+        lib_txt = f"{lib:.4f}" if lib is not None else "n/a"
         log(f"rmsnorm [{rows},{dim}] bf16: max_abs_err {err:.3g} (tol 1e-2 + "
-            f"1e-2|ref|) kernel_ms {rows_out[rows]['ms']:.4f} (eager "
-            f"{rows_out[rows]['ms_eager']:.4f}) plain_ms "
-            f"{rows_out[rows]['plain_ms']:.4f} library_ms(F.rms_norm) {lib} "
-            f"bound_ms {b:.5f} ({by})")
+            f"1e-2|ref|), bitwise repeatable; kernel_ms {r['ms']:.4f} (eager "
+            f"{r['ms_eager']:.4f}) plain_ms {r['plain_ms']:.4f} "
+            f"library_ms(F.rms_norm) {lib_txt} bound_ms {b:.5f} ({by}); "
+            f"{b / r['ms']:.2%} of its bound; copy_ms(x's bytes through "
+            f"Tensor.copy_) {copy:.4f}")
+    # the practical floor of one launch: the same kernel on one 64-wide row,
+    # by graph replay (the device's time alone)
+    x = torch.randn(1, 64, generator=g, device="cuda").bfloat16()
+    w = torch.ones(64, device="cuda").bfloat16()
+    floor = time_ms(torch, lambda: rmsnorm(x, w, 1e-5))
+    log(f"rmsnorm launch floor ([1,64] bf16, graph replay): {floor:.4f} ms; "
+        f"the decode shape [8,4096] takes {rows_out[8]['ms'] / floor:.2f}x it")
     out = dict(rows_out[8])
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows_out.values())
+    out["at_prefill_shape"] = rows_out[512]
     out["at_training_shape"] = rows_out[16384]
+    out["launch_floor_ms"] = floor
     return out
 
 
@@ -443,6 +500,12 @@ def check_flash_bwd(torch, F):
 
 
 def check_paged(torch, F):
+    """The paged decode kernel against its plain version at the serving
+    path's layout (8 rows x 8 KV heads x G 4, hd 128, bs 16, 64 blocks a
+    row, bf16 cache), timed with L2 flushed at two shapes: ragged positions
+    (the test shape) and the full cache (every row at pos 1023). A CUDA
+    graph of one call, replayed with new positions written in place, must
+    equal eager calls bitwise."""
     import numpy as np
 
     from ray_lightning_tpu_torch.ops.paged_attention import (
@@ -456,53 +519,93 @@ def check_paged(torch, F):
     kc = torch.randn(n_blocks, hkv, bs, hd, generator=g, device="cuda").bfloat16()
     vc = torch.randn(n_blocks, hkv, bs, hd, generator=g, device="cuda").bfloat16()
     q = torch.randn(B, hkv, G, hd, generator=g, device="cuda")
-    pos = np.asarray([1000, 777, 512, 300, 128, 63, 16, 0], np.int32)
     rng = np.random.default_rng(3)
     perm = rng.permutation(np.arange(1, n_blocks))
-    tables = np.zeros((B, maxb), np.int32)  # trash-padded
-    used = 0
-    for b in range(B - 1):  # the last row is a free slot: all trash
-        need = int(pos[b]) // bs + 1
-        tables[b, :need] = perm[used:used + need]
-        used += need
-    t_tab = torch.from_numpy(tables).cuda()
-    t_pos = torch.from_numpy(pos).cuda()
-    got = paged_decode_attention(q, kc, vc, t_tab, t_pos)
-    want = paged_decode_attention_plain(q, kc, vc, t_tab, t_pos)
-    # fp32 accumulation on both sides over <= 1001 positions
-    check(within(got, want, 1e-4, 1e-4), "paged decode vs plain")
-    err = max_err(got, want)
-    # library yardstick: SDPA over the gathered, masked cache
     C = maxb * bs
-    kk = kc[t_tab.long()].transpose(1, 2).reshape(B, hkv, C, hd).float()
-    vv = vc[t_tab.long()].transpose(1, 2).reshape(B, hkv, C, hd).float()
-    kk, vv = kk.repeat_interleave(G, dim=1), vv.repeat_interleave(G, dim=1)
-    qq = q.reshape(B, hkv * G, 1, hd)
-    mask = (torch.arange(C, device="cuda")[None, :] <= t_pos.long()[:, None])
-    mask = mask[:, None, None, :]
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask), cold=True)
-    positions = int((pos + 1).sum())
-    nbytes = (positions * hkv * hd * 2 * 2 + q.numel() * 4 * 2
-              + tables.nbytes + pos.nbytes)
-    b, by = bound(nbytes, 4 * hkv * G * hd * positions, FP32_FLOPS)
-    out = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: paged_decode_attention(q, kc, vc, t_tab, t_pos),
-                   cold=True),
-        ms_eager=time_ms(torch, lambda: paged_decode_attention(
-            q, kc, vc, t_tab, t_pos), cold=True, graph=False),
-        plain_ms=time_ms(torch, lambda: paged_decode_attention_plain(
-            q, kc, vc, t_tab, t_pos), cold=True),
-        bound_ms=b, bound_by=by, library_ms=lib,
-        shape="8 rows x 8 KV heads x G 4, hd 128, bs 16, pos up to 1000, bf16 cache",
-    )
-    warm = time_ms(torch, lambda: paged_decode_attention(q, kc, vc, t_tab, t_pos))
-    log(f"paged decode (times with L2 flushed; kernel_ms {warm:.4f} with the "
-        f"cache hot in L2): max_abs_err {err:.3g} (tol 1e-4) kernel_ms "
-        f"{out['ms']:.4f} (eager {out['ms_eager']:.4f}) plain_ms "
-        f"{out['plain_ms']:.4f} library_ms(SDPA on "
-        f"gathered KV) {lib:.4f} bound_ms {b:.5f} ({by}, {nbytes / 1e6:.1f} MB)")
+
+    def tables_for(pos, free_last):
+        tables = np.zeros((B, maxb), np.int32)  # trash-padded
+        used = 0
+        for b in range(B - 1 if free_last else B):  # a free slot: all trash
+            need = int(pos[b]) // bs + 1
+            tables[b, :need] = perm[used:used + need]
+            used += need
+        return torch.from_numpy(tables).cuda()
+
+    def measure(name, pos, free_last):
+        t_tab = tables_for(pos, free_last)
+        t_pos = torch.from_numpy(pos).cuda()
+        got = paged_decode_attention(q, kc, vc, t_tab, t_pos)
+        want = paged_decode_attention_plain(q, kc, vc, t_tab, t_pos)
+        # fp32 accumulation on both sides over <= 1024 positions
+        check(within(got, want, 1e-4, 1e-4), f"paged decode {name} vs plain")
+        check(torch.equal(got, paged_decode_attention(q, kc, vc, t_tab, t_pos)),
+              f"paged decode {name}: two launches differ")
+        err = max_err(got, want)
+        # library yardstick: SDPA over the gathered, masked cache
+        kk = kc[t_tab.long()].transpose(1, 2).reshape(B, hkv, C, hd).float()
+        vv = vc[t_tab.long()].transpose(1, 2).reshape(B, hkv, C, hd).float()
+        kk, vv = kk.repeat_interleave(G, dim=1), vv.repeat_interleave(G, dim=1)
+        qq = q.reshape(B, hkv * G, 1, hd)
+        mask = (torch.arange(C, device="cuda")[None, :] <= t_pos.long()[:, None])
+        mask = mask[:, None, None, :]
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask), cold=True)
+        del kk, vv
+        positions = int((pos + 1).sum())
+        # K and V of every position read, q read and the output written, the
+        # table entries up to pos // bs and pos
+        nbytes = (positions * hkv * hd * 2 * 2 + q.numel() * 4 * 2
+                  + int((pos // bs + 1).sum()) * 4 + pos.nbytes)
+        b, by = bound(nbytes, 4 * hkv * G * hd * positions, FP32_FLOPS)
+        r = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: paged_decode_attention(
+                q, kc, vc, t_tab, t_pos), cold=True),
+            ms_eager=time_ms(torch, lambda: paged_decode_attention(
+                q, kc, vc, t_tab, t_pos), cold=True, graph=False),
+            plain_ms=time_ms(torch, lambda: paged_decode_attention_plain(
+                q, kc, vc, t_tab, t_pos), cold=True),
+            bound_ms=b, bound_by=by, library_ms=lib,
+            shape=f"8 rows x 8 KV heads x G 4, hd 128, bs 16, {name}, bf16 cache",
+        )
+        warm = time_ms(torch, lambda: paged_decode_attention(
+            q, kc, vc, t_tab, t_pos))
+        log(f"paged decode {name} (times with L2 flushed; kernel_ms "
+            f"{warm:.4f} with the cache hot in L2): max_abs_err {err:.3g} "
+            f"(tol 1e-4), bitwise repeatable; kernel_ms {r['ms']:.4f} (eager "
+            f"{r['ms_eager']:.4f}) plain_ms {r['plain_ms']:.4f} "
+            f"library_ms(SDPA on gathered KV) {lib:.4f} bound_ms {b:.5f} "
+            f"({by}, {nbytes / 1e6:.1f} MB); {b / r['ms']:.2%} of its bound, "
+            f"{lib / r['ms']:.1f}x faster than SDPA")
+        return r, t_tab, t_pos
+
+    out, _, _ = measure("pos up to 1000",
+                        np.asarray([1000, 777, 512, 300, 128, 63, 16, 0], np.int32),
+                        free_last=True)
+    full, t_tab, t_pos = measure("full cache (pos 1023)",
+                                 np.full(B, C - 1, np.int32), free_last=False)
+    out["at_full_cache"] = full
+    out["max_abs_err"] = max(out["max_abs_err"], full["max_abs_err"])
+
+    # one call captured in a CUDA graph, replayed with new positions
+    static_pos = t_pos.clone()
+    paged_decode_attention(q, kc, vc, t_tab, static_pos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = paged_decode_attention(q, kc, vc, t_tab, static_pos)
+    for new in ([5, 64, 1023, 0, 300, 777, 63, 1000],
+                [1023, 0, 65, 16, 15, 128, 512, 999]):
+        static_pos.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(static_out, paged_decode_attention(
+            q, kc, vc, t_tab, static_pos)),
+            f"paged decode: graph replay at pos {new} differs from an eager call")
+    del graph
+    log("paged decode: one call captured in a CUDA graph and replayed at two "
+        "new position vectors equals eager calls bitwise")
     return out
 
 
@@ -575,7 +678,9 @@ def serve(engine, reqs, first_wave):
 
 
 # substrings of device kernel names, for the device-time breakdown
-PORT_KERNEL_NAMES = {"rmsnorm_kernel": "rmsnorm", "flash_fwd_kernel": "flash_fwd",
+PORT_KERNEL_NAMES = {"rmsnorm_vec_kernel": "rmsnorm",
+                     "rmsnorm_scalar_kernel": "rmsnorm",
+                     "flash_fwd_kernel": "flash_fwd",
                      "flash_bwd_dq_kernel": "flash_bwd_dq",
                      "flash_bwd_dkv_kernel": "flash_bwd_dkv",
                      "paged_decode_": "paged_decode", "argmax_kernel": "argmax"}
@@ -1021,7 +1126,9 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{key: r[key] for key in ("ms_eager", "shape",
                                        "plain_and_library_compute",
-                                       "at_training_shape") if key in r},
+                                       "at_prefill_shape",
+                                       "at_training_shape", "at_full_cache",
+                                       "launch_floor_ms", "copy_ms") if key in r},
         })
     log(f"done in {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": entries}))

@@ -9,222 +9,596 @@
 //
 // Bound on the H100: bytes. Each row reads (pos[b] + 1) keys and values per
 // KV head once and does 4 * G * hd flops per position, ~4 flops per cache
-// byte at G = 4: two orders of magnitude below the compute line. At 8 rows,
-// 8 KV heads, ~1000 positions, hd 128, bf16 that is ~33 MB, ~10 us at
-// 3.35 TB/s.
+// byte at G = 4: two orders of magnitude below the compute line. At 8 rows x
+// 8 KV heads, hd 128, a bf16 cache: the serving test shape (pos 1000, 777,
+// 512, 300, 128, 63, 16, 0: 2804 positions) moves 11.7 MB, 0.0035 ms at
+// 3.35 TB/s; the full cache (every row at pos 1023) 33.6 MB, 0.0101 ms.
 //
-// Design. The TPU grid walked a row's blocks in sequential grid steps with
-// the table and positions as scalar-prefetch operands; on the card a
-// sequential walk per (row, KV head) leaves most SMs idle (8 x 8 = 64
-// blocks) and serialises the loads. So the positions of a row are split
-// into chunks of `split` positions (the wrapper passes 64), one block of 4
-// warps per (row, KV head, chunk)
-// (flash-decoding), and a second small kernel merges the chunks' partial
-// softmax states. Inside a block each warp takes every 4th position: the 32
-// lanes read one key row and one value row (hd contiguous values, coalesced)
-// through the block table, hold hd / 32 columns each, and keep the online
-// softmax state (max, sum, accumulator) of all G query heads in registers,
-// so the G heads of the group share every key and value read and the loop
-// has no block-wide barrier. Each block loads its own pos[b] and table row:
-// positions past pos (and table entries past pos // bs, trash-padded) are
-// never read, chunks past pos exit at once, and a free slot (pos 0, a trash
-// row) reads one position. Masking is by loop bound, so no -inf enters the
-// softmax. The group is not padded to 8 rows as on the TPU.
+// What limits it is latency: a call is a chain of dependent round trips
+// (pos, then the block table, then K and V, then the merge), and at 3.35
+// TB/s and ~1 us of DRAM latency ~3 MB must be in flight to reach the
+// bandwidth. The design (the alternatives named below ran slower on the
+// H100):
+//
+// - Chunks. A row's positions are split into chunks of `split` positions
+//   (the wrapper passes 64; 32 and 128 measured slower), one block of 4
+//   warps per (row, KV head, chunk): grid (B * Hkv, ceil(max_blocks * bs /
+//   split)), a function of host-known sizes only (the wrapper never reads
+//   pos). Chunks past pos exit at once; the last chunks are dispatched first
+//   (blockIdx.y counts down), since most rows leave them empty, so their
+//   blocks are gone before the chunks every row fills need the SMs' slots.
+// - Tiles of positions by 16-byte cp.async into a 32 KB shared-memory ring.
+//   A tile holds the K and V rows of kTP consecutive logical positions (4 KB
+//   each: 16 positions at hd 128 in bf16), gathered row by row through the
+//   block's table entries, which are read once, up front, into shared memory
+//   (only the entries of pages this chunk touches: none past pos // bs). The
+//   ring holds a group of kStages tiles (64 positions at hd 128 in bf16), all
+//   in flight at once, so a 64-position chunk requests all its bytes at once:
+//   at the serving test shape the 392 blocks with work request all 11.7 MB
+//   right after reading their table entries. A page of any bs is read this
+//   way, so no bs needs a slower path; a cache pointer that is not 16-byte
+//   aligned takes plain element loads (decided per launch). q comes by
+//   cp.async with the first tile.
+// - Scores without a shuffle tree per position: kSplit threads share a
+//   position (8 at hd 128, G 4), each holding its stretch of q for all G
+//   heads in registers and reading 16-byte pieces of the K row from shared
+//   memory (the kSplit threads read one contiguous stretch: no bank
+//   conflicts); a reduce-scatter over those threads leaves each head's score
+//   on one of them in G - 1 shuffles. Then the online softmax once per group
+//   (one warp per query head: one max, one rescale factor, exp2 in the log2
+//   domain), then P V with each thread owning 8 bytes of hd for all G heads
+//   and a subset of the group's positions; the subsets are summed once per
+//   chunk in a fixed order.
+// - One launch per call. Each block writes its chunk's partial state (max,
+//   sum, unnormalised output per query head) and counts its arrival in a
+//   persistent int32 counter per (row, KV head) that lives in this library
+//   (g_arrivals, zero at load). The last block to arrive resets the counter
+//   to 0 and merges the chunks in chunk order, so the result is bitwise
+//   deterministic (no float atomics) and the call needs no memset: it can be
+//   captured in a CUDA graph and replayed. A row with one chunk skips the
+//   partials and writes its output directly. Calls on one stream are ordered;
+//   two calls that run at once on two streams would share the counters, and
+//   the port makes none. The C signature is unchanged: the counters need no
+//   argument.
+
 #include <cmath>
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+constexpr int kRingBytes = 32768;    // the shared-memory ring of K/V tiles
+constexpr int kMaxRows = 1 << 16;    // B * Hkv the arrival counters cover
+constexpr float kLog2e = 1.4426950408889634f;
 
-// grid: (B * Hkv, max_chunks), `split` positions per chunk. Writes the
-// chunk's partial softmax state: part_m / part_l [B*Hkv, max_chunks, G],
-// part_acc [B*Hkv, max_chunks, G, hd].
-template <typename T, int G, int DPL>
+__device__ int g_arrivals[kMaxRows];
+
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+template <typename T, int G, int HD>
+struct Cfg {
+  static constexpr int kRowBytes = HD * static_cast<int>(sizeof(T));
+  // positions per tile: K and V of a tile fill at most 8 KB, and a
+  // thread's share of q (G * HD * kTP / kThreads floats) at most 64 registers
+  static constexpr int kTP = cmin(cmin(4096 / kRowBytes, 64 * kThreads / (G * HD)), 64);
+  static constexpr int kTileBytes = kTP * kRowBytes;
+  static constexpr int kStages = cmin(kRingBytes / (2 * kTileBytes), 8);
+  static constexpr int kGP = kStages * kTP;       // positions of a group of tiles
+  static constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks of a row
+  static constexpr int kEPC = 16 / static_cast<int>(sizeof(T));  // elements per chunk
+  static constexpr int kSplit = kThreads / kTP;   // threads per position's scores
+  static constexpr int kCPT = kChunks / kSplit;   // chunks of a row per thread
+  static constexpr int kEPV = 8 / static_cast<int>(sizeof(T));   // hd elements per thread in P V
+  static constexpr int kTPR = HD / kEPV;          // threads per V row
+  static constexpr int kGroups = kThreads / kTPR; // position subsets in P V
+  static_assert(kTP >= 4 && kTP <= 64, "a tile's scores are one or two per lane");
+  static_assert(kStages >= 2, "a ring of at least two tiles");
+  static_assert(kSplit <= 32 && kCPT >= 1 && kChunks % kSplit == 0,
+                "a position's threads share a warp and split its row evenly");
+  static_assert(kTPR <= kThreads && kThreads % kTPR == 0, "P V covers hd");
+  static_assert(kGroups * G * HD * 4 <= kRingBytes, "the group sums fit in the ring");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// wait until at most n (< kMax) copy groups are pending
+template <int kMax>
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if constexpr (kMax > 1) {
+    if (n >= kMax - 1) {
+      cp_async_wait<kMax - 1>();
+      return;
+    }
+    cp_async_wait_upto<kMax - 1>(n);
+  } else {
+    cp_async_wait<0>();
+  }
+}
+
+// the floats of a 16-byte chunk (bf16: 8, fp32: 4)
+__device__ __forceinline__ void unpack16(const uint4& u, float* f, const __nv_bfloat16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float* f, const float*) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+// 8 bytes of V (bf16: 4 values, fp32: 2)
+__device__ __forceinline__ void unpack8(const uint2& u, float* f, const __nv_bfloat16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void unpack8(const uint2& u, float* f, const float*) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+}
+// G consecutive floats of shared memory, in the widest loads they allow
+template <int G>
+__device__ __forceinline__ void load_g(const float* src, float* dst) {
+  if constexpr (G % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < G / 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(src)[i];
+      dst[4 * i] = v.x;
+      dst[4 * i + 1] = v.y;
+      dst[4 * i + 2] = v.z;
+      dst[4 * i + 3] = v.w;
+    }
+  } else if constexpr (G == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(src);
+    dst[0] = v.x;
+    dst[1] = v.y;
+  } else {
+    dst[0] = src[0];
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// bytes of dynamic shared memory before q and the ring: a group's scores
+// and the chunk's table entries, rounded up to 128
+__host__ __device__ constexpr int head_bytes(int g, int tp, int max_pages) {
+  return (g * tp * 4 + max_pages * 4 + 127) / 128 * 128;
+}
+
+// grid: (B * Hkv, n_chunks), `split` positions per chunk; dynamic shared
+// memory: a group's scores [kGP][G], the chunk's table entries, q, then the
+// ring (reused at the end for the position subsets' sums and the merge)
+template <typename T, int G, int HD>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
-                          const T* __restrict__ vc,
-                          const int* __restrict__ tables,
-                          const int* __restrict__ pos, float* __restrict__ part_m,
-                          float* __restrict__ part_l,
-                          float* __restrict__ part_acc, int hkv, int bs,
-                          int max_blocks, int split, float scale) {
-  constexpr int HD = DPL * 32;
+paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
+                    const T* __restrict__ vc, const int* __restrict__ tables,
+                    const int* __restrict__ pos, float* __restrict__ out,
+                    float* __restrict__ part_m, float* __restrict__ part_l,
+                    float* __restrict__ part_acc, int hkv, int bs, int max_blocks,
+                    int split, float qscale, bool vec) {
+  using C = Cfg<T, G, HD>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int max_pages = (split + bs - 1) / bs + 1;
+  float* s_s = reinterpret_cast<float*>(smem);            // scores, then P
+  int* table_s = reinterpret_cast<int*>(s_s + G * C::kGP);
+  float* q_s = reinterpret_cast<float*>(smem + head_bytes(G, C::kGP, max_pages));
+  unsigned char* ring = reinterpret_cast<unsigned char*>(q_s + G * HD);
+  __shared__ __align__(16) float m_s[G], l_s[G], a_s[G];
+  __shared__ int last_s;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int bh = blockIdx.x;
   const int b = bh / hkv;
   const int h = bh - b * hkv;
-  const int chunk = blockIdx.y;
-  const int p_last = pos[b];
+  // blocks are dispatched in order of blockIdx.y: the last chunks first, as
+  // they are the ones most rows leave empty, so their blocks exit before the
+  // chunks that every row fills take the SMs' slots
+  const int chunk = gridDim.y - 1 - blockIdx.y;
+  // scores: thread (sp, sub) takes chunks sub, sub + kSplit, ... of the row
+  // of position sp, against its share of q, held in registers
+  const int sp = tid / C::kSplit;
+  const int sub = tid % C::kSplit;
+
+  // a position past the table reads the whole table, as the plain version
+  const int p_last = min(pos[b], max_blocks * bs - 1);
   const int start = chunk * split;
   if (start > p_last) return;  // past the row's position: nothing to read
   const int end = min(start + split, p_last + 1);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int* row_table = tables + static_cast<long>(b) * max_blocks;
+  const int n_used = p_last / split + 1;  // chunks of this row with work
+  const int first_page = start / bs;
+  const int n_pages = (end - 1) / bs - first_page + 1;
+  const int* row_table = tables + static_cast<long>(b) * max_blocks + first_page;
+  for (int i = tid; i < n_pages; i += kThreads) table_s[i] = row_table[i];
+  if (tid < G) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  __syncthreads();
+  // q by 16-byte cp.async, in the first copy group with tile 0; each
+  // thread's share of it goes into registers once tile 0 has landed
+  {
+    const float* qrow = q + static_cast<long>(bh) * G * HD;
+    for (int i = tid; i < G * HD / 4; i += kThreads) cp_async16(smem_addr(q_s + 4 * i), qrow + 4 * i);
+  }
 
-  float qr[G][DPL];
+  const int n_pos = end - start;
+  const int n_tiles = (n_pos + C::kTP - 1) / C::kTP;
+  const long head_stride = static_cast<long>(bs) * HD;  // elements of one page of one head
+
+  // tile t of the chunk into ring slot `slot`
+  auto load_tile = [&](int t, int slot) {
+    unsigned char* k_dst = ring + slot * 2 * C::kTileBytes;
+    unsigned char* v_dst = k_dst + C::kTileBytes;
+    const int p0 = start + t * C::kTP;
+    const int n = min(C::kTP, end - p0);
+    if (vec) {
+      for (int i = tid; i < n * C::kChunks; i += kThreads) {
+        const int r = i / C::kChunks;
+        const int c = i % C::kChunks;
+        const int p = p0 + r;
+        const int page = p / bs;
+        const long blk = table_s[page - first_page];
+        const long off = (blk * hkv + h) * head_stride + static_cast<long>(p - page * bs) * HD
+                         + c * C::kEPC;
+        const int so = r * C::kRowBytes + c * 16;
+        cp_async16(smem_addr(k_dst + so), kc + off);
+        cp_async16(smem_addr(v_dst + so), vc + off);
+      }
+    } else {
+      T* kd = reinterpret_cast<T*>(k_dst);
+      T* vd = reinterpret_cast<T*>(v_dst);
+      for (int i = tid; i < n * HD; i += kThreads) {
+        const int r = i / HD;
+        const int d = i % HD;
+        const int p = p0 + r;
+        const int page = p / bs;
+        const long blk = table_s[page - first_page];
+        const long off = (blk * hkv + h) * head_stride + static_cast<long>(p - page * bs) * HD + d;
+        kd[i] = kc[off];
+        vd[i] = vc[off];
+      }
+    }
+  };
+
+  float acc[G][C::kEPV];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      qr[g][i] = q[(static_cast<long>(bh) * G + g) * HD + lane * DPL + i] * scale;
+    for (int j = 0; j < C::kEPV; ++j) acc[g][j] = 0.f;
+  const int vt = tid % C::kTPR;      // this thread's 8 bytes of hd in P V
+  const int grp = tid / C::kTPR;     // and its subset of positions
+  float qr[G][C::kCPT * C::kEPC];
 
-  float m[G], l[G], acc[G][DPL];
+  // groups of up to kStages tiles: all of a group's tiles are in flight at
+  // once (one copy group each), the scores of each tile are computed as it
+  // lands, then one online-softmax step and one P V pass cover the group
+  for (int t0 = 0; t0 < n_tiles; t0 += C::kStages) {
+    const int nt = min(C::kStages, n_tiles - t0);
+    const int gn = min(C::kGP, end - (start + t0 * C::kTP));  // positions of the group
+    if (t0 > 0) __syncthreads();  // the previous group's P V is done with the ring
+    for (int i = 0; i < nt; ++i) {
+      load_tile(t0 + i, i);
+      cp_async_commit();
+    }
+    for (int i = 0; i < nt; ++i) {
+      cp_async_wait_upto<C::kStages>(nt - 1 - i);
+      __syncthreads();  // tile i landed for every thread
+      if (t0 == 0 && i == 0) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
+        for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
+          for (int c = 0; c < C::kCPT; ++c)
+#pragma unroll
+            for (int j = 0; j < C::kEPC / 4; ++j) {
+              const float4 v = reinterpret_cast<const float4*>(
+                  q_s + g * HD + (sub + C::kSplit * c) * C::kEPC)[j];
+              float* d = qr[g] + c * C::kEPC + 4 * j;
+              d[0] = v.x * qscale;
+              d[1] = v.y * qscale;
+              d[2] = v.z * qscale;
+              d[3] = v.w * qscale;
+            }
+      }
+      const unsigned char* k_tile = ring + i * 2 * C::kTileBytes;
+      const int n = min(C::kTP, gn - i * C::kTP);
+
+      // scores of position sp for all G heads: kCPT 16-byte K reads (the
+      // kSplit threads of a position read one contiguous stretch of the row)
+      float s[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) s[g] = 0.f;
+      if (sp < n) {
+        const unsigned char* krow = k_tile + sp * C::kRowBytes;
+#pragma unroll
+        for (int c = 0; c < C::kCPT; ++c) {
+          const uint4 u = *reinterpret_cast<const uint4*>(krow + (sub + C::kSplit * c) * 16);
+          float kf[C::kEPC];
+          unpack16(u, kf, static_cast<const T*>(nullptr));
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int e = 0; e < C::kEPC; ++e) s[g] = fmaf(qr[g][c * C::kEPC + e], kf[e], s[g]);
+        }
+      }
+      // reduce-scatter over the kSplit threads: each halving step trades
+      // half of the heads' sums with the partner lane, so a lane ends with
+      // the full sums of G / kSplit heads (or of one, shared by kSplit / G
+      // lanes) after G - 1 shuffles instead of G log2(kSplit)
+      int g0 = 0;
+      int nv = G;
+#pragma unroll
+      for (int o = C::kSplit / 2; o > 0; o >>= 1) {
+        if (nv > 1) {
+          const bool up = sub & o;
+#pragma unroll
+          for (int k = 0; k < nv / 2; ++k) {
+            const float send = up ? s[k] : s[k + nv / 2];
+            const float keep = up ? s[k + nv / 2] : s[k];
+            s[k] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+          }
+          if (up) g0 += nv / 2;
+          nv /= 2;
+        } else {
+          s[0] += __shfl_xor_sync(0xffffffffu, s[0], o);
+        }
+      }
+      if (sp < n && sub % (C::kSplit / G > 1 ? C::kSplit / G : 1) == 0) {
+#pragma unroll
+        for (int k = 0; k < (G > C::kSplit ? G / C::kSplit : 1); ++k)
+          s_s[(i * C::kTP + sp) * G + g0 + k] = s[k];
+      }
+    }
+    __syncthreads();
+
+    // online softmax once per group: one warp per query head
+    for (int g = warp; g < G; g += kWarps) {
+      float mt = -INFINITY;
+      for (int p = lane; p < gn; p += 32) mt = fmaxf(mt, s_s[p * G + g]);
+      const float m_old = m_s[g];
+      const float m_new = fmaxf(m_old, warp_max(mt));
+      float sum = 0.f;
+      for (int p = lane; p < gn; p += 32) {
+        const float e = exp2f(s_s[p * G + g] - m_new);
+        s_s[p * G + g] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = exp2f(m_old - m_new);
+        a_s[g] = alpha;
+        l_s[g] = l_s[g] * alpha + sum;
+        m_s[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // P V: 8 bytes of hd for all G heads, positions grp, grp + kGroups, ...
+    {
+      float alpha[G];
+      load_g<G>(a_s, alpha);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int j = 0; j < C::kEPV; ++j) acc[g][j] *= alpha[g];
+    }
+#pragma unroll 1
+    for (int p = grp; p < gn; p += C::kGroups) {
+      const unsigned char* v_row = ring + (p / C::kTP) * 2 * C::kTileBytes + C::kTileBytes
+                                   + (p % C::kTP) * C::kRowBytes;
+      const uint2 u = *reinterpret_cast<const uint2*>(v_row + vt * 8);
+      float vf[C::kEPV], pg[G];
+      unpack8(u, vf, static_cast<const T*>(nullptr));
+      load_g<G>(s_s + p * G, pg);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int j = 0; j < C::kEPV; ++j) acc[g][j] = fmaf(pg[g], vf[j], acc[g][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the groups' sums now
+
+  float* red = reinterpret_cast<float*>(ring);  // [kGroups][G][HD]
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < C::kEPV; ++j) red[(grp * G + g) * HD + vt * C::kEPV + j] = acc[g][j];
+  __syncthreads();
+
+  const long out_base = static_cast<long>(bh) * G * HD;
+  if (n_used == 1) {
+    for (int o = tid; o < G * HD; o += kThreads) {
+      float a = 0.f;
+#pragma unroll
+      for (int r = 0; r < C::kGroups; ++r) a += red[r * G * HD + o];
+      out[out_base + o] = a / l_s[o / HD];
+    }
+    return;
   }
 
-  for (int p = start + warp; p < end; p += kWarps) {
-    const long blk = row_table[p / bs];
-    const long base = ((blk * hkv + h) * bs + (p % bs)) * HD + lane * DPL;
-    float kf[DPL], vf[DPL];
+  // several chunks: write this chunk's partial state, count the arrival
+  const int n_chunks = gridDim.y;
+  const long prow = static_cast<long>(bh) * n_chunks + chunk;
+  for (int o = tid; o < G * HD; o += kThreads) {
+    float a = 0.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      kf[i] = to_f<T>(kc[base + i]);
-      vf[i] = to_f<T>(vc[base + i]);
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) s += qr[g][i] * kf[i];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      const float m_new = fmaxf(m[g], s);
-      const float alpha = expf(m[g] - m_new);
-      const float pr = expf(s - m_new);
-      l[g] = l[g] * alpha + pr;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] = acc[g][i] * alpha + pr * vf[i];
-      m[g] = m_new;
-    }
+    for (int r = 0; r < C::kGroups; ++r) a += red[r * G * HD + o];
+    part_acc[prow * G * HD + o] = a;
   }
-
-  // merge the warps' states through shared memory
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][HD];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) sm_acc[warp][g][lane * DPL + i] = acc[g][i];
+  if (tid < G) {
+    part_m[prow * G + tid] = m_s[tid];
+    part_l[prow * G + tid] = l_s[tid];
+  }
+  // the block's writes, ordered by the barrier, are published by one
+  // thread's fence before its arrival (the pattern of a grid-wide barrier)
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last_s = atomicAdd(&g_arrivals[bh], 1) == n_used - 1;
+    __threadfence();
   }
   __syncthreads();
-  const long out_row = static_cast<long>(bh) * gridDim.y + chunk;
-  for (int i = threadIdx.x; i < G * HD; i += kThreads) {
-    const int g = i / HD;
-    const int d = i - g * HD;
-    float mx = -INFINITY;
+  if (!last_s) return;
+
+  // the last block of (row, KV head) merges the chunks in chunk order; the
+  // other blocks' partials are read from L2 (__ldcg), past this SM's L1.
+  // The partial outputs of the first kUnroll chunks are loaded before the
+  // chunks' weights are known, so both are in flight together.
+  if (tid == 0) g_arrivals[bh] = 0;
+  const long prow0 = static_cast<long>(bh) * n_chunks;
+  constexpr int kOut = (G * HD + kThreads - 1) / kThreads;  // outputs a thread
+  constexpr int kUnroll = 32 / kOut > 1 ? 32 / kOut : 1;      // chunks in flight
+  float a[kOut], raw[kUnroll][kOut];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float lsum = 0.f, a = 0.f;
+  for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      // a warp that saw no position has m = -inf and weighs exp(-inf) = 0
-      const float wgt = expf(sm_m[w][g] - mx);
-      lsum += sm_l[w][g] * wgt;
-      a += sm_acc[w][g][d] * wgt;
+    for (int k = 0; k < kOut; ++k) {
+      const int o = tid + k * kThreads;
+      raw[u][k] = (u < n_used && o < G * HD) ? __ldcg(part_acc + (prow0 + u) * G * HD + o) : 0.f;
     }
-    part_acc[(out_row * G + g) * HD + d] = a;
-    if (d == 0) {
-      part_m[out_row * G + g] = mx;
-      part_l[out_row * G + g] = lsum;
+  float* wm = reinterpret_cast<float*>(ring);  // [n_used][G]: max, then weight
+  float* wl = wm + n_used * G;                 // [n_used][G]: sum
+  for (int i = tid; i < n_used * G; i += kThreads) {
+    wm[i] = __ldcg(part_m + prow0 * G + i);
+    wl[i] = __ldcg(part_l + prow0 * G + i);
+  }
+  __syncthreads();
+  float* lg_s = s_s;  // per head: the merged sum
+  for (int g = warp; g < G; g += kWarps) {
+    float m = -INFINITY;
+    for (int c = lane; c < n_used; c += 32) m = fmaxf(m, wm[c * G + g]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int c = lane; c < n_used; c += 32) {
+      const float w = exp2f(wm[c * G + g] - m);
+      wm[c * G + g] = w;
+      l += wl[c * G + g] * w;
     }
+    l = warp_sum(l);
+    if (lane == 0) lg_s[g] = l;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kOut; ++k) a[k] = 0.f;
+  for (int c0 = 0; c0 < n_used; c0 += kUnroll) {
+    if (c0 > 0) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int k = 0; k < kOut; ++k) {
+          const int o = tid + k * kThreads;
+          raw[u][k] = (c0 + u < n_used && o < G * HD)
+                          ? __ldcg(part_acc + (prow0 + c0 + u) * G * HD + o) : 0.f;
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int k = 0; k < kOut; ++k) {
+        const int o = tid + k * kThreads;
+        if (c0 + u < n_used && o < G * HD) a[k] = fmaf(raw[u][k], wm[(c0 + u) * G + o / HD], a[k]);
+      }
+  }
+#pragma unroll
+  for (int k = 0; k < kOut; ++k) {
+    const int o = tid + k * kThreads;
+    if (o < G * HD) out[out_base + o] = a[k] / lg_s[o / HD];
   }
 }
 
-// grid: B * Hkv. Merges the chunks a row used into out [B, Hkv, G, hd].
-__global__ void __launch_bounds__(kThreads)
-paged_decode_merge_kernel(const int* __restrict__ pos,
-                          const float* __restrict__ part_m,
-                          const float* __restrict__ part_l,
-                          const float* __restrict__ part_acc,
-                          float* __restrict__ out, int hkv, int group, int hd,
-                          int max_chunks, int split) {
-  const int bh = blockIdx.x;
-  const int n_chunks = pos[bh / hkv] / split + 1;
-  const long row = static_cast<long>(bh) * max_chunks;
-  for (int i = threadIdx.x; i < group * hd; i += kThreads) {
-    const int g = i / hd;
-    const int d = i - g * hd;
-    float mx = -INFINITY;
-    for (int c = 0; c < n_chunks; ++c) mx = fmaxf(mx, part_m[(row + c) * group + g]);
-    float lsum = 0.f, a = 0.f;
-    for (int c = 0; c < n_chunks; ++c) {
-      const float wgt = expf(part_m[(row + c) * group + g] - mx);
-      lsum += part_l[(row + c) * group + g] * wgt;
-      a += part_acc[((row + c) * group + g) * hd + d] * wgt;
-    }
-    out[(static_cast<long>(bh) * group + g) * hd + d] = a / lsum;
+template <typename T, int G, int HD>
+int launch(const void* q, const void* kc, const void* vc, const void* tables,
+           const void* pos, void* out, float* pm, float* pl, float* pa, int batch,
+           int hkv, int bs, int max_blocks, int n_chunks, int split, float scale,
+           bool vec, cudaStream_t s) {
+  using C = Cfg<T, G, HD>;
+  const int max_pages = (split + bs - 1) / bs + 1;  // pages one chunk can touch
+  // the ring, or the merge's two floats per (chunk, head) where more
+  const int tail = kRingBytes > n_chunks * G * 8 ? kRingBytes : n_chunks * G * 8;
+  const size_t smem = static_cast<size_t>(head_bytes(G, C::kGP, max_pages)) + G * HD * 4 + tail;
+  auto kernel = paged_decode_kernel<T, G, HD>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-}
-
-template <typename T, int G, int DPL>
-void launch_split(const void* q, const void* kc, const void* vc,
-                  const void* tables, const void* pos, float* part_m,
-                  float* part_l, float* part_acc, int batch, int hkv, int bs,
-                  int max_blocks, int max_chunks, int split, float scale,
-                  cudaStream_t s) {
-  const dim3 grid(batch * hkv, max_chunks);
-  paged_decode_split_kernel<T, G, DPL><<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const int*>(tables),
-      static_cast<const int*>(pos), part_m, part_l, part_acc, hkv, bs,
-      max_blocks, split, scale);
+  const dim3 grid(batch * hkv, n_chunks);
+  kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
+      static_cast<const int*>(tables), static_cast<const int*>(pos),
+      static_cast<float*>(out), pm, pl, pa, hkv, bs, max_blocks, split, scale * kLog2e, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int G>
-bool dispatch_hd(int hd, const void* q, const void* kc, const void* vc,
-                 const void* tables, const void* pos, float* pm, float* pl,
-                 float* pa, int batch, int hkv, int bs, int max_blocks,
-                 int max_chunks, int split, float scale, cudaStream_t s) {
+int dispatch_hd(int hd, const void* q, const void* kc, const void* vc, const void* tables,
+                const void* pos, void* out, float* pm, float* pl, float* pa, int batch,
+                int hkv, int bs, int max_blocks, int n_chunks, int split, float scale,
+                bool vec, cudaStream_t s) {
   switch (hd) {
-    case 32: launch_split<T, G, 1>(q, kc, vc, tables, pos, pm, pl, pa, batch, hkv, bs, max_blocks, max_chunks, split, scale, s); return true;
-    case 64: launch_split<T, G, 2>(q, kc, vc, tables, pos, pm, pl, pa, batch, hkv, bs, max_blocks, max_chunks, split, scale, s); return true;
-    case 128: launch_split<T, G, 4>(q, kc, vc, tables, pos, pm, pl, pa, batch, hkv, bs, max_blocks, max_chunks, split, scale, s); return true;
-    case 256: launch_split<T, G, 8>(q, kc, vc, tables, pos, pm, pl, pa, batch, hkv, bs, max_blocks, max_chunks, split, scale, s); return true;
-    default: return false;
+    case 32: return launch<T, G, 32>(q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
+    case 64: return launch<T, G, 64>(q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
+    case 128: return launch<T, G, 128>(q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
+    case 256: return launch<T, G, 256>(q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T>
-bool dispatch(int group, int hd, const void* q, const void* kc, const void* vc,
-              const void* tables, const void* pos, float* pm, float* pl,
-              float* pa, int batch, int hkv, int bs, int max_blocks,
-              int max_chunks, int split, float scale, cudaStream_t s) {
+int dispatch(int group, int hd, const void* q, const void* kc, const void* vc,
+             const void* tables, const void* pos, void* out, float* pm, float* pl,
+             float* pa, int batch, int hkv, int bs, int max_blocks, int n_chunks,
+             int split, float scale, bool vec, cudaStream_t s) {
   switch (group) {
-    case 1: return dispatch_hd<T, 1>(hd, q, kc, vc, tables, pos, pm, pl, pa, batch, hkv, bs, max_blocks, max_chunks, split, scale, s);
-    case 2: return dispatch_hd<T, 2>(hd, q, kc, vc, tables, pos, pm, pl, pa, batch, hkv, bs, max_blocks, max_chunks, split, scale, s);
-    case 4: return dispatch_hd<T, 4>(hd, q, kc, vc, tables, pos, pm, pl, pa, batch, hkv, bs, max_blocks, max_chunks, split, scale, s);
-    case 8: return dispatch_hd<T, 8>(hd, q, kc, vc, tables, pos, pm, pl, pa, batch, hkv, bs, max_blocks, max_chunks, split, scale, s);
-    default: return false;
+    case 1: return dispatch_hd<T, 1>(hd, q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
+    case 2: return dispatch_hd<T, 2>(hd, q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
+    case 4: return dispatch_hd<T, 4>(hd, q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
+    case 8: return dispatch_hd<T, 8>(hd, q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q: [B, Hkv, G, hd] fp32; k/v cache: [N, Hkv, bs, hd] of `dtype`
+// q: [B, Hkv, G, hd] fp32, 16-byte aligned; k/v cache: [N, Hkv, bs, hd] of `dtype`
 // (0 = float32, 1 = bfloat16); tables: [B, max_blocks] int32; pos: [B] int32;
 // out: [B, Hkv, G, hd] fp32. `split` positions per chunk; scratch: fp32,
-// B * Hkv * max_chunks * G * (hd + 2) floats with
-// max_chunks = ceil(max_blocks * bs / split). G in {1, 2, 4, 8}, hd in
-// {32, 64, 128, 256}.
+// B * Hkv * n_chunks * G * (hd + 2) floats with
+// n_chunks = ceil(max_blocks * bs / split). G in {1, 2, 4, 8}, hd in
+// {32, 64, 128, 256}, B * Hkv <= 65536. One kernel launch.
 extern "C" int rlt_paged_decode(const void* q, const void* kc, const void* vc,
                                 const void* tables, const void* pos, void* out,
                                 void* scratch, int batch, int hkv, int group,
@@ -232,25 +606,21 @@ extern "C" int rlt_paged_decode(const void* q, const void* kc, const void* vc,
                                 float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0) return static_cast<int>(cudaGetLastError());
-  if (split <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int max_chunks = (max_blocks * bs + split - 1) / split;
-  const long rows = static_cast<long>(batch) * hkv * max_chunks * group;
+  if (split <= 0 || bs <= 0 || max_blocks <= 0 || static_cast<long>(batch) * hkv > kMaxRows ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_chunks = (max_blocks * bs + split - 1) / split;
+  const long rows = static_cast<long>(batch) * hkv * n_chunks * group;
   float* pm = static_cast<float*>(scratch);
   float* pl = pm + rows;
   float* pa = pl + rows;
-  bool ok = false;
-  if (dtype == 0) {
-    ok = dispatch<float>(group, hd, q, kc, vc, tables, pos, pm, pl, pa, batch,
-                         hkv, bs, max_blocks, max_chunks, split, scale, s);
-  } else if (dtype == 1) {
-    ok = dispatch<__nv_bfloat16>(group, hd, q, kc, vc, tables, pos, pm, pl, pa,
-                                 batch, hkv, bs, max_blocks, max_chunks, split, scale, s);
-  }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  paged_decode_merge_kernel<<<batch * hkv, kThreads, 0, s>>>(
-      static_cast<const int*>(pos), pm, pl, pa, static_cast<float*>(out), hkv,
-      group, hd, max_chunks, split);
-  return static_cast<int>(cudaGetLastError());
+  // 16-byte copies need 16-byte-aligned caches (rows are >= 64 bytes)
+  const bool vec = (reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc)) % 16 == 0;
+  if (dtype == 0)
+    return dispatch<float>(group, hd, q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv,
+                           bs, max_blocks, n_chunks, split, scale, vec, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(group, hd, q, kc, vc, tables, pos, out, pm, pl, pa,
+                                   batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

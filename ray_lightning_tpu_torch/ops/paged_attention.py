@@ -38,10 +38,13 @@ PAGED_DECODE_KERNEL = CudaKernel(
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     replaces="ray_lightning_tpu/ops/paged_attention.py:196",
 )
-# positions per block of the kernel's split over a row's positions
+# positions per block of the kernel's split over a row's positions: four
+# 16-position tiles at hd 128 in bf16, all in flight at once (csrc note)
 PAGED_SPLIT = 64
 PAGED_GROUPS = (1, 2, 4, 8)
 PAGED_HEAD_DIMS = (32, 64, 128, 256)
+# (row, KV head) pairs the kernel's persistent arrival counters cover
+PAGED_MAX_ROWS = 1 << 16
 
 ARGMAX_KERNEL = CudaKernel(
     "argmax", "argmax.cu", "rlt_argmax",
@@ -69,6 +72,23 @@ def paged_decode_attention_plain(q, k_cache, v_cache, block_tables, pos,
     logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhgt,bhtd->bhgd", probs, vv)
+
+
+def paged_decode_plan(batch: int, hkv: int, group: int, hd: int, bs: int,
+                      max_blocks: int) -> dict:
+    """The kernel's launch plan, from host-known sizes only (never ``pos``,
+    which lies on the card): ``split`` positions per block, ``chunks``
+    blocks per (row, KV head) and the fp32 ``scratch`` floats for the
+    chunks' partial states (max and sum per query head, unnormalised
+    output), which the last block of each (row, KV head) merges."""
+    if batch * hkv > PAGED_MAX_ROWS:
+        raise ValueError(
+            f"paged_decode_attention: B * Hkv = {batch * hkv} exceeds the "
+            f"kernel's {PAGED_MAX_ROWS} arrival counters"
+        )
+    chunks = -(-max_blocks * bs // PAGED_SPLIT)
+    return {"split": PAGED_SPLIT, "chunks": chunks,
+            "scratch": batch * hkv * chunks * group * (hd + 2)}
 
 
 def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -108,19 +128,18 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             f"{PAGED_GROUPS} and head dims {PAGED_HEAD_DIMS}, got G={group}, "
             f"hd={hd}"
         )
+    if q.data_ptr() % 16:  # the kernel reads q in 16-byte loads
+        q = q.clone()
     code = dtype_code("paged_decode_attention", k_cache.dtype)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
     max_blocks = block_tables.shape[1]
-    chunks = -(-max_blocks * bs // PAGED_SPLIT)
-    # per (row, KV head, chunk): the chunk's max and sum per query head and
-    # its unnormalised output, merged by the kernel's second pass
-    scratch = torch.empty(B * hkv * chunks * group * (hd + 2),
-                          dtype=torch.float32, device=q.device)
+    plan = paged_decode_plan(B, hkv, group, hd, bs, max_blocks)
+    scratch = torch.empty(plan["scratch"], dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     PAGED_DECODE_KERNEL.launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), B, hkv, group, hd, bs, max_blocks, PAGED_SPLIT,
+        scratch.data_ptr(), B, hkv, group, hd, bs, max_blocks, plan["split"],
         float(scale), code, stream_of(q),
     )
     return out

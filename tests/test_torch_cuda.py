@@ -8,7 +8,8 @@ without the conftest:
 
 Shapes are small and deliberately odd (ragged tiles and lengths one off a
 tile edge, head dims from 17 to 128, groups of 1 to 8, windows across a
-tile edge, block sizes 8 and 32, a vocabulary that is no power of two),
+tile edge, block sizes 8 and 32, positions on page and chunk edges,
+unaligned inputs, a vocabulary that is no power of two),
 beside the main-path shapes chip_smoke.py checks.
 """
 import dataclasses
@@ -34,7 +35,12 @@ def _close(a, b, tol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 64), (3, 5, 96), (17, 4096)])
+@pytest.mark.parametrize("shape", [
+    (1, 64), (3, 5, 96), (17, 4096),
+    # dims that are no multiple of 8 (the scalar path), the vector path's
+    # one-warp, two-warp and four-warp rows, and the training shape
+    (9, 1000), (9, 2050), (9, 2048), (9, 5120), (9, 8192), (16384, 2048),
+])
 def test_rmsnorm_kernel(cuda, dtype, shape):
     from ray_lightning_tpu_torch.ops.rmsnorm import RMSNORM_KERNEL, rmsnorm, rmsnorm_plain
 
@@ -45,6 +51,34 @@ def test_rmsnorm_kernel(cuda, dtype, shape):
     got = rmsnorm(x, w, 1e-5)
     assert RMSNORM_KERNEL.launches == before + 1
     _close(got, rmsnorm_plain(x, w, 1e-5), 1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_on_unaligned_input(cuda, dtype):
+    """x sliced from a larger buffer one element in: its data pointer is no
+    longer 16-byte aligned, so the launch takes the scalar path."""
+    from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
+
+    rows, dim = 33, 2048
+    g = torch.Generator(device=cuda).manual_seed(4)
+    buf = torch.randn(rows * dim + 1, generator=g, device=cuda).to(dtype)
+    x = buf[1:].view(rows, dim)
+    assert x.data_ptr() % 16 != 0
+    w = torch.randn(dim, generator=g, device=cuda).to(dtype)
+    _close(rmsnorm(x, w, 1e-5), rmsnorm_plain(x, w, 1e-5),
+           1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 4096), (16384, 2048), (9, 1000), (9, 8192)])
+def test_rmsnorm_kernel_is_deterministic(cuda, dtype, shape):
+    """The reduction order is fixed, so two launches agree bitwise."""
+    from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w = torch.randn(shape[-1], generator=g, device=cuda).to(dtype)
+    assert torch.equal(rmsnorm(x, w, 1e-5), rmsnorm(x, w, 1e-5))
 
 
 def _flash_inputs(cuda, B, hq, hkv, S, d, dtype, seed):
@@ -112,28 +146,127 @@ def test_flash_kernel_is_deterministic(cuda, dtype):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("group,bs", [(1, 8), (4, 16), (8, 32)])
+def _paged_inputs(cuda, B, hkv, group, hd, bs, maxb, dtype, pos, seed,
+                  offset=0):
+    """Caches of B * maxb + 1 blocks (block 0 is trash), tables drawn from
+    a permutation of the rest, trash-padded past each row's pos // bs; a row
+    whose pos is None is a free slot: an all-trash table row at pos 0.
+    ``offset`` elements shift the caches' data pointers."""
+    n = B * maxb + 1
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    numel = n * hkv * bs * hd
+    kc, vc = (torch.randn(numel + offset, generator=g, device=cuda).to(dtype)
+              [offset:].view(n, hkv, bs, hd) for _ in range(2))
+    q = torch.randn(B, hkv, group, hd, generator=g, device=cuda)
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(np.arange(1, n))
+    tables = np.zeros((B, maxb), np.int32)
+    p = np.zeros(B, np.int32)
+    for b, pb in enumerate(pos):
+        if pb is not None:
+            need = pb // bs + 1
+            tables[b, :need] = perm[b * maxb:b * maxb + need]
+            p[b] = pb
+    return q, kc, vc, torch.from_numpy(tables).to(cuda), torch.from_numpy(p).to(cuda)
+
+
+def _edge_positions(bs, maxb):
+    """pos at 0, a page's edges, the 64-position chunk's edges and the last
+    position of the table, and a free slot on a trash row."""
+    from ray_lightning_tpu_torch.ops.paged_attention import PAGED_SPLIT
+
+    c = PAGED_SPLIT
+    return [0, bs - 1, bs, c - 1, c, c + 1, maxb * bs - 1, None]
+
+
+@pytest.mark.parametrize("group,hd,bs", [
+    *((gr, hd, 16) for gr in (1, 2, 4, 8) for hd in (32, 64, 128, 256)),
+    *((gr, hd, bs) for bs in (8, 32) for gr, hd in ((1, 64), (4, 128), (8, 32))),
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_decode_kernel(cuda, group, bs, dtype):
+def test_paged_decode_kernel(cuda, group, hd, bs, dtype):
+    """The kernel against paged_decode_attention_plain at 1e-4 (fp32 sums
+    in another order), at every group and head dim it takes, block sizes 8
+    to 32, and pos on page, chunk and table edges. One launch per call."""
+    from ray_lightning_tpu_torch.ops.paged_attention import (
+        PAGED_DECODE_KERNEL,
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    maxb = max(6, 160 // bs)
+    q, kc, vc, tab, pos = _paged_inputs(cuda, 8, 2, group, hd, bs, maxb, dtype,
+                                        _edge_positions(bs, maxb), 2)
+    before = PAGED_DECODE_KERNEL.launches
+    got = paged_decode_attention(q, kc, vc, tab, pos)
+    assert PAGED_DECODE_KERNEL.launches == before + 1
+    _close(got, paged_decode_attention_plain(q, kc, vc, tab, pos), 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_at_llama3_8b_decode_layout(cuda, dtype):
+    """8 rows x 8 KV heads x G 4, hd 128, bs 16, 64 blocks a row (the
+    serving path's max_len 1024), ragged positions and a free slot."""
     from ray_lightning_tpu_torch.ops.paged_attention import (
         paged_decode_attention,
         paged_decode_attention_plain,
     )
 
-    B, hkv, hd, maxb = 5, 2, 64, 6
-    n = B * maxb + 1
-    g = torch.Generator(device=cuda).manual_seed(2)
-    kc = torch.randn(n, hkv, bs, hd, generator=g, device=cuda).to(dtype)
-    vc = torch.randn(n, hkv, bs, hd, generator=g, device=cuda).to(dtype)
-    q = torch.randn(B, hkv, group, hd, generator=g, device=cuda)
-    rng = np.random.default_rng(2)
-    tables = rng.permutation(np.arange(1, n))[: B * maxb].reshape(B, maxb)
-    tables = tables.astype(np.int32)
-    tables[4] = 0  # free slot on a trash row
-    pos = np.asarray([0, bs - 1, bs, maxb * bs - 1, 0], np.int32)
-    t_tab, t_pos = torch.from_numpy(tables).to(cuda), torch.from_numpy(pos).to(cuda)
-    got = paged_decode_attention(q, kc, vc, t_tab, t_pos)
-    _close(got, paged_decode_attention_plain(q, kc, vc, t_tab, t_pos), 1e-4)
+    pos = [1000, 777, 512, 300, 128, 63, 16, None]
+    q, kc, vc, tab, t_pos = _paged_inputs(cuda, 8, 8, 4, 128, 16, 64, dtype, pos, 3)
+    _close(paged_decode_attention(q, kc, vc, tab, t_pos),
+           paged_decode_attention_plain(q, kc, vc, tab, t_pos), 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_on_unaligned_caches(cuda, dtype):
+    """Caches whose data pointers are one element off 16-byte alignment
+    take the element-by-element loads."""
+    from ray_lightning_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    q, kc, vc, tab, pos = _paged_inputs(cuda, 8, 2, 4, 128, 16, 10, dtype,
+                                        _edge_positions(16, 10), 4, offset=1)
+    assert kc.data_ptr() % 16 != 0
+    _close(paged_decode_attention(q, kc, vc, tab, pos),
+           paged_decode_attention_plain(q, kc, vc, tab, pos), 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_is_deterministic(cuda, dtype):
+    """The chunks merge in chunk order, whichever block arrives last, so
+    two launches agree bitwise."""
+    from ray_lightning_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    pos = [1023, 1000, 777, 512, 300, 128, 65, None]
+    q, kc, vc, tab, t_pos = _paged_inputs(cuda, 8, 8, 4, 128, 16, 64, dtype, pos, 5)
+    first = paged_decode_attention(q, kc, vc, tab, t_pos)
+    for _ in range(3):
+        assert torch.equal(paged_decode_attention(q, kc, vc, tab, t_pos), first)
+
+
+def test_paged_decode_kernel_replays_in_a_cuda_graph(cuda):
+    """One call captured in a CUDA graph, replayed with new positions
+    written in place into its pos tensor, equals eager calls: the grid
+    depends on host-known sizes only and the arrival counters reset
+    themselves, so nothing needs a memset between replays."""
+    from ray_lightning_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    full = [1023] * 8
+    q, kc, vc, tab, t_pos = _paged_inputs(cuda, 8, 8, 4, 128, 16, 64,
+                                          torch.bfloat16, full, 6)
+    paged_decode_attention(q, kc, vc, tab, t_pos)  # loads the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = paged_decode_attention(q, kc, vc, tab, t_pos)
+    for new in ([5, 64, 1023, 0, 300, 777, 63, 1000], [1023, 0, 65, 16, 15, 128, 512, 999]):
+        t_pos.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, paged_decode_attention(q, kc, vc, tab, t_pos))
 
 
 @pytest.mark.parametrize("V", [1, 1000, 32000, 128256])

@@ -52,6 +52,22 @@ def test_rmsnorm_matches_jax():
     np.testing.assert_array_equal(got, rmsnorm_plain(_t(x), _t(w), 1e-5).numpy())
 
 
+@pytest.mark.parametrize("shape", [(8, 4096), (64, 2048)])
+def test_rmsnorm_bf16_matches_jax_within_one_ulp(shape):
+    """bf16 at the decode and training widths: both sides round one fp32
+    value to bf16, so they may differ by one bf16 ulp and no more."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(shape).astype(ml_dtypes.bfloat16)
+    w = (1 + 0.1 * rng.standard_normal(shape[-1])).astype(ml_dtypes.bfloat16)
+    want = np.asarray(_rmsnorm_ref(jnp.asarray(x), jnp.asarray(w), 1e-5)).astype(np.float32)
+    got = rmsnorm(_t(x.astype(np.float32)).bfloat16(),
+                  _t(w.astype(np.float32)).bfloat16(), 1e-5).float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want))) - 7)
+    assert np.all(np.abs(got - want) <= ulp)
+
+
 @pytest.mark.parametrize("scaling", [None, {"rope_type": "linear", "factor": 4.0},
                                      LLAMA3], ids=["default", "linear", "llama3"])
 @pytest.mark.parametrize("head_dim", [32, 128])
@@ -144,6 +160,42 @@ def test_paged_decode_matches_jax_interpret():
     )
     got = tpa.paged_decode_attention(_t(q), _t(kc), _t(vc), _t(tables), _t(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_paged_decode_matches_jax_interpret_at_llama3_8b_layout(dtype):
+    """Llama-3-8B's decode layout (hd 128, G 4, bs 16) at 7 rows x 2 KV
+    heads and 8 blocks a row, pos on page and 64-position edges."""
+    import ml_dtypes
+
+    dt = ml_dtypes.bfloat16 if dtype == "bfloat16" else dtype
+    rng = np.random.default_rng(6)
+    B, Hkv, G, hd, bs, maxb = 7, 2, 4, 128, 16, 8
+    nblk = B * maxb + 1
+    q = rng.standard_normal((B, Hkv, G, hd)).astype(np.float32)
+    kc = rng.standard_normal((nblk, Hkv, bs, hd)).astype(dt)
+    vc = rng.standard_normal((nblk, Hkv, bs, hd)).astype(dt)
+    tables = rng.permutation(np.arange(1, nblk)).reshape(B, maxb).astype(np.int32)
+    pos = np.asarray([0, 15, 16, 63, 64, 65, 127], np.int32)
+    want = jpa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(tables), jnp.asarray(pos), interpret=True,
+    )
+    as_t = (lambda a: _t(a.astype(np.float32)).bfloat16()) if dtype == "bfloat16" else _t
+    got = tpa.paged_decode_attention(_t(q), as_t(kc), as_t(vc), _t(tables), _t(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_paged_decode_plan_depends_on_host_sizes_only():
+    """The kernel's grid and scratch follow from B, Hkv, G, hd, bs and
+    max_blocks (never pos): 64-position chunks over the table's span."""
+    plan = tpa.paged_decode_plan(8, 8, 4, 128, 16, 64)
+    assert plan == {"split": 64, "chunks": 16, "scratch": 8 * 8 * 16 * 4 * 130}
+    assert tpa.paged_decode_plan(5, 2, 1, 64, 8, 6)["chunks"] == 1
+    assert tpa.paged_decode_plan(5, 2, 1, 64, 24, 6)["chunks"] == 3
+    assert tpa.paged_decode_plan(1, 1, 8, 256, 1, 65)["chunks"] == 2
+    with pytest.raises(ValueError, match="arrival counters"):
+        tpa.paged_decode_plan(tpa.PAGED_MAX_ROWS + 1, 1, 4, 128, 16, 4)
 
 
 def test_greedy_argmax_matches_jax_with_ties():
