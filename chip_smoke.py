@@ -14,7 +14,7 @@ final line):
    (one process per source, all at once), timed; registers and spills
    (``nvcc -Xptxas -v``): the flash kernels' tensor-core (bf16)
    instantiations, two forward and four backward, and every instantiation
-   of the paged decode and RMSNorm kernels must not spill;
+   of the paged decode, RMSNorm and argmax kernels must not spill;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it (and, for the flash kernels, at odd
    ones: ragged S, a window, non-causal, GQA group 4 at head dim 64,
@@ -26,7 +26,11 @@ final line):
    the decode, prefill and training shapes and at [1,64] (the practical
    floor of a launch); paged decode at ragged positions and at the full
    cache, bitwise repeatable, and replayed from a CUDA graph at new
-   positions, bitwise equal to eager calls;
+   positions, bitwise equal to eager calls; the argmax sampler bitwise
+   equal to torch.argmax on planted ties and planted NaNs (the first NaN
+   wins), greedy and noisy, timed with L2 flushed (beside the HBM bytes
+   bound) and hot, at batch 1, 8 and 64, and at every cluster size at
+   batch 8;
 4. serving main path — Llama-3-8B at full width and depth (random bf16
    weights from a seeded generator) served by the paged
    ``InferenceEngine``: 16 staggered requests of mixed lengths, some
@@ -181,8 +185,8 @@ def report_registers(kernels):
     """Registers and spills (nvcc -Xptxas -v) of the flash kernels, one line
     each: the tensor-core (bf16) instantiations, two of the forward and four
     of the backward, must not spill; and of every instantiation of the paged
-    decode (dtype x G x hd) and RMSNorm kernels, one line per source: none
-    may spill."""
+    decode (dtype x G x hd), RMSNorm and argmax kernels, one line per
+    source: none may spill."""
     import re
 
     tc = {"flash_fwd.cu": 0, "flash_bwd.cu": 0}
@@ -222,6 +226,18 @@ def report_registers(kernels):
         check(len(usage) == count,
               f"{source}: {len(usage)} instantiations, expected {count}")
         check(not spills, f"{source}: {spills} spill registers")
+    # the argmax kernel: vector or element loads x with or without noise
+    usage = {}
+    for k, u in kernels.resource_usage("argmax.cu").items():
+        m = re.search(r"argmax_kernelILb(\d)ELb(\d)E", k)
+        usage[f"argmax_kernel<{'vec' if m and m.group(1) == '1' else 'elem'},"
+              f"{'noise' if m and m.group(2) == '1' else 'greedy'}>"] = u
+    log("ptxas argmax.cu: " + ", ".join(
+        f"{k} {u['registers']} registers, spills {u['spill_stores']}/"
+        f"{u['spill_loads']} B" for k, u in sorted(usage.items())))
+    check(len(usage) == 4, f"argmax.cu: {len(usage)} instantiations, expected 4")
+    check(not any(u["spill_stores"] or u["spill_loads"] for u in usage.values()),
+          "argmax.cu spills registers")
 
 
 # --------------------------------------------------------------------- #
@@ -610,44 +626,119 @@ def check_paged(torch, F):
 
 
 def check_argmax(torch):
+    """The argmax kernel against its plain version (torch.argmax), bitwise,
+    at the serving shape [8,128256] fp32, greedy and noisy, on rows with
+    planted ties and on rows with planted NaNs (the first NaN wins). Timed
+    greedy and noisy at batch 8, greedy at batch 1 and 64, each with L2
+    flushed, beside its bytes bound at the HBM rate, and with L2 hot (as the
+    sampler finds the logits the lm_head has just written; no bound: the
+    bytes come from L2, whose rate the run does not measure), and greedy at
+    batch 8 at every cluster size (chunks per row) the plan could pick,
+    hot and flushed."""
     from ray_lightning_tpu_torch.ops.paged_attention import (
+        ARGMAX_MAX_CHUNKS,
+        _launch_argmax,
+        _sm_count,
+        argmax_plan,
         blockwise_argmax,
         blockwise_argmax_plain,
         gumbel_noise,
     )
 
     B, V = 8, 128256
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = _sm_count(dev)
     g = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn(B, V, generator=g, device="cuda")
     top = float(x.max()) + 1.0
     for row, cols in ((0, (5, 100000)), (1, (64000, 127000)),
                       (2, (0, V - 1)), (3, (4095, 4096, 4097))):
         x[row, list(cols)] = top  # planted ties: the first one must win
+    nan = float("nan")
+    x_nan = x.clone()
+    x_nan[4, 100], x_nan[4, 100000] = top, nan    # a NaN chunks after the max
+    x_nan[5, 3], x_nan[5, 90000] = nan, top       # a NaN before a larger number
+    x_nan[6] = nan                                # all NaN
+    x_nan[7, 64000], x_nan[7, 64001] = top, nan   # a NaN beside the max
     noise = gumbel_noise((B, V), g, torch.device("cuda"))
     errs = []
-    for name, nz in (("greedy", None), ("noisy", noise)):
-        got = blockwise_argmax(x, nz)
-        want = blockwise_argmax_plain(x, nz)
-        check(torch.equal(got, want), f"argmax {name} vs plain")
-        errs.append(int((got - want).abs().max()))
+    for name, xx, nz in (("greedy", x, None), ("noisy", x, noise),
+                         ("greedy with NaNs", x_nan, None),
+                         ("noisy with NaNs", x_nan, noise)):
+        got = blockwise_argmax(xx, nz)
+        want = blockwise_argmax_plain(xx, nz)
+        check(torch.equal(got, want), f"argmax {name} vs plain: "
+              f"{got.tolist()} != {want.tolist()}")
+        errs.append(max_err(got, want))
     check([int(t) for t in blockwise_argmax(x)[:4]] == [5, 64000, 0, 4095],
           "argmax keeps the first of tied maxima")
-    b, by = bound(B * V * 4 + B * 4, B * V, FP32_FLOPS)
-    out = dict(
-        max_abs_err=float(max(errs)),
-        ms=time_ms(torch, lambda: blockwise_argmax(x)),
-        ms_eager=time_ms(torch, lambda: blockwise_argmax(x), graph=False),
-        plain_ms=time_ms(torch, lambda: blockwise_argmax_plain(x)),
-        bound_ms=b, bound_by=by,
-        library_ms=time_ms(torch, lambda: torch.argmax(x, dim=-1)),
-        shape="[8,128256] fp32 greedy",
-    )
-    noisy_ms = time_ms(torch, lambda: blockwise_argmax(x, noise))
-    log(f"argmax [8,128256]: exact on greedy and noisy (planted ties) "
-        f"kernel_ms {out['ms']:.4f} (eager {out['ms_eager']:.4f}) noisy_ms "
-        f"{noisy_ms:.4f} plain_ms "
-        f"{out['plain_ms']:.4f} library_ms(torch.argmax) "
-        f"{out['library_ms']:.4f} bound_ms {b:.5f} ({by})")
+    for nz in (None, noise):
+        check([int(t) for t in blockwise_argmax(x_nan, nz)[4:]]
+              == [100000, 3, 0, 64001], "argmax returns a row's first NaN")
+    first = blockwise_argmax(x_nan, noise)
+    check(all(torch.equal(blockwise_argmax(x_nan, noise), first)
+              for _ in range(10)), "argmax: ten calls differ")
+
+    def timings(xx, nz, cold):
+        lib = ((lambda: torch.argmax(xx, dim=-1)) if nz is None
+               else (lambda: torch.argmax(xx + nz, dim=-1)))
+        return dict(
+            ms=time_ms(torch, lambda: blockwise_argmax(xx, nz), iters=100,
+                       cold=cold),
+            ms_eager=time_ms(torch, lambda: blockwise_argmax(xx, nz),
+                             iters=100, cold=cold, graph=False),
+            plain_ms=time_ms(torch, lambda: blockwise_argmax_plain(xx, nz),
+                             cold=cold),
+            library_ms=time_ms(torch, lib, cold=cold),
+        )
+
+    def measure(xx, nz):
+        """Times with L2 flushed, which the HBM bytes bound holds, and the
+        same times with L2 hot under ``l2_hot``."""
+        rows = xx.shape[0]
+        # x (and the noise) read once, the indices written; a compare per
+        # element, and an add with the noise
+        nbytes = xx.numel() * 4 * (1 if nz is None else 2) + rows * 4
+        b, by = bound(nbytes, xx.numel() * (1 if nz is None else 2), FP32_FLOPS)
+        return dict(**timings(xx, nz, cold=True), bound_ms=b, bound_by=by,
+                    chunks=argmax_plan(rows, V, sms)["chunks"],
+                    l2_hot=timings(xx, nz, cold=False))
+
+    def show(label, r):
+        hot = r["l2_hot"]
+        log(f"argmax {label}: {r['chunks']} chunks a row (cluster of "
+            f"{r['chunks']}); L2 flushed: kernel_ms {r['ms']:.4f} (eager "
+            f"{r['ms_eager']:.4f}) plain_ms {r['plain_ms']:.4f} library_ms "
+            f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+            f"({r['bound_by']}, HBM); {r['bound_ms'] / r['ms']:.1%} of its "
+            f"bound, {r['library_ms'] / r['ms']:.1f}x faster than the library "
+            f"call. L2 hot: kernel_ms {hot['ms']:.4f} (eager "
+            f"{hot['ms_eager']:.4f}) plain_ms {hot['plain_ms']:.4f} library_ms "
+            f"{hot['library_ms']:.4f}, {hot['library_ms'] / hot['ms']:.1f}x "
+            f"faster than the library call")
+
+    out = dict(max_abs_err=max(errs), shape="[8,128256] fp32 greedy, L2 flushed",
+               **measure(x, None))
+    out["noisy"] = measure(x, noise)
+    for rows in (1, 64):
+        xb = torch.randn(rows, V, generator=g, device="cuda")
+        out[f"at_batch_{rows}"] = measure(xb, None)
+        del xb
+    out["by_chunks"], out["by_chunks_flushed"] = (
+        {c: time_ms(torch, lambda c=c: _launch_argmax(x, None, c), iters=100,
+                    cold=cold)
+         for c in range(1, ARGMAX_MAX_CHUNKS + 1)}
+        for cold in (False, True))
+    log(f"argmax [8,128256] fp32: bitwise equal to the plain version on "
+        f"greedy and noisy rows with planted ties and planted NaNs (first "
+        f"max, first NaN, all-NaN row), ten calls identical; {sms} SMs")
+    show("[8,128256] greedy (library: torch.argmax)", out)
+    show("[8,128256] noisy (library: torch.argmax(x + noise))", out["noisy"])
+    show("[1,128256] greedy", out["at_batch_1"])
+    show("[64,128256] greedy", out["at_batch_64"])
+    for key, label in (("by_chunks", "L2 hot"), ("by_chunks_flushed", "L2 flushed")):
+        log(f"argmax [8,128256] greedy by chunks a row (graph replay, {label}): "
+            + ", ".join(f"{c}: {ms:.4f} ms" for c, ms in out[key].items()))
     return out
 
 
@@ -1128,7 +1219,11 @@ def main():
                                        "plain_and_library_compute",
                                        "at_prefill_shape",
                                        "at_training_shape", "at_full_cache",
-                                       "launch_floor_ms", "copy_ms") if key in r},
+                                       "launch_floor_ms", "copy_ms",
+                                       "chunks", "l2_hot", "noisy",
+                                       "at_batch_1", "at_batch_64",
+                                       "by_chunks", "by_chunks_flushed")
+               if key in r},
         })
     log(f"done in {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": entries}))

@@ -6,7 +6,8 @@
   never built;
 - the blockwise argmax sampler (``csrc/argmax.cu``, the port of
   ``_argmax_kernel`` / ``_noisy_argmax_kernel``): greedy sampling is the
-  argmax with first-max tie-breaking, temperature sampling is the argmax of
+  argmax with first-max tie-breaking (and the first NaN, if a row holds
+  one), temperature sampling is the argmax of
   the scaled logits plus Gumbel noise (the Gumbel-max identity). The noise is
   an operand drawn by the caller's ``torch.Generator``: the port cannot
   reproduce ``jax.random``, so temperature streams differ from the JAX
@@ -19,6 +20,7 @@ raise). top-k / top-p sampling stays on the plain sampler
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -48,9 +50,14 @@ PAGED_MAX_ROWS = 1 << 16
 
 ARGMAX_KERNEL = CudaKernel(
     "argmax", "argmax.cu", "rlt_argmax",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     replaces="ray_lightning_tpu/ops/paged_attention.py:272",
 )
+# the argmax kernel's split of a row: one thread-block cluster per row
+ARGMAX_MAX_CHUNKS = 8     # Hopper's largest portable cluster
+ARGMAX_MIN_CHUNK = 2048   # elements a block reads at the least
+ARGMAX_WAVES = 2          # blocks per SM the plan aims at, at most
+ARGMAX_MAX_VOCAB = (1 << 31) - (1 << 16)  # int32 indices with room to spare
 
 
 # --------------------------------------------------------------------- #
@@ -150,15 +157,50 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # --------------------------------------------------------------------- #
 def blockwise_argmax_plain(x: torch.Tensor,
                            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """argmax over the last axis of ``x (+ noise)`` in fp32, first maximum
-    on ties; [B] int32."""
+    """argmax over the last axis of ``x (+ noise)`` in fp32: the first
+    maximum on ties, the first NaN in a row that holds one; [B] int32."""
     v = x.float() if noise is None else x.float() + noise.float()
     return torch.argmax(v, dim=-1).to(torch.int32)
 
 
+def argmax_plan(batch: int, vocab: int, sms: int = 132) -> dict:
+    """The argmax kernel's launch plan, from host-known sizes: ``chunks``
+    blocks per row, which form one thread-block cluster, so that
+    ``batch * chunks`` fills at most ``ARGMAX_WAVES`` blocks per SM and each
+    block reads at least ``ARGMAX_MIN_CHUNK`` elements; ``chunk`` elements
+    per block (see ``_chunk_len``)."""
+    chunks = max(1, min(ARGMAX_MAX_CHUNKS, -(-vocab // ARGMAX_MIN_CHUNK),
+                        ARGMAX_WAVES * sms // max(batch, 1)))
+    return {"chunks": chunks, "chunk": _chunk_len(vocab, chunks)}
+
+
+def _chunk_len(vocab: int, chunks: int) -> int:
+    """Elements a block reads: ceil(vocab / chunks) rounded up to a
+    multiple of 4, so that every block of an aligned row starts on a
+    16-byte boundary."""
+    return (-(-vocab // chunks) + 3) // 4 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_argmax(x: torch.Tensor, noise: Optional[torch.Tensor],
+                   chunks: int) -> torch.Tensor:
+    out = torch.empty((x.shape[0],), dtype=torch.int32, device=x.device)
+    ARGMAX_KERNEL.launch(
+        x.data_ptr(), None if noise is None else noise.data_ptr(),
+        out.data_ptr(), x.shape[0], x.shape[1], chunks,
+        _chunk_len(x.shape[1], chunks), stream_of(x),
+    )
+    return out
+
+
 def blockwise_argmax(x: torch.Tensor,
                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x, noise: [B, V] fp32 -> [B] int32, the first maximum of x + noise."""
+    """x, noise: [B, V] fp32 -> [B] int32, the first maximum of x + noise
+    (the first NaN in a row that holds one)."""
     if x.device.type == "cpu":
         return blockwise_argmax_plain(x, noise)
     tensors = (x,) if noise is None else (x, noise)
@@ -168,17 +210,21 @@ def blockwise_argmax(x: torch.Tensor,
     if noise is not None and noise.shape != x.shape:
         raise ValueError("blockwise_argmax: noise must match x's shape")
     B, V = x.shape
-    out = torch.empty((B,), dtype=torch.int32, device=x.device)
-    ARGMAX_KERNEL.launch(
-        x.data_ptr(), None if noise is None else noise.data_ptr(),
-        out.data_ptr(), B, V, stream_of(x),
-    )
-    return out
+    if not 0 < V <= ARGMAX_MAX_VOCAB:
+        raise ValueError(
+            f"blockwise_argmax: the vocabulary must hold 1 to "
+            f"{ARGMAX_MAX_VOCAB} entries, got {V}"
+        )
+    if B == 0:
+        return torch.empty((0,), dtype=torch.int32, device=x.device)
+    plan = argmax_plan(B, V, _sm_count(x.device))
+    return _launch_argmax(x, noise, plan["chunks"])
 
 
 def fused_greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     """Greedy sampling: [B, V] fp32 -> [B] int32, equal to
-    ``torch.argmax(logits, -1)`` including first-max ties."""
+    ``torch.argmax(logits, -1)`` including first-max ties and the first
+    NaN."""
     return blockwise_argmax(logits, None)
 
 

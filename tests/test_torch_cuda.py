@@ -269,22 +269,154 @@ def test_paged_decode_kernel_replays_in_a_cuda_graph(cuda):
         assert torch.equal(static_out, paged_decode_attention(q, kc, vc, tab, t_pos))
 
 
-@pytest.mark.parametrize("V", [1, 1000, 32000, 128256])
-def test_argmax_kernel(cuda, V):
+def _argmax_rows(cuda, B, V, pattern, seed):
+    """[B, V] fp32 logits on the card with a planted pattern:
+    ``ties``: the row's maximum on both sides of every chunk boundary of the
+    kernel's plan (row r keeps the boundaries from its r-th on, so every
+    boundary leads some row); ``signed_zeros``: negative logits with -0.0
+    before +0.0 (a tie); ``neg_inf``: every row all -inf; ``all_nan``: every
+    row all NaN; ``nans``: a NaN at the start of every later chunk, and one
+    in the middle of a row, after a larger number; ``unaligned``: the
+    ``ties`` rows in a contiguous view 4 bytes past a 16-byte boundary."""
+    from ray_lightning_tpu_torch.ops.paged_attention import argmax_plan
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if pattern == "unaligned":
+        x = torch.randn(B * V + 1, generator=g, device=cuda)[1:].view(B, V)
+        assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+    else:
+        x = torch.randn(B, V, generator=g, device=cuda)
+    plan = argmax_plan(B, V, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    edges = list(range(plan["chunk"], V, plan["chunk"]))
+    top = 100.0
+    for r in range(B):
+        if pattern in ("ties", "unaligned"):
+            cols = [c for e in edges[r % max(len(edges), 1):] for c in (e - 1, e)]
+            x[r, cols or [V - 1]] = top
+            if V > 2:
+                x[r, V - 1] = top  # a tie at the row's end too
+        elif pattern == "signed_zeros":
+            x[r] = -x[r].abs() - 1.0
+            if V > 1:
+                first = (r * 7919) % (V - 1)
+                x[r, first] = -0.0
+                x[r, V - 1 - (r % max(V - 1 - first, 1))] = 0.0
+        elif pattern == "nans":
+            x[r, V // 3] = top
+            for e in edges[r % max(len(edges), 1):]:
+                x[r, e] = float("nan")
+            x[r, min(V // 2 + r, V - 1)] = float("nan")
+    if pattern == "neg_inf":
+        x.fill_(float("-inf"))
+    elif pattern == "all_nan":
+        x.fill_(float("nan"))
+    return x
+
+
+@pytest.mark.parametrize("pattern", ["ties", "signed_zeros", "neg_inf",
+                                     "all_nan", "nans", "unaligned"])
+@pytest.mark.parametrize("noisy", [False, True], ids=["greedy", "noisy"])
+@pytest.mark.parametrize("V", [1, 3, 1000, 32000, 50257, 128256])
+@pytest.mark.parametrize("B", [1, 3, 8, 64])
+def test_argmax_kernel(cuda, B, V, noisy, pattern):
+    """Bitwise against the plain version (torch.argmax): first maximum on
+    ties across chunk boundaries, +0.0 and -0.0 tied, 0 for all -inf, the
+    first NaN, at the batch sizes where the plan splits a row 8, 8, 8 and
+    4 ways, on the vector and the element paths."""
+    from ray_lightning_tpu_torch import kernels
     from ray_lightning_tpu_torch.ops.paged_attention import (
         blockwise_argmax,
         blockwise_argmax_plain,
         gumbel_noise,
     )
 
-    g = torch.Generator(device=cuda).manual_seed(3)
-    x = torch.randn(6, V, generator=g, device=cuda)
-    x[1] = float("-inf")  # all -inf: index 0, as torch.argmax
-    if V > 10:
-        x[2, [3, V - 2]] = 100.0  # tie: the first wins
-    noise = gumbel_noise(x.shape, g, cuda)
-    for nz in (None, noise):
-        assert torch.equal(blockwise_argmax(x, nz), blockwise_argmax_plain(x, nz))
+    x = _argmax_rows(cuda, B, V, pattern, seed=B * 1000 + V)
+    noise = None
+    if noisy:
+        noise = gumbel_noise(x.shape, torch.Generator(device=cuda).manual_seed(V), cuda)
+        if pattern == "signed_zeros":
+            noise[x == 0] = 0.0  # keep the tie: -0.0 + 0.0 and 0.0 + 0.0
+    before = kernels.launch_counts()["argmax"]
+    got = blockwise_argmax(x, noise)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["argmax"] == before + 1
+    want = blockwise_argmax_plain(x, noise)
+    assert got.dtype == torch.int32 and got.shape == (B,)
+    assert torch.equal(got, want), (got.tolist(), want.tolist())
+    if pattern in ("neg_inf", "all_nan"):
+        assert not got.any()
+
+
+def test_argmax_kernel_replays_in_a_cuda_graph(cuda):
+    """A captured call, replayed on new logits written in place, equals
+    eager calls: the cluster merge keeps no state between calls."""
+    from ray_lightning_tpu_torch.ops.paged_attention import (
+        blockwise_argmax,
+        gumbel_noise,
+    )
+
+    x = _argmax_rows(cuda, 8, 128256, "ties", seed=1)
+    noise = gumbel_noise(x.shape, torch.Generator(device=cuda).manual_seed(2), cuda)
+    blockwise_argmax(x, noise)  # loads the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        greedy = blockwise_argmax(x)
+        noisy = blockwise_argmax(x, noise)
+    for seed, pattern in ((3, "nans"), (4, "ties"), (5, "all_nan")):
+        x.copy_(_argmax_rows(cuda, 8, 128256, pattern, seed=seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(greedy, blockwise_argmax(x))
+        assert torch.equal(noisy, blockwise_argmax(x, noise))
+
+
+def test_argmax_kernel_is_deterministic(cuda):
+    from ray_lightning_tpu_torch.ops.paged_attention import blockwise_argmax
+
+    x = _argmax_rows(cuda, 8, 128256, "ties", seed=7)
+    x[2, 9] = float("nan")
+    first = blockwise_argmax(x)
+    for _ in range(10):
+        assert torch.equal(blockwise_argmax(x), first)
+
+
+def test_argmax_kernel_on_two_streams_at_once(cuda):
+    """Calls interleaved on two streams, with nothing ordering them, equal
+    serial calls: nothing is shared between calls."""
+    from ray_lightning_tpu_torch.ops.paged_attention import blockwise_argmax
+
+    xs = [_argmax_rows(cuda, 8, 128256, p, seed=s)
+          for p, s in (("ties", 8), ("nans", 9))]
+    xs[0][:, 5000] = 1e3  # the two inputs answer differently
+    want = [blockwise_argmax(x) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(50):
+        for k in (0, 1):
+            with torch.cuda.stream(streams[k]):
+                outs[k].append(blockwise_argmax(xs[k]))
+    torch.cuda.synchronize()
+    assert not torch.equal(want[0], want[1])
+    for k in (0, 1):
+        for got in outs[k]:
+            assert torch.equal(got, want[k])
+
+
+def test_argmax_kernel_takes_more_rows_than_a_grid_column(cuda):
+    """Rows and chunks share the grid's x dimension, so a batch past 65535
+    rows launches (one chunk a row there)."""
+    from ray_lightning_tpu_torch.ops.paged_attention import (
+        blockwise_argmax,
+        blockwise_argmax_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(70000, 37, generator=g, device=cuda)
+    x[::7, 5] = float("nan")
+    assert torch.equal(blockwise_argmax(x), blockwise_argmax_plain(x))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -299,6 +431,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         flash_attention(q, q, q)
     with pytest.raises(ValueError):
         rmsnorm(torch.zeros(8, 4, device=cuda).t(), torch.zeros(8, device=cuda))
+    from ray_lightning_tpu_torch.ops.paged_attention import blockwise_argmax
+
+    with pytest.raises(ValueError):  # an empty vocabulary has no argmax
+        blockwise_argmax(torch.zeros(2, 0, device=cuda))
 
 
 def _rel(got, want):

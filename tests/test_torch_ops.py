@@ -211,6 +211,66 @@ def test_greedy_argmax_matches_jax_with_ties():
     assert int(tpa.fused_greedy_sample(_t(t))[0]) == 7
 
 
+def _nan_rows(case, V, rng):
+    """Four seeded rows with NaNs planted at V = 1280 (five of the JAX
+    kernel's 256-wide blocks) or 128256 (eight of the CUDA kernel's
+    chunks at batch 8). Returns the rows and the first NaN of each."""
+    x = rng.standard_normal((4, V)).astype(np.float32)
+    far = V // 2 + 7  # another block and another chunk than the starts
+    if case == "nan_after_max":
+        x[:, 100] = 50.0
+        nans = [far, far + 1, V - 1, 300]
+        for r, j in enumerate(nans):
+            x[r, j] = np.nan
+    elif case == "nan_before_larger":
+        x[:, far] = 50.0
+        nans = [3, 0, 255, 256]
+        for r, j in enumerate(nans):
+            x[r, j] = np.nan
+    elif case == "all_nan":
+        x[:] = np.nan
+        nans = [0, 0, 0, 0]
+    else:  # "nan_beside_max": on either side of the maximum
+        nans = [far - 1, far + 1, 256, V - 1]
+        for r, (j, m) in enumerate(zip(nans, [far, far, 255, V - 2])):
+            x[r, m] = 50.0
+            x[r, j] = np.nan
+        x[1, far + 2] = np.nan  # a later NaN loses to the first
+        x[3, 5] = np.inf        # +inf is a number: the NaN still wins
+    return x, np.asarray(nans)
+
+
+@pytest.mark.parametrize("V", [1280, 128256])
+@pytest.mark.parametrize("case", ["nan_after_max", "nan_before_larger",
+                                  "all_nan", "nan_beside_max"])
+def test_greedy_argmax_returns_the_first_nan_as_jnp_argmax(case, V):
+    """The documented contract (jnp.argmax, torch.argmax): a row that holds a
+    NaN samples its first NaN, wherever the maximum lies."""
+    x, first_nan = _nan_rows(case, V, np.random.default_rng(6))
+    want = np.asarray(jnp.argmax(jnp.asarray(x), axis=-1))
+    np.testing.assert_array_equal(want, first_nan)
+    np.testing.assert_array_equal(tpa.blockwise_argmax_plain(_t(x)).numpy(), want)
+    np.testing.assert_array_equal(tpa.fused_greedy_sample(_t(x)).numpy(), want)
+
+
+def test_argmax_plan_depends_on_host_sizes_only():
+    """One cluster of chunks per row: at most two blocks per SM over the
+    batch, at least 2048 elements a block, 1-8 chunks of a multiple of 4
+    elements that cover the row."""
+    plans = {(B, V): tpa.argmax_plan(B, V) for B in (1, 3, 8, 64, 1000)
+             for V in (1, 3, 1000, 32000, 50257, 128256)}
+    assert plans[8, 128256] == {"chunks": 8, "chunk": 16032}
+    assert plans[1, 128256]["chunks"] == 8
+    assert plans[64, 128256]["chunks"] == 4
+    assert plans[1000, 128256]["chunks"] == 1
+    assert plans[8, 1000]["chunks"] == plans[8, 1]["chunks"] == 1
+    for (B, V), p in plans.items():
+        assert 1 <= p["chunks"] <= tpa.ARGMAX_MAX_CHUNKS
+        assert p["chunk"] % 4 == 0 and p["chunks"] * p["chunk"] >= V
+        assert B * p["chunks"] <= max(B, 2 * 132)
+    assert tpa.argmax_plan(8, 128256, sms=16)["chunks"] == 4
+
+
 def test_noisy_argmax_matches_jax_on_same_noise():
     rng = np.random.default_rng(5)
     x = (rng.standard_normal((4, 1024)) / 0.8).astype(np.float32)
