@@ -53,8 +53,27 @@ final line):
    2048: the loss and every gradient through the kernels must match
    ``plain=True`` on the card, and three Trainer steps must give the same
    losses;
-8. the ``kernels`` JSON line (launches from both main paths), the card
-   line, and the final ``{"ok": true, ...}`` line.
+8. remat variants — the training main path's configuration under
+   ``remat_policy="dots"`` and with remat off, 6 steps each: step time,
+   peak memory and launch counts;
+9. training, complete Trainer — ``Trainer.fit`` of ``LlamaConfig.small()``
+   at full width and depth with fp32 master weights,
+   ``precision="bf16-mixed"``, remat "dots", two micro-batches of 4 x 2048
+   per update (``accumulate_grad_batches=2``), a global-norm clip,
+   ``ThroughputMonitor`` and ``EarlyStopping``, through
+   ``SingleDeviceStrategy``'s side-stream input pipeline: one warm-up
+   update, 10 measured updates, one update under torch.profiler, then
+   validation. Losses finite and falling, masters still fp32, bf16 tensors
+   into ``training_step``, ``global_step`` counting micro-batches, launch
+   counts per micro-batch as the main path's per step, a finite MFU from
+   the callback; update time, tokens/s, MFU, peak memory and the profiled
+   update's device time by class;
+10. complete-Trainer exactness — fp32 masters, 2 layers, batch 2 x 2048:
+   "dots" against "nothing" (1e-6), bf16-mixed through the kernels against
+   the plain versions (``MIXED_TOL``), and an accumulation of two
+   micro-batches of 1 against one update on the batch of 2 (1e-5);
+11. the ``kernels`` JSON line (launches from the three main paths), the
+   card line, and the final ``{"ok": true, ...}`` line.
 
 Timings are printed beside the card's name and power limit; they are this
 card's numbers, and the fields are described in PERF.md.
@@ -919,11 +938,15 @@ def exactness(torch):
 
 
 # --------------------------------------------------------------------- #
-# phases 7 and 8: the training path
+# phases 6 to 10: the training paths
 # --------------------------------------------------------------------- #
 TRAIN_STEPS = 10  # measured steps, after one warm-up step
 TRAIN_BATCH = 8
 TRAIN_VAL_BATCHES = 2
+VARIANT_STEPS = 5  # measured steps of the "dots" and no-remat lines
+COMPLETE_UPDATES = 10  # measured updates of the complete-Trainer path
+COMPLETE_ACCUM = 2  # micro-batches per update
+COMPLETE_MICRO = 4  # rows of a micro-batch: 2 x 4 x 2048 tokens an update
 
 
 def device_breakdown(torch, prof, wall_ms):
@@ -948,30 +971,18 @@ def device_breakdown(torch, prof, wall_ms):
     return classes, other
 
 
-def train_main_path(torch, card):
-    """Trainer.fit of LlamaConfig.small() at batch 8 x 2048 in bf16 on the
-    card: one warm-up step, TRAIN_STEPS measured steps, one profiled step,
-    then the validation at the epoch's end (max_steps stops the epoch)."""
+def step_clock(torch, profile_first=None, profile_count=1):
+    """A callback that records a CUDA event at every step's start (no host
+    sync) and each step's loss as a device tensor, and runs torch.profiler
+    around ``profile_count`` steps from batch ``profile_first``; ``end`` is
+    an event after the step before the profiled window."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ray_lightning_tpu_torch import kernels
     from ray_lightning_tpu_torch.callbacks import Callback
-    from ray_lightning_tpu_torch.core import Trainer
-    from ray_lightning_tpu_torch.models.llama import (
-        LlamaConfig,
-        LlamaModule,
-        SyntheticLMDataModule,
-    )
 
-    cfg = LlamaConfig.small()
-    total = TRAIN_STEPS + 2
-    profiled = total - 1  # batch index of the profiled step
+    last = None if profile_first is None else profile_first + profile_count - 1
 
     class StepClock(Callback):
-        """CUDA events at every step's start and end (no host sync), the
-        step's loss as a device tensor, and torch.profiler around one
-        step."""
-
         def __init__(self):
             self.starts, self.losses = [], []
             self.end = None
@@ -979,7 +990,7 @@ def train_main_path(torch, card):
             self.prof_wall_ms = None
 
         def on_train_batch_start(self, trainer, module, batch, batch_idx):
-            if batch_idx == profiled:
+            if batch_idx == profile_first:
                 torch.cuda.synchronize()
                 self.prof = profile(activities=[ProfilerActivity.CPU,
                                                 ProfilerActivity.CUDA])
@@ -991,15 +1002,58 @@ def train_main_path(torch, card):
 
         def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
             self.losses.append(outputs["loss"])
-            if batch_idx == profiled - 1:
+            if profile_first is not None and batch_idx == profile_first - 1:
                 self.end = torch.cuda.Event(enable_timing=True)
                 self.end.record()
-            if batch_idx == profiled:
+            if batch_idx == last:
                 torch.cuda.synchronize()
                 self.prof_wall_ms = (time.perf_counter() - self._t) * 1e3
                 self.prof.stop()
 
-    clock = StepClock()
+    return StepClock()
+
+
+def log_breakdown(torch, label, clock, unprofiled_ms=None):
+    """The profiled window's device time by class and its idle share; with
+    ``unprofiled_ms`` (the same work's median time without the profiler,
+    from CUDA events), also that time's idle share, taking the profiled
+    device time as the work's."""
+    classes, other = device_breakdown(torch, clock.prof, clock.prof_wall_ms)
+    busy_ms = sum(classes.values()) / 1e3
+    if busy_ms == 0:
+        log(f"{label}: the profiler saw no device events; breakdown not "
+            "measured")
+        return
+    wall = clock.prof_wall_ms
+    steady = ("" if unprofiled_ms is None else
+              f"; unprofiled median {unprofiled_ms:.1f} ms, idle "
+              f"{max(unprofiled_ms - busy_ms, 0.0):.1f} ms "
+              f"({max(unprofiled_ms - busy_ms, 0.0) / unprofiled_ms:.1%})")
+    log(f"{label}: wall {wall:.1f} ms, device busy {busy_ms:.1f} ms, idle "
+        f"{max(wall - busy_ms, 0.0):.1f} ms "
+        f"({max(wall - busy_ms, 0.0) / wall:.1%}){steady}; "
+        + ", ".join(f"{k} {v / 1e3:.1f} ms ({v / 1e3 / wall:.1%})"
+                    for k, v in classes.most_common()))
+    log(f"{label}, largest 'other' device events: " + "; ".join(
+        f"{name} {us / 1e3:.1f} ms" for name, us in other.most_common(8)))
+
+
+def train_main_path(torch, card):
+    """Trainer.fit of LlamaConfig.small() at batch 8 x 2048 in bf16 on the
+    card: one warm-up step, TRAIN_STEPS measured steps, one profiled step,
+    then the validation at the epoch's end (max_steps stops the epoch)."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+
+    cfg = LlamaConfig.small()
+    total = TRAIN_STEPS + 2
+    profiled = total - 1  # batch index of the profiled step
+    clock = step_clock(torch, profiled)
     module = LlamaModule(cfg, lr=3e-4, warmup_steps=2, total_steps=total)
     dm = SyntheticLMDataModule(cfg, batch_size=TRAIN_BATCH,
                                n_train=TRAIN_BATCH * 32,
@@ -1023,14 +1077,7 @@ def train_main_path(torch, card):
     val_loss = float(trainer.callback_metrics["val_loss"])
     check(math.isfinite(val_loss), f"val_loss {val_loss}")
     L, nv = cfg.n_layers, TRAIN_VAL_BATCHES
-    # per train step: forward + remat recompute run every layer's two norms
-    # and its flash forward twice; the final norm (outside the remat
-    # region) once; backward launches the two backward kernels per layer.
-    # Validation runs the forward alone.
-    expect = {"rmsnorm": (4 * L + 1) * total + (2 * L + 1) * nv,
-              "flash_fwd": 2 * L * total + L * nv,
-              "flash_bwd_dq": L * total, "flash_bwd_dkv": L * total,
-              "paged_decode": 0, "argmax": 0}
+    expect = training_launches(L, total, nv)
     check(counts == expect, f"training launch counts {counts} != {expect}")
 
     # step i's time: from its start event to the next step's start event
@@ -1056,21 +1103,186 @@ def train_main_path(torch, card):
     log(f"training launches: {counts} (per step: rmsnorm {4 * L + 1}, "
         f"flash_fwd {2 * L}, flash_bwd_dq {L}, flash_bwd_dkv {L}; per val "
         f"batch: rmsnorm {2 * L + 1}, flash_fwd {L})")
+    log_breakdown(torch, "training profile of one step", clock)
+    del trainer, module, clock
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
-    classes, other = device_breakdown(torch, clock.prof, clock.prof_wall_ms)
-    busy_ms = sum(classes.values()) / 1e3
-    if busy_ms == 0:
-        log("training profile: the profiler saw no device events; breakdown "
-            "not measured")
-    else:
-        wall = clock.prof_wall_ms
-        log(f"training profile of one step: wall {wall:.1f} ms, device busy "
-            f"{busy_ms:.1f} ms, idle {max(wall - busy_ms, 0.0):.1f} ms "
-            f"({max(wall - busy_ms, 0.0) / wall:.1%}); "
-            + ", ".join(f"{k} {v / 1e3:.1f} ms ({v / 1e3 / wall:.1%})"
-                        for k, v in classes.most_common()))
-        log("training profile, largest 'other' device events: " + "; ".join(
-            f"{name} {us / 1e3:.1f} ms" for name, us in other.most_common(8)))
+
+def training_launches(L, steps, val_batches, remat=True):
+    """Kernel launches of ``steps`` training micro-batches and
+    ``val_batches`` validation batches of an L-layer model. With remat
+    ("nothing" or "dots": the layer's norms and flash forward are
+    recomputed, the projections are not kernels) each micro-batch runs
+    every layer's two norms and its flash forward twice, the final norm
+    (outside the remat region) once, and the two backward kernels once per
+    layer; without remat the forward runs once. Validation runs the forward
+    alone."""
+    fwd = 2 if remat else 1
+    return {"rmsnorm": (2 * fwd * L + 1) * steps + (2 * L + 1) * val_batches,
+            "flash_fwd": fwd * L * steps + L * val_batches,
+            "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps,
+            "paged_decode": 0, "argmax": 0}
+
+
+def remat_variants(torch, card):
+    """The main path's bf16 configuration at batch 8 x 2048 under
+    remat_policy="dots" and with remat off: one warm-up step and
+    VARIANT_STEPS measured steps each, no validation; step time and peak
+    memory beside the main path's per-layer remat."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+
+    out = {}
+    for name, cfg in (
+        ("remat dots", dataclasses.replace(LlamaConfig.small(),
+                                           remat_policy="dots")),
+        ("remat off", dataclasses.replace(LlamaConfig.small(), remat=False)),
+    ):
+        total = VARIANT_STEPS + 1
+        clock = step_clock(torch)
+        module = LlamaModule(cfg, lr=3e-4, warmup_steps=2, total_steps=total)
+        dm = SyntheticLMDataModule(cfg, batch_size=TRAIN_BATCH,
+                                   n_train=TRAIN_BATCH * 16)
+        dm.setup("fit")
+        trainer = Trainer(device="cuda", max_steps=total, logger=False,
+                          enable_checkpointing=False, seed=0, callbacks=[clock])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        trainer.fit(module, train_dataloaders=dm.train_dataloader())
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(x) for x in clock.losses]
+        check(len(losses) == total and all(math.isfinite(x) for x in losses),
+              f"{name}: losses {losses}")
+        expect = training_launches(cfg.n_layers, total, 0, remat=cfg.remat)
+        check(counts == expect, f"{name}: launch counts {counts} != {expect}")
+        starts = clock.starts + [end]
+        step_ms = [a.elapsed_time(b) for a, b in zip(starts[1:-1], starts[2:])]
+        med = sorted(step_ms)[len(step_ms) // 2]
+        tokens = TRAIN_BATCH * cfg.max_seq
+        log(f"training main path with {name} on {card}: LlamaConfig.small() "
+            f"bf16 batch {TRAIN_BATCH} x {cfg.max_seq}: median step "
+            f"{med:.1f} ms over {len(step_ms)} steps (min {min(step_ms):.1f}, "
+            f"max {max(step_ms):.1f}) -> {tokens / (med / 1e3):.0f} tokens/s, "
+            f"MFU {cfg.flops_per_token() * tokens / (med / 1e3) / BF16_FLOPS:.2%}"
+            f"; peak memory {peak_gib:.2f} GiB; launches {counts}")
+        out[name] = {"step_ms": med, "peak_gib": peak_gib}
+        del trainer, module, clock
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_complete_path(torch, card):
+    """The complete Trainer on the card: LlamaConfig.small() at full width
+    and depth with fp32 master weights, precision="bf16-mixed", remat
+    "dots", two micro-batches of 4 x 2048 per update, a global-norm clip,
+    ThroughputMonitor and EarlyStopping, through SingleDeviceStrategy's
+    side-stream input pipeline: one warm-up update, COMPLETE_UPDATES
+    measured updates, one profiled update, then validation."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.callbacks import EarlyStopping, ThroughputMonitor
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.strategies import SingleDeviceStrategy
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(LlamaConfig.small(), dtype=torch.float32,
+                              remat_policy="dots")
+    k = COMPLETE_ACCUM
+    updates = COMPLETE_UPDATES + 2  # warm-up, measured, profiled
+    total = updates * k
+    profiled = (updates - 1) * k  # batch index of the profiled update's start
+    seen = set()
+
+    class DtypeProbe(LlamaModule):
+        """Records the dtypes of the tensors training_step receives (host
+        metadata: no sync)."""
+
+        def training_step(self, params, batch, batch_idx):
+            seen.update(str(t.dtype) for t in tree_leaves(params))
+            return super().training_step(params, batch, batch_idx)
+
+    clock = step_clock(torch, profiled, k)
+    throughput = ThroughputMonitor()
+    stopper = EarlyStopping(monitor="val_loss", patience=3)
+    module = DtypeProbe(cfg, lr=3e-4, warmup_steps=2, total_steps=updates)
+    dm = SyntheticLMDataModule(cfg, batch_size=COMPLETE_MICRO,
+                               n_train=COMPLETE_MICRO * 64,
+                               n_val=COMPLETE_MICRO * TRAIN_VAL_BATCHES)
+    trainer = Trainer(device="cuda", strategy=SingleDeviceStrategy(),
+                      precision="bf16-mixed", accumulate_grad_batches=k,
+                      gradient_clip_val=1.0, max_steps=total, logger=False,
+                      enable_checkpointing=False, seed=0,
+                      callbacks=[clock, throughput, stopper])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    trainer.fit(module, datamodule=dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    losses = [float(x) for x in clock.losses]
+    check(len(losses) == total, f"{len(losses)} micro-batches, expected {total}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(trainer.global_step == total,
+          f"global_step {trainer.global_step} != {total} micro-batches")
+    dtypes = {str(t.dtype) for t in tree_leaves(trainer.params)}
+    check(dtypes == {"torch.float32"}, f"master weights are {dtypes} after fit")
+    check(seen == {"torch.bfloat16"}, f"training_step received {seen}")
+    val_loss = float(trainer.callback_metrics["val_loss"])
+    check(math.isfinite(val_loss), f"val_loss {val_loss}")
+    mfu_cb = float(trainer.callback_metrics["train_mfu"])
+    check(math.isfinite(mfu_cb) and mfu_cb > 0,
+          f"ThroughputMonitor train_mfu {mfu_cb}")
+    L, nv = cfg.n_layers, TRAIN_VAL_BATCHES
+    expect = training_launches(L, total, nv)
+    check(counts == expect, f"complete-path launch counts {counts} != {expect}")
+
+    # update u spans its k micro-batches: from the start event of its first
+    # to the start of the next update's first (idle gaps included)
+    starts = clock.starts[:profiled] + [clock.end]
+    bounds = starts[::k]
+    upd_ms = [a.elapsed_time(b) for a, b in zip(bounds[1:-1], bounds[2:])]
+    med = sorted(upd_ms)[len(upd_ms) // 2]
+    tokens = k * COMPLETE_MICRO * cfg.max_seq
+    flops = cfg.flops_per_token() * tokens
+    log(f"complete-Trainer training path on {card}: LlamaConfig.small() "
+        f"({cfg.num_params() / 1e9:.3f} B params) with fp32 masters, "
+        f"bf16-mixed, remat dots, {k} micro-batches of {COMPLETE_MICRO} x "
+        f"{cfg.max_seq} per update, clip 1.0; fit of {total} micro-batches "
+        f"+ {nv} val batches in {fit_s:.1f}s; median update {med:.1f} ms "
+        f"over {len(upd_ms)} updates (min {min(upd_ms):.1f}, max "
+        f"{max(upd_ms):.1f}) -> {tokens / (med / 1e3):.0f} tokens/s, MFU "
+        f"{flops / (med / 1e3) / BF16_FLOPS:.2%} of 989 TFLOP/s; "
+        f"ThroughputMonitor train_mfu {mfu_cb:.2%} (its step is a "
+        f"micro-batch); peak memory {peak_gib:.2f} GiB")
+    log(f"complete-path losses: {[round(x, 4) for x in losses]}; val_loss "
+        f"{val_loss:.4f}; EarlyStopping wait {stopper.wait_count}")
+    log(f"complete-path launches: {counts} (per micro-batch: rmsnorm "
+        f"{4 * L + 1}, flash_fwd {2 * L}, flash_bwd_dq {L}, flash_bwd_dkv "
+        f"{L}; per val batch: rmsnorm {2 * L + 1}, flash_fwd {L})")
+    log_breakdown(torch, f"complete-path profile of one update ({k} "
+                  "micro-batches)", clock, unprofiled_ms=med)
     del trainer, module, clock
     gc.collect()
     torch.cuda.empty_cache()
@@ -1158,6 +1370,151 @@ def train_exactness(torch):
     torch.cuda.empty_cache()
 
 
+# bf16-mixed through the kernels against plain=True under the same cast:
+# the loss and each gradient leaf within MIXED_TOL of its max. On an H100
+# the worst leaf measured 0.0167 (embed), where the plain bf16 path itself
+# is 0.017 off an fp32 run: the gradients of a whole model in bf16 differ
+# by a few ulps (PERF.md). Beside it, the kernel path's error against fp32
+# may be at most twice the plain path's.
+MIXED_TOL = 2.0 ** -5
+
+
+def complete_exactness(torch):
+    """fp32 masters, the small widths cut to 2 layers, batch 2 x 2048, the
+    chunked loss: (a) remat "dots" against "nothing" through the kernels,
+    fp32 (the same kernels on the same inputs: bitwise expected, 1e-6
+    relative the bound); (b) bf16-mixed (a bf16 view of the masters, the
+    gradients on the masters) through the kernels against plain=True under
+    the same cast (MIXED_TOL), and both against an fp32 plain run; (c) the
+    Trainer with accumulate_grad_batches=2 over two micro-batches of 1 row
+    against one update on the batch of 2 rows: the gradient each update
+    applies and the parameters after it, 1e-5 relative to each leaf's
+    max."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.core import DataLoader, DictDataset, Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        init_params,
+        lm_loss,
+    )
+    from ray_lightning_tpu_torch.utils.precision import cast_floats
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(LlamaConfig.small(), n_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(17))
+    leaves = list(tree_leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(18))
+
+    def loss_and_grads(run_cfg, mixed=False, plain=False):
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(True)
+        view = cast_floats(params, torch.bfloat16) if mixed else params
+        loss, _ = lm_loss(view, tokens, run_cfg, plain=plain)
+        loss.backward()
+        return float(loss), [t.grad.detach().clone() for t in leaves]
+
+    names = (["embed"] + [f"layers.{k}" for k in params["layers"]]
+             + ["final_norm", "lm_head"])
+
+    def worst(a_grads, b_grads):
+        """The largest gap of a leaf relative to its max, and the leaf."""
+        out = (0.0, "")
+        for name, a, b in zip(names, a_grads, b_grads):
+            peak = float(b.abs().max())
+            check(peak > 0, f"reference gradient {name} is all zero")
+            out = max(out, (max_err(a, b) / peak, name))
+        return out
+
+    # (a) "dots" against "nothing"
+    runs = {policy: loss_and_grads(dataclasses.replace(cfg, remat_policy=policy))
+            for policy in ("nothing", "dots")}
+    (ln, gn), (ld, gd) = runs["nothing"], runs["dots"]
+    dots_gap = max(abs(ld - ln) / abs(ln), worst(gd, gn)[0])
+    bitwise = ld == ln and all(torch.equal(a, b) for a, b in zip(gd, gn))
+    log(f"complete exactness (a): remat dots vs nothing, fp32 through the "
+        f"kernels: loss {ld:.7f} vs {ln:.7f}, worst relative gap {dots_gap:.3g}"
+        f" (bitwise equal: {bitwise}; bound 1e-6)")
+    check(dots_gap <= 1e-6, f"dots vs nothing gap {dots_gap:.3g}")
+
+    # (b) bf16-mixed through the kernels against the plain versions
+    lk, gk = loss_and_grads(cfg, mixed=True)
+    lp, gp = loss_and_grads(cfg, mixed=True, plain=True)
+    _, g32 = loss_and_grads(cfg, plain=True)
+    mixed_loss_gap = abs(lk - lp) / abs(lp)
+    mixed_gap, mixed_leaf = worst(gk, gp)
+    check(all(g.dtype == torch.float32 for g in gk), "mixed grads not fp32")
+
+    def rel(a, b):
+        return max_err(a, b) / float(b.abs().max())
+
+    log(f"complete exactness (b): bf16-mixed through the kernels vs plain: "
+        f"loss {lk:.6f} vs {lp:.6f} ({mixed_loss_gap:.3g} relative); worst "
+        f"gradient leaf {mixed_leaf} {mixed_gap:.3g} of its max (bound "
+        f"{MIXED_TOL:.3g}); by leaf, kernels vs plain / kernels vs fp32 / "
+        "plain vs fp32: " + ", ".join(
+            f"{n} {rel(a, b):.3g}/{rel(a, c):.3g}/{rel(b, c):.3g}"
+            for n, a, b, c in zip(names, gk, gp, g32)))
+    check(mixed_loss_gap <= MIXED_TOL and mixed_gap <= MIXED_TOL,
+          f"bf16-mixed kernels vs plain: loss {mixed_loss_gap:.3g}, "
+          f"gradients {mixed_gap:.3g}")
+    for n, a, b, c in zip(names, gk, gp, g32):
+        check(rel(a, c) <= 2 * rel(b, c) + 1e-6,
+              f"{n}: the kernels' bf16 error against fp32 {rel(a, c):.3g} "
+              f"is over twice the plain versions' {rel(b, c):.3g}")
+    host = tree_map(lambda t: t.detach().cpu(), params)
+    del params, leaves, runs, gn, gd, gk, gp, g32
+    gc.collect()
+
+    # (c) accumulation of two micro-batches of 1 against a batch of 2
+    applied = []
+
+    class RecordingSGD(torch.optim.SGD):
+        """SGD that keeps the gradient each step applies (after the
+        Trainer's mean over the micro-batches)."""
+
+        def step(self, closure=None):
+            applied.append([p.grad.detach().clone()
+                            for g in self.param_groups for p in g["params"]])
+            return super().step(closure)
+
+    class SGDLlama(LlamaModule):
+        def configure_optimizers(self):
+            return RecordingSGD(list(tree_leaves(self.params)), lr=1e-2)
+
+    rows = tokens.cpu().numpy().astype(np.int32)
+    after = []
+    for accumulate, batch in ((2, 1), (1, 2)):
+        module = SGDLlama(cfg)
+        module.params = tree_map(lambda t: t.clone(), host)
+        trainer = Trainer(device="cuda", accumulate_grad_batches=accumulate,
+                          max_steps=2 // batch, logger=False,
+                          enable_checkpointing=False, seed=0)
+        trainer.fit(module, train_dataloaders=DataLoader(
+            DictDataset(input_ids=rows), batch_size=batch))
+        check(trainer.global_step == 2 // batch, "accumulation steps")
+        after.append([t.detach().clone() for t in tree_leaves(trainer.params)])
+        del trainer, module
+        gc.collect()
+    check(len(applied) == 2, f"{len(applied)} updates, expected one per run")
+    grad_gap, grad_leaf = worst(applied[0], applied[1])
+    param_gap, param_leaf = worst(after[0], after[1])
+    log(f"complete exactness (c): accumulate 2 x 1 row vs one update on 2 "
+        f"rows (SGD, fp32): the applied gradient's worst leaf gap "
+        f"{grad_gap:.3g} of its max ({grad_leaf}), the parameters' "
+        f"{param_gap:.3g} ({param_leaf}); bound 1e-5")
+    check(grad_gap <= 1e-5 and param_gap <= 1e-5,
+          f"accumulation gap: gradient {grad_gap:.3g}, parameters "
+          f"{param_gap:.3g}")
+    del applied, after, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -1200,6 +1557,9 @@ def main():
     exactness(torch)
     by_path["training"] = train_main_path(torch, card)
     train_exactness(torch)
+    remat_variants(torch, card)
+    by_path["training_complete"] = train_complete_path(torch, card)
+    complete_exactness(torch)
 
     entries = []
     for k in kernels.KERNELS:

@@ -4,8 +4,9 @@ them to the device in one copy per array.
 
 The shuffle plan is the JAX package's, ``np.random.default_rng(seed +
 epoch).permutation``, so the port and the JAX package see the same batches
-in the same order. Loader worker threads (``num_workers``) and the
-rank-sharding ``DistributedSampler`` are not ported yet (ROADMAP.md).
+in the same order. ``num_workers > 0`` assembles batches on background
+threads (``core/prefetch.py``). The rank-sharding ``DistributedSampler`` is
+not ported yet (ROADMAP.md, queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -86,13 +87,19 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = False, collate_fn: Optional[Callable] = None,
-                 seed: int = 0):
+                 seed: int = 0, num_workers: int = 0, prefetch_factor: int = 2):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.collate_fn = collate_fn or default_collate
         self.seed = seed
+        self.num_workers = int(num_workers)
+        self.prefetch_factor = int(prefetch_factor)
+        if self.num_workers < 0:
+            raise ValueError(f"num_workers must be >= 0, got {num_workers}")
+        if self.prefetch_factor < 1:
+            raise ValueError(f"prefetch_factor must be >= 1, got {prefetch_factor}")
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -104,7 +111,10 @@ class DataLoader:
             return n // self.batch_size
         return math.ceil(n / self.batch_size)
 
-    def __iter__(self):
+    # the split iteration protocol that prefetch.AsyncLoader consumes: the
+    # plan (index chunks) is cheap and ordered, the assembly (__getitem__,
+    # collate, numpy) is the work that runs in parallel
+    def _batch_plan(self):
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self._epoch)
             indices = rng.permutation(len(self.dataset)).tolist()
@@ -113,8 +123,19 @@ class DataLoader:
         bs = self.batch_size
         stop = len(indices) - len(indices) % bs if self.drop_last else len(indices)
         for start in range(0, stop, bs):
-            chunk = indices[start:start + bs]
-            yield _to_numpy_tree(self.collate_fn([self.dataset[i] for i in chunk]))
+            yield indices[start:start + bs]
+
+    def _assemble(self, chunk):
+        return _to_numpy_tree(self.collate_fn([self.dataset[i] for i in chunk]))
+
+    def __iter__(self):
+        if self.num_workers > 0:
+            from ray_lightning_tpu_torch.core.prefetch import AsyncLoader
+
+            yield from AsyncLoader(self)
+            return
+        for chunk in self._batch_plan():
+            yield self._assemble(chunk)
 
 
 class _ForeignLoader:

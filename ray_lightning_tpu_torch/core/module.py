@@ -55,6 +55,9 @@ class LightningModule:
         self._step_ctx: Optional[_StepContext] = None
         self._log_meta: Dict[str, LogMeta] = {}
         self._params = None  # populated by fit / load_from_checkpoint
+        # the Trainer's precision policy (utils/precision.py), set by the
+        # Trainer before fit, validate, test and predict
+        self.precision_policy = None
         self.hparams: HParams = getattr(self, "hparams", HParams())
 
     # ------------------------------------------------------------------ #
@@ -129,6 +132,13 @@ class LightningModule:
         return self.forward(params, *args, **kwargs)
 
     def training_step(self, params, batch, batch_idx):
+        """Return the loss (or ``{"loss": loss, ...}``) of one batch. When
+        ``configure_optimizers`` returns alternating optimizers
+        (``{"optimizers": [opt0, opt1, ...], "param_labels": ...}``), the
+        Trainer calls it once per optimizer with ``optimizer_idx=i``, on the
+        parameters as the previous sub-step left them, and only optimizer
+        i's leaves take its gradient: the override must then accept an
+        ``optimizer_idx`` argument."""
         raise NotImplementedError
 
     def validation_step(self, params, batch, batch_idx):

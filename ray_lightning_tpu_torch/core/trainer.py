@@ -3,22 +3,29 @@ fit / validate / test / predict with the JAX Trainer's arguments, logged
 metric names and epoch reduction.
 
 A training step is eager PyTorch: the module's ``training_step`` on the
-parameter tree (``nn.Parameter`` leaves), ``loss.backward()``, an optional
-global-norm clip, ``optimizer.step()`` and ``lr_scheduler.step()``. The host
-never waits for the device inside the step loop: batches go up from pinned
-memory without blocking, logged values stay on the device, and they come
+parameter tree (``nn.Parameter`` leaves, or a cast of them under a mixed
+precision policy), backward, and at every ``accumulate_grad_batches``-th
+batch the update: the mean of the accumulated gradients, an optional
+global-norm clip, ``optimizer.step()`` and the LR schedulers' step, which
+is ``optax.MultiSteps`` around the clipped optimizer. Alternating
+optimizers (``optimizer_idx``) run one sub-step per optimizer; per-group
+optimizers share one backward. The host never waits for the device inside
+the step loop: batches go up from pinned memory on a side stream
+(``core/prefetch.py``), logged values stay on the device, and they come
 back in one copy at the drain points (epoch end, validation, the end of
 fit), as the JAX Trainer's ``_step_log_buffer`` does.
 
-Not ported yet, and refused loudly (ROADMAP.md, queue 1): strategies
-(several devices), precision policies, gradient accumulation, alternating
-or per-group optimizers, the async input pipeline, elastic membership,
-telemetry.
+Not ported yet, and refused loudly (ROADMAP.md, queue 1 item 6): the
+strategies over several devices (``devices > 1``, any strategy but
+``SingleDeviceStrategy``). Not ported: the TPU accelerator
+(``accelerator="tpu"``), elastic membership and telemetry.
 """
 from __future__ import annotations
 
+import inspect
 import os
 import tempfile
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Union
 
@@ -33,15 +40,26 @@ from ray_lightning_tpu_torch.callbacks.base import (
 from ray_lightning_tpu_torch.callbacks.checkpoint import ModelCheckpoint
 from ray_lightning_tpu_torch.core.data import ensure_loader
 from ray_lightning_tpu_torch.core.module import LightningModule
+from ray_lightning_tpu_torch.core.prefetch import AsyncLoader, DevicePrefetcher
 from ray_lightning_tpu_torch.device import DeviceLike, resolve_device
 from ray_lightning_tpu_torch.loggers.base import Logger
 from ray_lightning_tpu_torch.loggers.csv_logger import CSVLogger
+from ray_lightning_tpu_torch.strategies.base import SingleDeviceStrategy
+from ray_lightning_tpu_torch.utils.precision import (
+    cast_floats,
+    matmul_precision_scope,
+    parse_matmul_precision,
+    parse_precision,
+    round_matmul_inputs,
+)
 from ray_lightning_tpu_torch.utils.seed import seed_everything
 from ray_lightning_tpu_torch.utils.tree import tree_leaves, tree_map
 
 __version__ = "0.1.0"
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
+_SEVERAL_DEVICES = ("is not ported yet (ROADMAP.md, queue 1 item 6: the "
+                    "strategies over torch.distributed); the port trains on "
+                    "one device")
 
 
 @dataclass
@@ -91,44 +109,199 @@ class _EpochAggregator:
         return out
 
 
-def _normalize_optimizers(configured):
-    """``configure_optimizers``' result -> (optimizer, lr scheduler or
-    None). One optimizer only."""
-    sched = None
-    if isinstance(configured, dict):
-        if "optimizers" in configured:
-            raise NotImplementedError(
-                "alternating or per-group optimizers ({'optimizers': ...}) "
-                + _NOT_PORTED
+@dataclass
+class _Optimizers:
+    """``configure_optimizers``' result, normalised: the optimizers, each
+    optimizer's LR schedulers, whether they alternate (one sub-step per
+    optimizer, ``optimizer_idx``), and the ``param_labels`` (None for one
+    optimizer). ``names`` are the labels that select each optimizer:
+    indices when alternating, the dict's keys for per-group optimizers."""
+
+    optimizers: List[torch.optim.Optimizer]
+    schedulers: List[List[Any]]
+    alternating: bool = False
+    labels: Any = None
+    names: List[Any] = field(default_factory=list)
+
+
+def _scheduler_list(sched) -> List[Any]:
+    if sched is None:
+        return []
+    scheds = list(sched) if isinstance(sched, (list, tuple)) else [sched]
+    return [s.get("scheduler") if isinstance(s, dict) else s for s in scheds]
+
+
+def _normalize_optimizers(configured) -> _Optimizers:
+    """``configure_optimizers``' result (``Trainer._normalize_tx``): one
+    optimizer (alone, in a one-item list, as ``{"optimizer": ...,
+    "lr_scheduler": ...}`` or as PTL's ``([opt], [sched])``), or
+    ``{"optimizers": [...] | {label: opt}, "param_labels": ...,
+    "lr_scheduler": ...}`` for alternating or per-group optimizers. Each
+    scheduler steps with the optimizer it was built on."""
+    scheds: List[Any] = []
+    names: List[Any] = []
+    alternating, labels = False, None
+    if isinstance(configured, dict) and "optimizers" in configured:
+        opts = configured["optimizers"]
+        labels = configured.get("param_labels")
+        if labels is None:
+            raise ValueError(
+                "configure_optimizers returned {'optimizers': ...} without "
+                "'param_labels' (a tree of labels, a prefix over the params "
+                "is fine, or a callable params -> labels)"
             )
-        opt, sched = configured.get("optimizer"), configured.get("lr_scheduler")
-    elif isinstance(configured, (list, tuple)):
-        opts, scheds = (configured if len(configured) == 2
-                        and isinstance(configured[0], (list, tuple))
-                        else (configured, []))
-        if len(opts) != 1 or len(scheds) > 1:
-            raise NotImplementedError(
-                "more than one optimizer or scheduler " + _NOT_PORTED
-            )
-        opt, sched = opts[0], (scheds[0] if scheds else None)
+        if isinstance(opts, dict):
+            names, opts = list(opts), list(opts.values())
+        else:
+            opts = list(opts)
+            names = list(range(len(opts)))
+            alternating = True
+        scheds = _scheduler_list(configured.get("lr_scheduler"))
     else:
-        opt = configured
-    if isinstance(sched, dict):
-        sched = sched.get("scheduler")
-    if not isinstance(opt, torch.optim.Optimizer):
-        raise TypeError(
-            "configure_optimizers must return a torch.optim.Optimizer, "
-            "optionally with an lr scheduler"
+        if isinstance(configured, dict):
+            opts = configured.get("optimizer")
+            scheds = _scheduler_list(configured.get("lr_scheduler"))
+        elif (isinstance(configured, (list, tuple)) and len(configured) == 2
+              and isinstance(configured[0], (list, tuple))):
+            opts, scheds = configured[0], _scheduler_list(configured[1])
+        else:
+            opts = configured
+        if isinstance(opts, (list, tuple)):
+            if len(opts) != 1:
+                raise ValueError(
+                    "a bare list of optimizers is ambiguous: for PTL-style "
+                    "ALTERNATING optimizers (optimizer_idx) return "
+                    "{'optimizers': [opt0, opt1], 'param_labels': <leaf -> "
+                    "optimizer index>}; for per-parameter-group optimizers "
+                    "over one loss return {'optimizers': {label: opt}, "
+                    "'param_labels': ...}"
+                )
+            opts = opts[0]
+        opts = [opts]
+        names = [None]
+    for opt in opts:
+        if not isinstance(opt, torch.optim.Optimizer):
+            raise TypeError(
+                "configure_optimizers must return torch.optim.Optimizer "
+                f"instances, optionally with lr schedulers; got {type(opt)!r}"
+            )
+    by_opt: List[List[Any]] = [[] for _ in opts]
+    for sched in scheds:
+        owner = [i for i, opt in enumerate(opts)
+                 if getattr(sched, "optimizer", None) is opt]
+        if not owner:
+            raise ValueError(
+                f"lr scheduler {sched!r} is not built on any of the "
+                "configured optimizers"
+            )
+        by_opt[owner[0]].append(sched)
+    return _Optimizers(opts, by_opt, alternating, labels, names)
+
+
+def _flat_labels(labels, params) -> List[Any]:
+    """``param_labels`` (a tree that is a prefix of the parameter tree, or a
+    callable params -> such a tree) as one label per leaf, in
+    ``tree_leaves`` order."""
+    if callable(labels):
+        labels = labels(params)
+
+    def walk(lab, sub):
+        if isinstance(lab, dict):
+            if not isinstance(sub, dict) or set(lab) != set(sub):
+                raise ValueError(
+                    f"param_labels keys {sorted(lab)} do not match the "
+                    f"parameter keys "
+                    f"{sorted(sub) if isinstance(sub, dict) else type(sub)}"
+                )
+            return [x for k in sub for x in walk(lab[k], sub[k])]
+        if isinstance(lab, (list, tuple)):
+            if not isinstance(sub, (list, tuple)) or len(lab) != len(sub):
+                raise ValueError(
+                    "param_labels has a list where the parameters do not, or "
+                    "one of another length"
+                )
+            return [x for l, t in zip(lab, sub) for x in walk(l, t)]
+        return [lab] * len(list(tree_leaves(sub)))
+
+    return walk(labels, params)
+
+
+def _check_labels(optim: _Optimizers, params) -> None:
+    """Every float leaf is in exactly one optimizer, the one its label
+    names, and every optimizer holds only leaves of the tree: a torch
+    optimizer names its parameters itself, so the labels are checked
+    against those sets (optax derives the sets from the labels)."""
+    leaves = list(tree_leaves(params))
+    flat = _flat_labels(optim.labels, params)
+    if optim.alternating:
+        try:
+            seen = {int(label) for label in flat}
+        except (TypeError, ValueError):
+            raise ValueError(
+                "with a LIST of alternating optimizers, param_labels must map "
+                "each leaf to an optimizer INDEX (int); for string-labeled "
+                "parameter groups over one loss use the dict form "
+                "{'optimizers': {label: opt}, ...}"
+            )
+        k = len(optim.optimizers)
+        if not seen <= set(range(k)) or len(seen) < k:
+            raise ValueError(
+                f"param_labels must cover exactly the optimizer indices "
+                f"0..{k - 1}; got labels {sorted(seen)}"
+            )
+        flat = [int(label) for label in flat]
+    else:
+        unknown = [label for label in dict.fromkeys(flat)
+                   if label not in optim.names]
+        if unknown:
+            raise ValueError(
+                f"param_labels {unknown} name no optimizer; the optimizers "
+                f"are {optim.names}"
+            )
+    owner: Dict[int, int] = {}
+    for i, opt in enumerate(optim.optimizers):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if owner.setdefault(id(p), i) != i:
+                    raise ValueError(
+                        f"a parameter of shape {tuple(p.shape)} is in two "
+                        "optimizers"
+                    )
+    ids = {id(leaf) for leaf in leaves}
+    if not set(owner) <= ids:
+        raise ValueError(
+            "an optimizer holds a tensor that is not a leaf of the Trainer's "
+            "parameter tree (build optimizers from self.params)"
         )
-    return opt, sched
+    for leaf, label in zip(leaves, flat):
+        if not leaf.requires_grad:
+            continue
+        want = optim.names.index(label)
+        got = owner.get(id(leaf))
+        if got != want:
+            held = ("no optimizer" if got is None
+                    else f"optimizer {optim.names[got]!r}")
+            raise ValueError(
+                f"param_labels puts a leaf of shape {tuple(leaf.shape)} in "
+                f"optimizer {label!r}, but {held} holds it"
+            )
+
+
+@dataclass
+class _Update:
+    """What one update steps: the optimizers, their schedulers, and the
+    leaves whose gradients it reads, clips and clears."""
+
+    optimizers: List[torch.optim.Optimizer]
+    schedulers: List[Any]
+    leaves: List[torch.Tensor]
 
 
 @torch.no_grad()
-def _clip_by_global_norm(tensors: List[torch.Tensor], max_norm: float) -> None:
+def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
     """``optax.clip_by_global_norm``: when the global norm g reaches
     ``max_norm``, scale every gradient by max_norm / g. On the device, no
     host sync."""
-    grads = [t.grad for t in tensors if t.grad is not None]
     if not grads:
         return
     norm = torch.linalg.vector_norm(
@@ -137,6 +310,36 @@ def _clip_by_global_norm(tensors: List[torch.Tensor], max_norm: float) -> None:
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(scale.to(g.dtype))
+
+
+def _resolve_trainer_device(device: DeviceLike, accelerator: str,
+                            devices: Any) -> torch.device:
+    """``accelerator`` and ``devices`` (the JAX Trainer's arguments) with
+    the port's ``device``: "auto", "gpu" and "cuda" mean the card, "cpu"
+    the CPU; one device only."""
+    if accelerator in ("tpu", "_tpu"):
+        raise NotImplementedError(
+            f"accelerator={accelerator!r}: the delayed TPU accelerator "
+            "(accelerators/delayed_tpu.py) is TPU-only and not ported "
+            "(ROADMAP.md, queue 1 item 9); use 'auto', 'gpu', 'cuda' or 'cpu'"
+        )
+    if accelerator not in ("auto", "gpu", "cuda", "cpu"):
+        raise ValueError(
+            f"accelerator={accelerator!r}: expected 'auto', 'gpu', 'cuda' or "
+            "'cpu'"
+        )
+    if devices not in ("auto", None, 1, "1", [0]):
+        if isinstance(devices, int) and devices > 1:
+            raise NotImplementedError(f"devices={devices}: " + _SEVERAL_DEVICES)
+        raise ValueError(f"devices={devices!r}: expected 'auto' or 1")
+    if device is None:
+        return resolve_device("cpu" if accelerator == "cpu" else None)
+    dev = resolve_device(device)
+    if accelerator != "auto" and (dev.type == "cpu") != (accelerator == "cpu"):
+        raise ValueError(
+            f"device={device!r} contradicts accelerator={accelerator!r}"
+        )
+    return dev
 
 
 class Trainer:
@@ -161,22 +364,31 @@ class Trainer:
         accumulate_grad_batches: int = 1,
         precision: Optional[Union[str, int]] = None,
         seed: Optional[int] = None,
-        strategy: Any = None,
+        strategy: Optional[SingleDeviceStrategy] = None,
+        min_epochs: int = 0,
+        accelerator: str = "auto",
+        devices: Any = "auto",
+        enable_progress_bar: bool = False,
+        fast_dev_run: bool = False,
+        use_distributed_sampler: bool = True,
+        matmul_precision: Optional[str] = None,
     ):
-        if strategy is not None:
+        """The JAX Trainer's arguments, plus ``device`` (where the port
+        runs: the card unless ``"cpu"``; ``accelerator="cpu"`` says the
+        same) and ``matmul_precision`` (``utils/precision.py``; the JAX
+        Trainer reads it from an environment variable)."""
+        if strategy is None:
+            strategy = SingleDeviceStrategy()
+        elif not isinstance(strategy, SingleDeviceStrategy):
             raise NotImplementedError(
-                f"strategy={strategy!r}: strategies (several devices) "
-                + _NOT_PORTED + "; the port trains on one device"
+                f"strategy={strategy!r}: strategies over several devices "
+                + _SEVERAL_DEVICES + " (SingleDeviceStrategy)"
             )
-        if precision is not None:
-            raise NotImplementedError(
-                f"precision={precision!r}: precision policies " + _NOT_PORTED
-                + "; the parameters' dtype is the compute dtype"
-            )
-        if accumulate_grad_batches != 1:
-            raise NotImplementedError(
-                f"accumulate_grad_batches={accumulate_grad_batches}: gradient "
-                "accumulation " + _NOT_PORTED
+        if int(accumulate_grad_batches) != accumulate_grad_batches or (
+                accumulate_grad_batches < 1):
+            raise ValueError(
+                f"accumulate_grad_batches={accumulate_grad_batches}: must be "
+                "an int >= 1"
             )
         # PTL semantics: ints are batch/step counts, floats epoch fractions
         for name, value in (
@@ -196,8 +408,11 @@ class Trainer:
                         f"{name}={value}: float values are epoch fractions and "
                         "must be in [0.0, 1.0]; pass an int for a batch count"
                     )
-        self.device = resolve_device(device)
+        self.device = _resolve_trainer_device(device, accelerator, devices)
+        self.strategy = strategy
+        self.accelerator = accelerator
         self.max_epochs = max_epochs if max_epochs is not None else 1000
+        self.min_epochs = min_epochs
         self.max_steps = max_steps
         self.log_every_n_steps = log_every_n_steps
         self.check_val_every_n_epoch = check_val_every_n_epoch
@@ -208,8 +423,21 @@ class Trainer:
         self.limit_test_batches = limit_test_batches
         self.limit_predict_batches = limit_predict_batches
         self.gradient_clip_val = gradient_clip_val
+        self.accumulate_grad_batches = int(accumulate_grad_batches)
+        self.precision = precision
+        self.precision_policy = parse_precision(precision)
+        self.matmul_precision = parse_matmul_precision(matmul_precision)
         self.seed = seed
-        self.enable_checkpointing = enable_checkpointing
+        self.enable_progress_bar = enable_progress_bar
+        self.fast_dev_run = fast_dev_run
+        # one device: the rank-sharding sampler is a no-op, as in JAX
+        self.use_distributed_sampler = use_distributed_sampler
+        self.enable_checkpointing = enable_checkpointing and not fast_dev_run
+        if fast_dev_run:
+            self.max_epochs = 1
+            self.limit_train_batches = 1
+            self.limit_val_batches = 1
+            self.limit_test_batches = 1
         self.default_root_dir = os.path.abspath(default_root_dir or os.getcwd())
 
         self.callbacks: List[Callback] = list(callbacks or [])
@@ -241,13 +469,27 @@ class Trainer:
         self.logged_metrics: Dict[str, Any] = {}
         self._module: Optional[LightningModule] = None
         self._params = None
-        self._optimizer: Optional[torch.optim.Optimizer] = None
-        self._scheduler = None
+        self._optim: Optional[_Optimizers] = None
+        self._updates: List[_Update] = []
+        # micro-batches whose gradients wait in the leaves' .grad for the
+        # next update (optax.MultiSteps' mini_step)
+        self._micro_step = 0
         self._step_log_buffer: list = []
+        self._input_prefetcher: Optional[DevicePrefetcher] = None
+        self._input_stats = {"starved_s": 0.0, "batches": 0}
+        self._copy_stream = None
 
     # ------------------------------------------------------------------ #
     # properties and dispatch
     # ------------------------------------------------------------------ #
+    @property
+    def world_size(self) -> int:
+        return self.strategy.world_size
+
+    @property
+    def global_rank(self) -> int:
+        return self.strategy.global_rank
+
     @property
     def lightning_module(self) -> Optional[LightningModule]:
         return self._module
@@ -261,13 +503,26 @@ class Trainer:
         return self._params
 
     @property
+    def optimizers(self) -> List[torch.optim.Optimizer]:
+        return list(self._optim.optimizers) if self._optim is not None else []
+
+    @property
     def optimizer(self) -> Optional[torch.optim.Optimizer]:
-        return self._optimizer
+        return self._optim.optimizers[0] if self._optim is not None else None
 
     @property
     def checkpoint_callback(self) -> Optional[ModelCheckpoint]:
         for cb in self.callbacks:
             if isinstance(cb, ModelCheckpoint):
+                return cb
+        return None
+
+    @property
+    def early_stopping_callback(self):
+        from ray_lightning_tpu_torch.callbacks.early_stopping import EarlyStopping
+
+        for cb in self.callbacks:
+            if isinstance(cb, EarlyStopping):
                 return cb
         return None
 
@@ -341,8 +596,10 @@ class Trainer:
     # device placement
     # ------------------------------------------------------------------ #
     def _place_params(self, tree):
-        """The parameter tree as ``nn.Parameter`` leaves on the device,
-        copied: training never writes into the caller's tensors."""
+        """The parameter tree as ``nn.Parameter`` leaves on the device, in
+        the precision policy's parameter dtype, copied: training never
+        writes into the caller's tensors."""
+        tree = cast_floats(tree, self.precision_policy.param_dtype)
         return tree_map(
             lambda t: torch.nn.Parameter(
                 torch.as_tensor(t).detach().to(self.device, copy=True),
@@ -371,36 +628,141 @@ class Trainer:
                 return int(leaf.shape[0])
         return 1
 
+    def _compute_view(self, params):
+        """What a step computes on: under a mixed policy a cast of the
+        masters (inside autograd, so the gradients land on the masters in
+        their dtype), once per step; under fp8-emulated the float leaves
+        rounded to fp8's value grid."""
+        policy = self.precision_policy
+        if policy.cast_params_in_compute:
+            params = cast_floats(params, policy.compute_dtype)
+        return round_matmul_inputs(self.matmul_precision, params)
+
     # ------------------------------------------------------------------ #
     # steps
     # ------------------------------------------------------------------ #
+    def _build_updates(self) -> None:
+        """One ``_Update`` for a single optimizer or per-group optimizers
+        (every optimizer steps after one backward, the clip spans every
+        leaf), one per optimizer when they alternate (each clips and clears
+        only its own leaves)."""
+        optim = self._optim
+        leaves = [t for t in tree_leaves(self._params) if t.requires_grad]
+        if not optim.alternating:
+            self._updates = [_Update(list(optim.optimizers),
+                                     [s for ss in optim.schedulers for s in ss],
+                                     leaves)]
+            return
+        self._updates = []
+        for opt, scheds in zip(optim.optimizers, optim.schedulers):
+            held = {id(p) for g in opt.param_groups for p in g["params"]}
+            self._updates.append(_Update([opt], list(scheds),
+                                         [t for t in leaves if id(t) in held]))
+
+    def _check_optimizer_idx(self) -> None:
+        sig = inspect.signature(self._module.training_step)
+        if "optimizer_idx" not in sig.parameters and not any(
+            p.kind is inspect.Parameter.VAR_KEYWORD
+            for p in sig.parameters.values()
+        ):
+            raise TypeError(
+                f"configure_optimizers returned {len(self._optim.optimizers)} "
+                "alternating optimizers, so training_step must accept an "
+                "`optimizer_idx` argument (PTL multiple-optimizer contract)"
+            )
+
     def _train_step(self, batch) -> Dict[str, torch.Tensor]:
+        """One micro-batch: forward and backward into the leaves' ``.grad``
+        (summed over the micro-batches of an accumulation); at the k-th,
+        the update. Alternating optimizers run their sub-steps in order,
+        each on the parameters the previous one left."""
+        policy = self.precision_policy
+        batch = round_matmul_inputs(self.matmul_precision,
+                                    cast_floats(batch, policy.compute_dtype))
+        update = self._micro_step + 1 == self.accumulate_grad_batches
+        with matmul_precision_scope(self.matmul_precision):
+            if not self._optim.alternating:
+                loss, logs = self._forward_backward(batch)
+                if update:
+                    self._apply_update(self._updates[0])
+                logs.setdefault("loss", loss)
+            else:
+                logs = {}
+                for i, unit in enumerate(self._updates):
+                    loss_i, logs_i = self._forward_backward(batch, i, unit)
+                    if update:
+                        self._apply_update(unit)
+                    logs.update(logs_i)
+                    logs[f"loss_opt{i}"] = loss_i
+                # 'loss' is the sum over the sub-steps; loss_opt{i} are the
+                # parts
+                logs.setdefault("loss", sum(
+                    logs[f"loss_opt{i}"] for i in range(len(self._updates))))
+        self._micro_step = 0 if update else self._micro_step + 1
+        return logs
+
+    def _forward_backward(self, batch, optimizer_idx: Optional[int] = None,
+                          unit: Optional[_Update] = None):
         module = self._module
+        params = self._compute_view(self._params)
+        extra = {} if optimizer_idx is None else {"optimizer_idx": optimizer_idx}
         module._capture_begin("train")
         try:
-            out = module.training_step(self._params, batch, self.global_step)
+            out = module.training_step(params, batch, self.global_step, **extra)
         finally:
-            logs = module._capture_end()
+            logs = dict(module._capture_end())
         loss = out["loss"] if isinstance(out, dict) else out
-        self._optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if unit is None:
+            loss.backward()
+        else:
+            # only this optimizer's leaves: the others' gradients of this
+            # sub-loss are dropped, as optax.set_to_zero drops them
+            grads = torch.autograd.grad(loss, unit.leaves, allow_unused=True)
+            with torch.no_grad():
+                for leaf, g in zip(unit.leaves, grads):
+                    if g is None:
+                        continue
+                    if leaf.grad is None:
+                        leaf.grad = g
+                    else:
+                        leaf.grad.add_(g)
+        return loss.detach(), logs
+
+    @torch.no_grad()
+    def _apply_update(self, unit: _Update) -> None:
+        """optax.MultiSteps(chain(clip_by_global_norm, tx)): the mean of the
+        accumulated gradients, clipped, then every optimizer and scheduler
+        of the update steps. A leaf the loss did not reach gets a zero
+        gradient, as optax gives it (its moments decay and weight decay
+        applies)."""
+        held = {id(p) for opt in unit.optimizers
+                for g in opt.param_groups for p in g["params"]}
+        for leaf in unit.leaves:
+            if leaf.grad is None and id(leaf) in held:
+                leaf.grad = torch.zeros_like(leaf)
+        grads = [leaf.grad for leaf in unit.leaves if leaf.grad is not None]
+        if self.accumulate_grad_batches > 1:
+            torch._foreach_div_(grads, float(self.accumulate_grad_batches))
         if self.gradient_clip_val:
-            _clip_by_global_norm(list(tree_leaves(self._params)),
-                                 self.gradient_clip_val)
-        self._optimizer.step()
-        if self._scheduler is not None:
-            self._scheduler.step()
-        logs = dict(logs)
-        logs.setdefault("loss", loss.detach())
-        return logs
+            _clip_by_global_norm(grads, self.gradient_clip_val)
+        for opt in unit.optimizers:
+            opt.step()
+        for sched in unit.schedulers:
+            sched.step()
+        for leaf in unit.leaves:
+            leaf.grad = None
 
     @torch.no_grad()
     def _eval_step(self, phase: str, batch, batch_idx: int):
         module = self._module
         step_fn = {"val": module.validation_step, "test": module.test_step}[phase]
+        params = self._params
+        if self.precision_policy.cast_params_in_compute:
+            params = cast_floats(params, self.precision_policy.compute_dtype)
+        batch = cast_floats(batch, self.precision_policy.compute_dtype)
         module._capture_begin(phase)
         try:
-            out = step_fn(self._params, batch, batch_idx)
+            out = step_fn(params, batch, batch_idx)
         finally:
             logs = module._capture_end()
         if isinstance(out, dict):
@@ -415,6 +777,11 @@ class Trainer:
                   ckpt_path):
         seed = seed_everything(self.seed)
         self._step_log_buffer = []
+        self._input_prefetcher = None
+        self._input_stats = {"starved_s": 0.0, "batches": 0}
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        model.precision_policy = self.precision_policy
         if datamodule is not None:
             datamodule.prepare_data()
             datamodule.setup("fit")
@@ -436,11 +803,15 @@ class Trainer:
             host = model._params
         self._params = self._place_params(host)
         model._params = self._params  # configure_optimizers reads them
-        self._optimizer, self._scheduler = _normalize_optimizers(
-            model.configure_optimizers()
-        )
+        self._optim = _normalize_optimizers(model.configure_optimizers())
+        if self._optim.labels is not None:
+            _check_labels(self._optim, self._params)
+        self._build_updates()
+        self._micro_step = 0
         if ckpt_path is not None:
             self._restore_checkpoint(ckpt_path)
+        if self._optim.alternating:
+            self._check_optimizer_idx()
 
         if self.logger is not None:
             self.logger.log_hyperparams(dict(model.hparams))
@@ -462,8 +833,11 @@ class Trainer:
                 self.current_epoch += 1
                 if 0 <= self.max_steps <= self.global_step:
                     self.should_stop = True
+                if self.should_stop and self.current_epoch < self.min_epochs:
+                    self.should_stop = False
         finally:
             self._drain_step_logs()
+            self._fold_input_stats()
             self._hook("on_train_end")
             self._hook("on_fit_end")
             if self.logger is not None:
@@ -473,6 +847,27 @@ class Trainer:
             if datamodule is not None:
                 datamodule.teardown("fit")
         model._params = self._params
+
+    def _prefetch_shard(self, loader, limit):
+        """``(idx, host_batch, device_batch)`` through the input pipeline:
+        host batches assembled on background threads (``AsyncLoader``,
+        unless ``strategy.loader_num_workers`` is 0) and up to
+        ``strategy.prefetch_depth`` batches' copies issued ahead of the
+        step (``DevicePrefetcher``; on the card from pinned memory on a side
+        stream). A bad batch raises after the good batches before it."""
+        num_workers = self.strategy.loader_num_workers
+        if not isinstance(loader, AsyncLoader) and num_workers != 0:
+            loader = AsyncLoader(loader, num_workers=num_workers)
+        self._input_prefetcher = DevicePrefetcher(
+            self._to_device, depth=self.strategy.prefetch_depth,
+            stream=self._copy_stream)
+        return self._input_prefetcher.iterate(loader, limit)
+
+    def _fold_input_stats(self) -> None:
+        if self._input_prefetcher is not None:
+            self._input_stats["starved_s"] += self._input_prefetcher.starved_s
+            self._input_stats["batches"] += self._input_prefetcher.batches
+            self._input_prefetcher = None
 
     def _run_train_epoch(self, train_loader, val_loader):
         model = self._module
@@ -486,6 +881,8 @@ class Trainer:
         self._epoch_ended = False
         self._hook("on_train_epoch_start")
         aggregator = _EpochAggregator()
+        t_epoch = time.perf_counter()
+        n_batches = 0
         limit_train = self._resolve_limit(self.limit_train_batches, train_loader,
                                           "limit_train_batches")
         # float val_check_interval = every fraction of this epoch's batches;
@@ -511,16 +908,14 @@ class Trainer:
                     f"a fraction >= {1.0 / n_train:.4g} or an int step interval"
                 )
 
-        for batch_idx, batch in enumerate(train_loader):
-            if limit_train is not None and batch_idx >= limit_train:
-                self._epoch_ended = True
-                break
-            device_batch = self._to_device(batch)
+        for batch_idx, batch, device_batch in self._prefetch_shard(
+                train_loader, limit_train):
             self._cb("on_train_batch_start", batch, batch_idx)
             logs = self._train_step(device_batch)
             self._record_train_logs(logs, aggregator, self._batch_size_of(batch))
             self._cb("on_train_batch_end", logs, batch, batch_idx)
             self.global_step += 1
+            n_batches += 1
             if val_loader is not None and (
                 (val_every_n_batches is not None
                  and (batch_idx + 1) % val_every_n_batches == 0)
@@ -533,9 +928,11 @@ class Trainer:
                 self.should_stop = True
                 break
         else:
+            # only a max_steps break leaves the epoch marked partial
             self._epoch_ended = True
 
         self._drain_step_logs()
+        self._fold_input_stats()
         epoch_metrics = aggregator.reduce(model._log_meta.get)
         epoch_out: Dict[str, np.ndarray] = {}
         for name, value in epoch_metrics.items():
@@ -557,6 +954,16 @@ class Trainer:
             self._run_validation(val_loader)
 
         self._hook("on_train_epoch_end")
+
+        if self.enable_progress_bar:
+            # one batched read-back of the first scalar metrics
+            head = {k: v for k, v in list(self.callback_metrics.items())[:6]
+                    if np.asarray(v).size == 1}
+            shown = ({k: f"{float(v):.4f}" for k, v in
+                      zip(head, _host_floats(list(head.values())))}
+                     if head else {})
+            print(f"[epoch {self.current_epoch}] {n_batches} steps in "
+                  f"{time.perf_counter() - t_epoch:.1f}s {shown}", flush=True)
 
     def _record_train_logs(self, logs, aggregator: _EpochAggregator,
                            batch_size: int) -> None:
@@ -690,8 +1097,10 @@ class Trainer:
             raise ValueError(
                 f"{stage} requires trained params (fit first or pass ckpt_path)"
             )
+        model.precision_policy = self.precision_policy
         self._params = tree_map(
-            lambda t: torch.as_tensor(t).detach().to(self.device), model._params
+            lambda t: torch.as_tensor(t).detach().to(self.device),
+            cast_floats(model._params, self.precision_policy.param_dtype),
         )
         return loader
 
@@ -721,13 +1130,18 @@ class Trainer:
         outputs = []
         limit = self._resolve_limit(self.limit_predict_batches, loader,
                                     "limit_predict_batches")
+        policy = self.precision_policy
+        params = self._params
+        if policy.cast_params_in_compute:
+            params = cast_floats(params, policy.compute_dtype)
         for batch_idx, batch in enumerate(loader):
             if limit is not None and batch_idx >= limit:
                 break
             model._capture_begin("predict")
             try:
-                out = model.predict_step(self._params, self._to_device(batch),
-                                         batch_idx)
+                out = model.predict_step(
+                    params, cast_floats(self._to_device(batch),
+                                        policy.compute_dtype), batch_idx)
             finally:
                 model._capture_end()
             outputs.append(tree_map(
@@ -750,10 +1164,20 @@ class Trainer:
             "hyper_parameters": dict(model.hparams),
         }
         if not weights_only:
-            if self._optimizer is not None:
-                ckpt["optimizer_states"] = [self._optimizer.state_dict()]
-            if self._scheduler is not None:
-                ckpt["lr_schedulers"] = [self._scheduler.state_dict()]
+            if self._optim is not None:
+                ckpt["optimizer_states"] = [
+                    opt.state_dict() for opt in self._optim.optimizers]
+                scheds = [s for ss in self._optim.schedulers for s in ss]
+                if scheds:
+                    ckpt["lr_schedulers"] = [s.state_dict() for s in scheds]
+            if self._micro_step:
+                # a partial accumulation (MultiSteps' state lives in the
+                # optimizer state, so the JAX checkpoint carries it too)
+                ckpt["accumulation"] = {
+                    "micro_step": self._micro_step,
+                    "grads": [None if t.grad is None else t.grad.detach().cpu()
+                              for t in tree_leaves(params)],
+                }
             ckpt["callbacks"] = collect_callback_states(self.callbacks)
             ckpt["callback_metrics"] = {
                 k: torch.as_tensor(np.asarray(v, dtype=np.float64))
@@ -783,17 +1207,26 @@ class Trainer:
             raise
 
     def _restore_checkpoint(self, ckpt_path: str) -> None:
-        """Resume a fit: parameters, optimizer and scheduler state, progress,
-        callback states. A mid-epoch save re-runs its epoch from the start."""
+        """Resume a fit: parameters (in the policy's dtype), optimizer and
+        scheduler states, a partial gradient accumulation, progress and
+        callback states. A mid-epoch save re-runs its epoch from the
+        start."""
         ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
         with torch.no_grad():
             for dst, src in zip(tree_leaves(self._params),
                                 tree_leaves(ckpt["state_dict"])):
                 dst.copy_(src)
-        if "optimizer_states" in ckpt:
-            self._optimizer.load_state_dict(ckpt["optimizer_states"][0])
-        if "lr_schedulers" in ckpt and self._scheduler is not None:
-            self._scheduler.load_state_dict(ckpt["lr_schedulers"][0])
+        optim = self._optim
+        for opt, state in zip(optim.optimizers, ckpt.get("optimizer_states", [])):
+            opt.load_state_dict(state)
+        for sched, state in zip([s for ss in optim.schedulers for s in ss],
+                                ckpt.get("lr_schedulers", [])):
+            sched.load_state_dict(state)
+        accumulation = ckpt.get("accumulation")
+        if accumulation is not None:
+            self._micro_step = int(accumulation["micro_step"])
+            for leaf, g in zip(tree_leaves(self._params), accumulation["grads"]):
+                leaf.grad = None if g is None else g.to(self.device, leaf.dtype)
         base = int(ckpt.get("epoch", 0))
         self.current_epoch = base + 1 if ckpt.get("epoch_complete", True) else base
         self.global_step = int(ckpt.get("global_step", 0))

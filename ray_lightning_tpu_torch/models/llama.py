@@ -8,11 +8,14 @@ Parameters are a plain dict with the JAX package's layout: stacked
 experts and the pipeline / tensor / sequence-parallel paths are not part of
 the port yet: ``LlamaConfig.from_dict`` refuses a MoE config, and
 ``forward`` takes no mesh. Rematerialisation is per layer
-(``torch.utils.checkpoint``, the JAX ``remat_policy="nothing"``).
+(``torch.utils.checkpoint``) with the JAX package's two policies:
+``"nothing"`` recomputes the whole layer in backward, ``"dots"`` keeps the
+layer's projections and recomputes the rest.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -20,7 +23,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_lightning_tpu_torch.core.data import DataLoader, DictDataset
 from ray_lightning_tpu_torch.core.datamodule import LightningDataModule
@@ -72,20 +79,15 @@ class LlamaConfig:
     # qkv projection bias (Qwen2-family checkpoints)
     attn_bias: bool = False
     # per-layer rematerialisation in training: "nothing" recomputes the
-    # whole layer in backward; "dots" (keep the matmul outputs) is not
-    # ported yet
+    # whole layer in backward; "dots" keeps the products with no batch
+    # dimension (the layer's projections) and recomputes the rest
     remat: bool = True
     remat_policy: str = "nothing"
     # sequence-chunked LM loss (ops/losses.py): 0/1 = monolithic logits
     loss_chunks: int = 0
 
     def __post_init__(self):
-        if self.remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' is not ported yet (ROADMAP.md, queue 1); "
-                "use 'nothing'"
-            )
-        if self.remat_policy != "nothing":
+        if self.remat_policy not in ("nothing", "dots"):
             raise ValueError(
                 f"remat_policy={self.remat_policy!r}: expected 'nothing' or "
                 "'dots'"
@@ -257,6 +259,32 @@ def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin,
     return x, (k, v)
 
 
+# the products with no batch dimension: a projection x @ W reaches the
+# dispatcher as one aten.mm (or aten.addmm) over the flattened tokens, where
+# attention's products are aten.bmm
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of the products with no batch dimension, recompute every
+    other op. The kernels launch outside the dispatcher into buffers from
+    ``torch.empty``, so nothing but a product may be kept: a kept
+    allocation would hand the recompute a buffer the kernel then
+    overwrites."""
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(cfg: LlamaConfig) -> Dict[str, Any]:
+    kwargs: Dict[str, Any] = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return kwargs
+
+
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
             plain: bool = False, return_hidden: bool = False) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] in ``cfg.dtype`` (the JAX
@@ -267,7 +295,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
     With ``cfg.remat`` and grad mode on, each layer runs under
     ``torch.utils.checkpoint``: backward recomputes it (the flash forward
     and the layer's two norms run again) instead of keeping its
-    activations. ``plain=True`` runs the kernels' plain versions even on
+    activations; under ``remat_policy="dots"`` the seven projections'
+    outputs are kept and only the rest is recomputed. ``plain=True`` runs the kernels' plain versions even on
     CUDA tensors: the reference that tests and the chip check hold the
     kernel path against."""
     S = tokens.shape[1]
@@ -290,13 +319,12 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
     # unbind once: its backward stacks the L layer gradients in one op,
     # where per-layer indexing would add L full-size zero-padded gradients
     per_layer = [params["layers"][k].unbind(0) for k in names]
-    remat = cfg.remat and torch.is_grad_enabled()
+    remat = _remat_kwargs(cfg) if cfg.remat and torch.is_grad_enabled() else None
     x = params["embed"][tokens.long()]
     for i in range(cfg.n_layers):
         leaves = [t[i] for t in per_layer]
-        if remat:
-            x = checkpoint(layer_fn, x, *leaves, use_reentrant=False,
-                           preserve_rng_state=False)
+        if remat is not None:
+            x = checkpoint(layer_fn, x, *leaves, **remat)
         else:
             x = layer_fn(x, *leaves)
     x = norm(x, params["final_norm"], cfg.norm_eps)

@@ -655,3 +655,116 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
                        ("rmsnorm", "flash_fwd", "paged_decode", "argmax"))
             assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0
     assert streams[0] == streams[1]
+
+
+def _tiny_remat_cfg(**over):
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32,
+                               remat=True, loss_chunks=4, **over)
+
+
+def _loss_and_grads(params, tokens, cfg, mixed=False, plain=False):
+    from ray_lightning_tpu_torch.models.llama import lm_loss
+    from ray_lightning_tpu_torch.utils.precision import cast_floats
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    leaves = list(tree_leaves(params))
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(True)
+    view = cast_floats(params, torch.bfloat16) if mixed else params
+    loss, _ = lm_loss(view, tokens, cfg, plain=plain)
+    loss.backward()
+    return loss.detach(), [t.grad.clone() for t in leaves]
+
+
+def test_remat_dots_on_card_equals_nothing(cuda):
+    """remat "dots" and "nothing" run the same kernels on the same inputs
+    (dots keeps the cuBLAS projections, nothing reruns them): the loss and
+    every gradient are bitwise equal, fp32 and bf16, with the same launch
+    counts."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.models.llama import init_params
+    from ray_lightning_tpu_torch.utils.tree import tree_map
+
+    for dtype in (torch.float32, torch.bfloat16):
+        params = tree_map(lambda t: t.to(dtype), init_params(
+            _tiny_remat_cfg(), torch.Generator(device=cuda).manual_seed(0)))
+        tokens = torch.randint(0, 512, (2, 128), device=cuda,
+                               generator=torch.Generator(device=cuda).manual_seed(1))
+        out, counts = {}, {}
+        for policy in ("nothing", "dots"):
+            kernels.reset_launch_counts()
+            out[policy] = _loss_and_grads(params, tokens,
+                                          _tiny_remat_cfg(remat_policy=policy))
+            counts[policy] = kernels.launch_counts()
+        assert counts["dots"] == counts["nothing"]
+        assert counts["dots"]["flash_fwd"] == 2 * 2  # forward + recompute
+        assert torch.equal(out["dots"][0], out["nothing"][0])
+        for a, b in zip(out["dots"][1], out["nothing"][1]):
+            assert torch.equal(a, b)
+
+
+def test_bf16_mixed_kernels_match_plain_on_card(cuda):
+    """A bf16 view of fp32 masters through the kernels and through the
+    plain versions, the gradients on the masters: both in fp32, the loss
+    within 2^-7 relative, and each gradient leaf's error against an fp32
+    run of the plain versions no more than twice the plain bf16 path's
+    own (the kernels round no worse than the reference does)."""
+    from ray_lightning_tpu_torch.models.llama import init_params
+
+    cfg = _tiny_remat_cfg(remat_policy="dots")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(2))
+    tokens = torch.randint(0, 512, (2, 128), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(3))
+    lk, gk = _loss_and_grads(params, tokens, cfg, mixed=True)
+    lp, gp = _loss_and_grads(params, tokens, cfg, mixed=True, plain=True)
+    _, g32 = _loss_and_grads(params, tokens, cfg, plain=True)
+    assert all(g.dtype == torch.float32 for g in gk)
+    assert abs(float(lk) - float(lp)) <= 2.0 ** -7 * abs(float(lp))
+    for a, b, ref in zip(gk, gp, g32):
+        assert _rel(a, ref) <= 2 * _rel(b, ref) + 1e-6
+
+
+def test_side_stream_prefetcher_gives_the_synchronous_batches(cuda):
+    """The side-stream lookahead (pinned memory, an event per batch,
+    record_stream) yields the batches the synchronous copy gives, and a
+    Trainer fit through it gives the synchronous fit's losses bitwise."""
+    from ray_lightning_tpu_torch.callbacks import Callback
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.core.prefetch import DevicePrefetcher
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.strategies import SingleDeviceStrategy
+
+    trainer = Trainer(device=cuda, logger=False, enable_checkpointing=False)
+    rng = np.random.default_rng(4)
+    src = [{"x": rng.standard_normal((64, 256)).astype(np.float32),
+            "ids": rng.integers(0, 9, (64,))} for _ in range(12)]
+    side = torch.cuda.Stream()
+    got = [(i, d) for i, _, d in DevicePrefetcher(
+        trainer._to_device, depth=3, stream=side).iterate(src)]
+    for (i, d), host in zip(got, src):
+        assert torch.equal(d["x"].cpu(), torch.from_numpy(host["x"]))
+        assert torch.equal(d["ids"].cpu(), torch.from_numpy(host["ids"]))
+    assert [i for i, _ in got] == list(range(12))
+
+    cfg = _tiny_remat_cfg()
+    losses = {}
+    for key, strategy in (("sync", SingleDeviceStrategy(0, 0)),
+                          ("side", SingleDeviceStrategy(3, 2))):
+        rows = []
+
+        class Keep(Callback):
+            def on_train_batch_end(self, trainer, module, outputs, batch, i):
+                rows.append(outputs["loss"])
+
+        Trainer(device=cuda, strategy=strategy, max_steps=6, logger=False,
+                enable_checkpointing=False, seed=0, callbacks=[Keep()]).fit(
+            LlamaModule(cfg, lr=1e-3, warmup_steps=1, total_steps=6),
+            datamodule=SyntheticLMDataModule(cfg, batch_size=2, n_train=16))
+        losses[key] = torch.stack(rows).cpu()
+    assert torch.equal(losses["side"], losses["sync"])

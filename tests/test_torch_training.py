@@ -344,8 +344,10 @@ def test_config_round_trip_and_refusals():
     assert tcfg.num_params() == jcfg.num_params()
     assert tcfg.flops_per_token() == jcfg.flops_per_token()
     assert tllama.LlamaConfig.from_dict(tcfg.to_dict()) == tcfg
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllama.LlamaConfig(remat_policy="dots")
+    # "dots" is ported: the JAX config's policy carries over
+    dots = tllama.LlamaConfig.from_dict(
+        dataclasses.replace(jcfg, remat_policy="dots").to_dict())
+    assert dots.remat_policy == "dots" and dots.remat
     with pytest.raises(ValueError):
         tllama.LlamaConfig(remat_policy="everything")
 
@@ -413,18 +415,43 @@ def _csv_columns(log_dir):
         return next(csv.reader(f))
 
 
-def test_ten_step_trajectory_matches_jax_trainer(tmp_path):
-    """The JAX Trainer and the port's Trainer fit LlamaModule(tiny, fp32)
-    on SyntheticLMDataModule from the same parameters for 10 steps (two
-    epochs, validation at each epoch's end): every step's loss agrees to
-    1e-4 relative, the loss falls, and both log the same metric names and
-    CSV columns."""
-    jcfg, tcfg = _configs()
+# (config overrides, Trainer arguments) of each trajectory case. With 5
+# batches an epoch, accumulations of 2 and 3 leave a partial accumulation
+# open across the epoch's end and its validation.
+TRAJECTORY_CASES = {
+    "fp32": ({}, {}),
+    "accumulate2": ({}, dict(accumulate_grad_batches=2)),
+    "accumulate3_clip": ({}, dict(accumulate_grad_batches=3,
+                                  gradient_clip_val=0.5)),
+    "remat_dots": (dict(remat=True, remat_policy="dots"), {}),
+    "32-true": ({}, dict(precision="32-true")),
+    "bf16-true": ({}, dict(precision="bf16-true")),
+    "bf16-mixed": ({}, dict(precision="bf16-mixed")),
+}
+# bf16 cases: both sides round the same products and sums to bf16 in other
+# orders, and AdamW amplifies the differences of the first updates. The
+# largest gap measured over the 10 steps, on the CPU, was 2.0e-3 relative
+# (bf16-true; bf16-mixed 4.6e-4); the bound is twice that, against a fall
+# of the loss of ~34 % (6.2 -> 4.1).
+BF16_RTOL = 4e-3
+
+
+@pytest.mark.parametrize("case", list(TRAJECTORY_CASES))
+def test_ten_step_trajectory_matches_jax_trainer(tmp_path, case):
+    """The JAX Trainer and the port's Trainer fit LlamaModule(tiny, fp32
+    weights) on SyntheticLMDataModule from the same parameters for 10 steps
+    (two epochs of 5 batches, validation at each epoch's end), under each
+    case's config and Trainer arguments: every step's loss agrees (fp32:
+    1e-4 relative; bf16: BF16_RTOL), the loss falls, both log the same
+    metric names and CSV columns, count the same global steps and hold the
+    parameters in the same dtypes."""
+    cfg_kw, case_kw = TRAJECTORY_CASES[case]
+    jcfg, tcfg = _configs(**cfg_kw)
     tree = _numpy_params(jcfg, seed=2)
     kw = dict(lr=3e-3, warmup_steps=2, total_steps=10)
     dm_kw = dict(batch_size=4, n_train=20, n_val=8)
     trainer_kw = dict(max_steps=10, enable_checkpointing=False, seed=0,
-                      log_every_n_steps=1)
+                      log_every_n_steps=1, **case_kw)
 
     jmod = jllama.LlamaModule(jcfg, **kw)
     jmod._params = jax.tree_util.tree_map(jnp.asarray, tree)
@@ -445,16 +472,22 @@ def test_ten_step_trajectory_matches_jax_trainer(tmp_path):
     want = np.asarray([float(x) for x in jcb.losses])
     got = np.asarray([float(x) for x in tcb.losses])
     assert len(want) == len(got) == 10
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+    rtol = BF16_RTOL if case.startswith("bf16") else 1e-4
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=0)
     assert got[-1] < got[0]
     assert sorted(ttrainer.logged_metrics) == sorted(jtrainer.logged_metrics)
     assert sorted(ttrainer.callback_metrics) == sorted(jtrainer.callback_metrics)
     assert _csv_columns(ttrainer.logger.log_dir) == _csv_columns(
         jtrainer.logger.log_dir)
     assert ttrainer.global_step == jtrainer.global_step == 10
-    # the tensors the port hands back are the trained ones, as numpy
+    # the tensors the port hands back are the trained ones, in JAX's dtypes
     trained = params_to_numpy(tmod.params)
     assert not np.array_equal(trained["lm_head"], tree["lm_head"])
+    jdtypes = {k: str(np.dtype(a.dtype)) for k, a in
+               jax.tree_util.tree_flatten_with_path(jtrainer.params)[0]}
+    tdtypes = {k: str(a.dtype).replace("torch.", "") for k, a in
+               jax.tree_util.tree_flatten_with_path(tmod.params)[0]}
+    assert tdtypes == jdtypes
 
 
 # --------------------------------------------------------------------- #
@@ -511,8 +544,10 @@ def test_trainer_validate_test_predict(tmp_path):
 
 
 def test_trainer_refuses_what_it_does_not_port():
-    for kw in (dict(strategy="ddp"), dict(precision="bf16-mixed"),
-               dict(accumulate_grad_batches=2)):
+    """What stays refused: strategies over several devices and the TPU
+    accelerator."""
+    for kw in (dict(strategy="ddp"), dict(devices=2),
+               dict(accelerator="tpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(device="cpu", **kw)
     with pytest.raises(ValueError):
