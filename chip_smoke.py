@@ -30,18 +30,31 @@ final line):
    equal to torch.argmax on planted ties and planted NaNs (the first NaN
    wins), greedy and noisy, timed with L2 flushed (beside the HBM bytes
    bound) and hot, at batch 1, 8 and 64, and at every cluster size at
-   batch 8;
+   batch 8; and at the MoE path's vocabulary, [8,32000];
 4. serving main path — Llama-3-8B at full width and depth (random bf16
    weights from a seeded generator) served by the paged
    ``InferenceEngine``: 16 staggered requests of mixed lengths, some
    sharing a prefix, 32 new tokens each. Every request must complete, every
-   serving kernel must have launched, and the launch counts must match the
-   layer count. The same requests are then served again under
-   torch.profiler, which gives the device time by class (the port's
-   kernels, matmuls, the rest) and the device's busy share;
+   decode step's logits must be finite, every serving kernel must have
+   launched, and the launch counts must match the layer count. The same
+   requests are then served again under torch.profiler, which gives the
+   device time by class (the port's kernels, matmuls, the rest) and the
+   device's busy share;
 5. serving exactness — the same engine in fp32 at full width, cut to 2
    layers: its greedy tokens must equal iterated full ``forward`` calls
    through the plain versions;
+5a. MoE serving (``serving_moe``) — Mixtral-8x7B-v0.1's published widths
+   (vocab 32000, dim 4096, 32 query / 8 KV heads, ffn 14336, 8 experts
+   top-2) through the port's ``mixtral_config_from_hf``, cut to 16 layers
+   (23.5 B parameters, ~47 GB bf16; 32 layers do not fit in 80 GB), random
+   bf16 weights from a seeded generator, on the serving main path's engine
+   and requests, with the same checks and the profiled rerun; then one
+   decode step of 8 rows timed by graph replay beside its bytes bound
+   (lossless routing reads every weight);
+5b. MoE exactness — fp32, the same widths cut to 2 layers: the engine's
+   greedy tokens (lossless routing through the kernels) must equal iterated
+   ``forward(plain=True)`` calls, which route with the capacity bound at
+   ``capacity_factor = E / top_k`` (it never binds);
 6. training main path — ``Trainer.fit`` of ``LlamaModule(LlamaConfig.
    small())`` (0.89 B parameters, full width and depth, bf16, per-layer
    remat, chunked loss) on ``SyntheticLMDataModule`` at batch 8 x 2048:
@@ -72,8 +85,9 @@ final line):
    "dots" against "nothing" (1e-6), bf16-mixed through the kernels against
    the plain versions (``MIXED_TOL``), and an accumulation of two
    micro-batches of 1 against one update on the batch of 2 (1e-5);
-11. the ``kernels`` JSON line (launches from the three main paths), the
-   card line, and the final ``{"ok": true, ...}`` line.
+11. the ``kernels`` JSON line (launches from the four main paths:
+   serving, serving_moe, training, training_complete), the card line, and
+   the final ``{"ok": true, ...}`` line.
 
 Timings are printed beside the card's name and power limit; they are this
 card's numbers, and the fields are described in PERF.md.
@@ -653,7 +667,9 @@ def check_argmax(torch):
     sampler finds the logits the lm_head has just written; no bound: the
     bytes come from L2, whose rate the run does not measure), and greedy at
     batch 8 at every cluster size (chunks per row) the plan could pick,
-    hot and flushed."""
+    hot and flushed. At the MoE serving path's vocabulary, [8,32000], the
+    plan's cluster is held too: bitwise on planted ties and NaNs, greedy
+    and noisy, and timed the same way (``at_vocab_32000``)."""
     from ray_lightning_tpu_torch.ops.paged_attention import (
         ARGMAX_MAX_CHUNKS,
         _launch_argmax,
@@ -720,7 +736,7 @@ def check_argmax(torch):
         nbytes = xx.numel() * 4 * (1 if nz is None else 2) + rows * 4
         b, by = bound(nbytes, xx.numel() * (1 if nz is None else 2), FP32_FLOPS)
         return dict(**timings(xx, nz, cold=True), bound_ms=b, bound_by=by,
-                    chunks=argmax_plan(rows, V, sms)["chunks"],
+                    chunks=argmax_plan(rows, xx.shape[1], sms)["chunks"],
                     l2_hot=timings(xx, nz, cold=False))
 
     def show(label, r):
@@ -743,6 +759,28 @@ def check_argmax(torch):
         xb = torch.randn(rows, V, generator=g, device="cuda")
         out[f"at_batch_{rows}"] = measure(xb, None)
         del xb
+    # the MoE serving path's vocabulary (Mixtral's 32000)
+    x32 = torch.randn(B, 32000, generator=g, device="cuda")
+    top32 = float(x32.max()) + 1.0
+    x32[0, [7, 31999]] = top32
+    x32[1, [3999, 4000]] = top32  # a tie across the first chunk edge
+    x32[2, 17], x32[2, 20000] = nan, top32
+    x32[3] = nan
+    noise32 = gumbel_noise((B, 32000), g, torch.device("cuda"))
+    for nz in (None, noise32):
+        got = blockwise_argmax(x32, nz)
+        check(torch.equal(got, blockwise_argmax_plain(x32, nz)),
+              f"argmax [8,32000] vs plain: {got.tolist()}")
+        errs.append(max_err(got, blockwise_argmax_plain(x32, nz)))
+    check([int(t) for t in blockwise_argmax(x32)[:4]] == [7, 3999, 17, 0],
+          "argmax [8,32000]: first of tied maxima, first NaN")
+    plan32 = argmax_plan(B, 32000, sms)
+    check(plan32["chunks"] == 8 and plan32["chunk"] * 8 >= 32000,
+          f"argmax plan at [8,32000]: {plan32}")
+    out["max_abs_err"] = max(errs)
+    out["at_vocab_32000"] = measure(torch.randn(B, 32000, generator=g,
+                                                device="cuda"), None)
+    out["at_vocab_32000"]["noisy"] = measure(x32.nan_to_num(), noise32)
     out["by_chunks"], out["by_chunks_flushed"] = (
         {c: time_ms(torch, lambda c=c: _launch_argmax(x, None, c), iters=100,
                     cold=cold)
@@ -755,6 +793,10 @@ def check_argmax(torch):
     show("[8,128256] noisy (library: torch.argmax(x + noise))", out["noisy"])
     show("[1,128256] greedy", out["at_batch_1"])
     show("[64,128256] greedy", out["at_batch_64"])
+    log(f"argmax [8,32000]: bitwise equal to the plain version on planted "
+        f"ties and NaNs, greedy and noisy; plan {plan32}")
+    show("[8,32000] greedy (the MoE path's vocabulary)", out["at_vocab_32000"])
+    show("[8,32000] noisy", out["at_vocab_32000"]["noisy"])
     for key, label in (("by_chunks", "L2 hot"), ("by_chunks_flushed", "L2 flushed")):
         log(f"argmax [8,128256] greedy by chunks a row (graph replay, {label}): "
             + ", ".join(f"{c}: {ms:.4f} ms" for c, ms in out[key].items()))
@@ -797,7 +839,7 @@ PORT_KERNEL_NAMES = {"rmsnorm_vec_kernel": "rmsnorm",
 MATMUL_NAMES = ("gemm", "gemv", "xmma", "cutlass", "splitk", "nvjet")
 
 
-def profile_run(torch, engine, reqs, wall_s):
+def profile_run(torch, engine, reqs, wall_s, label):
     """Where the main path's device time goes: the same requests served
     again under torch.profiler, each device event put in one class (each of
     the port's kernels, cuBLAS matmuls, everything else). The prefix cache is
@@ -830,38 +872,42 @@ def profile_run(torch, engine, reqs, wall_s):
     if busy_ms == 0:
         log("profile: the profiler saw no device events; breakdown not measured")
         return
-    log(f"profile of the main path's requests: device busy {busy_ms:.1f} ms of "
+    log(f"profile of {label}'s requests: device busy {busy_ms:.1f} ms of "
         f"{wall_s * 1e3:.1f} ms wall ({busy_ms / (wall_s * 1e3):.1%} busy); "
         + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in classes.most_common()))
     log("profile, largest 'other' device events: " + "; ".join(
         f"{name} {us / 1e3:.1f} ms" for name, us in other.most_common(6)))
 
 
-def main_path(torch, card):
+def serve_path(torch, card, cfg, params, label):
+    """The paged engine at full width (8 slots, prompts up to 512, 1024
+    positions, blocks of 16) on the 16 staggered requests: every request
+    completes with in-vocabulary tokens, every decode step's logits are
+    finite, every serving kernel launches exactly as often as the layer
+    count says, and the requests are served again under torch.profiler.
+    Returns (launch counts, the engine)."""
     import numpy as np
 
     from ray_lightning_tpu_torch import kernels
-    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
     from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
 
-    cfg = LlamaConfig.llama3_8b()
-    t = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(v.numel() for v in params["layers"].values()) + \
-        params["embed"].numel() + params["lm_head"].numel()
-    log(f"llama3_8b: {n_params / 1e9:.2f} B params bf16 initialised in "
-        f"{time.perf_counter() - t:.1f}s, {torch.cuda.memory_allocated() / 2**30:.1f} "
-        "GiB allocated")
     ecfg = EngineConfig(num_slots=8, max_prompt_len=512, max_len=1024,
                         block_size=16)
     engine = InferenceEngine(params, cfg, ecfg)
     kv_gib = sum(v.numel() * v.element_size()
                  for v in engine.pool.cache.values()) / 2**30
-    log(f"paged KV pool {tuple(engine.pool.cache['k'].shape)} x2 = "
+    log(f"{label}: paged KV pool {tuple(engine.pool.cache['k'].shape)} x2 = "
         f"{kv_gib:.2f} GiB")
     # warm-up request (cuBLAS handles, allocator), not part of the run
     serve(engine, [([1, 2, 3, 4], 2)], 1)
+    finite = []
+    sample = engine._sample
+
+    def checked(logits):  # a device flag a step, read after the run
+        finite.append(torch.isfinite(logits).all())
+        return sample(logits)
+
+    engine._sample = checked
     rng = np.random.default_rng(0)
     reqs = requests(rng, cfg.vocab_size, 16, 512, 32, 256)
     before = dict(engine.stats)
@@ -881,27 +927,189 @@ def main_path(torch, card):
         check(len(comp.tokens) == n and all(0 <= t < cfg.vocab_size
                                             for t in comp.tokens),
               f"{comp.request_id}: bad tokens")
+    engine._sample = sample
+    check(len(finite) == steps and bool(torch.stack(finite).all()),
+          f"{label}: a decode step's logits are not finite")
     for name in ("rmsnorm", "flash_fwd", "paged_decode", "argmax"):
-        check(counts[name] > 0, f"kernel {name} was not launched on the main path")
+        check(counts[name] > 0, f"kernel {name} was not launched on {label}")
     L = cfg.n_layers
     # the backward kernels belong to the training path
     expect = {"rmsnorm": 2 * L * prefills + (2 * L + 1) * steps,
               "flash_fwd": L * prefills, "paged_decode": L * steps,
               "argmax": steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    check(counts == expect, f"launch counts {counts} != {expect}")
+    check(counts == expect, f"{label}: launch counts {counts} != {expect}")
     ttfts = sorted(c.ttft_s for c in comps)
-    log(f"main path on {card}: {len(comps)} requests ({prefills} prefills, "
+    log(f"{label} on {card}: {len(comps)} requests ({prefills} prefills, "
         f"{steps} decode steps, {tokens} tokens) in {elapsed:.3f}s -> "
         f"{tokens / elapsed:.1f} tokens/s; TTFT median "
         f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms max {ttfts[-1] * 1e3:.1f} ms; "
-        f"shared-prefix block hits {engine.pool.allocator.prefix_hits_total}")
-    log(f"launches: {counts} (per prefill: rmsnorm {2 * L}, flash_fwd {L}; "
-        f"per decode step: rmsnorm {2 * L + 1}, paged_decode {L}, argmax 1)")
-    profile_run(torch, engine, reqs, elapsed)
+        f"shared-prefix block hits {engine.pool.allocator.prefix_hits_total}; "
+        f"all {steps} decode steps' logits finite")
+    log(f"{label} launches: {counts} (per prefill: rmsnorm {2 * L}, flash_fwd "
+        f"{L}; per decode step: rmsnorm {2 * L + 1}, paged_decode {L}, argmax 1)")
+    profile_run(torch, engine, reqs, elapsed, label)
+    return counts, engine
+
+
+def main_path(torch, card):
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig.llama3_8b()
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params["layers"].values()) + \
+        params["embed"].numel() + params["lm_head"].numel()
+    log(f"llama3_8b: {n_params / 1e9:.2f} B params bf16 initialised in "
+        f"{time.perf_counter() - t:.1f}s, {torch.cuda.memory_allocated() / 2**30:.1f} "
+        "GiB allocated")
+    counts, engine = serve_path(torch, card, cfg, params, "main path")
     del engine, params
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# Mixtral-8x7B-v0.1's published config.json (the fields the importer reads)
+MIXTRAL_8X7B = dict(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    max_position_embeddings=32768, rms_norm_eps=1e-5, rope_theta=1e6,
+    sliding_window=None, num_local_experts=8, num_experts_per_tok=2,
+    router_aux_loss_coef=0.02, tie_word_embeddings=False,
+)
+MOE_LAYERS = 16  # 23.5 B parameters, ~47 GB in bf16: 32 layers (93.4 GB) do not fit
+
+
+def mixtral_config(torch, n_layers, dtype):
+    from types import SimpleNamespace
+
+    from ray_lightning_tpu_torch.models.hf_import import mixtral_config_from_hf
+
+    hf = SimpleNamespace(**dict(MIXTRAL_8X7B, num_hidden_layers=n_layers))
+    return mixtral_config_from_hf(hf, dtype=dtype)
+
+
+def _leaves(tree):
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    return list(tree_leaves(tree))
+
+
+def tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def decode_step_time(torch, engine, cfg):
+    """One paged decode step of the full batch (8 rows at ragged positions
+    up to 1023) on the engine's params and pool, timed by the replay of a
+    CUDA graph (the device's time alone) and eagerly (the host's launch rate
+    included), beside its bytes bound: every weight read once (lossless
+    routing runs every expert), the K/V of the attended positions read, one
+    position's K/V written, the embedding rows and the fp32 logits."""
+    from ray_lightning_tpu_torch.models.generation import decode_step_paged
+
+    n, bs = engine.pool.num_slots, engine.engine_config.block_size
+    maxb = engine.engine_config.max_len // bs
+    check(engine.pool.cache["k"].shape[1] > n * maxb,
+          "the pool is too small for the decode timing's tables")
+    dev = engine.device
+    tables = torch.arange(1, 1 + n * maxb, dtype=torch.int32,
+                          device=dev).view(n, maxb)
+    pos_list = [1023 - 97 * b for b in range(n)]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    token = torch.arange(n, dtype=torch.int32, device=dev) * 7 + 11
+
+    def step():
+        decode_step_paged(engine.params, engine.pool.cache, token, pos, tables,
+                          cfg, engine._table)
+
+    ms = time_ms(torch, step, iters=3, warmup=2)
+    ms_eager = time_ms(torch, step, iters=3, warmup=1, graph=False)
+    p = engine.params
+    L, hkv, hd, d = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.dim
+    kv_elt = engine.pool.cache["k"].element_size()
+    weights = (tree_bytes(p["layers"]) + tree_bytes(p["lm_head"])
+               + tree_bytes(p["final_norm"]) + n * d * p["embed"].element_size())
+    kv = sum(pp + 1 for pp in pos_list) * L * 2 * hkv * hd * kv_elt
+    nbytes = weights + kv + n * L * 2 * hkv * hd * kv_elt + n * cfg.vocab_size * 4
+    # products: 2 FLOP per weight element and row (every expert on every
+    # row), plus q.k and p.v over the attended positions
+    flops = 2 * n * (sum(t.numel() for t in _leaves(p["layers"]))
+                     + p["lm_head"].numel()) \
+        + sum(pp + 1 for pp in pos_list) * L * cfg.n_heads * hd * 4
+    b, by = bound(nbytes, flops, BF16_FLOPS)
+    return dict(ms=ms, ms_eager=ms_eager, bound_ms=b, bound_by=by,
+                weight_bytes=weights, kv_bytes=kv, bytes=nbytes, flops=flops)
+
+
+def serving_moe(torch, card):
+    """The MoE serving path: Mixtral-8x7B widths (vocab 32000, dim 4096, 32
+    query / 8 KV heads, ffn 14336, 8 experts top-2, rope theta 1e6) cut to
+    16 layers, bf16, random weights from a seeded generator, through the
+    paged engine on the main path's requests; then one decode step's
+    device time beside its bytes bound."""
+    from ray_lightning_tpu_torch.models.llama import init_params
+
+    cfg = mixtral_config(torch, MOE_LAYERS, torch.bfloat16)
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(leaf.numel() for leaf in _leaves(params))
+    check(n_params == cfg.num_params(),
+          f"{n_params} parameters, the config counts {cfg.num_params()}")
+    log(f"mixtral-8x7b widths, {cfg.n_layers} layers: {n_params / 1e9:.2f} B "
+        f"params bf16 ({tree_bytes(params) / 1e9:.1f} GB, router fp32) "
+        f"initialised in {time.perf_counter() - t:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    counts, engine = serve_path(torch, card, cfg, params, "serving_moe")
+    r = decode_step_time(torch, engine, cfg)
+    log(f"serving_moe decode step on {card} (8 rows, pos up to 1023): "
+        f"{r['ms']:.3f} ms graph replay (eager {r['ms_eager']:.3f} ms) against "
+        f"a {r['bound_ms']:.3f} ms bound ({r['bound_by']}: "
+        f"{r['bytes'] / 1e9:.3f} GB = weights {r['weight_bytes'] / 1e9:.3f} "
+        f"+ K/V {r['kv_bytes'] / 1e9:.4f}; {r['flops'] / 1e12:.3f} TFLOP), "
+        f"{r['bound_ms'] / r['ms']:.1%} of its bound")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_exactness(torch):
+    """The MoE engine in fp32 at Mixtral widths, cut to 2 layers: its greedy
+    tokens (lossless routing, the kernels) must equal iterated full
+    ``forward`` calls through the plain versions, which route with the
+    capacity bound at ``capacity_factor = E / top_k``, where it never
+    binds."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.models.llama import forward, init_params
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = mixtral_config(torch, 2, torch.float32)
+    check(cfg.capacity_factor == cfg.n_experts / cfg.expert_top_k,
+          f"capacity_factor {cfg.capacity_factor}")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(6))
+    engine = InferenceEngine(params, cfg, EngineConfig(
+        num_slots=4, max_prompt_len=64, max_len=128, block_size=16))
+    reqs = requests(np.random.default_rng(6), cfg.vocab_size, 6, 64, 8, 32)
+    comps = serve(engine, reqs, 3)
+    for comp, (prompt, n) in zip(comps, reqs):
+        toks = list(prompt)
+        for _ in range(n):
+            logits = forward(params, torch.tensor([toks], device="cuda"), cfg,
+                             plain=True)
+            toks.append(int(torch.argmax(logits[0, -1].float())))
+        check(comp.tokens == toks[len(prompt):],
+              f"{comp.request_id}: engine {comp.tokens} != forward "
+              f"{toks[len(prompt):]}")
+    log(f"moe exactness: fp32 mixtral-8x7b widths, 2 layers: {len(comps)} "
+        "greedy streams (lossless routing, kernels) token-identical to "
+        "iterated plain forward (capacity routing at E/top_k)")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def exactness(torch):
@@ -1555,6 +1763,8 @@ def main():
           f"kernel checks {sorted(results)} do not cover every kernel")
     by_path = {"serving": main_path(torch, card)}
     exactness(torch)
+    by_path["serving_moe"] = serving_moe(torch, card)
+    moe_exactness(torch)
     by_path["training"] = train_main_path(torch, card)
     train_exactness(torch)
     remat_variants(torch, card)
@@ -1582,7 +1792,8 @@ def main():
                                        "launch_floor_ms", "copy_ms",
                                        "chunks", "l2_hot", "noisy",
                                        "at_batch_1", "at_batch_64",
-                                       "by_chunks", "by_chunks_flushed")
+                                       "by_chunks", "by_chunks_flushed",
+                                       "at_vocab_32000")
                if key in r},
         })
     log(f"done in {time.perf_counter() - T0:.1f}s")

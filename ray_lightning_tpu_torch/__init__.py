@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of ray_lightning_tpu for one NVIDIA H100.
 
 This package imports torch and numpy, never JAX and nothing of
-``ray_lightning_tpu``. It holds two slices of the Llama family: the paged
-serving path (prefill with flash attention, paged decode and the argmax
-sampler) and the single-device training step (``core.Trainer.fit`` on
+``ray_lightning_tpu``. It holds the Llama family (dense and mixture of
+experts, importable from Hugging Face checkpoints through
+``models.hf_import``), its paged serving path (prefill with flash
+attention, paged decode and the argmax sampler) and the single-device
+training step of the dense family (``core.Trainer.fit`` on
 ``models.llama.LlamaModule``: forward, backward through the flash-attention
 backward kernels, AdamW). Each kernel is hand-written in CUDA C++ for
 ``sm_90a`` (``csrc/``) beside its plain PyTorch version. Entry points run

@@ -6,7 +6,10 @@ IN PLACE (and return them too): the KV pool is one device allocation the
 engine keeps for its lifetime, and a functional copy per step would double
 its memory traffic. The casts of the JAX package are kept: queries go to
 fp32 before attention, the attention output goes back to the activations'
-dtype, logits come out in fp32.
+dtype, logits come out in fp32. A mixture-of-experts config routes every
+token losslessly here, at prefill and at decode (every expert runs, the
+top-k gates combine them), as the JAX package's generation does: prefill
+and stepwise decode then fill identical caches, whatever the batch.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from ray_lightning_tpu_torch.ops.paged_attention import (
 )
 from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm
 from ray_lightning_tpu_torch.ops.rope import rope_angles, rotate
+from ray_lightning_tpu_torch.parallel.moe import moe_ffn_lossless
 
 RopeTable = Tuple[torch.Tensor, torch.Tensor]
 
@@ -69,7 +73,7 @@ def prefill_hidden(params: Dict[str, Any], prompt: torch.Tensor,
     x = params["embed"][prompt.long()]
     for i in range(cfg.n_layers):
         x, (k, v) = _decoder_layer(x, layer_params(params, i), cfg, cos, sin,
-                                   attn_fn)
+                                   attn_fn, moe_lossless=True)
         cache["k"][i, :, :, :P] = k
         cache["v"][i, :, :, :P] = v
     return x
@@ -140,7 +144,11 @@ def decode_step_paged(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
         att = paged_decode_attention(qf, k_cache, v_cache, block_tables, pos)
         x = x + att.reshape(B, nh * hd).to(x.dtype) @ lp["wo"]
         h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
+        if cfg.n_experts and "moe" in lp:
+            x = x + moe_ffn_lossless(lp["moe"], h2[:, None, :],
+                                     top_k=cfg.expert_top_k)[:, 0]
+        else:
+            x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float(), cache
 

@@ -1,16 +1,17 @@
-"""The Llama decoder family in PyTorch: the dense path of
-``ray_lightning_tpu/models/llama.py``, its training loss and its
-LightningModule.
+"""The Llama decoder family in PyTorch: ``ray_lightning_tpu/models/
+llama.py`` on one device, dense or mixture of experts, its training loss and
+its LightningModule.
 
 Parameters are a plain dict with the JAX package's layout: stacked
-``[L, in, out]`` layer leaves applied as ``x @ W``, so the converter
-(``models/convert.py``) moves tensors without transposing them. Mixture of
-experts and the pipeline / tensor / sequence-parallel paths are not part of
-the port yet: ``LlamaConfig.from_dict`` refuses a MoE config, and
-``forward`` takes no mesh. Rematerialisation is per layer
-(``torch.utils.checkpoint``) with the JAX package's two policies:
-``"nothing"`` recomputes the whole layer in backward, ``"dots"`` keeps the
-layer's projections and recomputes the rest.
+``[L, in, out]`` layer leaves applied as ``x @ W``, with a MoE config's
+experts in a nested ``layers["moe"]`` subtree, so the converter
+(``models/convert.py``) moves tensors without transposing them. Training a
+mixture of experts (its auxiliary loss) and the pipeline / tensor /
+sequence / expert-parallel paths are not part of the port yet: ``lm_loss``
+and ``LlamaModule`` refuse a MoE config, and ``forward`` takes no mesh.
+Rematerialisation is per layer (``torch.utils.checkpoint``) with the JAX
+package's two policies: ``"nothing"`` recomputes the whole layer in
+backward, ``"dots"`` keeps the layer's projections and recomputes the rest.
 """
 from __future__ import annotations
 
@@ -44,17 +45,21 @@ from ray_lightning_tpu_torch.ops.rope import (
     normalize_rope_scaling,
     rope_angles,
 )
-from ray_lightning_tpu_torch.utils.tree import tree_leaves
+from ray_lightning_tpu_torch.parallel.moe import (
+    init_moe_params,
+    moe_ffn,
+    moe_ffn_lossless,
+)
+from ray_lightning_tpu_torch.utils.tree import tree_leaves, tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 _DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
 
 # JAX LlamaConfig fields that steer only what the port does not have (the
-# TPU kernels' block sizes, MoE routing, the ring and pipeline paths)
+# TPU kernels' block sizes, the ring and pipeline paths)
 _UNPORTED_FIELDS = (
-    "attn_impl", "flash_block_q", "flash_block_k", "expert_top_k",
-    "capacity_factor", "moe_aux_weight", "ring_load_balance",
+    "attn_impl", "flash_block_q", "flash_block_k", "ring_load_balance",
     "pp_microbatches", "pp_schedule",
 )
 
@@ -78,6 +83,14 @@ class LlamaConfig:
     sliding_window: int = 0
     # qkv projection bias (Qwen2-family checkpoints)
     attn_bias: bool = False
+    # mixture-of-experts MLP (0 = dense): top-k routing over n_experts;
+    # capacity_factor bounds each expert's tokens in forward (generation
+    # routes without a bound); moe_aux_weight is the auxiliary loss's
+    # weight in training, which the port does not run yet
+    n_experts: int = 0
+    expert_top_k: int = 2
+    capacity_factor: float = 1.5
+    moe_aux_weight: float = 0.01
     # per-layer rematerialisation in training: "nothing" recomputes the
     # whole layer in backward; "dots" keeps the products with no batch
     # dimension (the layer's projections) and recomputes the rest
@@ -126,14 +139,8 @@ class LlamaConfig:
     def from_dict(d: Dict[str, Any]) -> "LlamaConfig":
         """Build from a ``to_dict()`` of this class or of the JAX
         ``LlamaConfig``. Fields of what the port lacks (kernel block sizes,
-        MoE routing, ring and pipeline knobs) are dropped; a
-        mixture-of-experts config is refused."""
+        ring and pipeline knobs) are dropped."""
         d = dict(d)
-        if d.pop("n_experts", 0):
-            raise NotImplementedError(
-                "mixture-of-experts configs are not ported yet (dense path "
-                "only)"
-            )
         for key in _UNPORTED_FIELDS:
             d.pop(key, None)
         if isinstance(d.get("dtype"), str):
@@ -142,11 +149,15 @@ class LlamaConfig:
 
     def num_params(self) -> int:
         d, f, v = self.dim, self.ffn_dim, self.vocab_size
+        if self.n_experts:
+            mlp = d * self.n_experts + 3 * self.n_experts * d * f  # router+experts
+        else:
+            mlp = 3 * d * f  # gate, up, down
         per_layer = (
             d * (self.n_heads * self.head_dim)  # wq
             + 2 * d * (self.n_kv_heads * self.head_dim)  # wk, wv
             + (self.n_heads * self.head_dim) * d  # wo
-            + 3 * d * f  # gate, up, down
+            + mlp
             + 2 * d  # norms (qkv biases are not counted, as in JAX)
         )
         return v * d * 2 + self.n_layers * per_layer + d
@@ -163,6 +174,13 @@ class LlamaConfig:
         return LlamaConfig(
             vocab_size=512, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
             ffn_dim=256, max_seq=128, remat=False,
+        )
+
+    @staticmethod
+    def tiny_moe() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=512, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
+            ffn_dim=256, max_seq=128, remat=False, n_experts=4,
         )
 
     @staticmethod
@@ -191,7 +209,8 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     """Random parameters N(0, 1/fan_in) in ``cfg.dtype`` on ``device`` (the
     card unless ``device="cpu"``), drawn from ``generator``, which must
     live on that device. Stacked leaves are drawn one layer at a time so
-    the fp32 draw never holds more than one layer."""
+    the fp32 draw never holds more than one layer (one expert's matrix for
+    a MoE config, whose router stays fp32)."""
     dev = resolve_device(device)
     d, hd, L = cfg.dim, cfg.head_dim, cfg.n_layers
     dt = cfg.dtype
@@ -212,10 +231,17 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         "wv": dense((L, d, cfg.n_kv_heads * hd), d),
         "wo": dense((L, cfg.n_heads * hd, d), cfg.n_heads * hd),
         "mlp_norm": torch.ones((L, d), dtype=dt, device=dev),
-        "w_gate": dense((L, d, cfg.ffn_dim), d),
-        "w_up": dense((L, d, cfg.ffn_dim), d),
-        "w_down": dense((L, cfg.ffn_dim, d), cfg.ffn_dim),
     }
+    if cfg.n_experts:
+        layers["moe"] = init_moe_params(generator, d, cfg.ffn_dim,
+                                        cfg.n_experts, dtype=dt, n_layers=L,
+                                        device=dev)
+    else:
+        layers.update(
+            w_gate=dense((L, d, cfg.ffn_dim), d),
+            w_up=dense((L, d, cfg.ffn_dim), d),
+            w_down=dense((L, cfg.ffn_dim, d), cfg.ffn_dim),
+        )
     if cfg.attn_bias:
         for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
                             ("bv", cfg.n_kv_heads)):
@@ -228,16 +254,21 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     }
 
 
-def layer_params(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s slice of the stacked leaves (views, no copies)."""
-    return {k: v[i] for k, v in params["layers"].items()}
+def layer_params(params: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i``'s slice of the stacked leaves, the ``moe`` subtree's
+    too (views, no copies)."""
+    return tree_map(lambda v: v[i], params["layers"])
 
 
 def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin,
-                   attn_fn: Callable, norm_fn: Callable = rmsnorm):
-    """One pre-norm block (attention + gated MLP) on x [B, S, D]. Returns
-    (x, (k, v)) with this layer's post-rope k, v in cache layout
-    [B, Hkv, S, hd] — the prefill path reuses it to fill the cache."""
+                   attn_fn: Callable, norm_fn: Callable = rmsnorm,
+                   moe_lossless: bool = False):
+    """One pre-norm block (attention + gated MLP or mixture of experts) on
+    x [B, S, D]. Returns (x, (k, v)) with this layer's post-rope k, v in
+    cache layout [B, Hkv, S, hd] — the prefill path reuses it to fill the
+    cache. A MoE layer routes with its capacity bound, or every expert
+    densely under ``moe_lossless`` (generation); its auxiliary loss is
+    dropped, since the port does not train a mixture of experts yet."""
     B, S = x.shape[0], x.shape[1]
     hd = cfg.head_dim
     nh = lp["wq"].shape[-1] // hd
@@ -255,7 +286,15 @@ def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin,
     att = att.transpose(1, 2).reshape(B, S, nh * hd)
     x = x + att @ lp["wo"]
     h2 = norm_fn(x, lp["mlp_norm"], cfg.norm_eps)
-    x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
+    if cfg.n_experts and "moe" in lp:
+        if moe_lossless:
+            x = x + moe_ffn_lossless(lp["moe"], h2, top_k=cfg.expert_top_k)
+        else:
+            out, _ = moe_ffn(lp["moe"], h2, top_k=cfg.expert_top_k,
+                             capacity_factor=cfg.capacity_factor)
+            x = x + out
+    else:
+        x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
     return x, (k, v)
 
 
@@ -285,12 +324,33 @@ def _remat_kwargs(cfg: LlamaConfig) -> Dict[str, Any]:
     return kwargs
 
 
+def _flat_layers(layers: Dict[str, Any], prefix: Tuple[str, ...] = ()):
+    """(key path, leaf) pairs of the layer tree, the ``moe`` subtree's
+    leaves under ("moe", name)."""
+    for k, v in layers.items():
+        if isinstance(v, dict):
+            yield from _flat_layers(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _unflat_layers(paths, leaves) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
             plain: bool = False, return_hidden: bool = False) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] in ``cfg.dtype`` (the JAX
-    ``forward`` without its MoE auxiliary loss). With ``return_hidden`` the
-    result is instead the final-norm hidden states [B, S, D]: the chunked
-    loss applies the head itself, one sequence chunk at a time.
+    ``forward`` without its MoE auxiliary loss: a MoE config routes with
+    its capacity bound, as there). With ``return_hidden`` the result is
+    instead the final-norm hidden states [B, S, D]: the chunked loss
+    applies the head itself, one sequence chunk at a time.
 
     With ``cfg.remat`` and grad mode on, each layer runs under
     ``torch.utils.checkpoint``: backward recomputes it (the flash forward
@@ -310,15 +370,15 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
     def attn_fn(q, k, v):
         return attn(q, k, v, causal=True, window=window)
 
-    names = list(params["layers"])
+    paths, stacked = zip(*_flat_layers(params["layers"]))
 
     def layer_fn(x, *leaves):
-        return _decoder_layer(x, dict(zip(names, leaves)), cfg, cos, sin,
+        return _decoder_layer(x, _unflat_layers(paths, leaves), cfg, cos, sin,
                               attn_fn, norm)[0]
 
     # unbind once: its backward stacks the L layer gradients in one op,
     # where per-layer indexing would add L full-size zero-padded gradients
-    per_layer = [params["layers"][k].unbind(0) for k in names]
+    per_layer = [t.unbind(0) for t in stacked]
     remat = _remat_kwargs(cfg) if cfg.remat and torch.is_grad_enabled() else None
     x = params["embed"][tokens.long()]
     for i in range(cfg.n_layers):
@@ -339,7 +399,9 @@ def lm_loss(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
     sequence is fed, targets are the tokens rolled by one, and the last
     position is masked out. With ``cfg.loss_chunks > 1`` the loss is
     computed over sequence chunks (``ops/losses.py``). Returns (loss,
-    {"loss", "ppl"})."""
+    {"loss", "ppl"}). A MoE config is refused: its auxiliary loss is not
+    ported yet."""
+    _refuse_moe_training(cfg)
     tokens = tokens.long()
     targets = torch.roll(tokens, -1, dims=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
@@ -354,6 +416,16 @@ def lm_loss(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
         total, count = masked_softmax_cross_entropy(logits, targets, mask)
     ce = total / count
     return ce, {"loss": ce, "ppl": torch.exp(ce)}
+
+
+def _refuse_moe_training(cfg: LlamaConfig) -> None:
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "training a mixture-of-experts config is not ported yet: the "
+            "router's auxiliary loss (moe_aux_weight) would be dropped. The "
+            "port serves MoE configs (generation, the paged engine, "
+            "forward); see ROADMAP.md for MoE training"
+        )
 
 
 def _warmup_cosine(step: int, peak: float, warmup: int, decay: int) -> float:
@@ -376,6 +448,7 @@ class LlamaModule(LightningModule):
         if isinstance(config, dict):  # rebuilt from checkpoint hparams
             config = LlamaConfig.from_dict(config)
         self.config = config or LlamaConfig.tiny()
+        _refuse_moe_training(self.config)
         self.lr = lr
         self.warmup_steps = warmup_steps
         self.total_steps = total_steps

@@ -657,6 +657,54 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
     assert streams[0] == streams[1]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_lossless_on_card_matches_cpu(cuda, dtype):
+    """The lossless MoE (cuBLAS expert products, fp32 sum in expert order)
+    on the card against the same call on the CPU, at ragged token counts."""
+    from ray_lightning_tpu_torch.parallel.moe import init_moe_params, moe_ffn_lossless
+
+    params = init_moe_params(torch.Generator().manual_seed(0), 64, 96, 4,
+                             dtype=dtype, device="cpu")
+    x = torch.randn((3, 5, 64), generator=torch.Generator().manual_seed(1)).to(dtype)
+    want = moe_ffn_lossless(params, x, top_k=2)
+    got = moe_ffn_lossless({k: v.to(cuda) for k, v in params.items()},
+                           x.to(cuda), top_k=2)
+    assert got.dtype == dtype and got.device.type == "cuda"
+    _close(got.cpu(), want, 1e-5 if dtype == torch.float32 else 2e-2)
+
+
+def test_moe_engine_on_card_matches_engine_on_cpu(cuda):
+    """tiny_moe (fp32) served on the card and on the CPU: the same greedy
+    tokens, and on the card the serving kernels launch as the layer count
+    says."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+    from ray_lightning_tpu_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(LlamaConfig.tiny_moe(), dtype=torch.float32)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ecfg = EngineConfig(num_slots=2, max_prompt_len=12, max_len=32, block_size=4)
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6, 7], [3, 1, 4, 1, 5, 9, 2, 6, 8, 8], [11, 12]]
+    streams = []
+    for device, params in (("cpu", cpu_params),
+                           (cuda, tree_map(lambda t: t.to(cuda), cpu_params))):
+        kernels.reset_launch_counts()
+        engine = InferenceEngine(params, cfg, ecfg, device=device)
+        comps = [engine.submit(p, max_new_tokens=6) for p in prompts]
+        engine.run_until_idle()
+        streams.append([c.tokens for c in comps])
+        counts = kernels.launch_counts()
+        if device == "cpu":
+            assert set(counts.values()) == {0}
+        else:
+            L, steps = cfg.n_layers, engine.stats["decode_steps"]
+            assert counts["flash_fwd"] == L * engine.stats["prefills"]
+            assert counts["paged_decode"] == L * steps
+            assert counts["argmax"] == steps
+    assert streams[0] == streams[1]
+
+
 def _tiny_remat_cfg(**over):
     from ray_lightning_tpu_torch.models.llama import LlamaConfig
 

@@ -81,18 +81,20 @@ def test_params_round_trip_is_bitwise(dtype):
 def test_converter_refuses_mismatches():
     jcfg, tcfg = _configs()
     tree = _numpy_params(jcfg)
+    # a MoE subtree on a dense config is a leaf the config does not have
     bad = dict(tree, layers=dict(tree["layers"], moe={}))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unexpected"):
         params_from_jax(bad, tcfg, device="cpu")
     with pytest.raises(ValueError):
         params_from_jax(tree, dataclasses.replace(tcfg, ffn_dim=128), device="cpu")
     with pytest.raises(TypeError):
         params_from_jax(tree, dataclasses.replace(tcfg, dtype=torch.bfloat16),
                         device="cpu")
+    # a MoE config now carries over (it serves); training it is refused
+    moe_cfg = tllama.LlamaConfig.from_dict(jllama.LlamaConfig.tiny_moe().to_dict())
+    assert moe_cfg.n_experts == 4
     with pytest.raises(NotImplementedError):
-        tllama.LlamaConfig.from_dict(
-            jllama.LlamaConfig.tiny_moe().to_dict()
-        )
+        tllama.LlamaModule(moe_cfg)
 
 
 @pytest.mark.parametrize("variant", ["dense", "attn_bias", "window"])

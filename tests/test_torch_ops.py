@@ -271,6 +271,26 @@ def test_argmax_plan_depends_on_host_sizes_only():
     assert tpa.argmax_plan(8, 128256, sms=16)["chunks"] == 4
 
 
+def test_argmax_plan_at_the_moe_serving_vocabulary():
+    """Mixtral's vocabulary (32000) at the MoE serving batch: a full
+    cluster of 8 chunks of 4000 elements, each a whole number of 16-byte
+    vectors, with no chunk left empty; greedy and noisy rows match
+    jnp.argmax through the plain version."""
+    p = tpa.argmax_plan(8, 32000)
+    assert p == {"chunks": 8, "chunk": 4000}
+    assert (p["chunks"] - 1) * p["chunk"] < 32000
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((8, 32000)).astype(np.float32)
+    x[0, [3999, 4000]] = x.max() + 1.0  # a tie across a chunk edge
+    noise = rng.gumbel(size=(8, 32000)).astype(np.float32)
+    for nz in (None, noise):
+        want = np.asarray(jnp.argmax(jnp.asarray(x if nz is None else x + nz),
+                                     axis=-1))
+        got = tpa.blockwise_argmax(_t(x), None if nz is None else _t(nz))
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert int(tpa.blockwise_argmax(_t(x))[0]) == 3999
+
+
 def test_noisy_argmax_matches_jax_on_same_noise():
     rng = np.random.default_rng(5)
     x = (rng.standard_normal((4, 1024)) / 0.8).astype(np.float32)
