@@ -23,8 +23,9 @@ final line):
    of the calls, so the host's launch rate is out of them; the kernel's
    eager back-to-back time beside it as ``ms_eager``), every kernel's
    share of its bound and the flash kernels' TFLOP/s. RMSNorm is timed at
-   the decode, prefill and training shapes and at [1,64] (the practical
-   floor of a launch); paged decode at ragged positions and at the full
+   the decode, prefill and training shapes, at ``generate_window``'s
+   decode and prefill shapes and at [1,64] (the practical floor of a
+   launch); flash forward also at ``generate_window``'s windowed prefill; paged decode at ragged positions and at the full
    cache, bitwise repeatable, and replayed from a CUDA graph at new
    positions, bitwise equal to eager calls; the argmax sampler bitwise
    equal to torch.argmax on planted ties and planted NaNs (the first NaN
@@ -40,9 +41,29 @@ final line):
    requests are then served again under torch.profiler, which gives the
    device time by class (the port's kernels, matmuls, the rest) and the
    device's busy share;
+4a. slot serving (``serving_slot``) — the same weights and requests on the
+   slot layout (8 rows of 1024 positions, ``decode_step_ragged``: fp32
+   attention over the dense rows in plain torch, no paged decode), with
+   the same checks and the profiled rerun; then one decode step timed by
+   graph replay beside its bytes bound, and the share of it that the
+   layers' dense attention takes;
 5. serving exactness — the same engine in fp32 at full width, cut to 2
    layers: its greedy tokens must equal iterated full ``forward`` calls
-   through the plain versions;
+   through the plain versions; then (``slot_exactness``) the slot engine's
+   greedy tokens must equal the paged engine's, the port's batched
+   ``generate`` and iterated plain ``forward``;
+5c. windowed generation (``generate_window``) — Mistral-7B-v0.1's published
+   config (vocab 32000, dim 4096, 32 layers, 32 query / 8 KV heads, ffn
+   14336, window 4096) through the port's ``config_from_hf``, random bf16
+   weights, ``generate`` on 4 prompts of 4608 tokens with 64 greedy new
+   tokens: the rolling cache is [32, 4, 8, 4096, 128], prefill scatters and
+   decode wraps, tokens in the vocabulary, logits finite, launch counts as
+   the layer count says; prefill time and decode tokens/s; then runs
+   with an ``eos_id`` that never fires alternating with runs without (the
+   cost of the host's reads of the finished flag). Then
+   (``window_exactness``) fp32 at those widths with the window cut to 64, 2
+   layers: ``generate`` on 100-token prompts with 40 new tokens must equal
+   iterated plain windowed ``forward``;
 5a. MoE serving (``serving_moe``) — Mixtral-8x7B-v0.1's published widths
    (vocab 32000, dim 4096, 32 query / 8 KV heads, ffn 14336, 8 experts
    top-2) through the port's ``mixtral_config_from_hf``, cut to 16 layers
@@ -85,9 +106,10 @@ final line):
    "dots" against "nothing" (1e-6), bf16-mixed through the kernels against
    the plain versions (``MIXED_TOL``), and an accumulation of two
    micro-batches of 1 against one update on the batch of 2 (1e-5);
-11. the ``kernels`` JSON line (launches from the four main paths:
-   serving, serving_moe, training, training_complete), the card line, and
-   the final ``{"ok": true, ...}`` line.
+11. the ``kernels`` JSON line (launches from the six main paths:
+   serving, serving_slot, generate_window, serving_moe, training,
+   training_complete), the card line, and the final ``{"ok": true, ...}``
+   line.
 
 Timings are printed beside the card's name and power limit; they are this
 card's numbers, and the fields are described in PERF.md.
@@ -282,8 +304,11 @@ def check_rmsnorm(torch, F):
     g = torch.Generator(device="cuda").manual_seed(1)
     rows_out = {}
     # serving: a decode step's [8,4096] and a prefill's [512,4096];
-    # training: every token of a batch of 8 x 2048 at dim 2048
-    for rows, dim in ((8, 4096), (512, 4096), (16384, 2048)):
+    # training: every token of a batch of 8 x 2048 at dim 2048; generate on
+    # Mistral-7B-v0.1: a decode step's [4,4096] and the prefill of 4
+    # prompts of 4608 tokens, [18432,4096]
+    for rows, dim in ((8, 4096), (512, 4096), (16384, 2048), (4, 4096),
+                      (18432, 4096)):
         x = torch.randn(rows, dim, generator=g, device="cuda").bfloat16()
         w = (1 + 0.1 * torch.randn(dim, generator=g, device="cuda")).bfloat16()
         got, want = rmsnorm(x, w, 1e-5), rmsnorm_plain(x, w, 1e-5)
@@ -324,6 +349,8 @@ def check_rmsnorm(torch, F):
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows_out.values())
     out["at_prefill_shape"] = rows_out[512]
     out["at_training_shape"] = rows_out[16384]
+    out["at_generate_decode_shape"] = rows_out[4]
+    out["at_generate_prefill_shape"] = rows_out[18432]
     out["launch_floor_ms"] = floor
     return out
 
@@ -331,7 +358,8 @@ def check_rmsnorm(torch, F):
 def check_flash(torch, F):
     """The forward kernel against its plain version at the prefill shape,
     at odd ones (ragged S, a window, non-causal, GQA group 4 at head dim 64,
-    fp32) and at the training shape; timed at the prefill and the training
+    fp32), at the windowed prefill of ``generate_window`` and at the
+    training shape; timed at the prefill, the windowed and the training
     shapes."""
     from ray_lightning_tpu_torch.ops.attention import (
         flash_attention,
@@ -389,6 +417,8 @@ def check_flash(torch, F):
                 f"bound_ms {b:.5f} ({by}); {b / main['ms']:.2%} of its bound, "
                 f"{main['ms'] / lib:.2f}x SDPA")
         del q, k, v, o, lse, po, plse
+    main["at_generate_prefill_shape"], err = check_flash_window(torch, F, g)
+    worst = max(worst, err)
     # the training path's shape: q [8,16,2048,128], kv [8,8,2048,128]
     q = torch.randn(8, 16, 2048, 128, generator=g, device="cuda").bfloat16()
     k = torch.randn(8, 8, 2048, 128, generator=g, device="cuda").bfloat16()
@@ -428,6 +458,70 @@ def check_flash(torch, F):
     torch.cuda.empty_cache()
     main["max_abs_err"] = worst
     return main
+
+
+def check_flash_window(torch, F, g):
+    """The forward kernel at ``generate_window``'s prefill: Mistral-7B-v0.1
+    heads, 4 prompts of 4608 tokens, causal with the 4096-position window,
+    so the band spans many tiles and the last 512 rows leave the first keys
+    behind. The plain version runs a batch row at a time (its fp32 scores
+    for all four rows would take 11 GB); the library call is SDPA with the
+    band as a boolean mask. Returns (the entry, its max_abs_err)."""
+    from ray_lightning_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    B, hq, hkv, S, hd, W = 4, 32, 8, 4608, 128, 4096
+    q = torch.randn(B, hq, S, hd, generator=g, device="cuda").bfloat16()
+    k = torch.randn(B, hkv, S, hd, generator=g, device="cuda").bfloat16()
+    v = torch.randn(B, hkv, S, hd, generator=g, device="cuda").bfloat16()
+    o, lse = flash_attention(q, k, v, causal=True, window=W)
+    shape = f"q[{B},{hq},{S},{hd}] kv[{B},{hkv},{S},{hd}] bf16 causal window {W}"
+    err = 0.0
+    for b in range(B):
+        r = slice(b, b + 1)
+        po, plse = flash_attention_plain(q[r], k[r], v[r], True, None, W)
+        check(within(o[r], po, 2e-2, 2e-2), f"flash {shape} row {b}: O vs plain")
+        check(within(lse[r], plse, 1e-4, 1e-4),
+              f"flash {shape} row {b}: lse vs plain")
+        err = max(err, max_err(o[r], po), max_err(lse[r], plse))
+        del po, plse
+    torch.cuda.empty_cache()
+
+    def plain_rows():
+        for b in range(B):
+            flash_attention_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], True,
+                                  None, W)
+
+    i = torch.arange(S, device="cuda")
+    band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
+    kr = k.repeat_interleave(hq // hkv, dim=1)
+    vr = v.repeat_interleave(hq // hkv, dim=1)
+    pairs = B * sum(min(t + 1, W) for t in range(S))
+    flops = 4 * hq * pairs * hd
+    b_ms, by = bound(q.numel() * 2 * 2 + k.numel() * 2 * 2 + lse.numel() * 4,
+                     flops, BF16_FLOPS)
+    entry = dict(
+        shape=shape, max_abs_err=err,
+        ms=time_ms(torch, lambda: flash_attention(q, k, v, window=W), iters=10),
+        ms_eager=time_ms(torch, lambda: flash_attention(q, k, v, window=W),
+                         iters=10, graph=False),
+        plain_ms=time_ms(torch, plain_rows, iters=2, warmup=1, graph=False),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=band), iters=3, warmup=1, graph=False),
+        bound_ms=b_ms, bound_by=by,
+    )
+    log(f"flash {shape} (generate_window's prefill): max_abs_err {err:.3g} "
+        f"(tol 0.02 on O, 1e-4 on lse, each row against the plain version); "
+        f"kernel_ms {entry['ms']:.4f} (eager {entry['ms_eager']:.4f}) "
+        f"plain_ms (a row at a time) {entry['plain_ms']:.3f} "
+        f"library_ms(SDPA, boolean band mask) {entry['library_ms']:.4f} "
+        f"bound_ms {b_ms:.4f} ({by}); {b_ms / entry['ms']:.2%} of its bound, "
+        f"{flops / entry['ms'] / 1e9:.1f} TFLOP/s")
+    del q, k, v, o, lse, kr, vr, band
+    torch.cuda.empty_cache()
+    return entry, err
 
 
 def check_flash_bwd(torch, F):
@@ -879,24 +973,26 @@ def profile_run(torch, engine, reqs, wall_s, label):
         f"{name} {us / 1e3:.1f} ms" for name, us in other.most_common(6)))
 
 
-def serve_path(torch, card, cfg, params, label):
-    """The paged engine at full width (8 slots, prompts up to 512, 1024
-    positions, blocks of 16) on the 16 staggered requests: every request
-    completes with in-vocabulary tokens, every decode step's logits are
-    finite, every serving kernel launches exactly as often as the layer
-    count says, and the requests are served again under torch.profiler.
-    Returns (launch counts, the engine)."""
+def serve_path(torch, card, cfg, params, label, layout="paged"):
+    """The engine at full width (8 slots, prompts up to 512, 1024 positions;
+    blocks of 16 on the paged layout) on the 16 staggered requests: every
+    request completes with in-vocabulary tokens, every decode step's logits
+    are finite, every serving kernel of the layout launches exactly as often
+    as the layer count says (the slot layout attends its dense rows in plain
+    torch: no paged decode), and the requests are served again under
+    torch.profiler. Returns (launch counts, the engine, tokens/s)."""
     import numpy as np
 
     from ray_lightning_tpu_torch import kernels
     from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
 
+    paged = layout == "paged"
     ecfg = EngineConfig(num_slots=8, max_prompt_len=512, max_len=1024,
-                        block_size=16)
+                        block_size=16, kv_layout=layout)
     engine = InferenceEngine(params, cfg, ecfg)
     kv_gib = sum(v.numel() * v.element_size()
                  for v in engine.pool.cache.values()) / 2**30
-    log(f"{label}: paged KV pool {tuple(engine.pool.cache['k'].shape)} x2 = "
+    log(f"{label}: {layout} KV pool {tuple(engine.pool.cache['k'].shape)} x2 = "
         f"{kv_gib:.2f} GiB")
     # warm-up request (cuBLAS handles, allocator), not part of the run
     serve(engine, [([1, 2, 3, 4], 2)], 1)
@@ -930,25 +1026,29 @@ def serve_path(torch, card, cfg, params, label):
     engine._sample = sample
     check(len(finite) == steps and bool(torch.stack(finite).all()),
           f"{label}: a decode step's logits are not finite")
-    for name in ("rmsnorm", "flash_fwd", "paged_decode", "argmax"):
+    for name in ("rmsnorm", "flash_fwd", "argmax") + (
+            ("paged_decode",) if paged else ()):
         check(counts[name] > 0, f"kernel {name} was not launched on {label}")
     L = cfg.n_layers
     # the backward kernels belong to the training path
     expect = {"rmsnorm": 2 * L * prefills + (2 * L + 1) * steps,
-              "flash_fwd": L * prefills, "paged_decode": L * steps,
+              "flash_fwd": L * prefills,
+              "paged_decode": L * steps if paged else 0,
               "argmax": steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     check(counts == expect, f"{label}: launch counts {counts} != {expect}")
     ttfts = sorted(c.ttft_s for c in comps)
+    hits = (f"shared-prefix block hits {engine.pool.allocator.prefix_hits_total}; "
+            if paged else "")
     log(f"{label} on {card}: {len(comps)} requests ({prefills} prefills, "
         f"{steps} decode steps, {tokens} tokens) in {elapsed:.3f}s -> "
         f"{tokens / elapsed:.1f} tokens/s; TTFT median "
         f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms max {ttfts[-1] * 1e3:.1f} ms; "
-        f"shared-prefix block hits {engine.pool.allocator.prefix_hits_total}; "
-        f"all {steps} decode steps' logits finite")
+        f"{hits}all {steps} decode steps' logits finite")
     log(f"{label} launches: {counts} (per prefill: rmsnorm {2 * L}, flash_fwd "
-        f"{L}; per decode step: rmsnorm {2 * L + 1}, paged_decode {L}, argmax 1)")
+        f"{L}; per decode step: rmsnorm {2 * L + 1}, "
+        f"{f'paged_decode {L}, ' if paged else ''}argmax 1)")
     profile_run(torch, engine, reqs, elapsed, label)
-    return counts, engine
+    return counts, engine, tokens / elapsed
 
 
 def main_path(torch, card):
@@ -963,8 +1063,54 @@ def main_path(torch, card):
     log(f"llama3_8b: {n_params / 1e9:.2f} B params bf16 initialised in "
         f"{time.perf_counter() - t:.1f}s, {torch.cuda.memory_allocated() / 2**30:.1f} "
         "GiB allocated")
-    counts, engine = serve_path(torch, card, cfg, params, "main path")
-    del engine, params
+    counts, engine, paged_tps = serve_path(torch, card, cfg, params,
+                                           "main path")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    slot_counts = serving_slot(torch, card, cfg, params, paged_tps)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, slot_counts
+
+
+def serving_slot(torch, card, cfg, params, paged_tps):
+    """The slot layout on the main path's weights and requests (8 rows of
+    1024 positions, 1.0 GiB of bf16 K/V): the serving checks of
+    ``serve_path``, then one decode step timed by graph replay beside its
+    bytes bound, and the share of it that the plain-torch attention over
+    the dense rows takes (the 32 layers' attention alone, replayed the same
+    way on the same cache)."""
+    from ray_lightning_tpu_torch.models.generation import dense_decode_attention
+
+    counts, engine, tps = serve_path(torch, card, cfg, params, "serving_slot",
+                                     layout="slot")
+    log(f"serving_slot on {card}: {tps:.1f} tokens/s beside the paged main "
+        f"path's {paged_tps:.1f} in the same run")
+    r = decode_step_time(torch, engine, cfg)
+    n, C = engine.pool.num_slots, engine.pool.max_len
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((n, hkv, cfg.n_heads // hkv, hd), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9))
+    masked = (torch.arange(C, device="cuda")[None, :]
+              > r["pos"][:, None])[:, None, None, :]
+    cache = engine.pool.cache
+
+    def attend():
+        for i in range(cfg.n_layers):
+            dense_decode_attention(q, cache["k"][i], cache["v"][i], masked)
+
+    attn_ms = time_ms(torch, attend, iters=3, warmup=2)
+    log(f"serving_slot decode step on {card} (8 rows, pos up to 1023): "
+        f"{r['ms']:.3f} ms graph replay (eager {r['ms_eager']:.3f} ms) against "
+        f"a {r['bound_ms']:.3f} ms bound ({r['bound_by']}: "
+        f"{r['bytes'] / 1e9:.3f} GB = weights {r['weight_bytes'] / 1e9:.3f} "
+        f"+ K/V {r['kv_bytes'] / 1e9:.4f}), {r['bound_ms'] / r['ms']:.1%} of "
+        f"its bound; the dense fp32 attention of its {cfg.n_layers} layers "
+        f"(over all {C} positions of every row) {attn_ms:.3f} ms by graph "
+        f"replay, {attn_ms / r['ms']:.1%} of the step")
+    del engine
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -990,6 +1136,204 @@ def mixtral_config(torch, n_layers, dtype):
     return mixtral_config_from_hf(hf, dtype=dtype)
 
 
+# Mistral-7B-v0.1's published config.json (the fields the importer reads)
+MISTRAL_7B = dict(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    max_position_embeddings=32768, rms_norm_eps=1e-5, rope_theta=10000.0,
+    sliding_window=4096, tie_word_embeddings=False,
+)
+
+
+def mistral_config(torch, dtype, **fields):
+    from types import SimpleNamespace
+
+    from ray_lightning_tpu_torch.models.hf_import import config_from_hf
+
+    return config_from_hf(SimpleNamespace(**dict(MISTRAL_7B, **fields)),
+                          dtype=dtype)
+
+
+class GenerationProbe:
+    """Records what ``generate`` does inside: the cache shape prefill gets,
+    every decode step's position and logits, and CUDA events on the stream
+    around the prefill. It adds no device sync and no device work to the
+    run: the logits are checked for finiteness after it. Installed over the
+    module's ``prefill`` and ``decode_step``, which ``generate`` looks up at
+    each call."""
+
+    def __init__(self, torch):
+        from ray_lightning_tpu_torch.models import generation
+
+        self.torch, self.gen = torch, generation
+        self.real = (generation.prefill, generation.decode_step)
+        self.cache_shape, self.positions, self.logits = None, [], []
+        self.events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def prefill(self, params, prompt, cfg, cache, table):
+        self.cache_shape = tuple(cache["k"].shape)
+        self.events[0].record()
+        logits, cache = self.real[0](params, prompt, cfg, cache, table)
+        self.events[1].record()
+        self.logits.append(logits)
+        return logits, cache
+
+    def decode_step(self, params, cache, token, pos, cfg, table):
+        self.positions.append(int(pos))
+        logits, cache = self.real[1](params, cache, token, pos, cfg, table)
+        self.logits.append(logits)
+        return logits, cache
+
+    def __enter__(self):
+        self.gen.prefill, self.gen.decode_step = self.prefill, self.decode_step
+        return self
+
+    def __exit__(self, *exc):
+        self.gen.prefill, self.gen.decode_step = self.real
+        self.events[2].record()
+        self.torch.cuda.synchronize()
+
+    def times_s(self):
+        """(prefill, decode loop) seconds on the stream's timeline."""
+        e = self.events
+        return e[0].elapsed_time(e[1]) / 1e3, e[1].elapsed_time(e[2]) / 1e3
+
+    def all_finite(self):
+        return bool(self.torch.stack(
+            [x.isfinite().all() for x in self.logits]).all())
+
+
+def generate_window(torch, card):
+    """``generate`` of Mistral-7B-v0.1 at full width and depth (its
+    published config through the port's ``config_from_hf``, random bf16
+    weights from a seeded generator): 4 prompts of 4608 tokens, past the
+    4096-position window, and 64 greedy new tokens. The rolling cache is
+    the window's length, so prefill scatters the prompt's last 4096
+    positions to their slots and every decode step wraps; tokens in the
+    vocabulary, every logit finite, the kernels launched as the layer count
+    says (flash forward once a layer, RMSNorm 2L + 1 a forward; the sampler
+    of ``generate`` is torch's, as JAX's is ``jnp.argmax``)."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.models.generation import (
+        EOS_POLL_STEPS,
+        decode_step,
+        dense_decode_attention,
+        generate,
+        init_kv_cache,
+    )
+    from ray_lightning_tpu_torch.models.llama import init_params
+    from ray_lightning_tpu_torch.ops.rope import rope_angles
+
+    cfg = mistral_config(torch, torch.bfloat16)
+    check(cfg.sliding_window == 4096 and cfg.n_layers == 32,
+          f"mistral config {cfg}")
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    n_params = sum(leaf.numel() for leaf in _leaves(params))
+    check(n_params == cfg.num_params(),
+          f"{n_params} parameters, the config counts {cfg.num_params()}")
+    log(f"mistral-7b-v0.1: {n_params / 1e9:.2f} B params bf16 initialised in "
+        f"{time.perf_counter() - t:.1f}s")
+    B, P, new = 4, 4608, 64
+    V, L, C = cfg.vocab_size, cfg.n_layers, cfg.sliding_window
+    prompt = torch.randint(0, V, (B, P), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(8))
+    # warm-up at the run's shapes (a prefill and one decode step), so that
+    # no timed run pays for first allocations
+    generate(params, prompt, cfg, 2)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with GenerationProbe(torch) as probe:
+        out = generate(params, prompt, cfg, new)
+    elapsed = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    prefill_s, decode_s = probe.times_s()
+    steps = len(probe.positions)
+    kv_shape = (L, B, cfg.n_kv_heads, C, cfg.head_dim)
+    check(probe.cache_shape == kv_shape,
+          f"generate_window: cache {probe.cache_shape} != {kv_shape}")
+    check(P > C, "the prompt does not reach past the window: no scatter")
+    check(probe.positions == list(range(P, P + new - 1))
+          and min(probe.positions) >= C,
+          f"generate_window: decode positions {probe.positions[:3]}...")
+    check(tuple(out.shape) == (B, P + new) and bool((out[:, :P] == prompt).all())
+          and 0 <= int(out[:, P:].min()) and int(out[:, P:].max()) < V,
+          "generate_window: bad output")
+    check(probe.all_finite(),
+          "generate_window: a step's logits are not finite")
+    expect = {"rmsnorm": (2 * L + 1) * (1 + steps), "flash_fwd": L,
+              "paged_decode": 0, "argmax": 0, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0}
+    check(counts == expect,
+          f"generate_window: launch counts {counts} != {expect}")
+    kv_gib = 2 * math.prod(kv_shape) * 2 / 2**30
+    log(f"generate_window on {card}: mistral-7b-v0.1, batch {B}, prompts of "
+        f"{P} tokens, {new} greedy new tokens in {elapsed:.3f}s: prefill "
+        f"{prefill_s * 1e3:.1f} ms ({B * P / prefill_s:.0f} prompt "
+        f"tokens/s); {steps} decode steps in {decode_s:.3f}s -> "
+        f"{B * steps / decode_s:.1f} tokens/s ({decode_s / steps * 1e3:.2f} ms "
+        f"a step); rolling cache {kv_shape} x2 = {kv_gib:.2f} GiB bf16 "
+        f"(C = window); prefill scattered the last {C} of {P} positions, "
+        f"decode wrapped at positions {P}..{P + steps - 1}; all logits finite")
+    log(f"generate_window launches: {counts} (rmsnorm {2 * L + 1} a forward, "
+        f"flash_fwd {L} at the prefill)")
+    # the same run with an eos_id that it never emits, between two more
+    # runs without: generate then reads "has every row finished?" back to
+    # the host every EOS_POLL_STEPS steps, and the gap is what that costs
+    emitted = set(out[:, P:].flatten().tolist())
+    eos = next(tok for tok in range(V) if tok not in emitted)
+    step_ms = {"without eos_id": [], "with eos_id": []}
+    for eos_id in (None, eos, None, eos):
+        with GenerationProbe(torch) as again:
+            again_out = generate(params, prompt, cfg, new, eos_id=eos_id)
+        check(torch.equal(again_out, out) and len(again.positions) == steps,
+              f"generate_window: a run with eos_id {eos_id} (never emitted) "
+              "differs from the first")
+        key = "without eos_id" if eos_id is None else "with eos_id"
+        step_ms[key].append(again.times_s()[1] / steps * 1e3)
+    log(f"generate_window decode on {card}, alternating runs without and "
+        f"with eos_id {eos} (never emitted; the host reads the finished flag "
+        f"every {EOS_POLL_STEPS} steps): ms a step "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.2f}" for x in v)
+                    for k, v in step_ms.items()))
+    # one decode step at the run's last position, by graph replay and
+    # eagerly, and the dense attention of its layers alone (the cache holds
+    # zeros: neither time depends on its contents)
+    cache = init_kv_cache(cfg, B, P + new)
+    table = rope_angles(P + new, cfg.head_dim, cfg.rope_theta,
+                        scaling=cfg.rope_scaling, device="cuda")
+    token, last = out[:, -1].contiguous(), P + new - 2
+
+    def step():
+        decode_step(params, cache, token, last, cfg, table)
+
+    ms = time_ms(torch, step, iters=3, warmup=2)
+    ms_eager = time_ms(torch, step, iters=3, warmup=1, graph=False)
+    q = torch.randn((B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                     cfg.head_dim), device="cuda")
+    masked = torch.zeros((B, 1, 1, C), dtype=torch.bool, device="cuda")
+
+    def attend():
+        for i in range(L):
+            dense_decode_attention(q, cache["k"][i], cache["v"][i], masked)
+
+    attn_ms = time_ms(torch, attend, iters=3, warmup=2)
+    weights = tree_bytes(params["layers"]) + tree_bytes(params["lm_head"])
+    b, by = bound(weights + 2 * math.prod(kv_shape) * 2, 0, BF16_FLOPS)
+    log(f"generate_window decode step on {card} (4 rows, all {C} slots "
+        f"valid): {ms:.3f} ms graph replay (eager {ms_eager:.3f} ms) against "
+        f"a {b:.3f} ms bound ({by}: weights and the rolling cache read once), "
+        f"{b / ms:.1%} of its bound; the dense fp32 attention of its {L} "
+        f"layers {attn_ms:.3f} ms by graph replay, {attn_ms / ms:.1%} of the "
+        "step")
+    del params, out, again_out, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _leaves(tree):
     from ray_lightning_tpu_torch.utils.tree import tree_leaves
 
@@ -1001,28 +1345,38 @@ def tree_bytes(tree):
 
 
 def decode_step_time(torch, engine, cfg):
-    """One paged decode step of the full batch (8 rows at ragged positions
-    up to 1023) on the engine's params and pool, timed by the replay of a
-    CUDA graph (the device's time alone) and eagerly (the host's launch rate
-    included), beside its bytes bound: every weight read once (lossless
-    routing runs every expert), the K/V of the attended positions read, one
-    position's K/V written, the embedding rows and the fp32 logits."""
-    from ray_lightning_tpu_torch.models.generation import decode_step_paged
+    """One decode step of the full batch (8 rows at ragged positions up to
+    1023) on the engine's params and pool, paged or slot, timed by the
+    replay of a CUDA graph (the device's time alone) and eagerly (the host's
+    launch rate included), beside its bytes bound: every weight read once
+    (lossless routing runs every expert), the K/V of the attended positions
+    read, one position's K/V written, the embedding rows and the fp32
+    logits."""
+    from ray_lightning_tpu_torch.models.generation import (
+        decode_step_paged,
+        decode_step_ragged,
+    )
 
-    n, bs = engine.pool.num_slots, engine.engine_config.block_size
-    maxb = engine.engine_config.max_len // bs
-    check(engine.pool.cache["k"].shape[1] > n * maxb,
-          "the pool is too small for the decode timing's tables")
+    n = engine.pool.num_slots
     dev = engine.device
-    tables = torch.arange(1, 1 + n * maxb, dtype=torch.int32,
-                          device=dev).view(n, maxb)
     pos_list = [1023 - 97 * b for b in range(n)]
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     token = torch.arange(n, dtype=torch.int32, device=dev) * 7 + 11
+    if engine.engine_config.kv_layout == "paged":
+        bs = engine.engine_config.block_size
+        maxb = engine.engine_config.max_len // bs
+        check(engine.pool.cache["k"].shape[1] > n * maxb,
+              "the pool is too small for the decode timing's tables")
+        tables = torch.arange(1, 1 + n * maxb, dtype=torch.int32,
+                              device=dev).view(n, maxb)
 
-    def step():
-        decode_step_paged(engine.params, engine.pool.cache, token, pos, tables,
-                          cfg, engine._table)
+        def step():
+            decode_step_paged(engine.params, engine.pool.cache, token, pos,
+                              tables, cfg, engine._table)
+    else:
+        def step():
+            decode_step_ragged(engine.params, engine.pool.cache, token, pos,
+                               cfg, engine._table)
 
     ms = time_ms(torch, step, iters=3, warmup=2)
     ms_eager = time_ms(torch, step, iters=3, warmup=1, graph=False)
@@ -1040,7 +1394,8 @@ def decode_step_time(torch, engine, cfg):
         + sum(pp + 1 for pp in pos_list) * L * cfg.n_heads * hd * 4
     b, by = bound(nbytes, flops, BF16_FLOPS)
     return dict(ms=ms, ms_eager=ms_eager, bound_ms=b, bound_by=by,
-                weight_bytes=weights, kv_bytes=kv, bytes=nbytes, flops=flops)
+                weight_bytes=weights, kv_bytes=kv, bytes=nbytes, flops=flops,
+                pos=pos)
 
 
 def serving_moe(torch, card):
@@ -1062,7 +1417,7 @@ def serving_moe(torch, card):
         f"params bf16 ({tree_bytes(params) / 1e9:.1f} GB, router fp32) "
         f"initialised in {time.perf_counter() - t:.1f}s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
-    counts, engine = serve_path(torch, card, cfg, params, "serving_moe")
+    counts, engine, _ = serve_path(torch, card, cfg, params, "serving_moe")
     r = decode_step_time(torch, engine, cfg)
     log(f"serving_moe decode step on {card} (8 rows, pos up to 1023): "
         f"{r['ms']:.3f} ms graph replay (eager {r['ms_eager']:.3f} ms) against "
@@ -1092,7 +1447,8 @@ def moe_exactness(torch):
           f"capacity_factor {cfg.capacity_factor}")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(6))
     engine = InferenceEngine(params, cfg, EngineConfig(
-        num_slots=4, max_prompt_len=64, max_len=128, block_size=16))
+        num_slots=4, max_prompt_len=64, max_len=128, block_size=16,
+        kv_layout="paged"))
     reqs = requests(np.random.default_rng(6), cfg.vocab_size, 6, 64, 8, 32)
     comps = serve(engine, reqs, 3)
     for comp, (prompt, n) in zip(comps, reqs):
@@ -1126,7 +1482,8 @@ def exactness(torch):
                               dtype=torch.float32)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(5))
     engine = InferenceEngine(params, cfg, EngineConfig(
-        num_slots=4, max_prompt_len=64, max_len=128, block_size=16))
+        num_slots=4, max_prompt_len=64, max_len=128, block_size=16,
+        kv_layout="paged"))
     reqs = requests(np.random.default_rng(5), cfg.vocab_size, 6, 64, 8, 32)
     comps = serve(engine, reqs, 3)
     for comp, (prompt, n) in zip(comps, reqs):
@@ -1141,6 +1498,91 @@ def exactness(torch):
     log(f"exactness: fp32 llama3_8b widths, 2 layers: {len(comps)} greedy "
         "streams token-identical to iterated plain forward")
     del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def slot_exactness(torch):
+    """fp32 at Llama-3-8B widths, 2 layers, 6 prompts of 48 tokens and 8
+    greedy new tokens: the slot engine's streams (staggered over 4 slots)
+    must equal the paged engine's, the port's batched ``generate`` and
+    iterated plain ``forward`` calls."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.models.generation import generate
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        forward,
+        init_params,
+    )
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(8))
+    prompts = np.random.default_rng(8).integers(0, cfg.vocab_size, (6, 48))
+    n_new = 8
+    reqs = [(p.tolist(), n_new) for p in prompts]
+    streams = {}
+    for layout in ("slot", "paged"):
+        engine = InferenceEngine(params, cfg, EngineConfig(
+            num_slots=4, max_prompt_len=64, max_len=128, block_size=16,
+            kv_layout=layout))
+        streams[layout] = [c.tokens for c in serve(engine, reqs, 3)]
+        del engine
+    streams["generate"] = generate(
+        params, torch.from_numpy(prompts).cuda(), cfg, n_new)[:, 48:].tolist()
+    plain = []
+    for p in prompts.tolist():
+        toks = list(p)
+        for _ in range(n_new):
+            logits = forward(params, torch.tensor([toks], device="cuda"), cfg,
+                             plain=True)
+            toks.append(int(torch.argmax(logits[0, -1].float())))
+        plain.append(toks[48:])
+    for name, got in streams.items():
+        check(got == plain, f"slot exactness: {name} {got} != forward {plain}")
+    log(f"slot exactness: fp32 llama3_8b widths, 2 layers: {len(plain)} greedy "
+        "streams of the slot engine token-identical to the paged engine's, "
+        "batched generate's and iterated plain forward")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def window_exactness(torch):
+    """fp32 at Mistral-7B-v0.1 widths with the window cut to 64 (so each
+    step's full forward is cheap), 2 layers: ``generate`` on two 100-token
+    prompts with 40 new tokens (a 64-position cache that wraps) must equal
+    iterated plain windowed ``forward`` calls."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.models.generation import generate
+    from ray_lightning_tpu_torch.models.llama import forward, init_params
+
+    cfg = mistral_config(torch, torch.float32, num_hidden_layers=2,
+                         sliding_window=64)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(10))
+    prompts = np.random.default_rng(10).integers(0, cfg.vocab_size, (2, 100))
+    n_new = 40
+    with GenerationProbe(torch) as probe:
+        got = generate(params, torch.from_numpy(prompts).cuda(), cfg,
+                       n_new)[:, 100:].tolist()
+    check(probe.cache_shape[3] == 64 and max(probe.positions) >= 64,
+          f"window exactness: cache {probe.cache_shape} did not roll")
+    plain = []
+    for p in prompts.tolist():
+        toks = list(p)
+        for _ in range(n_new):
+            logits = forward(params, torch.tensor([toks], device="cuda"), cfg,
+                             plain=True)
+            toks.append(int(torch.argmax(logits[0, -1].float())))
+        plain.append(toks[100:])
+    check(got == plain, f"window exactness: generate {got} != forward {plain}")
+    log(f"window exactness: fp32 mistral-7b-v0.1 widths, window 64, 2 layers: "
+        f"{len(plain)} greedy streams of generate (cache {probe.cache_shape}, "
+        "wrapping) token-identical to iterated plain windowed forward")
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1761,8 +2203,11 @@ def main():
     results["flash_bwd_dq"], results["flash_bwd_dkv"] = check_flash_bwd(torch, F)
     check(set(results) == {k.name for k in kernels.KERNELS},
           f"kernel checks {sorted(results)} do not cover every kernel")
-    by_path = {"serving": main_path(torch, card)}
+    by_path = dict(zip(("serving", "serving_slot"), main_path(torch, card)))
     exactness(torch)
+    slot_exactness(torch)
+    by_path["generate_window"] = generate_window(torch, card)
+    window_exactness(torch)
     by_path["serving_moe"] = serving_moe(torch, card)
     moe_exactness(torch)
     by_path["training"] = train_main_path(torch, card)
@@ -1789,6 +2234,8 @@ def main():
                                        "plain_and_library_compute",
                                        "at_prefill_shape",
                                        "at_training_shape", "at_full_cache",
+                                       "at_generate_prefill_shape",
+                                       "at_generate_decode_shape",
                                        "launch_floor_ms", "copy_ms",
                                        "chunks", "l2_hot", "noisy",
                                        "at_batch_1", "at_batch_64",

@@ -500,6 +500,20 @@ class LlamaModule(LightningModule):
         sched = torch.optim.lr_scheduler.LambdaLR(opt, factor)
         return {"optimizer": opt, "lr_scheduler": sched}
 
+    def generate(self, prompt, max_new_tokens: int, temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None, top_k=None,
+                 top_p=None, eos_id=None, device: DeviceLike = None):
+        """Cached autoregressive decoding with the trained params
+        (``models/generation.py::generate``)."""
+        from ray_lightning_tpu_torch.models.generation import generate
+
+        if self.params is None:
+            raise ValueError("generate requires trained params; fit first "
+                             "or set module.params")
+        return generate(self.params, prompt, self.config, max_new_tokens,
+                        temperature=temperature, generator=generator,
+                        top_k=top_k, top_p=top_p, eos_id=eos_id, device=device)
+
     def flops_per_sample(self) -> float:
         return self.config.flops_per_token() * self.config.max_seq
 

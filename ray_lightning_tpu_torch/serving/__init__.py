@@ -1,10 +1,11 @@
-"""Continuous-batching serving on the paged KV layout."""
+"""Continuous-batching serving on the slot and paged KV layouts."""
 from ray_lightning_tpu_torch.serving.engine import (
     Completion,
     EngineClosed,
     EngineConfig,
     InferenceEngine,
 )
+from ray_lightning_tpu_torch.serving.kv_pool import KVSlotPool, Slot
 from ray_lightning_tpu_torch.serving.paged_kv import (
     TRASH_BLOCK,
     BlockAllocator,
@@ -28,6 +29,7 @@ __all__ = [
     "EngineClosed",
     "EngineConfig",
     "InferenceEngine",
+    "KVSlotPool",
     "OutOfBlocks",
     "PagedKVPool",
     "Plan",
@@ -35,5 +37,6 @@ __all__ = [
     "RequestQueueFull",
     "RequestShed",
     "ShedPolicy",
+    "Slot",
     "blocks_for",
 ]

@@ -1,33 +1,40 @@
-"""Single-replica continuous-batching inference engine on the paged KV
-layout: the paged branch of ``ray_lightning_tpu/serving/engine.py``.
+"""Single-replica continuous-batching inference engine
+(``ray_lightning_tpu/serving/engine.py``) on either KV layout: ``"slot"``
+(the default, a full ``max_len`` cache row per slot, ``serving/kv_pool.py``)
+or ``"paged"`` (blocks from one shared pool with shared-prefix reuse,
+``serving/paged_kv.py``).
 
 Each :meth:`InferenceEngine.step` runs up to ``max_prefills_per_tick``
 prefills and one batched decode over every slot:
 
 - prefill takes the request's prompt right-padded to ``max_prompt_len``
   through every layer in one pass (flash attention) into a one-row scratch
-  cache, then scatters the scratch row, cut into blocks, to the physical
-  blocks of the request's write table. Shared-prefix and padding entries
-  of that table point at the trash block, so a cached prefix is written
-  once. The padded positions write garbage (k, v) past the prompt; no row
-  attends them before decode overwrites them;
+  cache. The slot layout copies it into the first ``max_prompt_len``
+  positions of the slot's row; the paged layout scatters it, cut into
+  blocks, to the physical blocks of the request's write table, whose
+  shared-prefix and padding entries point at the trash block, so a cached
+  prefix is written once. The padded
+  positions write garbage (k, v) past the prompt; no row attends them
+  before decode overwrites them;
 - decode feeds every slot's pending token at its own position through
-  ``decode_step_paged`` (paged decode attention over the block table),
+  ``decode_step_ragged`` (slot: fp32 attention over the dense rows in
+  plain torch, as the JAX package computes it in XLA) or
+  ``decode_step_paged`` (the paged decode kernel over the block table),
   then the sampler: the argmax kernel for greedy and plain-temperature
   configs, the plain sampler for top-k / top-p. Free slots ride along with
-  token 0 at position 0 on a trash table row;
+  token 0 at position 0 (on a trash table row, for the paged layout);
 - a request's first token comes from the first decode after its prefill,
   which re-runs the last prompt token at position P - 1 (an idempotent
   cache write), so prefill needs no logits head.
 
 The cache tensors and block tables never change shape; admission,
 recycling and block growth are host bookkeeping. The KV pool is updated in
-place.
+place. Neither pool serves a sliding-window config (``generate`` does).
 
-Not ported in this slice, and refused at construction: the slot layout,
-self-speculative decoding, the disaggregated prefill/decode roles and
-tenancy. Fault injection and telemetry (environment-driven in the JAX
-package) have no counterpart here.
+Not ported in this slice, and refused at construction: self-speculative
+decoding, the disaggregated prefill/decode roles and tenancy. Fault
+injection and telemetry (environment-driven in the JAX package) have no
+counterpart here.
 
 Threading: ``submit`` may be called from any thread; ``start()`` spawns
 the loop thread (a daemon, joined by ``drain``/``shutdown``), or call
@@ -49,6 +56,7 @@ from ray_lightning_tpu_torch.device import DeviceLike, resolve_device
 from ray_lightning_tpu_torch.models.generation import (
     _sample_logits,
     decode_step_paged,
+    decode_step_ragged,
     init_kv_cache,
     prefill_hidden,
 )
@@ -57,6 +65,7 @@ from ray_lightning_tpu_torch.ops.paged_attention import (
     fused_sample_supported,
 )
 from ray_lightning_tpu_torch.ops.rope import rope_angles
+from ray_lightning_tpu_torch.serving.kv_pool import KVSlotPool
 from ray_lightning_tpu_torch.serving.paged_kv import PagedKVPool
 from ray_lightning_tpu_torch.serving.resilience import RequestShed, ShedPolicy
 from ray_lightning_tpu_torch.serving.scheduler import (
@@ -85,16 +94,19 @@ class EngineConfig:
 
     ``max_prompt_len`` is the fixed prefill length (longer prompts are
     rejected at submit); ``max_len`` is each request's position budget
-    (``prompt_len + max_new_tokens <= max_len``) and must be a multiple of
-    ``block_size``. ``num_kv_blocks`` sizes the block pool (default: the
-    slot-equivalent ``num_slots * max_len / block_size`` + the trash
-    block). Sampling settings are engine-wide. ``shed_watermark`` is the
+    (``prompt_len + max_new_tokens <= max_len``). ``kv_layout`` is
+    ``"slot"`` (a full cache row per slot) or ``"paged"``, whose
+    ``max_len`` must be a multiple of ``block_size`` and whose
+    ``num_kv_blocks`` sizes the block pool (default: the slot-equivalent
+    ``num_slots * max_len / block_size`` + the trash block);
+    ``block_size``, ``num_kv_blocks`` and ``prefix_cache`` are paged-only.
+    Sampling settings are engine-wide. ``shed_watermark`` is the
     queue fill at which priority >= 1 requests are shed;
     ``head_skip_limit`` / ``head_aging_ticks`` bound the skip-ahead window
     behind a deferred queue head (0 = strict FIFO).
 
-    ``kv_layout`` must be ``"paged"``, ``speculate_k`` 0 and ``role``
-    ``"both"``: the other values are not ported yet.
+    ``speculate_k`` must be 0 and ``role`` ``"both"``: the other values
+    are not ported yet.
     """
 
     num_slots: int = 4
@@ -107,7 +119,7 @@ class EngineConfig:
     top_p: Optional[float] = None
     eos_id: Optional[int] = None
     seed: int = 0
-    kv_layout: str = "paged"
+    kv_layout: str = "slot"
     block_size: int = 16
     num_kv_blocks: Optional[int] = None
     prefix_cache: bool = True
@@ -118,14 +130,10 @@ class EngineConfig:
     role: str = "both"
 
     def validate(self) -> None:
-        if self.kv_layout == "slot":
-            raise NotImplementedError(
-                "kv_layout='slot' is not ported yet; the port serves the "
-                "paged layout"
-            )
-        if self.kv_layout != "paged":
+        if self.kv_layout not in ("slot", "paged"):
             raise ValueError(
-                f"kv_layout must be 'paged', got {self.kv_layout!r}"
+                f"kv_layout must be 'slot' or 'paged', got "
+                f"{self.kv_layout!r}"
             )
         if self.speculate_k < 0 or self.speculate_k == 1:
             raise ValueError(
@@ -153,13 +161,16 @@ class EngineConfig:
             raise ValueError(
                 f"shed_watermark must be > 0, got {self.shed_watermark}"
             )
-        if self.block_size < 1:
-            raise ValueError(f"block_size must be >= 1, got {self.block_size}")
-        if self.max_len % self.block_size != 0:
-            raise ValueError(
-                f"max_len ({self.max_len}) must be a multiple of "
-                f"block_size ({self.block_size}) for the paged layout"
-            )
+        if self.kv_layout == "paged":
+            if self.block_size < 1:
+                raise ValueError(
+                    f"block_size must be >= 1, got {self.block_size}"
+                )
+            if self.max_len % self.block_size != 0:
+                raise ValueError(
+                    f"max_len ({self.max_len}) must be a multiple of "
+                    f"block_size ({self.block_size}) for the paged layout"
+                )
 
 
 class Completion:
@@ -226,11 +237,21 @@ class InferenceEngine:
         self.cfg = cfg
         self.engine_config = ecfg
         self.params = params
-        self.pool = PagedKVPool(
-            cfg, ecfg.num_slots, ecfg.max_len, block_size=ecfg.block_size,
-            num_blocks=ecfg.num_kv_blocks, prefix_cache=ecfg.prefix_cache,
-            device=self.device,
-        )
+        self._paged = ecfg.kv_layout == "paged"
+        if self._paged:
+            self.pool = PagedKVPool(
+                cfg, ecfg.num_slots, ecfg.max_len, block_size=ecfg.block_size,
+                num_blocks=ecfg.num_kv_blocks, prefix_cache=ecfg.prefix_cache,
+                device=self.device,
+            )
+            bs = ecfg.block_size
+            self._n_prompt_blocks = (ecfg.max_prompt_len - 1) // bs + 1
+            scratch_len = self._n_prompt_blocks * bs
+        else:
+            self.pool = KVSlotPool(cfg, ecfg.num_slots, ecfg.max_len,
+                                   device=self.device)
+            scratch_len = ecfg.max_prompt_len
+        self._scratch = init_kv_cache(cfg, 1, scratch_len, device=self.device)
         self.scheduler = ContinuousBatchScheduler(
             self.pool, max_queue=ecfg.max_queue,
             max_prefills_per_tick=ecfg.max_prefills_per_tick,
@@ -246,11 +267,6 @@ class InferenceEngine:
         self._table = rope_angles(
             ecfg.max_len, cfg.head_dim, cfg.rope_theta,
             scaling=cfg.rope_scaling, device=self.device,
-        )
-        bs = ecfg.block_size
-        self._n_prompt_blocks = (ecfg.max_prompt_len - 1) // bs + 1
-        self._scratch = init_kv_cache(
-            cfg, 1, self._n_prompt_blocks * bs, device=self.device
         )
         self._use_fused = fused_sample_supported(
             ecfg.temperature, ecfg.top_k, ecfg.top_p
@@ -341,13 +357,24 @@ class InferenceEngine:
     # ------------------------------------------------------------------ #
     # one iteration
     # ------------------------------------------------------------------ #
-    def _prefill_into(self, tokens: Sequence[int], write_table: np.ndarray):
+    def _prefill_into(self, tokens: Sequence[int], slot_index: int):
         cfg = self.cfg
         ecfg = self.engine_config
         padded = np.zeros((1, ecfg.max_prompt_len), np.int64)
         padded[0, : len(tokens)] = tokens
         prompt = torch.from_numpy(padded).to(self.device)
         prefill_hidden(self.params, prompt, cfg, self._scratch, self._table)
+        if not self._paged:
+            # prefill writes positions [0, max_prompt_len) only; the slot's
+            # later positions keep a former tenant's entries, which no row
+            # attends before decode overwrites them
+            P = ecfg.max_prompt_len
+            for name in ("k", "v"):
+                self.pool.cache[name][:, slot_index, :, :P] = (
+                    self._scratch[name][:, 0])
+            return
+        write_table = self.pool.prompt_write_table(slot_index,
+                                                   self._n_prompt_blocks)
         L, hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
         nb, bs = self._n_prompt_blocks, ecfg.block_size
         wt = torch.from_numpy(write_table.astype(np.int64)).to(self.device)
@@ -372,8 +399,7 @@ class InferenceEngine:
         self._evict_expired_slots()
         plan = self.scheduler.tick()
         for req, slot in plan.prefills:
-            wt = self.pool.prompt_write_table(slot.index, self._n_prompt_blocks)
-            self._prefill_into(req.tokens, wt)
+            self._prefill_into(req.tokens, slot.index)
             slot.pos = req.prompt_len - 1
             slot.pending_token = req.tokens[-1]
             self.stats["prefills"] += 1
@@ -385,18 +411,26 @@ class InferenceEngine:
             token = np.zeros((n,), np.int32)
             pos = np.zeros((n,), np.int32)
             for slot in decode_slots:
-                # on-demand growth: the block holding slot.pos must be
-                # physical before the decode writes it
-                self.pool.ensure_writable(slot)
+                if self._paged:
+                    # on-demand growth: the block holding slot.pos must be
+                    # physical before the decode writes it
+                    self.pool.ensure_writable(slot)
                 token[slot.index] = slot.pending_token
                 pos[slot.index] = slot.pos
             dev = self.device
-            logits, _ = decode_step_paged(
-                self.params, self.pool.cache,
-                torch.from_numpy(token).to(dev), torch.from_numpy(pos).to(dev),
-                torch.from_numpy(self.pool.block_tables).to(dev), self.cfg,
-                self._table,
-            )
+            token_d = torch.from_numpy(token).to(dev)
+            pos_d = torch.from_numpy(pos).to(dev)
+            if self._paged:
+                logits, _ = decode_step_paged(
+                    self.params, self.pool.cache, token_d, pos_d,
+                    torch.from_numpy(self.pool.block_tables).to(dev),
+                    self.cfg, self._table,
+                )
+            else:
+                logits, _ = decode_step_ragged(
+                    self.params, self.pool.cache, token_d, pos_d, self.cfg,
+                    self._table,
+                )
             sampled = self._sample(logits).cpu().numpy()  # the per-step sync
             now = time.perf_counter()
             for slot in decode_slots:

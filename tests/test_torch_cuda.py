@@ -632,7 +632,8 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
 
     cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32)
     cpu_params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    ecfg = EngineConfig(num_slots=2, max_prompt_len=12, max_len=32, block_size=4)
+    ecfg = EngineConfig(num_slots=2, max_prompt_len=12, max_len=32, block_size=4,
+                        kv_layout="paged")
     prompts = [[3, 1, 4, 1, 5, 9, 2, 6, 7], [3, 1, 4, 1, 5, 9, 2, 6, 8, 8], [11, 12]]
     streams = []
     for device, params in (("cpu", cpu_params),
@@ -684,7 +685,8 @@ def test_moe_engine_on_card_matches_engine_on_cpu(cuda):
 
     cfg = dataclasses.replace(LlamaConfig.tiny_moe(), dtype=torch.float32)
     cpu_params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    ecfg = EngineConfig(num_slots=2, max_prompt_len=12, max_len=32, block_size=4)
+    ecfg = EngineConfig(num_slots=2, max_prompt_len=12, max_len=32, block_size=4,
+                        kv_layout="paged")
     prompts = [[3, 1, 4, 1, 5, 9, 2, 6, 7], [3, 1, 4, 1, 5, 9, 2, 6, 8, 8], [11, 12]]
     streams = []
     for device, params in (("cpu", cpu_params),
@@ -702,6 +704,45 @@ def test_moe_engine_on_card_matches_engine_on_cpu(cuda):
             assert counts["flash_fwd"] == L * engine.stats["prefills"]
             assert counts["paged_decode"] == L * steps
             assert counts["argmax"] == steps
+    assert streams[0] == streams[1]
+
+
+def test_slot_engine_and_generate_on_card_match_cpu(cuda):
+    """The slot engine (dense rows, plain-torch attention, the argmax
+    kernel) and ``generate`` on a windowed config past its window (a
+    rolling cache), fp32, on the card and on the CPU: the same greedy
+    tokens; on the card no paged decode launches."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.models.generation import generate
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+    from ray_lightning_tpu_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32)
+    windowed = dataclasses.replace(cfg, sliding_window=8)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ecfg = EngineConfig(num_slots=2, max_prompt_len=12, max_len=32)
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6, 7], [3, 1, 4, 1, 5, 9, 2, 6, 8, 8], [11, 12]]
+    window_prompt = torch.tensor([[5, 3, 9, 1, 4, 4, 7, 2, 8, 6, 1, 3]])
+    streams = []
+    for device, params in (("cpu", cpu_params),
+                           (cuda, tree_map(lambda t: t.to(cuda), cpu_params))):
+        kernels.reset_launch_counts()
+        engine = InferenceEngine(params, cfg, ecfg, device=device)
+        comps = [engine.submit(p, max_new_tokens=6) for p in prompts]
+        engine.run_until_idle()
+        out = generate(params, window_prompt, windowed, 10, device=device)
+        streams.append(([c.tokens for c in comps], out.tolist()))
+        counts = kernels.launch_counts()
+        if device == "cpu":
+            assert set(counts.values()) == {0}
+        else:
+            steps = engine.stats["decode_steps"]
+            assert counts["paged_decode"] == 0
+            assert counts["argmax"] == steps
+            # the engine's prefills and the one of generate
+            assert counts["flash_fwd"] == cfg.n_layers * (
+                engine.stats["prefills"] + 1)
     assert streams[0] == streams[1]
 
 

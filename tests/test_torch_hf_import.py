@@ -164,7 +164,8 @@ def test_imported_mixtral_serves_hf_greedy_tokens():
     params, cfg = thf.import_hf_mixtral(hf, dtype=torch.float32, device="cpu")
     prompts = np.random.default_rng(9).integers(0, cfg.vocab_size, (3, 7))
     engine = InferenceEngine(params, cfg, EngineConfig(
-        num_slots=2, max_prompt_len=8, max_len=16, block_size=4), device="cpu")
+        num_slots=2, max_prompt_len=8, max_len=16, block_size=4,
+        kv_layout="paged"), device="cpu")
     comps = [engine.submit(p.tolist(), max_new_tokens=6) for p in prompts]
     engine.run_until_idle()
     with torch.no_grad():

@@ -274,7 +274,8 @@ def test_engine_greedy_streams_match_jax_generate():
                + [int(t) for t in rng.integers(10, tcfg.vocab_size, 3)]
                for i in range(7)]
     engine = InferenceEngine(tparams, tcfg, EngineConfig(
-        num_slots=3, max_prompt_len=12, max_len=32, block_size=4), device="cpu")
+        num_slots=3, max_prompt_len=12, max_len=32, block_size=4,
+        kv_layout="paged"), device="cpu")
     comps = [engine.submit(p, max_new_tokens=n_new) for p in prompts[:3]]
     for _ in range(3):
         engine.step()

@@ -64,7 +64,8 @@ def _reference(jparams, jcfg, prompt, n_new):
 
 
 def _engine(tparams, tcfg, **kw):
-    base = dict(num_slots=3, max_prompt_len=12, max_len=32, block_size=4)
+    base = dict(num_slots=3, max_prompt_len=12, max_len=32, block_size=4,
+                kv_layout="paged")
     base.update(kw)
     return InferenceEngine(tparams, tcfg, EngineConfig(**base), device="cpu")
 
@@ -190,7 +191,7 @@ def test_sampling_is_seeded(model, sampling):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(kv_layout="slot"), NotImplementedError),
+    (dict(kv_layout="slot", speculate_k=4), NotImplementedError),
     (dict(kv_layout="ragged"), ValueError),
     (dict(speculate_k=4), NotImplementedError),
     (dict(speculate_k=1), ValueError),
