@@ -18,20 +18,26 @@ final line):
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it (and, for the flash kernels, at odd
    ones: ragged S, a window, non-causal, GQA group 4 at head dim 64,
-   fp32), with the stated tolerance; the kernel's, the plain version's and
+   fp32, Qwen2.5's GQA group 7), with the stated tolerance; the kernel's,
+   the plain version's and
    a library call's times (CUDA events around the replay of a CUDA graph
    of the calls, so the host's launch rate is out of them; the kernel's
    eager back-to-back time beside it as ``ms_eager``), every kernel's
    share of its bound and the flash kernels' TFLOP/s. RMSNorm is timed at
    the decode, prefill and training shapes, at ``generate_window``'s
-   decode and prefill shapes and at [1,64] (the practical floor of a
-   launch); flash forward also at ``generate_window``'s windowed prefill; paged decode at ragged positions and at the full
-   cache, bitwise repeatable, and replayed from a CUDA graph at new
-   positions, bitwise equal to eager calls; the argmax sampler bitwise
+   decode and prefill shapes, at a verify step's [32,4096], at
+   Qwen2.5-7B's and Phi-3-mini's prefill and decode shapes and at [1,64]
+   (the practical floor of a launch); flash forward also at
+   ``generate_window``'s windowed prefill and at ``generate_longrope``'s
+   (head dim 96); paged decode at ragged positions and at the full cache,
+   at Qwen2.5-7B's group 7 (padded to the G 8 instantiation), bitwise
+   repeatable, and replayed from a CUDA graph at new positions, bitwise
+   equal to eager calls; the argmax sampler bitwise
    equal to torch.argmax on planted ties and planted NaNs (the first NaN
    wins), greedy and noisy, timed with L2 flushed (beside the HBM bytes
    bound) and hot, at batch 1, 8 and 64, and at every cluster size at
-   batch 8; and at the MoE path's vocabulary, [8,32000];
+   batch 8; at the MoE path's vocabulary, [8,32000]; at a verify step's
+   [32,128256] and at Qwen2.5's vocabulary, [8,152064];
 4. serving main path — Llama-3-8B at full width and depth (random bf16
    weights from a seeded generator) served by the paged
    ``InferenceEngine``: 16 staggered requests of mixed lengths, some
@@ -41,6 +47,14 @@ final line):
    requests are then served again under torch.profiler, which gives the
    device time by class (the port's kernels, matmuls, the rest) and the
    device's busy share;
+4b. speculative serving (``serving_spec``) — the same weights and requests
+   with ``speculate_k=4`` on the paged and then the slot layout: each tick
+   verifies every slot's pending token and up to 3 prompt-lookup
+   proposals in one ``decode_step_verify`` (fp32 attention in plain torch,
+   no paged decode) and samples [32,128256] with the argmax kernel; the
+   same checks, the acceptance rate, how many streams equal the
+   ``speculate_k=0`` run's (printed only: bf16), and one verify step by
+   graph replay beside its bytes bound and the one-token step;
 4a. slot serving (``serving_slot``) — the same weights and requests on the
    slot layout (8 rows of 1024 positions, ``decode_step_ragged``: fp32
    attention over the dense rows in plain torch, no paged decode), with
@@ -51,7 +65,10 @@ final line):
    layers: its greedy tokens must equal iterated full ``forward`` calls
    through the plain versions; then (``slot_exactness``) the slot engine's
    greedy tokens must equal the paged engine's, the port's batched
-   ``generate`` and iterated plain ``forward``;
+   ``generate`` and iterated plain ``forward``; then (``spec_exactness``)
+   on prompts of repeated segments, on both layouts, the ``speculate_k=4``
+   engine's greedy streams must equal the ``speculate_k=0`` engine's, with
+   more tokens accepted than slot verify ticks;
 5c. windowed generation (``generate_window``) — Mistral-7B-v0.1's published
    config (vocab 32000, dim 4096, 32 layers, 32 query / 8 KV heads, ffn
    14336, window 4096) through the port's ``config_from_hf``, random bf16
@@ -64,6 +81,25 @@ final line):
    (``window_exactness``) fp32 at those widths with the window cut to 64, 2
    layers: ``generate`` on 100-token prompts with 40 new tokens must equal
    iterated plain windowed ``forward``;
+5d. yarn serving (``serving_qwen_yarn``) — Qwen2.5-7B-Instruct's published
+   config (vocab 152064, dim 3584, 28 layers, 28 query / 4 KV heads: GQA
+   group 7, ffn 18944, qkv bias, rope theta 1e6, yarn x4 over 32768, as its
+   model card documents for long inputs) through ``config_from_hf``, random
+   bf16 weights and biases, on the paged engine and the main path's
+   requests, with the same checks and a decode step by graph replay; paged
+   decode runs at G 7, argmax at V 152064. Then (``qwen_exactness``) fp32
+   at those widths, 2 layers: the engine's greedy tokens must equal
+   iterated plain ``forward``;
+5e. longrope generation (``generate_longrope``) — Phi-3-mini-128k-
+   instruct's widths (vocab 32064, dim 3072, 32 layers, 32 / 32 heads of
+   dim 96, ffn 8192, longrope over 4096 pretrain positions, x32) through
+   ``config_from_hf``, with deterministic placeholder factor lists (the
+   published ones are not in the repository), random bf16 weights:
+   ``generate`` on 4 prompts of 4608 tokens with 64 new, past 4096, so one
+   table of the long factors serves prefill and decode; tokens, finite
+   logits, launch counts, prefill time and decode tokens/s. Then
+   (``longrope_exactness``) fp32, 2 layers: ``generate`` on prompts of 4100
+   tokens equals iterated plain ``forward``;
 5a. MoE serving (``serving_moe``) — Mixtral-8x7B-v0.1's published widths
    (vocab 32000, dim 4096, 32 query / 8 KV heads, ffn 14336, 8 experts
    top-2) through the port's ``mixtral_config_from_hf``, cut to 16 layers
@@ -106,8 +142,9 @@ final line):
    "dots" against "nothing" (1e-6), bf16-mixed through the kernels against
    the plain versions (``MIXED_TOL``), and an accumulation of two
    micro-batches of 1 against one update on the batch of 2 (1e-5);
-11. the ``kernels`` JSON line (launches from the six main paths:
-   serving, serving_slot, generate_window, serving_moe, training,
+11. the ``kernels`` JSON line (launches from the main paths: serving,
+   serving_slot, serving_spec, serving_spec_slot, generate_window,
+   serving_qwen_yarn, generate_longrope, serving_moe, training,
    training_complete), the card line, and the final ``{"ok": true, ...}``
    line.
 
@@ -266,7 +303,8 @@ def report_registers(kernels):
     expect = {"paged_decode.cu": (("paged_decode_kernel",), 32),
               "rmsnorm.cu": (("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel"), 42)}
     # the instantiations the main paths launch: decode, prefill, training
-    main_path = ("paged_decode_kernel<bf16,4,128>", "rmsnorm_vec_kernel<bf16,4,4,0>",
+    main_path = ("paged_decode_kernel<bf16,4,128>", "paged_decode_kernel<bf16,8,128>",
+                 "rmsnorm_vec_kernel<bf16,4,4,0>",
                  "rmsnorm_vec_kernel<bf16,16,1,1>", "rmsnorm_vec_kernel<bf16,8,1,1>")
     for source, (names, count) in expect.items():
         usage = {_template_label(k, names): u
@@ -306,9 +344,16 @@ def check_rmsnorm(torch, F):
     # serving: a decode step's [8,4096] and a prefill's [512,4096];
     # training: every token of a batch of 8 x 2048 at dim 2048; generate on
     # Mistral-7B-v0.1: a decode step's [4,4096] and the prefill of 4
-    # prompts of 4608 tokens, [18432,4096]
-    for rows, dim in ((8, 4096), (512, 4096), (16384, 2048), (4, 4096),
-                      (18432, 4096)):
+    # prompts of 4608 tokens, [18432,4096]; a verify step of 8 slots x 4
+    # candidates, [32,4096]; Qwen2.5-7B's prefill and decode, [512,3584]
+    # and [8,3584]; Phi-3-mini's prefill of 4 x 4608 and decode, [18432,3072]
+    # and [4,3072]
+    shapes = {"decode": (8, 4096), "prefill": (512, 4096),
+              "training": (16384, 2048), "generate_decode": (4, 4096),
+              "generate_prefill": (18432, 4096), "verify": (32, 4096),
+              "qwen_prefill": (512, 3584), "qwen_decode": (8, 3584),
+              "longrope_prefill": (18432, 3072), "longrope_decode": (4, 3072)}
+    for name, (rows, dim) in shapes.items():
         x = torch.randn(rows, dim, generator=g, device="cuda").bfloat16()
         w = (1 + 0.1 * torch.randn(dim, generator=g, device="cuda")).bfloat16()
         got, want = rmsnorm(x, w, 1e-5), rmsnorm_plain(x, w, 1e-5)
@@ -324,7 +369,7 @@ def check_rmsnorm(torch, F):
         # a practical ceiling: torch's copy kernel moving x's bytes once each way
         y = torch.empty_like(x)
         copy = time_ms(torch, lambda: y.copy_(x))
-        r = rows_out[rows] = dict(
+        r = rows_out[name] = dict(
             max_abs_err=err, ms=time_ms(torch, lambda: rmsnorm(x, w, 1e-5)),
             ms_eager=time_ms(torch, lambda: rmsnorm(x, w, 1e-5), graph=False),
             plain_ms=time_ms(torch, lambda: rmsnorm_plain(x, w, 1e-5)),
@@ -344,13 +389,12 @@ def check_rmsnorm(torch, F):
     w = torch.ones(64, device="cuda").bfloat16()
     floor = time_ms(torch, lambda: rmsnorm(x, w, 1e-5))
     log(f"rmsnorm launch floor ([1,64] bf16, graph replay): {floor:.4f} ms; "
-        f"the decode shape [8,4096] takes {rows_out[8]['ms'] / floor:.2f}x it")
-    out = dict(rows_out[8])
-    out["max_abs_err"] = max(r["max_abs_err"] for r in rows_out.values())
-    out["at_prefill_shape"] = rows_out[512]
-    out["at_training_shape"] = rows_out[16384]
-    out["at_generate_decode_shape"] = rows_out[4]
-    out["at_generate_prefill_shape"] = rows_out[18432]
+        f"the decode shape [8,4096] takes {rows_out['decode']['ms'] / floor:.2f}x"
+        " it")
+    out = dict(rows_out.pop("decode"))
+    out["max_abs_err"] = max([out["max_abs_err"]]
+                             + [r["max_abs_err"] for r in rows_out.values()])
+    out.update({f"at_{name}_shape": r for name, r in rows_out.items()})
     out["launch_floor_ms"] = floor
     return out
 
@@ -378,6 +422,8 @@ def check_flash(torch, F):
         ("non-causal bf16", 1, 32, 8, 512, 128, bf, False, None, 2e-2),
         ("group 4 hd 64 bf16", 2, 32, 8, 512, 64, bf, True, None, 2e-2),
         ("causal fp32", 1, 32, 8, 512, 128, f32, True, None, 1e-4),
+        # serving_qwen_yarn's prefill: Qwen2.5-7B's 28 query / 4 KV heads
+        ("qwen2.5 group 7 bf16", 1, 28, 4, 512, 128, bf, True, None, 2e-2),
     ]
     worst = 0.0
     main = None
@@ -417,7 +463,14 @@ def check_flash(torch, F):
                 f"bound_ms {b:.5f} ({by}); {b / main['ms']:.2%} of its bound, "
                 f"{main['ms'] / lib:.2f}x SDPA")
         del q, k, v, o, lse, po, plse
-    main["at_generate_prefill_shape"], err = check_flash_window(torch, F, g)
+    main["at_generate_prefill_shape"], err = check_flash_window(
+        torch, F, g, 32, 8, 128, 4096, "generate_window")
+    worst = max(worst, err)
+    # generate_longrope's prefill: Phi-3-mini's 32 / 32 heads of dim 96
+    # (the 128-wide instantiation with a partial head), its 262144-position
+    # window past every prompt position
+    main["at_longrope_prefill_shape"], err = check_flash_window(
+        torch, F, g, 32, 32, 96, 262144, "generate_longrope")
     worst = max(worst, err)
     # the training path's shape: q [8,16,2048,128], kv [8,8,2048,128]
     q = torch.randn(8, 16, 2048, 128, generator=g, device="cuda").bfloat16()
@@ -460,19 +513,22 @@ def check_flash(torch, F):
     return main
 
 
-def check_flash_window(torch, F, g):
-    """The forward kernel at ``generate_window``'s prefill: Mistral-7B-v0.1
-    heads, 4 prompts of 4608 tokens, causal with the 4096-position window,
-    so the band spans many tiles and the last 512 rows leave the first keys
-    behind. The plain version runs a batch row at a time (its fp32 scores
-    for all four rows would take 11 GB); the library call is SDPA with the
-    band as a boolean mask. Returns (the entry, its max_abs_err)."""
+def check_flash_window(torch, F, g, hq, hkv, hd, W, path):
+    """The forward kernel at a ``generate`` path's prefill of 4 prompts of
+    4608 tokens, causal with a window of ``W`` positions: Mistral-7B-v0.1's
+    heads and window 4096 (``generate_window``: the band spans many tiles
+    and the last 512 rows leave the first keys behind), Phi-3-mini's heads
+    of dim 96 and window 262144 (``generate_longrope``: the band holds every
+    position). The plain version runs a batch row at a time (its fp32
+    scores for all four rows would take 11 GB); the library call is SDPA
+    with the band as a boolean mask. Returns (the entry, its
+    max_abs_err)."""
     from ray_lightning_tpu_torch.ops.attention import (
         flash_attention,
         flash_attention_plain,
     )
 
-    B, hq, hkv, S, hd, W = 4, 32, 8, 4608, 128, 4096
+    B, S = 4, 4608
     q = torch.randn(B, hq, S, hd, generator=g, device="cuda").bfloat16()
     k = torch.randn(B, hkv, S, hd, generator=g, device="cuda").bfloat16()
     v = torch.randn(B, hkv, S, hd, generator=g, device="cuda").bfloat16()
@@ -512,7 +568,7 @@ def check_flash_window(torch, F, g):
             q, kr, vr, attn_mask=band), iters=3, warmup=1, graph=False),
         bound_ms=b_ms, bound_by=by,
     )
-    log(f"flash {shape} (generate_window's prefill): max_abs_err {err:.3g} "
+    log(f"flash {shape} ({path}'s prefill): max_abs_err {err:.3g} "
         f"(tol 0.02 on O, 1e-4 on lse, each row against the plain version); "
         f"kernel_ms {entry['ms']:.4f} (eager {entry['ms_eager']:.4f}) "
         f"plain_ms (a row at a time) {entry['plain_ms']:.3f} "
@@ -646,7 +702,9 @@ def check_paged(torch, F):
     """The paged decode kernel against its plain version at the serving
     path's layout (8 rows x 8 KV heads x G 4, hd 128, bs 16, 64 blocks a
     row, bf16 cache), timed with L2 flushed at two shapes: ragged positions
-    (the test shape) and the full cache (every row at pos 1023). A CUDA
+    (the test shape) and the full cache (every row at pos 1023); and at
+    ``serving_qwen_yarn``'s layout (8 rows x 4 KV heads x G 7, which the
+    wrapper pads to the G 8 instantiation) at the ragged positions. A CUDA
     graph of one call, replayed with new positions written in place, must
     equal eager calls bitwise."""
     import numpy as np
@@ -656,12 +714,16 @@ def check_paged(torch, F):
         paged_decode_attention_plain,
     )
 
-    B, hkv, G, hd, bs, maxb = 8, 8, 4, 128, 16, 64
+    B, hd, bs, maxb = 8, 128, 16, 64
     n_blocks = B * maxb + 1
     g = torch.Generator(device="cuda").manual_seed(3)
-    kc = torch.randn(n_blocks, hkv, bs, hd, generator=g, device="cuda").bfloat16()
-    vc = torch.randn(n_blocks, hkv, bs, hd, generator=g, device="cuda").bfloat16()
-    q = torch.randn(B, hkv, G, hd, generator=g, device="cuda")
+
+    def layout(hkv, G):
+        kc = torch.randn(n_blocks, hkv, bs, hd, generator=g, device="cuda").bfloat16()
+        vc = torch.randn(n_blocks, hkv, bs, hd, generator=g, device="cuda").bfloat16()
+        return torch.randn(B, hkv, G, hd, generator=g, device="cuda"), kc, vc
+
+    q, kc, vc = layout(8, 4)
     rng = np.random.default_rng(3)
     perm = rng.permutation(np.arange(1, n_blocks))
     C = maxb * bs
@@ -675,15 +737,17 @@ def check_paged(torch, F):
             used += need
         return torch.from_numpy(tables).cuda()
 
-    def measure(name, pos, free_last):
+    def measure(name, pos, free_last, q, kc, vc):
+        hkv, G = q.shape[1], q.shape[2]
         t_tab = tables_for(pos, free_last)
         t_pos = torch.from_numpy(pos).cuda()
         got = paged_decode_attention(q, kc, vc, t_tab, t_pos)
         want = paged_decode_attention_plain(q, kc, vc, t_tab, t_pos)
         # fp32 accumulation on both sides over <= 1024 positions
-        check(within(got, want, 1e-4, 1e-4), f"paged decode {name} vs plain")
+        check(within(got, want, 1e-4, 1e-4),
+              f"paged decode G {G} {name} vs plain")
         check(torch.equal(got, paged_decode_attention(q, kc, vc, t_tab, t_pos)),
-              f"paged decode {name}: two launches differ")
+              f"paged decode G {G} {name}: two launches differ")
         err = max_err(got, want)
         # library yardstick: SDPA over the gathered, masked cache
         kk = kc[t_tab.long()].transpose(1, 2).reshape(B, hkv, C, hd).float()
@@ -710,11 +774,12 @@ def check_paged(torch, F):
             plain_ms=time_ms(torch, lambda: paged_decode_attention_plain(
                 q, kc, vc, t_tab, t_pos), cold=True),
             bound_ms=b, bound_by=by, library_ms=lib,
-            shape=f"8 rows x 8 KV heads x G 4, hd 128, bs 16, {name}, bf16 cache",
+            shape=f"8 rows x {hkv} KV heads x G {G}, hd 128, bs 16, {name}, "
+                  "bf16 cache",
         )
         warm = time_ms(torch, lambda: paged_decode_attention(
             q, kc, vc, t_tab, t_pos))
-        log(f"paged decode {name} (times with L2 flushed; kernel_ms "
+        log(f"paged decode G {G} {name} (times with L2 flushed; kernel_ms "
             f"{warm:.4f} with the cache hot in L2): max_abs_err {err:.3g} "
             f"(tol 1e-4), bitwise repeatable; kernel_ms {r['ms']:.4f} (eager "
             f"{r['ms_eager']:.4f}) plain_ms {r['plain_ms']:.4f} "
@@ -723,13 +788,16 @@ def check_paged(torch, F):
             f"{lib / r['ms']:.1f}x faster than SDPA")
         return r, t_tab, t_pos
 
-    out, _, _ = measure("pos up to 1000",
-                        np.asarray([1000, 777, 512, 300, 128, 63, 16, 0], np.int32),
-                        free_last=True)
+    ragged = np.asarray([1000, 777, 512, 300, 128, 63, 16, 0], np.int32)
+    out, _, _ = measure("pos up to 1000", ragged, True, q, kc, vc)
     full, t_tab, t_pos = measure("full cache (pos 1023)",
-                                 np.full(B, C - 1, np.int32), free_last=False)
+                                 np.full(B, C - 1, np.int32), False, q, kc, vc)
     out["at_full_cache"] = full
-    out["max_abs_err"] = max(out["max_abs_err"], full["max_abs_err"])
+    qwen = layout(4, 7)
+    out["at_group_7"], _, _ = measure("pos up to 1000", ragged, True, *qwen)
+    del qwen
+    out["max_abs_err"] = max(out["max_abs_err"], full["max_abs_err"],
+                             out["at_group_7"]["max_abs_err"])
 
     # one call captured in a CUDA graph, replayed with new positions
     static_pos = t_pos.clone()
@@ -763,7 +831,9 @@ def check_argmax(torch):
     batch 8 at every cluster size (chunks per row) the plan could pick,
     hot and flushed. At the MoE serving path's vocabulary, [8,32000], the
     plan's cluster is held too: bitwise on planted ties and NaNs, greedy
-    and noisy, and timed the same way (``at_vocab_32000``)."""
+    and noisy, and timed the same way (``at_vocab_32000``); so are a verify
+    step's [32,128256] (``at_verify_shape``) and ``serving_qwen_yarn``'s
+    [8,152064] (``at_vocab_152064``), greedy."""
     from ray_lightning_tpu_torch.ops.paged_attention import (
         ARGMAX_MAX_CHUNKS,
         _launch_argmax,
@@ -871,6 +941,26 @@ def check_argmax(torch):
     plan32 = argmax_plan(B, 32000, sms)
     check(plan32["chunks"] == 8 and plan32["chunk"] * 8 >= 32000,
           f"argmax plan at [8,32000]: {plan32}")
+    # a verify step (8 slots x 4 candidates) and Qwen2.5's vocabulary, which
+    # no chunk divides
+    for key, (rows, vocab) in (("at_verify_shape", (32, 128256)),
+                               ("at_vocab_152064", (8, 152064))):
+        xv = torch.randn(rows, vocab, generator=g, device="cuda")
+        topv = float(xv.max()) + 1.0
+        plan = argmax_plan(rows, vocab, sms)
+        xv[0, [plan["chunk"] - 1, plan["chunk"], vocab - 1]] = topv
+        xv[1, 5], xv[1, vocab - 2] = nan, topv
+        xv[2] = nan
+        got = blockwise_argmax(xv)
+        want = blockwise_argmax_plain(xv)
+        check(torch.equal(got, want),
+              f"argmax [{rows},{vocab}] vs plain: {got.tolist()}")
+        check([int(t) for t in got[:3]] == [plan["chunk"] - 1, 5, 0],
+              f"argmax [{rows},{vocab}]: first of tied maxima, first NaN")
+        errs.append(max_err(got, want))
+        out[key] = measure(xv.nan_to_num(), None)
+        out[key]["plan"] = plan
+        del xv
     out["max_abs_err"] = max(errs)
     out["at_vocab_32000"] = measure(torch.randn(B, 32000, generator=g,
                                                 device="cuda"), None)
@@ -891,6 +981,11 @@ def check_argmax(torch):
         f"ties and NaNs, greedy and noisy; plan {plan32}")
     show("[8,32000] greedy (the MoE path's vocabulary)", out["at_vocab_32000"])
     show("[8,32000] noisy", out["at_vocab_32000"]["noisy"])
+    log(f"argmax [32,128256] and [8,152064]: bitwise equal to the plain "
+        f"version on planted ties and NaNs; plans "
+        f"{out['at_verify_shape']['plan']}, {out['at_vocab_152064']['plan']}")
+    show("[32,128256] greedy (a verify step)", out["at_verify_shape"])
+    show("[8,152064] greedy (Qwen2.5's vocabulary)", out["at_vocab_152064"])
     for key, label in (("by_chunks", "L2 hot"), ("by_chunks_flushed", "L2 flushed")):
         log(f"argmax [8,128256] greedy by chunks a row (graph replay, {label}): "
             + ", ".join(f"{c}: {ms:.4f} ms" for c, ms in out[key].items()))
@@ -973,14 +1068,17 @@ def profile_run(torch, engine, reqs, wall_s, label):
         f"{name} {us / 1e3:.1f} ms" for name, us in other.most_common(6)))
 
 
-def serve_path(torch, card, cfg, params, label, layout="paged"):
+def serve_path(torch, card, cfg, params, label, layout="paged",
+               speculate_k=0, profile=True):
     """The engine at full width (8 slots, prompts up to 512, 1024 positions;
     blocks of 16 on the paged layout) on the 16 staggered requests: every
     request completes with in-vocabulary tokens, every decode step's logits
     are finite, every serving kernel of the layout launches exactly as often
     as the layer count says (the slot layout attends its dense rows in plain
-    torch: no paged decode), and the requests are served again under
-    torch.profiler. Returns (launch counts, the engine, tokens/s)."""
+    torch: no paged decode; nor does a verify step, with ``speculate_k``,
+    whose argmax runs on [8 x K, V]), and, with ``profile``, the requests
+    are served again under torch.profiler. Returns (launch counts, the
+    engine, tokens/s, the token streams)."""
     import numpy as np
 
     from ray_lightning_tpu_torch import kernels
@@ -988,7 +1086,8 @@ def serve_path(torch, card, cfg, params, label, layout="paged"):
 
     paged = layout == "paged"
     ecfg = EngineConfig(num_slots=8, max_prompt_len=512, max_len=1024,
-                        block_size=16, kv_layout=layout)
+                        block_size=16, kv_layout=layout,
+                        speculate_k=speculate_k)
     engine = InferenceEngine(params, cfg, ecfg)
     kv_gib = sum(v.numel() * v.element_size()
                  for v in engine.pool.cache.values()) / 2**30
@@ -999,7 +1098,11 @@ def serve_path(torch, card, cfg, params, label, layout="paged"):
     finite = []
     sample = engine._sample
 
+    rows = ecfg.num_slots * max(speculate_k, 1)
+
     def checked(logits):  # a device flag a step, read after the run
+        check(tuple(logits.shape) == (rows, cfg.vocab_size),
+              f"{label}: sampler input {tuple(logits.shape)}")
         finite.append(torch.isfinite(logits).all())
         return sample(logits)
 
@@ -1026,29 +1129,39 @@ def serve_path(torch, card, cfg, params, label, layout="paged"):
     engine._sample = sample
     check(len(finite) == steps and bool(torch.stack(finite).all()),
           f"{label}: a decode step's logits are not finite")
+    one_token_paged = paged and not speculate_k
     for name in ("rmsnorm", "flash_fwd", "argmax") + (
-            ("paged_decode",) if paged else ()):
+            ("paged_decode",) if one_token_paged else ()):
         check(counts[name] > 0, f"kernel {name} was not launched on {label}")
     L = cfg.n_layers
     # the backward kernels belong to the training path
     expect = {"rmsnorm": 2 * L * prefills + (2 * L + 1) * steps,
               "flash_fwd": L * prefills,
-              "paged_decode": L * steps if paged else 0,
+              "paged_decode": L * steps if one_token_paged else 0,
               "argmax": steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     check(counts == expect, f"{label}: launch counts {counts} != {expect}")
     ttfts = sorted(c.ttft_s for c in comps)
     hits = (f"shared-prefix block hits {engine.pool.allocator.prefix_hits_total}; "
             if paged else "")
+    spec = ""
+    if speculate_k:
+        ticks = engine.stats["spec_row_ticks"] - before["spec_row_ticks"]
+        accepted = (engine.stats["accepted_tokens"]
+                    - before["accepted_tokens"])
+        spec = (f"speculate_k {speculate_k}: {accepted} tokens in {ticks} "
+                f"slot verify ticks, {accepted / ticks:.3f} a slot a step; ")
     log(f"{label} on {card}: {len(comps)} requests ({prefills} prefills, "
         f"{steps} decode steps, {tokens} tokens) in {elapsed:.3f}s -> "
         f"{tokens / elapsed:.1f} tokens/s; TTFT median "
         f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms max {ttfts[-1] * 1e3:.1f} ms; "
-        f"{hits}all {steps} decode steps' logits finite")
+        f"{spec}{hits}all {steps} decode steps' logits finite")
     log(f"{label} launches: {counts} (per prefill: rmsnorm {2 * L}, flash_fwd "
         f"{L}; per decode step: rmsnorm {2 * L + 1}, "
-        f"{f'paged_decode {L}, ' if paged else ''}argmax 1)")
-    profile_run(torch, engine, reqs, elapsed, label)
-    return counts, engine, tokens / elapsed
+        f"{f'paged_decode {L}, ' if one_token_paged else ''}argmax 1"
+        f"{f' at [{rows},{cfg.vocab_size}]' if speculate_k else ''})")
+    if profile:
+        profile_run(torch, engine, reqs, elapsed, label)
+    return counts, engine, tokens / elapsed, [c.tokens for c in comps]
 
 
 def main_path(torch, card):
@@ -1063,19 +1176,22 @@ def main_path(torch, card):
     log(f"llama3_8b: {n_params / 1e9:.2f} B params bf16 initialised in "
         f"{time.perf_counter() - t:.1f}s, {torch.cuda.memory_allocated() / 2**30:.1f} "
         "GiB allocated")
-    counts, engine, paged_tps = serve_path(torch, card, cfg, params,
-                                           "main path")
+    counts, engine, paged_tps, streams = serve_path(torch, card, cfg, params,
+                                                    "main path")
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    slot_counts = serving_slot(torch, card, cfg, params, paged_tps)
+    by_path = {"serving": counts,
+               "serving_slot": serving_slot(torch, card, cfg, params,
+                                            paged_tps, streams)}
+    by_path.update(serving_spec(torch, card, cfg, params, streams))
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, slot_counts
+    return by_path
 
 
-def serving_slot(torch, card, cfg, params, paged_tps):
+def serving_slot(torch, card, cfg, params, paged_tps, paged_streams):
     """The slot layout on the main path's weights and requests (8 rows of
     1024 positions, 1.0 GiB of bf16 K/V): the serving checks of
     ``serve_path``, then one decode step timed by graph replay beside its
@@ -1084,10 +1200,14 @@ def serving_slot(torch, card, cfg, params, paged_tps):
     way on the same cache)."""
     from ray_lightning_tpu_torch.models.generation import dense_decode_attention
 
-    counts, engine, tps = serve_path(torch, card, cfg, params, "serving_slot",
-                                     layout="slot")
+    counts, engine, tps, streams = serve_path(torch, card, cfg, params,
+                                              "serving_slot", layout="slot")
+    same = sum(a == b for a, b in zip(streams, paged_streams))
     log(f"serving_slot on {card}: {tps:.1f} tokens/s beside the paged main "
-        f"path's {paged_tps:.1f} in the same run")
+        f"path's {paged_tps:.1f} in the same run; {same} of {len(streams)} "
+        "greedy streams equal the paged path's (bf16; not checked: the "
+        "attention sums in another order, and a near-tie of a random model's "
+        "logits may fall the other way)")
     r = decode_step_time(torch, engine, cfg)
     n, C = engine.pool.num_slots, engine.pool.max_len
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
@@ -1114,6 +1234,339 @@ def serving_slot(torch, card, cfg, params, paged_tps):
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+SPEC_K = 4  # candidates a slot verifies a step on the speculative paths
+
+
+def serving_spec(torch, card, cfg, params, streams):
+    """Self-speculative decoding on the main path's weights and requests:
+    ``speculate_k=4`` on the paged and then the slot layout, with the
+    serving checks of ``serve_path`` (a verify step launches RMSNorm 2L + 1
+    times and argmax once at [32, 128256], and no paged decode); how many
+    of the 16 streams equal the ``speculate_k=0`` main path's (printed, not
+    checked: at bf16 a verify step's products over 32 rows may take other
+    cuBLAS algorithms than the one-token step's 8, and a near-tie may then
+    fall the other way); then one verify step of each layout by graph replay
+    beside its bytes bound and beside the one-token step of the same
+    layout; the profiled rerun on the paged layout only. Returns the launch
+    counts of both layouts."""
+    by_path = {}
+    for layout, path in (("paged", "serving_spec"), ("slot", "serving_spec_slot")):
+        # the profiled rerun once, on the paged layout: the slot layout's
+        # verify step is the same code over a cache that needs no gather
+        counts, engine, tps, got = serve_path(
+            torch, card, cfg, params, path, layout=layout, speculate_k=SPEC_K,
+            profile=layout == "paged")
+        same = sum(a == b for a, b in zip(got, streams))
+        log(f"{path} on {card}: {same} of {len(streams)} greedy streams equal "
+            "the speculate_k=0 main path's (bf16; not checked)")
+        one = decode_step_time(torch, engine, cfg)
+        ver = decode_step_time(torch, engine, cfg, k=SPEC_K)
+        log(f"{path} verify step on {card} (8 rows x {SPEC_K} candidates, "
+            f"the last at pos up to 1023): {ver['ms']:.3f} ms graph replay "
+            f"(eager {ver['ms_eager']:.3f} ms) against a {ver['bound_ms']:.3f} "
+            f"ms bound ({ver['bound_by']}: {ver['bytes'] / 1e9:.3f} GB), "
+            f"{ver['bound_ms'] / ver['ms']:.1%} of its bound; the one-token "
+            f"{layout} step {one['ms']:.3f} ms (eager {one['ms_eager']:.3f}) "
+            f"against {one['bound_ms']:.3f} ms: a verify step costs "
+            f"{ver['ms'] / one['ms']:.2f}x the one-token step and breaks even "
+            f"at {ver['ms'] / one['ms']:.2f} tokens a slot a step")
+        by_path[path] = counts
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def repeating_requests(rng, vocab, n, seg_len, repeats, n_new):
+    """Prompts of a random segment repeated ``repeats`` times and a random
+    tail: prompt lookup finds their continuations in their own history."""
+    out = []
+    for i in range(n):
+        seg = rng.integers(0, vocab, seg_len).tolist()
+        tail = rng.integers(0, vocab, 1 + i % 3).tolist()
+        out.append((seg * repeats + tail, n_new))
+    return out
+
+
+def spec_exactness(torch):
+    """fp32 at Llama-3-8B widths, 2 layers, both layouts: the
+    ``speculate_k=4`` engine's greedy streams must equal the
+    ``speculate_k=0`` engine's token for token, on prompts of repeated
+    segments, and more tokens than verify steps must have been accepted
+    (the multi-token path ran)."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(11))
+    reqs = repeating_requests(np.random.default_rng(11), cfg.vocab_size, 6, 8,
+                              4, 24)
+    for layout in ("paged", "slot"):
+        streams, stats = {}, {}
+        for k in (0, SPEC_K):
+            engine = InferenceEngine(params, cfg, EngineConfig(
+                num_slots=4, max_prompt_len=64, max_len=128, block_size=16,
+                kv_layout=layout, speculate_k=k))
+            streams[k] = [c.tokens for c in serve(engine, reqs, 3)]
+            stats[k] = dict(engine.stats)
+            del engine
+        check(streams[SPEC_K] == streams[0],
+              f"spec exactness ({layout}): speculate_k={SPEC_K} "
+              f"{streams[SPEC_K]} != speculate_k=0 {streams[0]}")
+        s = stats[SPEC_K]
+        check(s["accepted_tokens"] > s["spec_row_ticks"],
+              f"spec exactness ({layout}): {s['accepted_tokens']} tokens in "
+              f"{s['spec_row_ticks']} slot ticks: no proposal was accepted")
+        log(f"spec exactness: fp32 llama3_8b widths, 2 layers, {layout}: "
+            f"{len(reqs)} greedy streams at speculate_k={SPEC_K} token-"
+            f"identical to speculate_k=0; {s['accepted_tokens']} tokens in "
+            f"{s['spec_row_ticks']} slot ticks "
+            f"({s['accepted_tokens'] / s['spec_row_ticks']:.3f} a slot a step), "
+            f"{s['decode_steps']} decode steps against {stats[0]['decode_steps']}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# Qwen2.5-7B-Instruct's published config.json (the fields the importer
+# reads), with the yarn scaling its model card documents for long inputs
+QWEN25_7B = dict(
+    vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+    num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+    max_position_embeddings=32768, rms_norm_eps=1e-6, rope_theta=1e6,
+    sliding_window=131072, use_sliding_window=False, max_window_layers=28,
+    tie_word_embeddings=False,
+    rope_scaling={"type": "yarn", "factor": 4.0,
+                  "original_max_position_embeddings": 32768},
+)
+
+
+def qwen_model(torch, dtype, seed, **fields):
+    """Qwen2.5-7B-Instruct through ``config_from_hf`` (qkv bias: the
+    importer reads it from the weights, so it is stated here), random
+    weights from a seeded generator, the biases drawn too (init zeroes
+    them)."""
+    from types import SimpleNamespace
+
+    from ray_lightning_tpu_torch.models.hf_import import config_from_hf
+    from ray_lightning_tpu_torch.models.llama import init_params
+
+    cfg = config_from_hf(SimpleNamespace(**dict(QWEN25_7B, **fields)),
+                         dtype=dtype, attn_bias=True)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, g)
+    for name in ("bq", "bk", "bv"):
+        b = params["layers"][name]
+        b.copy_(0.5 * torch.randn(b.shape, generator=g, device="cuda"))
+    return cfg, params
+
+
+def serving_qwen_yarn(torch, card):
+    """Qwen2.5-7B-Instruct at full width and depth (vocab 152064, dim 3584,
+    28 layers, 28 query / 4 KV heads: GQA group 7, ffn 18944, qkv bias, rope
+    theta 1e6 with yarn x4 over 32768), bf16, on the paged engine and the
+    main path's 16 requests: paged decode runs at G 7 (padded to its G 8
+    instantiation) and argmax at V 152064."""
+    from ray_lightning_tpu_torch.ops.rope import rope_scaling_kind
+
+    t = time.perf_counter()
+    cfg, params = qwen_model(torch, torch.bfloat16, 12)
+    torch.cuda.synchronize()
+    n_params = sum(leaf.numel() for leaf in _leaves(params))
+    n_bias = sum(params["layers"][n].numel() for n in ("bq", "bk", "bv"))
+    check(n_params - n_bias == cfg.num_params()  # biases: not counted, as in JAX
+          and cfg.n_heads // cfg.n_kv_heads == 7 and cfg.attn_bias
+          and not cfg.sliding_window
+          and rope_scaling_kind(cfg.rope_scaling) == "yarn",
+          f"qwen2.5-7b config {cfg}, {n_params} parameters")
+    log(f"qwen2.5-7b-instruct (yarn x4): {n_params / 1e9:.2f} B params bf16 "
+        f"initialised in {time.perf_counter() - t:.1f}s")
+    # no profiled rerun: the path's kernels and matmuls are the main
+    # path's at other widths
+    counts, engine, _, _ = serve_path(torch, card, cfg, params,
+                                      "serving_qwen_yarn", profile=False)
+    r = decode_step_time(torch, engine, cfg)
+    log(f"serving_qwen_yarn decode step on {card} (8 rows, pos up to 1023): "
+        f"{r['ms']:.3f} ms graph replay (eager {r['ms_eager']:.3f} ms) against "
+        f"a {r['bound_ms']:.3f} ms bound ({r['bound_by']}: "
+        f"{r['bytes'] / 1e9:.3f} GB), {r['bound_ms'] / r['ms']:.1%} of its bound")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def qwen_exactness(torch):
+    """fp32 at Qwen2.5-7B widths, 2 layers: the paged engine's greedy
+    tokens (paged decode at G 7, yarn tables) must equal iterated plain
+    ``forward`` calls."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.models.llama import forward
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg, params = qwen_model(torch, torch.float32, 13, num_hidden_layers=2)
+    engine = InferenceEngine(params, cfg, EngineConfig(
+        num_slots=4, max_prompt_len=64, max_len=128, block_size=16,
+        kv_layout="paged"))
+    reqs = requests(np.random.default_rng(13), cfg.vocab_size, 6, 64, 8, 32)
+    comps = serve(engine, reqs, 3)
+    for comp, (prompt, n) in zip(comps, reqs):
+        toks = list(prompt)
+        for _ in range(n):
+            logits = forward(params, torch.tensor([toks], device="cuda"), cfg,
+                             plain=True)
+            toks.append(int(torch.argmax(logits[0, -1].float())))
+        check(comp.tokens == toks[len(prompt):],
+              f"{comp.request_id}: engine {comp.tokens} != forward "
+              f"{toks[len(prompt):]}")
+    log(f"qwen exactness: fp32 qwen2.5-7b widths (G 7, qkv bias, yarn), 2 "
+        f"layers: {len(comps)} greedy streams of the paged engine "
+        "token-identical to iterated plain forward")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# Phi-3-mini-128k-instruct's published config.json (the fields the importer
+# reads). Its 48-entry long/short factor lists are not in this repository:
+# the lists below are deterministic placeholders of the published shape, so
+# the tables' numbers differ from the published model's while every shape
+# and all the work are its own.
+PHI3_MINI_128K = dict(
+    vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+    max_position_embeddings=131072, original_max_position_embeddings=4096,
+    rms_norm_eps=1e-5, rope_theta=10000.0, sliding_window=262144,
+    tie_word_embeddings=False,
+    rope_scaling={"type": "longrope",
+                  "long_factor": [1.0 + 0.5 * i for i in range(48)],
+                  "short_factor": [1.0 + 0.02 * i for i in range(48)]},
+)
+
+
+def phi3_config(torch, dtype, **fields):
+    from types import SimpleNamespace
+
+    from ray_lightning_tpu_torch.models.hf_import import config_from_hf
+
+    return config_from_hf(SimpleNamespace(**dict(PHI3_MINI_128K, **fields)),
+                          dtype=dtype)
+
+
+def generate_longrope(torch, card):
+    """``generate`` of Phi-3-mini-128k at full width and depth (vocab 32064,
+    dim 3072, 32 layers, 32 / 32 heads of dim 96, ffn 8192, longrope over a
+    4096-position pretrain context, placeholder factor lists), bf16: 4
+    prompts of 4608 tokens and 64 greedy new tokens, past 4096, so one table
+    of the long factors serves prefill and every decode step. Tokens in the
+    vocabulary, every logit finite, the kernels launched as the layer count
+    says (flash forward at head dim 96, RMSNorm at dim 3072)."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.models.generation import generate
+    from ray_lightning_tpu_torch.models.llama import init_params
+    from ray_lightning_tpu_torch.ops.rope import rope_scaling_kind
+
+    cfg = phi3_config(torch, torch.bfloat16)
+    scaling = dict(cfg.rope_scaling)
+    check(cfg.head_dim == 96 and cfg.n_layers == 32
+          and rope_scaling_kind(cfg.rope_scaling) == "longrope"
+          and scaling["factor"] == 32.0
+          and scaling["original_max_position_embeddings"] == 4096,
+          f"phi-3 config {cfg}")
+    log("generate_longrope: the published 48-entry long/short factor lists "
+        "are not in this repository; the run uses deterministic placeholder "
+        "lists of the same shape (long 1.0 + 0.5 i, short 1.0 + 0.02 i): the "
+        "shapes and the work are Phi-3-mini-128k's, its numbers are not")
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(14))
+    torch.cuda.synchronize()
+    n_params = sum(leaf.numel() for leaf in _leaves(params))
+    check(n_params == cfg.num_params(),
+          f"{n_params} parameters, the config counts {cfg.num_params()}")
+    log(f"phi-3-mini-128k: {n_params / 1e9:.2f} B params bf16 initialised in "
+        f"{time.perf_counter() - t:.1f}s")
+    B, P, new = 4, 4608, 64
+    V, L = cfg.vocab_size, cfg.n_layers
+    prompt = torch.randint(0, V, (B, P), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(15))
+    generate(params, prompt, cfg, 2)  # warm-up at the run's shapes
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with GenerationProbe(torch) as probe:
+        out = generate(params, prompt, cfg, new)
+    elapsed = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    prefill_s, decode_s = probe.times_s()
+    steps = len(probe.positions)
+    kv_shape = (L, B, cfg.n_kv_heads, P + new, cfg.head_dim)
+    check(probe.cache_shape == kv_shape,
+          f"generate_longrope: cache {probe.cache_shape} != {kv_shape}")
+    check(probe.positions == list(range(P, P + new - 1)),
+          f"generate_longrope: decode positions {probe.positions[:3]}...")
+    check(tuple(out.shape) == (B, P + new) and bool((out[:, :P] == prompt).all())
+          and 0 <= int(out[:, P:].min()) and int(out[:, P:].max()) < V,
+          "generate_longrope: bad output")
+    check(probe.all_finite(), "generate_longrope: a step's logits are not finite")
+    expect = {"rmsnorm": (2 * L + 1) * (1 + steps), "flash_fwd": L,
+              "paged_decode": 0, "argmax": 0, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0}
+    check(counts == expect,
+          f"generate_longrope: launch counts {counts} != {expect}")
+    kv_gib = 2 * math.prod(kv_shape) * 2 / 2**30
+    log(f"generate_longrope on {card}: phi-3-mini-128k, batch {B}, prompts of "
+        f"{P} tokens (past the 4096 pretrain context: long factors), {new} "
+        f"greedy new tokens in {elapsed:.3f}s: prefill {prefill_s * 1e3:.1f} ms "
+        f"({B * P / prefill_s:.0f} prompt tokens/s); {steps} decode steps in "
+        f"{decode_s:.3f}s -> {B * steps / decode_s:.1f} tokens/s "
+        f"({decode_s / steps * 1e3:.2f} ms a step); cache {kv_shape} x2 = "
+        f"{kv_gib:.2f} GiB bf16; all logits finite")
+    log(f"generate_longrope launches: {counts} (rmsnorm {2 * L + 1} a forward, "
+        f"flash_fwd {L} at the prefill)")
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def longrope_exactness(torch):
+    """fp32 at Phi-3-mini widths, 2 layers: ``generate`` on two prompts of
+    4100 tokens with 8 new tokens must equal iterated plain ``forward``
+    calls: every sequence is past the 4096-position pretrain context, so
+    both rotate with the long factors, generate's one table and each
+    forward's own."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.models.generation import generate
+    from ray_lightning_tpu_torch.models.llama import forward, init_params
+
+    cfg = phi3_config(torch, torch.float32, num_hidden_layers=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(16))
+    P, n_new = 4100, 8
+    prompts = np.random.default_rng(16).integers(0, cfg.vocab_size, (2, P))
+    got = generate(params, torch.from_numpy(prompts).cuda(), cfg,
+                   n_new)[:, P:].tolist()
+    plain = []
+    for p in prompts.tolist():
+        toks = list(p)
+        for _ in range(n_new):
+            logits = forward(params, torch.tensor([toks], device="cuda"), cfg,
+                             plain=True)
+            toks.append(int(torch.argmax(logits[0, -1].float())))
+        plain.append(toks[P:])
+    check(got == plain, f"longrope exactness: generate {got} != forward {plain}")
+    log(f"longrope exactness: fp32 phi-3-mini widths (hd 96, longrope), 2 "
+        f"layers: {len(plain)} greedy streams of generate past the 4096 "
+        "pretrain context token-identical to iterated plain forward")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # Mixtral-8x7B-v0.1's published config.json (the fields the importer reads)
@@ -1344,24 +1797,27 @@ def tree_bytes(tree):
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
-def decode_step_time(torch, engine, cfg):
+def decode_step_time(torch, engine, cfg, k=1):
     """One decode step of the full batch (8 rows at ragged positions up to
     1023) on the engine's params and pool, paged or slot, timed by the
     replay of a CUDA graph (the device's time alone) and eagerly (the host's
     launch rate included), beside its bytes bound: every weight read once
     (lossless routing runs every expert), the K/V of the attended positions
-    read, one position's K/V written, the embedding rows and the fp32
-    logits."""
+    read, the new positions' K/V written, the embedding rows and the fp32
+    logits. With ``k`` > 1 the step is a ``decode_step_verify`` of k
+    candidates a row, the last of them at position 1023 - 97 b."""
     from ray_lightning_tpu_torch.models.generation import (
         decode_step_paged,
         decode_step_ragged,
+        decode_step_verify,
     )
 
     n = engine.pool.num_slots
     dev = engine.device
-    pos_list = [1023 - 97 * b for b in range(n)]
+    pos_list = [1023 - 97 * b - (k - 1) for b in range(n)]
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
-    token = torch.arange(n, dtype=torch.int32, device=dev) * 7 + 11
+    token = torch.arange(n * k, dtype=torch.int32, device=dev).view(n, k) * 7 + 11
+    tables = None
     if engine.engine_config.kv_layout == "paged":
         bs = engine.engine_config.block_size
         maxb = engine.engine_config.max_len // bs
@@ -1370,13 +1826,16 @@ def decode_step_time(torch, engine, cfg):
         tables = torch.arange(1, 1 + n * maxb, dtype=torch.int32,
                               device=dev).view(n, maxb)
 
-        def step():
-            decode_step_paged(engine.params, engine.pool.cache, token, pos,
-                              tables, cfg, engine._table)
-    else:
-        def step():
-            decode_step_ragged(engine.params, engine.pool.cache, token, pos,
-                               cfg, engine._table)
+    def step():
+        if k > 1:
+            decode_step_verify(engine.params, engine.pool.cache, token, pos,
+                               cfg, engine._table, block_tables=tables)
+        elif tables is not None:
+            decode_step_paged(engine.params, engine.pool.cache, token[:, 0],
+                              pos, tables, cfg, engine._table)
+        else:
+            decode_step_ragged(engine.params, engine.pool.cache, token[:, 0],
+                               pos, cfg, engine._table)
 
     ms = time_ms(torch, step, iters=3, warmup=2)
     ms_eager = time_ms(torch, step, iters=3, warmup=1, graph=False)
@@ -1384,14 +1843,18 @@ def decode_step_time(torch, engine, cfg):
     L, hkv, hd, d = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.dim
     kv_elt = engine.pool.cache["k"].element_size()
     weights = (tree_bytes(p["layers"]) + tree_bytes(p["lm_head"])
-               + tree_bytes(p["final_norm"]) + n * d * p["embed"].element_size())
-    kv = sum(pp + 1 for pp in pos_list) * L * 2 * hkv * hd * kv_elt
-    nbytes = weights + kv + n * L * 2 * hkv * hd * kv_elt + n * cfg.vocab_size * 4
+               + tree_bytes(p["final_norm"])
+               + n * k * d * p["embed"].element_size())
+    attended = sum(pp + k for pp in pos_list)  # the deepest query's span
+    kv = attended * L * 2 * hkv * hd * kv_elt
+    nbytes = (weights + kv + n * k * L * 2 * hkv * hd * kv_elt
+              + n * k * cfg.vocab_size * 4)
     # products: 2 FLOP per weight element and row (every expert on every
-    # row), plus q.k and p.v over the attended positions
-    flops = 2 * n * (sum(t.numel() for t in _leaves(p["layers"]))
-                     + p["lm_head"].numel()) \
-        + sum(pp + 1 for pp in pos_list) * L * cfg.n_heads * hd * 4
+    # row), plus q.k and p.v over each query's attended positions
+    flops = 2 * n * k * (sum(t.numel() for t in _leaves(p["layers"]))
+                         + p["lm_head"].numel()) \
+        + sum(pp + i + 1 for pp in pos_list for i in range(k)) \
+        * L * cfg.n_heads * hd * 4
     b, by = bound(nbytes, flops, BF16_FLOPS)
     return dict(ms=ms, ms_eager=ms_eager, bound_ms=b, bound_by=by,
                 weight_bytes=weights, kv_bytes=kv, bytes=nbytes, flops=flops,
@@ -1417,7 +1880,7 @@ def serving_moe(torch, card):
         f"params bf16 ({tree_bytes(params) / 1e9:.1f} GB, router fp32) "
         f"initialised in {time.perf_counter() - t:.1f}s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
-    counts, engine, _ = serve_path(torch, card, cfg, params, "serving_moe")
+    counts, engine, _, _ = serve_path(torch, card, cfg, params, "serving_moe")
     r = decode_step_time(torch, engine, cfg)
     log(f"serving_moe decode step on {card} (8 rows, pos up to 1023): "
         f"{r['ms']:.3f} ms graph replay (eager {r['ms_eager']:.3f} ms) against "
@@ -2203,11 +2666,16 @@ def main():
     results["flash_bwd_dq"], results["flash_bwd_dkv"] = check_flash_bwd(torch, F)
     check(set(results) == {k.name for k in kernels.KERNELS},
           f"kernel checks {sorted(results)} do not cover every kernel")
-    by_path = dict(zip(("serving", "serving_slot"), main_path(torch, card)))
+    by_path = main_path(torch, card)
     exactness(torch)
     slot_exactness(torch)
+    spec_exactness(torch)
     by_path["generate_window"] = generate_window(torch, card)
     window_exactness(torch)
+    by_path["serving_qwen_yarn"] = serving_qwen_yarn(torch, card)
+    qwen_exactness(torch)
+    by_path["generate_longrope"] = generate_longrope(torch, card)
+    longrope_exactness(torch)
     by_path["serving_moe"] = serving_moe(torch, card)
     moe_exactness(torch)
     by_path["training"] = train_main_path(torch, card)
@@ -2222,7 +2690,7 @@ def main():
         launches = {path: c[k.name] for path, c in by_path.items()}
         check(sum(launches.values()) > 0,
               f"kernel {k.name} launched on no main path")
-        entries.append({
+        entry = {
             "name": k.name, "route": "cuda",
             "source": f"ray_lightning_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces, "launches": sum(launches.values()),
@@ -2230,19 +2698,10 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{key: r[key] for key in ("ms_eager", "shape",
-                                       "plain_and_library_compute",
-                                       "at_prefill_shape",
-                                       "at_training_shape", "at_full_cache",
-                                       "at_generate_prefill_shape",
-                                       "at_generate_decode_shape",
-                                       "launch_floor_ms", "copy_ms",
-                                       "chunks", "l2_hot", "noisy",
-                                       "at_batch_1", "at_batch_64",
-                                       "by_chunks", "by_chunks_flushed",
-                                       "at_vocab_32000")
-               if key in r},
-        })
+        }
+        # the other shapes and measurements of the kernel's check
+        entry.update({key: v for key, v in r.items() if key not in entry})
+        entries.append(entry)
     log(f"done in {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": entries}))
     print(card_line())

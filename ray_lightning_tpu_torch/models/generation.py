@@ -1,7 +1,9 @@
 """Generation for the Llama family: ``ray_lightning_tpu/models/
 generation.py`` in PyTorch. Batched prefill, the dense decode steps
 (``decode_step`` at one position for the whole batch, ``decode_step_ragged``
-at a position per row), paged decode and ``generate``.
+at a position per row), paged decode, the verify step of self-speculative
+decoding (``decode_step_verify``, K positions a row on either KV layout)
+and ``generate``.
 
 Where the JAX functions return new caches, these update the cache tensors
 IN PLACE (and return them too): the KV pool is one device allocation the
@@ -38,7 +40,11 @@ from ray_lightning_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
 )
 from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm
-from ray_lightning_tpu_torch.ops.rope import rope_angles, rotate
+from ray_lightning_tpu_torch.ops.rope import (
+    rope_angles,
+    rope_scaling_kind,
+    rotate,
+)
 from ray_lightning_tpu_torch.parallel.moe import moe_ffn_lossless
 
 RopeTable = Tuple[torch.Tensor, torch.Tensor]
@@ -48,6 +54,25 @@ RopeTable = Tuple[torch.Tensor, torch.Tensor]
 # each read waits for the device. Finished rows are frozen to eos, so the
 # extra steps change no output.
 EOS_POLL_STEPS = 8
+
+
+def _default_table_or_raise(cfg: LlamaConfig, seq_len: int,
+                            device: DeviceLike) -> RopeTable:
+    """The rope table of a caller that passed ``rope_table=None``. longrope
+    refuses: its long/short factor choice keys on the full generation
+    length, so prefill and decode defaults built from different lengths
+    could rotate queries and cached keys with different factor sets. Pass
+    one shared table (``generate`` builds it from prompt + new tokens)."""
+    if rope_scaling_kind(cfg.rope_scaling) == "longrope":
+        raise ValueError(
+            "longrope configs need an explicit rope_table covering the "
+            "full generation length (rope_angles(total, ...)): the "
+            "long/short factor choice is length-dependent, and prefill/"
+            "decode defaults built from different lengths would rotate "
+            "queries and cached keys inconsistently"
+        )
+    return rope_angles(seq_len, cfg.head_dim, cfg.rope_theta,
+                       scaling=cfg.rope_scaling, device=device)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -87,9 +112,7 @@ def prefill_hidden(params: Dict[str, Any], prompt: torch.Tensor,
     if rope_table is None:
         # sized to the prompt, not the cache: a rolling buffer is shorter
         # than the prompt positions it receives
-        rope_table = rope_angles(P, cfg.head_dim, cfg.rope_theta,
-                                 scaling=cfg.rope_scaling,
-                                 device=prompt.device)
+        rope_table = _default_table_or_raise(cfg, P, prompt.device)
     cos, sin = rope_table[0][:P], rope_table[1][:P]
     window = cfg.sliding_window or None
     slots = (torch.arange(P - C, P, device=prompt.device) % C
@@ -145,13 +168,77 @@ def _refuse_midsized_window_cache(cfg: LlamaConfig, C: int,
 def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor,
                            masked: torch.Tensor) -> torch.Tensor:
-    """One query position a row against a dense cache, in fp32 as the JAX
-    package's einsums compute it: q [B, Hkv, G, hd] fp32 (GQA folded), k/v
-    [B, Hkv, C, hd], ``masked`` [B, 1, 1, C] True where a slot may not be
-    attended. Returns [B, Hkv, G, hd] fp32."""
+    """Query rows against a dense cache, in fp32 as the JAX package's
+    einsums compute it: q [B, Hkv, R, hd] fp32 (GQA folded: R = G query
+    heads, or G x K for K positions a row), k/v [B, Hkv, C, hd], ``masked``
+    broadcastable to [B, Hkv, R, C], True where a slot may not be attended.
+    Returns [B, Hkv, R, hd] fp32."""
     scores = (q @ k_cache.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
     probs = torch.softmax(scores.masked_fill(masked, float("-inf")), dim=-1)
     return probs @ v_cache.float()
+
+
+def _apply_rope_block(x: torch.Tensor, c: torch.Tensor,
+                      s: torch.Tensor) -> torch.Tensor:
+    """x: [B, K, H, hd], row b / query i at its own position; c/s:
+    [B, K, hd/2] gathered per (row, query)."""
+    return rotate(x, c[:, :, None], s[:, :, None])
+
+
+def _decode_layers(params: Dict[str, Any], cfg: LlamaConfig,
+                   tokens: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+                   attend) -> torch.Tensor:
+    """The layer stack of every decode step, K positions a row (K = 1 for
+    ``decode_step``, ``decode_step_ragged`` and ``decode_step_paged``, the
+    candidates for ``decode_step_verify``). tokens: [B, K]; c/s: [B, K,
+    hd/2]. ``attend(i, q, k, v)`` takes layer i's post-rope q [B, K, H, hd]
+    and k, v [B, K, Hkv, hd], writes k and v into the cache and returns the
+    attention [B, K, H * hd]. Returns the logits [B, K, V] fp32."""
+    hd = cfg.head_dim
+    B, K = tokens.shape
+    x = params["embed"][tokens.long()]  # [B, K, D]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        nh = lp["wq"].shape[-1] // hd
+        nkv = lp["wk"].shape[-1] // hd
+        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q = h @ lp["wq"]
+        k = h @ lp["wk"]
+        v = h @ lp["wv"]
+        if "bq" in lp:  # Qwen2-family qkv bias
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q = _apply_rope_block(q.view(B, K, nh, hd), c, s)
+        k = _apply_rope_block(k.view(B, K, nkv, hd), c, s)
+        att = attend(i, q, k, v.view(B, K, nkv, hd))
+        x = x + att.to(x.dtype) @ lp["wo"]
+        h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+        if cfg.n_experts and "moe" in lp:
+            # lossless routing, as everywhere at inference: h2 is [B, K, D]
+            x = x + moe_ffn_lossless(lp["moe"], h2, top_k=cfg.expert_top_k)
+        else:
+            x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float()
+
+
+def _dense_attend(write, masked: torch.Tensor):
+    """``attend`` of ``_decode_layers`` over a dense view of the cache, in
+    fp32 plain torch. ``write(i, k, v)`` stores layer i's k/v [B, K, Hkv,
+    hd] and returns its dense view (k, v) [B, Hkv, C, hd], so every
+    candidate is written before any is attended; ``masked`` broadcasts
+    to the scores [B, Hkv, G * K, C] (rows g-major, k-minor)."""
+    def attend(i, q, k, v):
+        B, K, nh, hd = q.shape
+        kk, vv = write(i, k, v)
+        nkv = kk.shape[1]
+        group = nh // nkv
+        qf = q.view(B, K, nkv, group, hd).permute(0, 2, 3, 1, 4).reshape(
+            B, nkv, group * K, hd).float()
+        att = dense_decode_attention(qf, kk, vv, masked)
+        return att.view(B, nkv, group, K, hd).permute(0, 3, 1, 2, 4).reshape(
+            B, K, nh * hd)
+
+    return attend
 
 
 def _dense_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
@@ -164,7 +251,6 @@ def _dense_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
     slots, where slot s is valid once s <= pos_b, banded by the window only
     when the cache is longer than it (a rolling cache holds exactly the
     band). Rows never see each other's keys."""
-    hd = cfg.head_dim
     C = cache["k"].shape[3]
     B = token.shape[0]
     c = rope_table[0][pos][:, None, :]  # [B, 1, hd/2]
@@ -176,33 +262,16 @@ def _dense_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
     if cfg.sliding_window and C > cfg.sliding_window:
         keep &= positions[None, :] > pos[:, None] - cfg.sliding_window
     masked = ~keep[:, None, None, :]  # [B, 1, 1, C]
-    x = params["embed"][token.long()]  # [B, D]
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        nh = lp["wq"].shape[-1] // hd
-        nkv = lp["wk"].shape[-1] // hd
-        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        q = h @ lp["wq"]
-        k = h @ lp["wk"]
-        v = h @ lp["wv"]
-        if "bq" in lp:  # Qwen2-family qkv bias
-            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-        q = rotate(q.view(B, nh, hd), c, s)
-        k = rotate(k.view(B, nkv, hd), c, s)
+
+    def write(i, k, v):
         k_cache, v_cache = cache["k"][i], cache["v"][i]  # [B, Hkv, C, hd]
-        k_cache[rows, :, slot, :] = k.to(k_cache.dtype)
-        v_cache[rows, :, slot, :] = v.view(B, nkv, hd).to(v_cache.dtype)
-        att = dense_decode_attention(q.view(B, nkv, nh // nkv, hd).float(),
-                                     k_cache, v_cache, masked)
-        x = x + att.reshape(B, nh * hd).to(x.dtype) @ lp["wo"]
-        h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        if cfg.n_experts and "moe" in lp:
-            x = x + moe_ffn_lossless(lp["moe"], h2[:, None, :],
-                                     top_k=cfg.expert_top_k)[:, 0]
-        else:
-            x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float(), cache
+        k_cache[rows, :, slot, :] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, :, slot, :] = v[:, 0].to(v_cache.dtype)
+        return k_cache, v_cache
+
+    logits = _decode_layers(params, cfg, token[:, None], c, s,
+                            _dense_attend(write, masked))
+    return logits[:, 0], cache
 
 
 def decode_step(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
@@ -220,9 +289,8 @@ def decode_step(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
     strictly between the window and that range is refused."""
     C = cache["k"].shape[3]
     if rope_table is None:
-        rope_table = rope_angles(max(C, cfg.max_seq), cfg.head_dim,
-                                 cfg.rope_theta, scaling=cfg.rope_scaling,
-                                 device=token.device)
+        rope_table = _default_table_or_raise(cfg, max(C, cfg.max_seq),
+                                             token.device)
     _refuse_midsized_window_cache(cfg, C, int(rope_table[0].shape[0]))
     pos_rows = torch.full((token.shape[0],), int(pos), dtype=torch.long,
                           device=token.device)
@@ -240,9 +308,8 @@ def decode_step_ragged(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
     updated in place)."""
     C = cache["k"].shape[3]
     if rope_table is None:
-        rope_table = rope_angles(max(C, cfg.max_seq), cfg.head_dim,
-                                 cfg.rope_theta, scaling=cfg.rope_scaling,
-                                 device=token.device)
+        rope_table = _default_table_or_raise(cfg, max(C, cfg.max_seq),
+                                             token.device)
     _refuse_midsized_window_cache(cfg, C, int(rope_table[0].shape[0]))
     return _dense_decode(params, cache, token, pos.long(), cfg, rope_table)
 
@@ -271,42 +338,105 @@ def decode_step_paged(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
     bs = cache["k"].shape[3]
     C = block_tables.shape[1] * bs
     if rope_table is None:
-        rope_table = rope_angles(max(C, cfg.max_seq), hd, cfg.rope_theta,
-                                 scaling=cfg.rope_scaling,
-                                 device=token.device)
+        rope_table = _default_table_or_raise(cfg, max(C, cfg.max_seq),
+                                             token.device)
     posl = pos.long()
     c = rope_table[0][posl][:, None, :]  # [B, 1, hd/2]
     s = rope_table[1][posl][:, None, :]
     B = token.shape[0]
     phys = block_tables.long().gather(1, (posl // bs)[:, None])[:, 0]
     off = posl % bs
-    x = params["embed"][token.long()]  # [B, D]
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        nh = lp["wq"].shape[-1] // hd
-        nkv = lp["wk"].shape[-1] // hd
-        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        q = h @ lp["wq"]
-        k = h @ lp["wk"]
-        v = h @ lp["wv"]
-        if "bq" in lp:  # Qwen2-family qkv bias
-            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-        q = rotate(q.view(B, nh, hd), c, s)
-        k = rotate(k.view(B, nkv, hd), c, s)
+
+    def attend(i, q, k, v):
         k_cache, v_cache = cache["k"][i], cache["v"][i]
-        k_cache[phys, :, off, :] = k.to(k_cache.dtype)
-        v_cache[phys, :, off, :] = v.view(B, nkv, hd).to(v_cache.dtype)
+        k_cache[phys, :, off, :] = k[:, 0].to(k_cache.dtype)
+        v_cache[phys, :, off, :] = v[:, 0].to(v_cache.dtype)
+        nh, nkv = q.shape[2], k.shape[2]
         qf = q.view(B, nkv, nh // nkv, hd).float().contiguous()
         att = paged_decode_attention(qf, k_cache, v_cache, block_tables, pos)
-        x = x + att.reshape(B, nh * hd).to(x.dtype) @ lp["wo"]
-        h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        if cfg.n_experts and "moe" in lp:
-            x = x + moe_ffn_lossless(lp["moe"], h2[:, None, :],
-                                     top_k=cfg.expert_top_k)[:, 0]
-        else:
-            x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float(), cache
+        return att.reshape(B, 1, nh * hd)
+
+    logits = _decode_layers(params, cfg, token[:, None], c, s, attend)
+    return logits[:, 0], cache
+
+
+def decode_step_verify(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
+                       tokens: torch.Tensor, pos: torch.Tensor,
+                       cfg: LlamaConfig, rope_table: Optional[RopeTable] = None,
+                       block_tables: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Score K candidate positions a row in one pass: the verify step of
+    self-speculative decoding. tokens: [B, K] int, row b's candidates for
+    positions ``pos[b] .. pos[b] + K - 1`` (t_0 the pending token, then
+    the proposals, then padding); pos: [B] int base positions. Returns
+    (logits [B, K, V] fp32, where logits[b, i] conditions on t_0..t_i, and
+    the cache, updated in place).
+
+    With ``block_tables=None`` the cache is the slot layout ([L, B, Hkv,
+    C, hd], as ``decode_step_ragged``); with block tables [B, max_blocks]
+    it is the paged layout ([L, N, Hkv, bs, hd], as ``decode_step_paged``).
+    Every candidate's (k, v) is written before any is attended, at
+    positions clamped to ``C - 1``: a padding query past the budget lands
+    in the last slot (slot layout), which no real query attends, or in the
+    trash-padded tail of the block table (paged). Query i of row b sees
+    positions ``<= pos[b] + i`` (a [B, K, C] mask), so the logits of the
+    prefix the host accepts are those of stepping one token at a time.
+    The attention is fp32 plain torch over the dense view of the cache (a
+    gather through the tables, for the paged layout), as the JAX package
+    computes it in XLA: verify does not call the paged decode kernel.
+
+    Sliding-window configs are refused (the serving pools refuse them
+    too)."""
+    if cfg.sliding_window:
+        raise ValueError(
+            "decode_step_verify requires dense-causal configs: a rolling "
+            "sliding-window buffer wraps positions at pos % window, and a "
+            "K-position write burst could wrap onto its own still-"
+            "attendable band"
+        )
+    paged = block_tables is not None
+    bs = cache["k"].shape[3]
+    C = block_tables.shape[1] * bs if paged else bs
+    if rope_table is None:
+        rope_table = _default_table_or_raise(cfg, max(C, cfg.max_seq),
+                                             tokens.device)
+    total = int(rope_table[0].shape[0])
+    B, K = tokens.shape
+    dev = tokens.device
+    qpos = pos.long()[:, None] + torch.arange(K, device=dev)[None, :]  # [B, K]
+    # rope rows per (row, query); padding queries clamp into the table
+    ridx = qpos.clamp(max=total - 1)
+    c, s = rope_table[0][ridx], rope_table[1][ridx]  # [B, K, hd/2]
+    wpos = qpos.clamp(max=C - 1)
+    keep = torch.arange(C, device=dev)[None, None, :] <= qpos[:, :, None]
+    group = cfg.n_heads // cfg.n_kv_heads
+    # [B, K, C] -> [B, 1, G * K, C], the scores' rows g-major, k-minor
+    masked = (~keep)[:, None, None].expand(B, 1, group, K, C).reshape(
+        B, 1, group * K, C)
+    if paged:
+        tables = block_tables.long()
+        phys = tables.gather(1, wpos // bs)  # [B, K]
+        off = wpos % bs
+
+        def write(i, k, v):
+            k_cache, v_cache = cache["k"][i], cache["v"][i]  # [N, Hkv, bs, hd]
+            k_cache[phys, :, off, :] = k.to(k_cache.dtype)
+            v_cache[phys, :, off, :] = v.to(v_cache.dtype)
+            hkv, hd = k_cache.shape[1], k_cache.shape[3]
+            return tuple(
+                t[tables].transpose(1, 2).reshape(B, hkv, C, hd)
+                for t in (k_cache, v_cache))
+    else:
+        rows = torch.arange(B, device=dev)[:, None]
+
+        def write(i, k, v):
+            k_cache, v_cache = cache["k"][i], cache["v"][i]  # [B, Hkv, C, hd]
+            k_cache[rows, :, wpos, :] = k.to(k_cache.dtype)
+            v_cache[rows, :, wpos, :] = v.to(v_cache.dtype)
+            return k_cache, v_cache
+
+    return _decode_layers(params, cfg, tokens, c, s,
+                          _dense_attend(write, masked)), cache
 
 
 def _sample_logits(logits: torch.Tensor, generator: torch.Generator,

@@ -1,7 +1,8 @@
 """Import Hugging Face Llama-family checkpoints into the port's parameter
 dict, as ``ray_lightning_tpu/models/hf_import.py`` does for the JAX
 package: Llama, Mistral (with its sliding window), Qwen2 (with its qkv
-bias) and Mixtral (mixture of experts).
+bias and yarn long-context scaling), Mixtral (mixture of experts) and
+Phi-3 (fused projections, longrope scaling).
 
 The family is bit-compatible with the port's Llama (split-half rope,
 RMSNorm, SwiGLU, GQA), so an import is a relayout: torch ``[out, in]``
@@ -31,12 +32,36 @@ from ray_lightning_tpu_torch.ops.rope import normalize_rope_scaling
 def config_from_hf(hf_config, dtype: torch.dtype = torch.bfloat16,
                    **overrides) -> LlamaConfig:
     """Map a ``transformers`` Llama-family config onto :class:`LlamaConfig`.
-    What the port cannot represent is refused rather than dropped: rope
-    kinds it lacks (``yarn`` and ``longrope`` are not ported yet), a partial
-    rotary factor, MLP or o_proj biases, and per-layer window gating."""
+    yarn's pretrain length defaults to ``max_position_embeddings``;
+    longrope's comes from the config's ``original_max_position_embeddings``
+    (then ``factor = max_position_embeddings / original``), as in
+    ``transformers``. What the port cannot represent is refused rather than
+    dropped: unknown rope kinds, a partial rotary factor, MLP or o_proj
+    biases, and per-layer window gating."""
+    raw = getattr(hf_config, "rope_scaling", None)
+    if raw:
+        raw = dict(raw)
+        kind = raw.get("rope_type", raw.get("type"))
+        if kind == "yarn" and not raw.get("original_max_position_embeddings"):
+            # absent means max_position_embeddings (transformers'
+            # _compute_yarn_parameters)
+            raw["original_max_position_embeddings"] = int(
+                hf_config.max_position_embeddings)
+        if kind == "longrope":
+            # Phi-3: the pretrain length lives on the config; when it is
+            # there, the attention-factor ratio is max_position / original,
+            # over any 'factor' in the dict; absent, max_position is the
+            # pretrain length (short factors always) with the dict's factor
+            attr_orig = getattr(hf_config, "original_max_position_embeddings",
+                                None)
+            orig = attr_orig or hf_config.max_position_embeddings
+            raw["original_max_position_embeddings"] = int(orig)
+            if attr_orig:
+                raw["factor"] = (float(hf_config.max_position_embeddings)
+                                 / int(orig))
     # refuses unsupported kinds: importing with plain rope_theta would
     # silently change every position's angles
-    scaling = normalize_rope_scaling(getattr(hf_config, "rope_scaling", None))
+    scaling = normalize_rope_scaling(raw)
     if float(getattr(hf_config, "partial_rotary_factor", 1.0) or 1.0) != 1.0:
         raise NotImplementedError(
             "partial_rotary_factor != 1.0 is not mapped (the rope rotates "
@@ -283,4 +308,46 @@ def import_hf_mixtral(model_or_path, dtype: torch.dtype = torch.bfloat16,
             take(q + "w1.weight", moe["w_gate"][i, e], True)
             take(q + "w3.weight", moe["w_up"][i, e], True)
             take(q + "w2.weight", moe["w_down"][i, e], True)
+    return _assemble(take, model.config, cfg, layers, dev), cfg
+
+
+def import_hf_phi3(model_or_path, dtype: torch.dtype = torch.bfloat16,
+                   device: DeviceLike = None, **config_overrides
+                   ) -> Tuple[Dict[str, Any], LlamaConfig]:
+    """``(params, cfg)`` from a ``transformers`` Phi-3 model, or a name or
+    path for ``AutoModelForCausalLM.from_pretrained``. A Llama-family
+    member (RMSNorm, SwiGLU, GQA, no biases) whose qkv and gate/up
+    projections ship fused (``self_attn.qkv_proj``, ``mlp.gate_up_proj``):
+    they are split along torch's out dim into the separate leaves. Its rope
+    is longrope (:func:`config_from_hf`). A table picks the long or the
+    short factors by its whole length, where ``transformers`` switches
+    mid-generation once the live length crosses the pretrain context: a
+    generation that straddles it differs from HF at the crossing."""
+    dev = resolve_device(device)
+    if isinstance(model_or_path, str):
+        model_or_path = _from_pretrained("AutoModelForCausalLM", model_or_path)
+    model = model_or_path
+    cfg = config_from_hf(model.config, dtype=dtype, **config_overrides)
+    _check_uniform_heads(cfg)
+    sd = dict(model.state_dict())
+    take = _make_take(sd)
+    q_rows = cfg.n_heads * cfg.head_dim
+    kv_rows = cfg.n_kv_heads * cfg.head_dim
+    layers = _empty_layers(cfg, dev)
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        take(p + "input_layernorm.weight", layers["attn_norm"][i])
+        # the fused [q_rows + 2 kv_rows, D] and [2 F, D] torch layouts, cut
+        # by rows and transposed into the [in, out] leaves
+        qkv = sd[p + "self_attn.qkv_proj.weight"]
+        gate_up = sd[p + "mlp.gate_up_proj.weight"]
+        sd.update({p + "wq": qkv[:q_rows], p + "wk": qkv[q_rows:q_rows + kv_rows],
+                   p + "wv": qkv[q_rows + kv_rows:],
+                   p + "w_gate": gate_up[:cfg.ffn_dim],
+                   p + "w_up": gate_up[cfg.ffn_dim:]})
+        for name in ("wq", "wk", "wv", "w_gate", "w_up"):
+            take(p + name, layers[name][i], True)
+        take(p + "self_attn.o_proj.weight", layers["wo"][i], True)
+        take(p + "post_attention_layernorm.weight", layers["mlp_norm"][i])
+        take(p + "mlp.down_proj.weight", layers["w_down"][i], True)
     return _assemble(take, model.config, cfg, layers, dev), cfg

@@ -43,6 +43,8 @@ PAGED_DECODE_KERNEL = CudaKernel(
 # positions per block of the kernel's split over a row's positions: four
 # 16-position tiles at hd 128 in bf16, all in flight at once (csrc note)
 PAGED_SPLIT = 64
+# the GQA groups the kernel is instantiated for; the wrapper pads any group
+# up to 8 to the next of them (paged_group)
 PAGED_GROUPS = (1, 2, 4, 8)
 PAGED_HEAD_DIMS = (32, 64, 128, 256)
 # (row, KV head) pairs the kernel's persistent arrival counters cover
@@ -81,21 +83,36 @@ def paged_decode_attention_plain(q, k_cache, v_cache, block_tables, pos,
     return torch.einsum("bhgt,bhtd->bhgd", probs, vv)
 
 
+def paged_group(group: int) -> int:
+    """The instantiated group a GQA group of ``group`` query heads runs
+    at: the smallest of ``PAGED_GROUPS`` that holds it. Raises for groups
+    above 8."""
+    for g in PAGED_GROUPS:
+        if group <= g:
+            return g
+    raise ValueError(
+        f"paged_decode_attention: the kernel takes GQA groups up to "
+        f"{PAGED_GROUPS[-1]} (padded to one of {PAGED_GROUPS}), got G={group}"
+    )
+
+
 def paged_decode_plan(batch: int, hkv: int, group: int, hd: int, bs: int,
                       max_blocks: int) -> dict:
     """The kernel's launch plan, from host-known sizes only (never ``pos``,
     which lies on the card): ``split`` positions per block, ``chunks``
     blocks per (row, KV head) and the fp32 ``scratch`` floats for the
-    chunks' partial states (max and sum per query head, unnormalised
-    output), which the last block of each (row, KV head) merges."""
+    chunks' partial states (max and sum per query head of the padded group
+    ``paged_group(group)``, unnormalised output), which the last block of
+    each (row, KV head) merges."""
     if batch * hkv > PAGED_MAX_ROWS:
         raise ValueError(
             f"paged_decode_attention: B * Hkv = {batch * hkv} exceeds the "
             f"kernel's {PAGED_MAX_ROWS} arrival counters"
         )
+    padded = paged_group(group)
     chunks = -(-max_blocks * bs // PAGED_SPLIT)
     return {"split": PAGED_SPLIT, "chunks": chunks,
-            "scratch": batch * hkv * chunks * group * (hd + 2)}
+            "scratch": batch * hkv * chunks * padded * (hd + 2)}
 
 
 def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -105,7 +122,16 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q: [B, Hkv, G, hd] fp32 (GQA-folded, one position per row); k/v
     caches: [N, Hkv, bs, hd]; block_tables: [B, max_blocks] int32
     (trash-padded); pos: [B] int32. Returns fp32 [B, Hkv, G, hd], the
-    attention of each row over its logical positions [0, pos[b]]."""
+    attention of each row over its logical positions [0, pos[b]].
+
+    Any group up to 8 runs: a group the kernel is not instantiated for (3,
+    5, 6, 7; Qwen2.5-7B has 7) is padded with zero query heads up to the
+    next instantiated one and the padded heads' outputs are sliced off, as
+    the JAX kernel pads its group to the sublane tile. Padding, not more
+    instantiations: a KV head's blocks are read once for its whole group,
+    so the K/V bytes, which bound the kernel, do not change, and the extra
+    query heads cost only registers and FMAs in a latency-bound kernel;
+    the library's build time and the 32 instantiations stay as they are."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_cache, v_cache, block_tables, pos, sm_scale
@@ -129,27 +155,32 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             "paged_decode_attention: block_tables [B, max_blocks] and pos [B] "
             "must be int32"
         )
-    if group not in PAGED_GROUPS or hd not in PAGED_HEAD_DIMS:
+    if group > PAGED_GROUPS[-1] or hd not in PAGED_HEAD_DIMS:
         raise ValueError(
             f"paged_decode_attention: the kernel takes GQA groups "
             f"{PAGED_GROUPS} and head dims {PAGED_HEAD_DIMS}, got G={group}, "
             f"hd={hd}"
         )
-    if q.data_ptr() % 16:  # the kernel reads q in 16-byte loads
-        q = q.clone()
     code = dtype_code("paged_decode_attention", k_cache.dtype)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
     max_blocks = block_tables.shape[1]
     plan = paged_decode_plan(B, hkv, group, hd, bs, max_blocks)
+    gp = paged_group(group)
+    if gp != group:
+        qp = q.new_zeros((B, hkv, gp, hd))
+        qp[:, :, :group] = q
+        q = qp
+    elif q.data_ptr() % 16:  # the kernel reads q in 16-byte loads
+        q = q.clone()
     scratch = torch.empty(plan["scratch"], dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     PAGED_DECODE_KERNEL.launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), B, hkv, group, hd, bs, max_blocks, plan["split"],
+        scratch.data_ptr(), B, hkv, gp, hd, bs, max_blocks, plan["split"],
         float(scale), code, stream_of(q),
     )
-    return out
+    return out if gp == group else out[:, :, :group]
 
 
 # --------------------------------------------------------------------- #

@@ -25,16 +25,24 @@ prefills and one batched decode over every slot:
   token 0 at position 0 (on a trash table row, for the paged layout);
 - a request's first token comes from the first decode after its prefill,
   which re-runs the last prompt token at position P - 1 (an idempotent
-  cache write), so prefill needs no logits head.
+  cache write), so prefill needs no logits head;
+- with ``speculate_k = K > 0`` (greedy only), each decode is a verify step
+  instead: every slot feeds its pending token and up to K - 1 tokens
+  proposed by prompt lookup over its own history (``ngram_propose``)
+  through one ``decode_step_verify`` on either layout, the [S * K, V]
+  logits are sampled greedily, and the longest prefix of proposals that
+  the model itself emits is delivered with the model's next token after
+  it, so every tick delivers at least one token a slot and the stream is
+  token-identical to one-token decoding.
 
 The cache tensors and block tables never change shape; admission,
 recycling and block growth are host bookkeeping. The KV pool is updated in
 place. Neither pool serves a sliding-window config (``generate`` does).
 
-Not ported in this slice, and refused at construction: self-speculative
-decoding, the disaggregated prefill/decode roles and tenancy. Fault
-injection and telemetry (environment-driven in the JAX package) have no
-counterpart here.
+Not ported yet, and refused at construction: the disaggregated
+prefill/decode roles and tenancy. Fault injection and telemetry
+(environment-driven in the JAX package, the accepted-tokens histogram
+among them) have no counterpart here.
 
 Threading: ``submit`` may be called from any thread; ``start()`` spawns
 the loop thread (a daemon, joined by ``drain``/``shutdown``), or call
@@ -57,6 +65,7 @@ from ray_lightning_tpu_torch.models.generation import (
     _sample_logits,
     decode_step_paged,
     decode_step_ragged,
+    decode_step_verify,
     init_kv_cache,
     prefill_hidden,
 )
@@ -73,6 +82,7 @@ from ray_lightning_tpu_torch.serving.scheduler import (
     Request,
     RequestQueueFull,
 )
+from ray_lightning_tpu_torch.serving.speculative import ngram_propose
 
 __all__ = [
     "Completion",
@@ -105,8 +115,10 @@ class EngineConfig:
     ``head_skip_limit`` / ``head_aging_ticks`` bound the skip-ahead window
     behind a deferred queue head (0 = strict FIFO).
 
-    ``speculate_k`` must be 0 and ``role`` ``"both"``: the other values
-    are not ported yet.
+    ``speculate_k``: 0 decodes one token a slot a tick; K >= 2 verifies
+    the pending token and up to K - 1 prompt-lookup proposals a slot in
+    one pass (greedy sampling only). ``role`` must be ``"both"``: the
+    disaggregated roles are not ported yet.
     """
 
     num_slots: int = 4
@@ -135,13 +147,19 @@ class EngineConfig:
                 f"kv_layout must be 'slot' or 'paged', got "
                 f"{self.kv_layout!r}"
             )
-        if self.speculate_k < 0 or self.speculate_k == 1:
+        k = self.speculate_k
+        if k < 0 or k == 1:
             raise ValueError(
-                f"speculate_k must be 0 (off) or >= 2, got {self.speculate_k}"
+                f"speculate_k must be 0 (off) or >= 2, got {k}: k = 1 "
+                "verifies only the pending token, which is the ordinary "
+                "decode step with extra overhead"
             )
-        if self.speculate_k > 0:
-            raise NotImplementedError(
-                "self-speculative decoding (speculate_k > 0) is not ported yet"
+        if k > 0 and self.temperature > 0.0:
+            raise ValueError(
+                f"speculate_k={k} requires greedy sampling "
+                f"(temperature 0, got {self.temperature}): greedy "
+                "verification is what makes the accepted stream "
+                "token-identical to the unspeculated engine"
             )
         if self.role in ("prefill", "decode"):
             raise NotImplementedError(
@@ -273,6 +291,9 @@ class InferenceEngine:
         )
         self._completions: Dict[str, Completion] = {}
         self._on_token: Dict[str, Callable[[str, int], Any]] = {}
+        # prompt-lookup corpus of each request (prompt + delivered tokens),
+        # kept only when speculating
+        self._history: Dict[str, List[int]] = {}
         self._req_counter = itertools.count()
         self._work = threading.Condition(threading.Lock())
         self._closed = False
@@ -286,6 +307,9 @@ class InferenceEngine:
             "tokens_out": 0,
             "busy_slot_steps": 0,
             "completed": 0,
+            # accepted_tokens / spec_row_ticks: tokens a slot a verify step
+            "accepted_tokens": 0,
+            "spec_row_ticks": 0,
         }
 
     def configure_tenants(self, registry: Any, admission: bool = True) -> None:
@@ -398,47 +422,19 @@ class InferenceEngine:
         Call from one thread only (the loop thread, or the caller)."""
         self._evict_expired_slots()
         plan = self.scheduler.tick()
+        speculate = self.engine_config.speculate_k > 0
         for req, slot in plan.prefills:
             self._prefill_into(req.tokens, slot.index)
             slot.pos = req.prompt_len - 1
             slot.pending_token = req.tokens[-1]
+            if speculate:
+                self._history[req.request_id] = list(req.tokens)
             self.stats["prefills"] += 1
 
         completed: List[str] = []
         decode_slots = plan.decode_slots
         if decode_slots:
-            n = self.pool.num_slots
-            token = np.zeros((n,), np.int32)
-            pos = np.zeros((n,), np.int32)
-            for slot in decode_slots:
-                if self._paged:
-                    # on-demand growth: the block holding slot.pos must be
-                    # physical before the decode writes it
-                    self.pool.ensure_writable(slot)
-                token[slot.index] = slot.pending_token
-                pos[slot.index] = slot.pos
-            dev = self.device
-            token_d = torch.from_numpy(token).to(dev)
-            pos_d = torch.from_numpy(pos).to(dev)
-            if self._paged:
-                logits, _ = decode_step_paged(
-                    self.params, self.pool.cache, token_d, pos_d,
-                    torch.from_numpy(self.pool.block_tables).to(dev),
-                    self.cfg, self._table,
-                )
-            else:
-                logits, _ = decode_step_ragged(
-                    self.params, self.pool.cache, token_d, pos_d, self.cfg,
-                    self._table,
-                )
-            sampled = self._sample(logits).cpu().numpy()  # the per-step sync
-            now = time.perf_counter()
-            for slot in decode_slots:
-                rid = slot.request_id
-                if rid is None:  # released re-entrantly by a callback
-                    continue
-                self._deliver_token(slot, rid, int(sampled[slot.index]), now,
-                                    completed)
+            self._decode_tick(decode_slots, completed)
             self.stats["decode_steps"] += 1
             self.stats["busy_slot_steps"] += len(decode_slots)
         return {
@@ -447,8 +443,84 @@ class InferenceEngine:
             "completed": completed,
         }
 
+    def _decode_tick(self, decode_slots, completed: List[str]) -> None:
+        """One batched decode over every slot (free ones ride along at token
+        0, position 0; on a trash table row, for the paged layout). Without
+        speculation, one token a slot through ``decode_step_paged`` or
+        ``decode_step_ragged``. With ``speculate_k = K``, each slot's
+        pending token and up to K - 1 proposals through one
+        ``decode_step_verify``, greedy sampling of all [S * K] positions and
+        greedy acceptance: out[j] is the model's token after consuming the
+        proposals before j, so the first mismatch ends the accepted prefix
+        and is delivered as its correction."""
+        K = max(self.engine_config.speculate_k, 1)
+        n = self.pool.num_slots
+        token = np.zeros((n, K), np.int32)
+        pos = np.zeros((n,), np.int32)
+        proposals: Dict[int, List[int]] = {}
+        for slot in decode_slots:
+            props: List[int] = []
+            if K > 1:
+                # a row delivers at most `remaining` tokens this tick, so it
+                # proposes at most remaining - 1: this also keeps every
+                # speculative write inside the blocks reserved at admission
+                remaining = slot.max_new_tokens - slot.generated
+                props = ngram_propose(self._history.get(slot.request_id, ()),
+                                      min(K - 1, remaining - 1))
+            proposals[slot.index] = props
+            if self._paged:
+                # on-demand growth: the blocks up to the deepest write must
+                # be physical before the step writes them
+                self.pool.ensure_writable(slot, upto_pos=slot.pos + len(props))
+            token[slot.index, 0] = slot.pending_token
+            token[slot.index, 1:1 + len(props)] = props
+            pos[slot.index] = slot.pos
+        dev = self.device
+        token_d = torch.from_numpy(token).to(dev)
+        pos_d = torch.from_numpy(pos).to(dev)
+        tables = (torch.from_numpy(self.pool.block_tables).to(dev)
+                  if self._paged else None)
+        if K > 1:
+            logits, _ = decode_step_verify(
+                self.params, self.pool.cache, token_d, pos_d, self.cfg,
+                self._table, block_tables=tables)
+            logits = logits.view(n * K, -1)
+        elif self._paged:
+            logits, _ = decode_step_paged(
+                self.params, self.pool.cache, token_d[:, 0], pos_d, tables,
+                self.cfg, self._table)
+        else:
+            logits, _ = decode_step_ragged(
+                self.params, self.pool.cache, token_d[:, 0], pos_d, self.cfg,
+                self._table)
+        sampled = self._sample(logits).view(n, K).cpu().numpy()  # the sync
+        now = time.perf_counter()
+        for slot in decode_slots:
+            rid = slot.request_id
+            if rid is None:  # released re-entrantly by a callback
+                continue
+            out = sampled[slot.index]
+            accepted = 1
+            for j, p in enumerate(proposals[slot.index]):
+                if int(out[j]) != int(p):
+                    break
+                accepted += 1
+            before = self.stats["tokens_out"]
+            for j in range(accepted):
+                if not self._deliver_token(slot, rid, int(out[j]), now,
+                                           completed):
+                    break  # EOS, length, or the callback detached it
+            if K > 1:
+                self.stats["spec_row_ticks"] += 1
+                self.stats["accepted_tokens"] += (self.stats["tokens_out"]
+                                                  - before)
+
     def _deliver_token(self, slot, rid: str, tok: int, now: float,
-                       completed: List[str]) -> None:
+                       completed: List[str]) -> bool:
+        """Deliver one sampled token to the slot's request. Returns False
+        once the slot stops consuming tokens (finished on EOS or length, or
+        detached by its callback), which cuts the rest of a speculative
+        burst: tokens past EOS are never delivered."""
         completion = self._completions.get(rid)
         if completion is not None and not completion.done:
             completion.tokens.append(tok)
@@ -461,10 +533,13 @@ class InferenceEngine:
                 except Exception:  # a broken consumer must not stall decode
                     pass
             if slot.request_id != rid:
-                return  # the callback finished this request re-entrantly
+                return False  # the callback finished this request
         slot.generated += 1
         slot.pos += 1
         slot.pending_token = tok
+        hist = self._history.get(rid)
+        if hist is not None:
+            hist.append(tok)
         self.stats["tokens_out"] += 1
         reason = None
         if slot.eos_id is not None and tok == slot.eos_id:
@@ -475,11 +550,14 @@ class InferenceEngine:
             completed.append(rid)
             self._finish(rid, reason)
             self.pool.release(slot.index)
+            return False
+        return True
 
     def _finish(self, request_id: str, reason: str,
                 error: Optional[BaseException] = None) -> None:
         completion = self._completions.pop(request_id, None)
         self._on_token.pop(request_id, None)
+        self._history.pop(request_id, None)
         if completion is not None:
             completion._finish(reason, error)
         self.stats["completed"] += 1

@@ -493,12 +493,18 @@ class PagedKVPool:
             table[j] = alloc.blocks[j]
         return table
 
-    def ensure_writable(self, slot: Slot) -> None:
+    def ensure_writable(self, slot: Slot,
+                        upto_pos: Optional[int] = None) -> None:
         """Grow the slot's block table from its reservation until the block
-        holding ``slot.pos`` (the position the next decode writes) is
-        allocated."""
+        holding ``upto_pos`` (default ``slot.pos``, the position the next
+        decode writes) is allocated. A speculative verify writes every
+        proposed position before acceptance is known, so it passes
+        ``slot.pos + n_proposals``; the engine caps proposals at the
+        remaining token budget, which keeps that inside the admission-time
+        reservation: growth cannot fail."""
         alloc = self._alloc_of[slot.index]
-        needed = slot.pos // self.block_size + 1
+        pos = slot.pos if upto_pos is None else int(upto_pos)
+        needed = pos // self.block_size + 1
         while len(alloc.blocks) < needed:
             block = self.allocator.grow(slot.request_id)
             self.block_tables[slot.index, len(alloc.blocks) - 1] = block

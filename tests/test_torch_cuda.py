@@ -203,6 +203,29 @@ def test_paged_decode_kernel(cuda, group, hd, bs, dtype):
     _close(got, paged_decode_attention_plain(q, kc, vc, tab, pos), 1e-4)
 
 
+@pytest.mark.parametrize("group,hd", [(3, 128), (5, 128), (6, 128), (7, 128),
+                                      (7, 64), (3, 32), (5, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_at_odd_groups(cuda, group, hd, dtype):
+    """GQA groups the kernel is not instantiated for run padded to the
+    next one (Qwen2.5-7B's 7 at hd 128 among them): against the plain
+    version at 1e-4, one launch per call, the output at the caller's
+    group."""
+    from ray_lightning_tpu_torch.ops.paged_attention import (
+        PAGED_DECODE_KERNEL,
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    q, kc, vc, tab, pos = _paged_inputs(cuda, 8, 4, group, hd, 16, 10, dtype,
+                                        _edge_positions(16, 10), group)
+    before = PAGED_DECODE_KERNEL.launches
+    got = paged_decode_attention(q, kc, vc, tab, pos)
+    assert PAGED_DECODE_KERNEL.launches == before + 1
+    assert got.shape == q.shape
+    _close(got, paged_decode_attention_plain(q, kc, vc, tab, pos), 1e-4)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_decode_kernel_at_llama3_8b_decode_layout(cuda, dtype):
     """8 rows x 8 KV heads x G 4, hd 128, bs 16, 64 blocks a row (the
@@ -345,6 +368,18 @@ def test_argmax_kernel(cuda, B, V, noisy, pattern):
     assert torch.equal(got, want), (got.tolist(), want.tolist())
     if pattern in ("neg_inf", "all_nan"):
         assert not got.any()
+
+
+@pytest.mark.parametrize("pattern", ["ties", "nans", "unaligned"])
+@pytest.mark.parametrize("B,V", [(32, 128256), (8, 152064)],
+                         ids=["verify_llama3", "qwen2.5"])
+def test_argmax_kernel_at_the_speculative_and_qwen_shapes(cuda, B, V, pattern):
+    """A verify step's [S * K, V] = [32, 128256] and Qwen2.5's vocabulary
+    152064 (no multiple of the plan's chunk): bitwise torch.argmax."""
+    from ray_lightning_tpu_torch.ops.paged_attention import blockwise_argmax
+
+    x = _argmax_rows(cuda, B, V, pattern, seed=B + V)
+    assert torch.equal(blockwise_argmax(x), torch.argmax(x, dim=-1).to(torch.int32))
 
 
 def test_argmax_kernel_replays_in_a_cuda_graph(cuda):
@@ -857,3 +892,60 @@ def test_side_stream_prefetcher_gives_the_synchronous_batches(cuda):
             datamodule=SyntheticLMDataModule(cfg, batch_size=2, n_train=16))
         losses[key] = torch.stack(rows).cpu()
     assert torch.equal(losses["side"], losses["sync"])
+
+
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_verify_step_on_card_matches_cpu(cuda, layout):
+    """One ``decode_step_verify`` of a tiny fp32 config on the card against
+    the same step on the CPU (1e-4: fp32 products summed in another
+    order), then the speculative engine's greedy streams on both: equal,
+    with RMSNorm 2L + 1 and argmax once a verify step on the card, and no
+    paged decode (verify attends in plain torch)."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.models.generation import decode_step_verify
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+    from ray_lightning_tpu_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card_params = tree_map(lambda t: t.to(cuda), cpu_params)
+    rng = np.random.default_rng(1)
+    B, K, bs, maxb = 3, 4, 4, 8
+    C = bs * maxb
+    hkv, hd, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    if layout == "slot":
+        shape, tables = (L, B, hkv, C, hd), None
+    else:
+        shape = (L, B * maxb + 1, hkv, bs, hd)
+        tables = torch.from_numpy((1 + rng.permutation(B * maxb)).reshape(
+            B, maxb).astype(np.int32))
+    cache = {n: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+             for n in ("k", "v")}
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, K)))
+    pos = torch.tensor([C - K - 1, 9, 3], dtype=torch.int32)
+    want, _ = decode_step_verify(cpu_params, {n: t.clone() for n, t in cache.items()},
+                                 tokens, pos, cfg, block_tables=tables)
+    got, _ = decode_step_verify(
+        card_params, {n: t.to(cuda) for n, t in cache.items()}, tokens.to(cuda),
+        pos.to(cuda), cfg, block_tables=None if tables is None else tables.to(cuda))
+    _close(got.cpu(), want, 1e-4)
+
+    prompts = [[5, 9, 5, 9, 5, 9, 5], [3, 3, 3, 3], [7, 1, 2, 7, 1, 2]]
+    ecfg = EngineConfig(num_slots=2, max_prompt_len=8, max_len=32, block_size=4,
+                        kv_layout=layout, speculate_k=4)
+    streams = []
+    for device, params in (("cpu", cpu_params), (cuda, card_params)):
+        kernels.reset_launch_counts()
+        engine = InferenceEngine(params, cfg, ecfg, device=device)
+        comps = [engine.submit(p, max_new_tokens=10) for p in prompts]
+        engine.run_until_idle()
+        streams.append([c.tokens for c in comps])
+        if device != "cpu":
+            counts = kernels.launch_counts()
+            steps, prefills = engine.stats["decode_steps"], engine.stats["prefills"]
+            assert counts["paged_decode"] == 0
+            assert counts["argmax"] == steps
+            assert counts["rmsnorm"] == 2 * L * prefills + (2 * L + 1) * steps
+            assert engine.stats["accepted_tokens"] > engine.stats["spec_row_ticks"]
+    assert streams[0] == streams[1]

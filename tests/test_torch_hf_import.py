@@ -6,7 +6,7 @@ Each model is a randomly initialised ``transformers`` model at tiny widths
 JAX import's ``forward`` to 1e-4, and the port's params must equal
 ``params_from_jax`` of the JAX import bitwise (in bf16 too, where the
 Mixtral router stays fp32). Every refusal of ``config_from_hf`` and the
-importers is held, yarn and longrope with the port's rope message.
+importers is held against the JAX importer's.
 """
 import sys
 from types import SimpleNamespace
@@ -181,12 +181,17 @@ def _hf_namespace(**over):
 
 
 REFUSED = {
+    # yarn maps, but not on a model whose layers mix attention types
     "yarn": dict(rope_scaling={"rope_type": "yarn", "factor": 4.0,
-                               "original_max_position_embeddings": 32}),
+                               "original_max_position_embeddings": 32},
+                 sliding_window=8,
+                 layer_types=["sliding_attention", "full_attention"]),
+    # longrope maps, but not with a partial rotary factor (Phi-4-mini)
     "longrope": dict(rope_scaling={"rope_type": "longrope", "factor": 2.0,
                                    "long_factor": [2.0] * 8,
                                    "short_factor": [1.0] * 8,
-                                   "original_max_position_embeddings": 32}),
+                                   "original_max_position_embeddings": 32},
+                     partial_rotary_factor=0.75),
     "dynamic": dict(rope_scaling={"rope_type": "dynamic", "factor": 4.0}),
     "partial_rotary": dict(partial_rotary_factor=0.75),
     "mlp_bias": dict(mlp_bias=True),
@@ -203,16 +208,16 @@ def test_config_from_hf_refuses_what_it_cannot_map(case):
     hf_cfg = _hf_namespace(**REFUSED[case])
     with pytest.raises(NotImplementedError) as port:
         thf.config_from_hf(hf_cfg)
+    # the JAX importer refuses the same configs
+    with pytest.raises(NotImplementedError) as ref:
+        jhf.config_from_hf(hf_cfg)
     if case in ("yarn", "longrope"):
-        # the port's rope refuses them, with the same message
-        with pytest.raises(NotImplementedError) as rope:
-            normalize_rope_scaling(hf_cfg.rope_scaling)
-        assert str(port.value) == str(rope.value)
-        assert "not ported yet" in str(port.value)
-    elif case != "dynamic":
-        # the JAX importer refuses the same configs
-        with pytest.raises(NotImplementedError):
-            jhf.config_from_hf(hf_cfg)
+        # the rope itself maps: the refusal is the model's other feature
+        assert normalize_rope_scaling(hf_cfg.rope_scaling) is not None
+        assert ("mixed per-layer" if case == "yarn"
+                else "partial_rotary_factor") in str(port.value)
+    if case == "dynamic":
+        assert "dynamic" in str(port.value) and "dynamic" in str(ref.value)
 
 
 @pytest.mark.parametrize("over,window", [

@@ -86,9 +86,16 @@ def test_rope_matches_jax(scaling, head_dim):
 
 @pytest.mark.parametrize("kind", ["yarn", "longrope", "dynamic"])
 def test_rope_unported_kinds_raise(kind):
-    with pytest.raises(NotImplementedError):
-        trope.rope_angles(8, 16, scaling={"rope_type": kind, "factor": 2.0},
-                          device="cpu")
+    """A scaling dict the reference refuses, the port refuses with the same
+    exception class: yarn and longrope without the pretrain length
+    (ValueError), the unmapped dynamic kind (NotImplementedError)."""
+    scaling = {"rope_type": kind, "factor": 2.0}
+    with pytest.raises((ValueError, NotImplementedError)) as ref:
+        jrope.rope_angles(8, 16, scaling=scaling)
+    with pytest.raises(ref.type):
+        trope.rope_angles(8, 16, scaling=scaling, device="cpu")
+    assert ref.type is (NotImplementedError if kind == "dynamic"
+                        else ValueError)
 
 
 FLASH_CASES = {
@@ -184,6 +191,42 @@ def test_paged_decode_matches_jax_interpret_at_llama3_8b_layout(dtype):
     as_t = (lambda a: _t(a.astype(np.float32)).bfloat16()) if dtype == "bfloat16" else _t
     got = tpa.paged_decode_attention(_t(q), as_t(kc), as_t(vc), _t(tables), _t(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("group", [3, 5, 6, 7])
+def test_paged_decode_matches_jax_interpret_at_odd_groups(group):
+    """GQA groups the kernel is not instantiated for (Qwen2.5-7B's 7 among
+    them): the JAX kernel pads them to its sublane tile, the port's pads
+    them to the next instantiated group (its plain version here)."""
+    rng = np.random.default_rng(group)
+    B, Hkv, hd, bs, maxb = 4, 2, 128, 16, 4
+    nblk = B * maxb + 1
+    q = rng.standard_normal((B, Hkv, group, hd)).astype(np.float32)
+    kc = rng.standard_normal((nblk, Hkv, bs, hd)).astype(np.float32)
+    vc = rng.standard_normal((nblk, Hkv, bs, hd)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, nblk)).reshape(B, maxb).astype(np.int32)
+    pos = np.asarray([0, 17, 40, 63], np.int32)
+    want = jpa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(tables), jnp.asarray(pos), interpret=True,
+    )
+    got = tpa.paged_decode_attention(_t(q), _t(kc), _t(vc), _t(tables), _t(pos))
+    assert got.shape == (B, Hkv, group, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_paged_group_pads_to_the_next_instantiated_group():
+    """Groups 1-8 run at the smallest instantiated group that holds them;
+    the plan's scratch counts the padded heads; past 8 is refused."""
+    assert [tpa.paged_group(g) for g in range(1, 9)] == [1, 2, 4, 4, 8, 8, 8, 8]
+    assert tpa.paged_decode_plan(8, 4, 7, 128, 16, 64)["scratch"] == \
+        8 * 4 * 16 * 8 * 130
+    assert tpa.paged_decode_plan(8, 4, 3, 128, 16, 64) == \
+        tpa.paged_decode_plan(8, 4, 4, 128, 16, 64)
+    with pytest.raises(ValueError, match="up to 8"):
+        tpa.paged_group(9)
+    with pytest.raises(ValueError, match="up to 8"):
+        tpa.paged_decode_plan(1, 1, 12, 128, 16, 4)
 
 
 def test_paged_decode_plan_depends_on_host_sizes_only():

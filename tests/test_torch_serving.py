@@ -191,9 +191,9 @@ def test_sampling_is_seeded(model, sampling):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(kv_layout="slot", speculate_k=4), NotImplementedError),
+    (dict(role="decode"), NotImplementedError),
     (dict(kv_layout="ragged"), ValueError),
-    (dict(speculate_k=4), NotImplementedError),
+    (dict(kv_layout="paged", role="decode"), NotImplementedError),
     (dict(speculate_k=1), ValueError),
     (dict(role="prefill"), NotImplementedError),
     (dict(max_len=30), ValueError),
