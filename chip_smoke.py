@@ -58,7 +58,7 @@ final line):
 4a. slot serving (``serving_slot``) — the same weights and requests on the
    slot layout (8 rows of 1024 positions, ``decode_step_ragged``: fp32
    attention over the dense rows in plain torch, no paged decode), with
-   the same checks and the profiled rerun; then one decode step timed by
+   the same checks (no profiled rerun); then one decode step timed by
    graph replay beside its bytes bound, and the share of it that the
    layers' dense attention takes;
 5. serving exactness — the same engine in fp32 at full width, cut to 2
@@ -142,11 +142,43 @@ final line):
    "dots" against "nothing" (1e-6), bf16-mixed through the kernels against
    the plain versions (``MIXED_TOL``), and an accumulation of two
    micro-batches of 1 against one update on the batch of 2 (1e-5);
-11. the ``kernels`` JSON line (launches from the main paths: serving,
+11. MoE training (``train_moe``) — ``Trainer.fit`` of ``LlamaModule`` on
+   Mixtral-8x7B widths through ``mixtral_config_from_hf`` (dim 4096, 32 / 8
+   heads of 128, 8 experts of ffn 14336 top-2, vocab 32000) with the
+   training values capacity factor 1.5 and ``moe_aux_weight`` 0.01, depth
+   cut to 2 layers so that fp32 masters and AdamW fit on one 80 GB card,
+   bf16-mixed, per-layer remat, batch 2 x 2048, 8 steps and one validation
+   batch: finite losses, ``train_moe_aux`` and ``val_moe_aux`` logged, the
+   exact launch counts; the median step, tokens/s and peak memory. Then
+   (``moe_train_exactness``) fp32 at narrow widths, 2 layers: the loss, the
+   auxiliary loss and every gradient on the card equal the CPU's;
+12. the Ray strategies on one card (``train_ray_ddp``) — the training main
+   path's model (``LlamaConfig.small()``, bf16, batch 8 x 2048, 6 steps)
+   through ``RayStrategy(num_workers=1, use_gpu=True)``: a worker process
+   owns the card in an NCCL group of world size 1; then
+   ``RayShardedStrategy(zero_stage=3)`` and ``HorovodRayStrategy`` the same
+   way. The weights each run sends back equal a ``SingleDeviceStrategy``
+   run of the same seed (bitwise, or within 2^-7 of a leaf's max); the step
+   median beside the single-device one, the launcher's start-up and the
+   weights' way back; the workers' launch counts;
+13. two ranks on one card (``ray_two_ranks``) — two worker processes over
+   gloo (NCCL refuses two ranks on one device), a narrow fp32 config, one
+   AdamW step of 2 rows each: both ranks hold the same parameters, equal to
+   one process stepping on the global batch of 4 within 1e-5; for
+   ``RayStrategy`` and ``RayShardedStrategy`` at stages 1, 2 and 3. Beside
+   the kernel checks, the kernels are held against their plain versions at
+   these paths' shapes (RMSNorm [4096,4096] bf16 and flash q [2,32,2048,128]
+   forward and backward, timed; the two-rank fp32 shapes, checked);
+14. the ``kernels`` JSON line (launches from the main paths: serving,
    serving_slot, serving_spec, serving_spec_slot, generate_window,
    serving_qwen_yarn, generate_longrope, serving_moe, training,
-   training_complete), the card line, and the final ``{"ok": true, ...}``
-   line.
+   training_complete, train_moe, train_ray_ddp, train_ray_zero3,
+   train_ray_horovod, ray_two_ranks; the last four from the workers'
+   counts, which each worker process keeps from 0 and the launcher sums),
+   the card line, and the final ``{"ok": true, ...}`` line.
+
+``python3 chip_smoke.py --phases kernels,train_moe,ray,ray_two_ranks`` runs
+the named phases alone and prints no result: a rehearsal of a phase.
 
 Timings are printed beside the card's name and power limit; they are this
 card's numbers, and the fields are described in PERF.md.
@@ -159,6 +191,12 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+try:  # the classes below ship to worker processes by reference
+    from ray_lightning_tpu_torch.callbacks import Callback as _Callback
+    from ray_lightning_tpu_torch.models.llama import LlamaModule as _LlamaModule
+except ImportError:  # a directory without the port: main() fails loudly
+    _Callback = _LlamaModule = object
 
 T0 = time.perf_counter()
 
@@ -1200,8 +1238,11 @@ def serving_slot(torch, card, cfg, params, paged_tps, paged_streams):
     way on the same cache)."""
     from ray_lightning_tpu_torch.models.generation import dense_decode_attention
 
+    # no profiled rerun (it took ~70 s of the script): the main path's
+    # profile classifies the same layers
     counts, engine, tps, streams = serve_path(torch, card, cfg, params,
-                                              "serving_slot", layout="slot")
+                                              "serving_slot", layout="slot",
+                                              profile=False)
     same = sum(a == b for a, b in zip(streams, paged_streams))
     log(f"serving_slot on {card}: {tps:.1f} tokens/s beside the paged main "
         f"path's {paged_tps:.1f} in the same run; {same} of {len(streams)} "
@@ -1249,15 +1290,14 @@ def serving_spec(torch, card, cfg, params, streams):
     cuBLAS algorithms than the one-token step's 8, and a near-tie may then
     fall the other way); then one verify step of each layout by graph replay
     beside its bytes bound and beside the one-token step of the same
-    layout; the profiled rerun on the paged layout only. Returns the launch
-    counts of both layouts."""
+    layout; no profiled rerun (each took ~70 s of the script; the verify
+    step's graph replay gives its device time). Returns the launch counts of
+    both layouts."""
     by_path = {}
     for layout, path in (("paged", "serving_spec"), ("slot", "serving_spec_slot")):
-        # the profiled rerun once, on the paged layout: the slot layout's
-        # verify step is the same code over a cache that needs no gather
         counts, engine, tps, got = serve_path(
             torch, card, cfg, params, path, layout=layout, speculate_k=SPEC_K,
-            profile=layout == "paged")
+            profile=False)
         same = sum(a == b for a, b in zip(got, streams))
         log(f"{path} on {card}: {same} of {len(streams)} greedy streams equal "
             "the speculate_k=0 main path's (bf16; not checked)")
@@ -2628,7 +2668,670 @@ def complete_exactness(torch):
     torch.cuda.empty_cache()
 
 
-def main():
+# --------------------------------------------------------------------- #
+# phases 11 to 13: MoE training, the Ray strategies
+# --------------------------------------------------------------------- #
+MOE_TRAIN_STEPS = 8
+MOE_TRAIN_BATCH = 2  # x 2048 tokens
+MOE_TRAIN_LAYERS = 2  # fp32 masters and AdamW of 2 layers: ~57 GB
+RAY_STEPS = 6  # training-path steps of each Ray run and its single-device twin
+RAY_TWO_RANK_BATCH = 2  # rows per rank; the reference steps on 4
+
+
+class StepTimes(_Callback):
+    """Each training step's device time, from a CUDA event recorded at
+    every step's start and one at the end of training, read once there.
+    Module-level (imported from ``chip_smoke``, not ``__main__``) so that a
+    worker process can unpickle it by reference; its ``step_ms`` come back
+    to the main process through the callback states rank 0 returns."""
+
+    def __init__(self):
+        self.step_ms = []
+        self._events = []
+
+    def __getstate__(self):
+        return {"step_ms": list(self.step_ms), "_events": []}
+
+    def on_train_batch_start(self, trainer, module, batch, batch_idx):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self._events.append(ev)
+
+    def on_train_end(self, trainer, module):
+        import torch
+
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        evs = self._events + [end]
+        self.step_ms = [a.elapsed_time(b) for a, b in zip(evs[:-1], evs[1:])]
+        self._events = []
+
+    def state_dict(self):
+        return {"step_ms": self.step_ms}
+
+    def load_state_dict(self, state):
+        self.step_ms = list(state["step_ms"])
+
+
+class RankParams(_Callback):
+    """At the end of fit, every rank's parameters gathered over the process
+    group: the largest gap between any rank's and rank 0's."""
+
+    def __init__(self):
+        self.max_gap = None
+
+    def on_fit_end(self, trainer, module):
+        import torch
+        import torch.distributed as dist
+
+        from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+        dev = (trainer.device if dist.get_backend() == "nccl"
+               else torch.device("cpu"))
+        flat = torch.cat([t.detach().float().reshape(-1)
+                          for t in tree_leaves(trainer.params)]).to(dev)
+        parts = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, flat)
+        self.max_gap = max(float((p - parts[0]).abs().max()) for p in parts)
+
+    def state_dict(self):
+        return {"max_gap": self.max_gap}
+
+    def load_state_dict(self, state):
+        self.max_gap = state["max_gap"]
+
+
+class SGDLlama(_LlamaModule):
+    """LlamaModule with plain SGD at ``lr``: the step moves each parameter
+    by lr times its gradient, so two runs' parameters differ by lr times
+    their gradients' difference. AdamW would divide each gradient by its own
+    magnitude, and an element whose gradient sits at the rounding floor
+    would move by a part of lr on a rounding difference."""
+
+    def configure_optimizers(self):
+        import torch
+
+        from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+        return torch.optim.SGD(list(tree_leaves(self.params)), lr=self.lr)
+
+
+class GlobalBatchSampler:
+    """The one-process reference of ``world`` ranks: at each step rank 0's
+    batch, then rank 1's, ... (each rank's indices those of its
+    ``DistributedSampler``: a strided slice of one seeded permutation)."""
+
+    def __init__(self, n, world, batch, seed):
+        self.n, self.world, self.batch, self.seed = n, world, batch, seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __len__(self):
+        return (self.n // self.world) // self.batch * self.batch * self.world
+
+    def __iter__(self):
+        import numpy as np
+
+        perm = np.random.default_rng(self.seed + self.epoch).permutation(self.n)
+        per_rank = [perm[r::self.world] for r in range(self.world)]
+        out = []
+        for b in range(len(per_rank[0]) // self.batch):
+            for r in range(self.world):
+                out.extend(per_rank[r][b * self.batch:(b + 1) * self.batch])
+        return iter([int(i) for i in out])
+
+
+def _smoke_module():
+    """This script imported under its own name, so that its callbacks
+    pickle by reference (a worker imports ``chip_smoke`` from the main process's
+    sys.path; ``__main__`` would be the worker's own boot module)."""
+    import importlib
+
+    return importlib.import_module("chip_smoke")
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def moe_train_config(torch, dtype, narrow=False):
+    """Mixtral-8x7B widths through ``mixtral_config_from_hf``, cut to
+    MOE_TRAIN_LAYERS layers, sequence 2048, capacity factor 1.5 and
+    ``moe_aux_weight`` 0.01 (training values, where the importer sets the
+    serving ones); ``narrow``: dim 1024, 8 query / 2 KV heads of 128, ffn
+    1024, vocab 4096, sequence 256, 8 experts top-2 as published."""
+    cfg = mixtral_config(torch, MOE_TRAIN_LAYERS, dtype)
+    cfg = dataclasses.replace(cfg, max_seq=2048, capacity_factor=1.5,
+                              moe_aux_weight=0.01)
+    if narrow:
+        cfg = dataclasses.replace(cfg, vocab_size=4096, dim=1024, n_heads=8,
+                                  n_kv_heads=2, ffn_dim=1024, max_seq=256)
+    return cfg
+
+
+def train_moe(torch, card):
+    """MoE training: Trainer.fit of LlamaModule on Mixtral-8x7B widths cut
+    to 2 layers, fp32 masters under bf16-mixed, AdamW, per-layer remat,
+    batch 2 x 2048, MOE_TRAIN_STEPS steps and one validation batch; losses
+    finite, train_moe_aux and val_moe_aux logged, launch counts exact."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+
+    cfg = moe_train_config(torch, torch.float32)
+    check(cfg.n_experts == 8 and cfg.expert_top_k == 2 and cfg.dim == 4096
+          and cfg.n_heads == 32 and cfg.n_kv_heads == 8 and cfg.ffn_dim == 14336
+          and cfg.vocab_size == 32000 and cfg.remat, f"train_moe config {cfg}")
+    tokens = MOE_TRAIN_BATCH * cfg.max_seq
+    capacity = max(1, int(cfg.capacity_factor * cfg.expert_top_k * tokens
+                          / cfg.n_experts))
+    clock = _smoke_module().StepTimes()
+    losses = []
+    from ray_lightning_tpu_torch.callbacks import Callback
+
+    class Losses(Callback):
+        def on_train_batch_end(self, trainer, module, outputs, batch, i):
+            losses.append(outputs["loss"])
+
+    module = LlamaModule(cfg, lr=3e-4, warmup_steps=2,
+                         total_steps=MOE_TRAIN_STEPS)
+    dm = SyntheticLMDataModule(cfg, batch_size=MOE_TRAIN_BATCH,
+                               n_train=MOE_TRAIN_BATCH * MOE_TRAIN_STEPS,
+                               n_val=MOE_TRAIN_BATCH)
+    trainer = Trainer(device="cuda", precision="bf16-mixed",
+                      max_steps=MOE_TRAIN_STEPS, logger=False,
+                      enable_checkpointing=False, seed=0,
+                      callbacks=[clock, Losses()])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    trainer.fit(module, datamodule=dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    values = [float(x) for x in losses]
+    check(len(values) == MOE_TRAIN_STEPS and all(math.isfinite(x)
+                                                 for x in values),
+          f"train_moe losses {values}")
+    for name in ("train_moe_aux", "val_moe_aux", "val_loss"):
+        check(name in trainer.callback_metrics and math.isfinite(
+            float(trainer.callback_metrics[name])),
+            f"train_moe: {name} not logged: {sorted(trainer.callback_metrics)}")
+    expect = training_launches(cfg.n_layers, MOE_TRAIN_STEPS, 1)
+    check(counts == expect, f"train_moe launch counts {counts} != {expect}")
+    step_ms = clock.step_ms[1:-1]  # past the first; the last holds validation
+    med = _median(step_ms)
+    n_params = cfg.num_params()
+    log(f"train_moe on {card}: Mixtral-8x7B widths cut to {cfg.n_layers} "
+        f"layers ({n_params / 1e9:.3f} B params, fp32 masters, bf16-mixed, "
+        f"remat, AdamW) batch {MOE_TRAIN_BATCH} x {cfg.max_seq}, capacity "
+        f"factor {cfg.capacity_factor} ({capacity} tokens an expert of "
+        f"{tokens}), moe_aux_weight {cfg.moe_aux_weight}; fit of "
+        f"{MOE_TRAIN_STEPS} steps + 1 val batch in {fit_s:.1f}s; median step "
+        f"{med:.1f} ms over {len(step_ms)} steps (min {min(step_ms):.1f}, max "
+        f"{max(step_ms):.1f}; first {clock.step_ms[0]:.1f}) -> "
+        f"{tokens / (med / 1e3):.0f} tokens/s; peak memory {peak_gib:.2f} GiB"
+        f" (depth cut to {cfg.n_layers} of 32 layers so that AdamW fits on "
+        "one 80 GB card)")
+    log(f"train_moe losses {[round(x, 4) for x in values]}; train_moe_aux "
+        f"{float(trainer.callback_metrics['train_moe_aux']):.5f} val_moe_aux "
+        f"{float(trainer.callback_metrics['val_moe_aux']):.5f} val_loss "
+        f"{float(trainer.callback_metrics['val_loss']):.4f}")
+    L = cfg.n_layers
+    log(f"train_moe launches: {counts} (per step: rmsnorm {4 * L + 1}, "
+        f"flash_fwd {2 * L}, flash_bwd_dq {L}, flash_bwd_dkv {L}; per val "
+        f"batch: rmsnorm {2 * L + 1}, flash_fwd {L})")
+    del trainer, module, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": med, "tokens_per_s": tokens / (med / 1e3),
+                    "peak_gib": peak_gib}
+
+
+def moe_train_exactness(torch):
+    """The MoE training loss and every gradient on the card (kernels)
+    against the CPU (plain versions) from the same fp32 weights and tokens:
+    Mixtral's head layout and experts at narrow widths (dim 1024, ffn 1024,
+    vocab 4096), 2 layers, batch 2 x 256, capacity factor 1.5, remat. Loss
+    and aux within 1e-5 relative, each gradient leaf within 1e-4 of its max
+    (fp32 on both sides, sums in other orders)."""
+    from ray_lightning_tpu_torch.models.llama import init_params, lm_loss
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = moe_train_config(torch, torch.float32, narrow=True)
+    host = init_params(cfg, torch.Generator().manual_seed(21), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq),
+                           generator=torch.Generator().manual_seed(22))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.to(dev).requires_grad_(True), host)
+        loss, logs = lm_loss(params, tokens.to(dev), cfg)
+        loss.backward()
+        out[dev] = (loss.item(), logs["moe_aux"].item(),
+                    [t.grad.detach().cpu() for t in tree_leaves(params)])
+    (lk, ak, gk), (lc, ac, gc_) = out["cuda"], out["cpu"]
+    check(abs(lk - lc) <= 1e-5 * abs(lc), f"moe loss card {lk} vs cpu {lc}")
+    check(abs(ak - ac) <= 1e-5 * abs(ac), f"moe aux card {ak} vs cpu {ac}")
+    worst = 0.0
+    for a, b in zip(gk, gc_):
+        peak = float(b.abs().max())
+        check(peak > 0, "a cpu gradient leaf is all zero")
+        worst = max(worst, max_err(a, b) / peak)
+    check(worst <= 1e-4, f"moe gradients: worst leaf {worst:.3g} of its max")
+    log(f"train_moe exactness: fp32, Mixtral layout at narrow widths, 2 "
+        f"layers, batch 2 x {cfg.max_seq}, capacity factor 1.5: card loss "
+        f"{lk:.7f} vs cpu {lc:.7f}, aux {ak:.7f} vs {ac:.7f} (1e-5 relative);"
+        f" worst gradient leaf {worst:.3g} of its max (tol 1e-4), the router "
+        "and experts included")
+    del out, gk, gc_
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ray_run(torch, strategy, cfg, steps, batch, n_train, callbacks,
+             module_params=None, lr=3e-4):
+    """One Trainer.fit of LlamaModule on the card through ``strategy``:
+    returns the trainer, the module, the wall time of fit."""
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+
+    module = LlamaModule(cfg, lr=lr, warmup_steps=2, total_steps=steps)
+    if module_params is not None:
+        module.params = module_params
+    dm = SyntheticLMDataModule(cfg, batch_size=batch, n_train=n_train,
+                               n_val=batch)
+    trainer = Trainer(device="cuda", strategy=strategy, max_steps=steps,
+                      logger=False, enable_checkpointing=False, seed=0,
+                      callbacks=callbacks)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer.fit(module, datamodule=dm)
+    torch.cuda.synchronize()
+    return trainer, module, time.perf_counter() - t
+
+
+def _weights_gap(torch, got, want):
+    """(bitwise, worst gap of a leaf relative to its max, elements that
+    differ) between two parameter trees."""
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    bitwise, worst, differ, total = True, 0.0, 0, 0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.detach().to(b.device), b.detach()
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"weights {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
+        same = torch.equal(a, b)
+        bitwise = bitwise and same
+        if not same:
+            worst = max(worst, max_err(a, b) / max(float(b.float().abs().max()),
+                                                   1e-30))
+            differ += int((a != b).sum())
+        total += b.numel()
+    return bitwise, worst, differ, total
+
+
+# the Ray runs of the training path against its single-device run: bf16
+# weights after RAY_STEPS AdamW steps. The kernels are deterministic, so
+# the weights are expected bitwise; any gap must stay within 2 bf16 ulps of
+# a leaf's max (2^-7)
+RAY_BF16_TOL = 2.0 ** -7
+
+
+def train_ray_ddp(torch, card):
+    """The training main path's model (LlamaConfig.small(), bf16, batch 8 x
+    2048) through RayStrategy(num_workers=1, use_gpu=True): one worker
+    process owns the card and joins an NCCL group of world size 1; then
+    RayShardedStrategy(zero_stage=3) and HorovodRayStrategy the same way.
+    Each run's weights, back in the main process, against a SingleDeviceStrategy
+    run of the same seed; the step median beside the single-device one; the
+    launcher's start-up and the weights' way back."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig
+    from ray_lightning_tpu_torch.strategies import (
+        HorovodRayStrategy,
+        RayShardedStrategy,
+        RayStrategy,
+    )
+
+    smoke = _smoke_module()
+    cfg = LlamaConfig.small()
+    n_train = TRAIN_BATCH * RAY_STEPS
+    clock = smoke.StepTimes()
+    kernels.reset_launch_counts()
+    single, single_module, single_s = _ray_run(
+        torch, None, cfg, RAY_STEPS, TRAIN_BATCH, n_train, [clock])
+    single_counts = kernels.launch_counts()
+    single_ms = _median(clock.step_ms[1:-1])
+    want = single_module.params
+    expect = training_launches(cfg.n_layers, RAY_STEPS, 1)
+    check(single_counts == expect,
+          f"single-device launch counts {single_counts} != {expect}")
+    log(f"train_ray_ddp reference on {card}: SingleDeviceStrategy, "
+        f"LlamaConfig.small() bf16 batch {TRAIN_BATCH} x {cfg.max_seq}, "
+        f"{RAY_STEPS} steps + 1 val batch: fit {single_s:.1f}s, median step "
+        f"{single_ms:.1f} ms over {len(clock.step_ms) - 2} steps")
+    del single
+    out, by_path = {}, {}
+    for name, strategy in (
+        ("train_ray_ddp", RayStrategy(num_workers=1, use_gpu=True,
+                                      debug_collectives=True)),
+        ("train_ray_zero3", RayShardedStrategy(num_workers=1, use_gpu=True,
+                                               zero_stage=3)),
+        ("train_ray_horovod", HorovodRayStrategy(num_workers=1, use_gpu=True)),
+    ):
+        clock = smoke.StepTimes()
+        kernels.reset_launch_counts()
+        trainer, module, fit_s = _ray_run(torch, strategy, cfg, RAY_STEPS,
+                                          TRAIN_BATCH, n_train, [clock])
+        main_counts = kernels.launch_counts()
+        check(set(main_counts.values()) == {0},
+              f"{name}: the main process launched kernels: {main_counts}")
+        counts = trainer.worker_launch_counts
+        check(counts == expect, f"{name} worker launch counts {counts} != "
+              f"{expect}")
+        launcher = strategy.launcher
+        check(launcher.backend == "nccl", f"{name}: backend {launcher.backend}")
+        check(trainer.global_step == RAY_STEPS, f"{name}: global_step "
+              f"{trainer.global_step}")
+        val = float(trainer.callback_metrics["val_loss"])
+        check(math.isfinite(val), f"{name}: val_loss {val}")
+        bitwise, gap, differ, total = _weights_gap(torch, module.params, want)
+        check(gap <= RAY_BF16_TOL, f"{name}: weights {gap:.3g} of a leaf's "
+              f"max from the single-device run (tol {RAY_BF16_TOL:.3g})")
+        med = _median(clock.step_ms[1:-1])
+        tm = launcher.timings
+        log(f"{name} on {card}: {type(strategy).__name__}(num_workers=1, "
+            f"use_gpu=True{', zero_stage=3' if 'zero' in name else ''}), one "
+            f"worker process on the card over {launcher.backend} at world "
+            f"size 1: fit {fit_s:.1f}s (single device {single_s:.1f}s): "
+            f"launcher start-up {tm['setup_s']:.2f}s, the stage in the worker "
+            f"{tm['run_s']:.2f}s, weights back {tm['weights_s']:.2f}s "
+            f"(rank 0 serialising {tm['collect_s']:.2f}s, the transfer "
+            f"{tm['transfer_s']:.2f}s, the main process loading {tm['load_s']:.2f}s"
+            f"); median step {med:.1f} ms vs single device {single_ms:.1f} ms "
+            f"({med - single_ms:+.1f} ms a step); weights vs single device: "
+            f"bitwise {bitwise}, {differ} of {total} elements differ, worst "
+            f"{gap:.3g} of a leaf's max (tol {RAY_BF16_TOL:.3g}); val_loss "
+            f"{val:.4f}; launches {counts}")
+        out[name] = {"step_ms": med, "single_step_ms": single_ms,
+                     "setup_s": tm["setup_s"], "weights_s": tm["weights_s"],
+                     "fit_s": fit_s, "bitwise": bitwise}
+        by_path[name] = counts
+        del trainer, module
+        gc.collect()
+        torch.cuda.empty_cache()
+    del want, single_module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path, out
+
+
+def two_rank_config(torch):
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=1024, dim=512, n_layers=2, n_heads=4,
+                       n_kv_heads=2, ffn_dim=1024, max_seq=256,
+                       dtype=torch.float32, remat=False)
+
+
+def ray_two_ranks(torch, card):
+    """Two worker processes share the card over gloo (NCCL refuses two
+    ranks on one device; each worker claims half a "GPU"), on a narrow fp32
+    config, one SGD step at lr 1 of 2 rows each: both ranks must hold the
+    same parameters, equal to one process stepping on the global batch of 4
+    rows within 1e-5 (so the mean of the ranks' gradients equals the
+    global batch's within 1e-5); for RayStrategy and RayShardedStrategy at
+    stages 1, 2 and 3. (AdamW's first step is lr x g / (|g| + 1e-8): an
+    element whose gradient is at the rounding floor moves by a part of lr
+    on a rounding difference, which a one-step comparison cannot tell from
+    a fault; train_ray_ddp holds AdamW bitwise.)"""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.core import DataLoader, Trainer
+    from ray_lightning_tpu_torch.models.llama import SyntheticLMDataModule
+    from ray_lightning_tpu_torch.strategies import (
+        RayShardedStrategy,
+        RayStrategy,
+    )
+
+    smoke = _smoke_module()
+    cfg = two_rank_config(torch)
+    world, batch = 2, RAY_TWO_RANK_BATCH
+    n_train = world * batch
+    dm = SyntheticLMDataModule(cfg, batch_size=batch * world, n_train=n_train)
+    dm.setup("fit")
+    loader = DataLoader(dm.train_data, batch_size=batch * world,
+                        drop_last=True,
+                        sampler=smoke.GlobalBatchSampler(n_train, world, batch, 0))
+    ref_module = smoke.SGDLlama(cfg, lr=1.0, warmup_steps=0, total_steps=1)
+    ref = Trainer(device="cuda", max_steps=1, logger=False, seed=0,
+                  enable_checkpointing=False)
+    ref.fit(ref_module, train_dataloaders=loader)
+    want = ref_module.params
+    expect_one = training_launches(cfg.n_layers, 1, 0, remat=False)
+    total_counts = {k: 0 for k in expect_one}
+    rows = []
+    for name, strategy in (
+        ("ddp", RayStrategy(num_workers=2, use_gpu=True,
+                            resources_per_worker={"GPU": 0.5})),
+        ("zero1", RayShardedStrategy(num_workers=2, use_gpu=True, zero_stage=1,
+                                     resources_per_worker={"GPU": 0.5})),
+        ("zero2", RayShardedStrategy(num_workers=2, use_gpu=True, zero_stage=2,
+                                     resources_per_worker={"GPU": 0.5})),
+        ("zero3", RayShardedStrategy(num_workers=2, use_gpu=True, zero_stage=3,
+                                     resources_per_worker={"GPU": 0.5})),
+    ):
+        ranks = smoke.RankParams()
+        clock = smoke.StepTimes()
+        module = smoke.SGDLlama(cfg, lr=1.0, warmup_steps=0, total_steps=1)
+        trainer = Trainer(device="cuda", strategy=strategy, max_steps=1,
+                          logger=False, seed=0, enable_checkpointing=False,
+                          callbacks=[ranks, clock])
+        dmr = SyntheticLMDataModule(cfg, batch_size=batch, n_train=n_train)
+        dmr.setup("fit")
+        t = time.perf_counter()
+        trainer.fit(module, train_dataloaders=dmr.train_dataloader())
+        fit_s = time.perf_counter() - t
+        launcher = strategy.launcher
+        check(launcher.backend == "gloo", f"two ranks {name}: backend "
+              f"{launcher.backend}")
+        check(ranks.max_gap == 0.0, f"two ranks {name}: the ranks' parameters "
+              f"differ by {ranks.max_gap}")
+        gap = max(max_err(a.detach().to(b.device), b.detach())
+                  for a, b in zip(_leaves(module.params), _leaves(want)))
+        check(gap <= 1e-5, f"two ranks {name}: {gap:.3g} from the global-batch "
+              "step (tol 1e-5)")
+        counts = trainer.worker_launch_counts
+        check(counts == {k: 2 * v for k, v in expect_one.items()},
+              f"two ranks {name}: launch counts {counts}")
+        for k, v in counts.items():
+            total_counts[k] += v
+        rows.append(f"{name} gap {gap:.3g}, step {clock.step_ms[0]:.1f} ms, "
+                    f"fit {fit_s:.1f}s (start-up {launcher.timings['setup_s']:.1f}s)")
+        del trainer, module
+        gc.collect()
+    log(f"ray_two_ranks on {card}: 2 worker processes on one card over gloo, "
+        f"fp32 dim {cfg.dim}, {cfg.n_layers} layers, {batch} x {cfg.max_seq} "
+        f"rows each, one SGD step at lr 1: the ranks' parameters equal "
+        f"bitwise, and "
+        f"equal to one process on the global batch of {world * batch} within "
+        "1e-5: " + "; ".join(rows) + f"; launches {total_counts}")
+    del want, ref_module, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total_counts
+
+
+def check_new_path_shapes(torch, F, results):
+    """The kernels at the shapes the new paths give them, against their
+    plain versions: train_moe's RMSNorm [4096,4096] bf16 and flash q
+    [2,32,2048,128] kv [2,8,2048,128] bf16 (forward and backward, timed
+    beside their bounds, plain versions and SDPA); ray_two_ranks' fp32
+    RMSNorm [512,512] and flash q [2,4,256,128] kv [2,2,256,128] (checked)."""
+    from ray_lightning_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+    from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    # RMSNorm at train_moe's [4096,4096] bf16 (1e-2: one bf16 ulp either way)
+    x = torch.randn(4096, 4096, generator=g, device="cuda").bfloat16()
+    w = (1 + 0.1 * torch.randn(4096, generator=g, device="cuda")).bfloat16()
+    got, want = rmsnorm(x, w, 1e-5), rmsnorm_plain(x, w, 1e-5)
+    check(within(got, want, 1e-2, 1e-2), "rmsnorm [4096,4096] vs plain")
+    b, by = bound(2 * x.numel() * 2 + 4096 * 2, 4 * x.numel(), FP32_FLOPS)
+    r = dict(shape="[4096,4096] bf16 (train_moe)", max_abs_err=max_err(got, want),
+             ms=time_ms(torch, lambda: rmsnorm(x, w, 1e-5)),
+             plain_ms=time_ms(torch, lambda: rmsnorm_plain(x, w, 1e-5)),
+             library_ms=time_ms(torch, lambda: F.rms_norm(x, (4096,), w, 1e-5))
+             if hasattr(F, "rms_norm") else None, bound_ms=b, bound_by=by)
+    results["rmsnorm"]["at_train_moe_shape"] = r
+    log(f"rmsnorm at train_moe's [4096,4096] bf16: max_abs_err "
+        f"{r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} plain_ms "
+        f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms {b:.5f} "
+        f"({by})")
+    # flash forward and backward at train_moe's shape
+    B, hq, hkv, S, hd = 2, 32, 8, 2048, 128
+    q = torch.randn(B, hq, S, hd, generator=g, device="cuda").bfloat16()
+    k = torch.randn(B, hkv, S, hd, generator=g, device="cuda").bfloat16()
+    v = torch.randn(B, hkv, S, hd, generator=g, device="cuda").bfloat16()
+    do = torch.randn(B, hq, S, hd, generator=g, device="cuda").bfloat16()
+    o, lse = flash_attention(q, k, v)
+    po, plse = flash_attention_plain(q, k, v, True, None, None)
+    check(within(o, po, 2e-2, 2e-2) and within(lse, plse, 1e-4, 1e-4),
+          "flash at train_moe's shape vs plain")
+    ferr = max(max_err(o, po), max_err(lse, plse))
+    del po, plse
+    kr, vr = k.repeat_interleave(4, dim=1), v.repeat_interleave(4, dim=1)
+    pairs = B * hq * S * (S + 1) // 2
+    fb, fby = bound((q.numel() * 2 + k.numel() * 2) * 2 + lse.numel() * 4,
+                    4 * pairs * hd, BF16_FLOPS)
+    shape = f"q[{B},{hq},{S},{hd}] kv[{B},{hkv},{S},{hd}] bf16 causal (train_moe)"
+    results["flash_fwd"]["at_train_moe_shape"] = dict(
+        shape=shape, max_abs_err=ferr,
+        ms=time_ms(torch, lambda: flash_attention(q, k, v), iters=10),
+        plain_ms=time_ms(torch, lambda: flash_attention_plain(
+            q, k, v, True, None, None), iters=5, warmup=1),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kr, vr, is_causal=True), iters=10),
+        bound_ms=fb, bound_by=fby)
+    gotb = flash_attention_bwd(q, k, v, o, lse, do, True, None, None)
+    wantb = flash_attention_bwd_plain(q, k, v, o, lse, do, True, None, None)
+    errs = {}
+    for gname, a, bb in zip(("dq", "dk", "dv"), gotb, wantb):
+        peak = float(bb.float().abs().max())
+        errs[gname] = max_err(a, bb)
+        check(errs[gname] <= 2.0 ** -7 * peak,
+              f"flash bwd at train_moe's shape: {gname} {errs[gname]:.3g}")
+    del gotb, wantb
+    scale = 1.0 / hd ** 0.5
+    delta = (o.float() * do.float()).sum(dim=-1, keepdim=True)
+    plain_bwd = time_ms(torch, lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, True, scale, None), iters=5, warmup=1)
+    qr = q.detach().clone().requires_grad_()
+    krg, vrg = kr.detach().requires_grad_(), vr.detach().requires_grad_()
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qr, krg, vrg, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qr, krg, vrg, is_causal=True)
+        torch.autograd.grad(out, (qr, krg, vrg), do)
+
+    lib_bwd = (time_ms(torch, sdpa_fwd_bwd, iters=10)
+               - time_ms(torch, sdpa_fwd, iters=10))
+    in_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 \
+        + 2 * lse.numel() * 4
+    for kname, fn, flops, out_bytes, err in (
+            ("flash_bwd_dq", flash_attention_bwd_dq, 3 * 2 * pairs * hd,
+             q.numel() * 2, errs["dq"]),
+            ("flash_bwd_dkv", flash_attention_bwd_dkv, 4 * 2 * pairs * hd,
+             2 * k.numel() * 2, max(errs["dk"], errs["dv"]))):
+        bb, bby = bound(in_bytes + out_bytes, flops, BF16_FLOPS)
+        results[kname]["at_train_moe_shape"] = dict(
+            shape=shape, max_abs_err=err,
+            ms=time_ms(torch, lambda: fn(q, k, v, do, lse, delta, True, scale,
+                                         None), iters=10),
+            plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bb, bound_by=bby,
+            plain_and_library_compute="dq, dk and dv together")
+    f, dq, dkv = (results[n]["at_train_moe_shape"]
+                  for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    log(f"flash at train_moe's shape {shape}: forward max_abs_err {ferr:.3g} "
+        f"kernel_ms {f['ms']:.4f} plain_ms {f['plain_ms']:.3f} library_ms(SDPA)"
+        f" {f['library_ms']:.4f} bound_ms {f['bound_ms']:.4f} "
+        f"({f['bound_by']}); backward dq {dq['ms']:.4f} ms (bound "
+        f"{dq['bound_ms']:.4f}), dkv {dkv['ms']:.4f} ms (bound "
+        f"{dkv['bound_ms']:.4f}), plain backward {plain_bwd:.3f} ms, SDPA "
+        f"backward {lib_bwd:.3f} ms; max err dq {errs['dq']:.3g} dk "
+        f"{errs['dk']:.3g} dv {errs['dv']:.3g} (tol 2^-7 of each max)")
+    del q, k, v, do, o, lse, kr, vr, qr, krg, vrg, delta
+    # ray_two_ranks' fp32 shapes (1e-4: fp32 sums in other orders)
+    cfg = two_rank_config(torch)
+    x = torch.randn(RAY_TWO_RANK_BATCH * cfg.max_seq, cfg.dim, generator=g,
+                    device="cuda")
+    w = 1 + 0.1 * torch.randn(cfg.dim, generator=g, device="cuda")
+    check(within(rmsnorm(x, w, 1e-5), rmsnorm_plain(x, w, 1e-5), 1e-5, 1e-5),
+          "rmsnorm at ray_two_ranks' fp32 shape")
+    hd = cfg.head_dim
+    q = torch.randn(RAY_TWO_RANK_BATCH, cfg.n_heads, cfg.max_seq, hd,
+                    generator=g, device="cuda")
+    k = torch.randn(RAY_TWO_RANK_BATCH, cfg.n_kv_heads, cfg.max_seq, hd,
+                    generator=g, device="cuda")
+    v = torch.randn_like(k)
+    do = torch.randn_like(q)
+    o, lse = flash_attention(q, k, v)
+    po, plse = flash_attention_plain(q, k, v, True, None, None)
+    check(within(o, po, 1e-4, 1e-4) and within(lse, plse, 1e-4, 1e-4),
+          "flash at ray_two_ranks' fp32 shape")
+    for gname, a, bb in zip(("dq", "dk", "dv"),
+                            flash_attention_bwd(q, k, v, o, lse, do, True,
+                                                None, None),
+                            flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                      True, None, None)):
+        check(max_err(a, bb) <= 1e-4 * float(bb.abs().max()),
+              f"flash bwd {gname} at ray_two_ranks' fp32 shape")
+    log(f"ray_two_ranks' shapes, fp32: rmsnorm [{x.shape[0]},{cfg.dim}] "
+        f"(1e-5) and flash forward and backward q[{RAY_TWO_RANK_BATCH},"
+        f"{cfg.n_heads},{cfg.max_seq},{hd}] kv[{RAY_TWO_RANK_BATCH},"
+        f"{cfg.n_kv_heads},{cfg.max_seq},{hd}] (1e-4) equal their plain "
+        "versions")
+    del x, w, q, k, v, do, o, lse, po, plse
+    torch.cuda.empty_cache()
+
+
+# the phases of a run; ``--phases a,b`` runs those alone and prints no
+# result (a rehearsal of new phases)
+PHASES = ("kernels", "serving", "generation", "moe_serving", "training",
+          "train_moe", "ray", "ray_two_ranks")
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default=None,
+                        help=f"comma-separated subset of {', '.join(PHASES)}")
+    args = parser.parse_args(argv)
+    only = args.phases.split(",") if args.phases else None
     import torch
 
     if not torch.cuda.is_available():
@@ -2657,32 +3360,55 @@ def main():
         + ", ".join(p.name for p in libs))
     report_registers(kernels)
 
-    results = {
-        "rmsnorm": check_rmsnorm(torch, F),
-        "flash_fwd": check_flash(torch, F),
-        "paged_decode": check_paged(torch, F),
-        "argmax": check_argmax(torch),
-    }
-    results["flash_bwd_dq"], results["flash_bwd_dkv"] = check_flash_bwd(torch, F)
-    check(set(results) == {k.name for k in kernels.KERNELS},
-          f"kernel checks {sorted(results)} do not cover every kernel")
-    by_path = main_path(torch, card)
-    exactness(torch)
-    slot_exactness(torch)
-    spec_exactness(torch)
-    by_path["generate_window"] = generate_window(torch, card)
-    window_exactness(torch)
-    by_path["serving_qwen_yarn"] = serving_qwen_yarn(torch, card)
-    qwen_exactness(torch)
-    by_path["generate_longrope"] = generate_longrope(torch, card)
-    longrope_exactness(torch)
-    by_path["serving_moe"] = serving_moe(torch, card)
-    moe_exactness(torch)
-    by_path["training"] = train_main_path(torch, card)
-    train_exactness(torch)
-    remat_variants(torch, card)
-    by_path["training_complete"] = train_complete_path(torch, card)
-    complete_exactness(torch)
+    phases = PHASES if only is None else only
+    unknown = [p for p in phases if p not in PHASES]
+    check(not unknown, f"unknown phases {unknown}; the phases are {PHASES}")
+    if "kernels" in phases:
+        results = {
+            "rmsnorm": check_rmsnorm(torch, F),
+            "flash_fwd": check_flash(torch, F),
+            "paged_decode": check_paged(torch, F),
+            "argmax": check_argmax(torch),
+        }
+        results["flash_bwd_dq"], results["flash_bwd_dkv"] = check_flash_bwd(
+            torch, F)
+        check(set(results) == {k.name for k in kernels.KERNELS},
+              f"kernel checks {sorted(results)} do not cover every kernel")
+        check_new_path_shapes(torch, F, results)
+    by_path = {}
+    if "serving" in phases:
+        by_path.update(main_path(torch, card))
+        exactness(torch)
+        slot_exactness(torch)
+        spec_exactness(torch)
+    if "generation" in phases:
+        by_path["generate_window"] = generate_window(torch, card)
+        window_exactness(torch)
+        by_path["serving_qwen_yarn"] = serving_qwen_yarn(torch, card)
+        qwen_exactness(torch)
+        by_path["generate_longrope"] = generate_longrope(torch, card)
+        longrope_exactness(torch)
+    if "moe_serving" in phases:
+        by_path["serving_moe"] = serving_moe(torch, card)
+        moe_exactness(torch)
+    if "training" in phases:
+        by_path["training"] = train_main_path(torch, card)
+        train_exactness(torch)
+        remat_variants(torch, card)
+        by_path["training_complete"] = train_complete_path(torch, card)
+        complete_exactness(torch)
+    if "train_moe" in phases:
+        by_path["train_moe"], _ = train_moe(torch, card)
+        moe_train_exactness(torch)
+    if "ray" in phases:
+        ray_paths, _ = train_ray_ddp(torch, card)
+        by_path.update(ray_paths)
+    if "ray_two_ranks" in phases:
+        by_path["ray_two_ranks"] = ray_two_ranks(torch, card)
+    if only is not None:
+        log(f"phases {phases} done in {time.perf_counter() - T0:.1f}s; a "
+            "partial run prints no result")
+        return 0
 
     entries = []
     for k in kernels.KERNELS:

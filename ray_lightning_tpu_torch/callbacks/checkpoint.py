@@ -69,7 +69,7 @@ class ModelCheckpoint(Callback):
         return fn(self.best_k_models, key=self.best_k_models.get)
 
     def _save(self, trainer, module) -> None:
-        if trainer.sanity_checking:
+        if trainer.sanity_checking or not trainer.is_global_zero_writer:
             return
         metrics = trainer.callback_metrics
         os.makedirs(self.dirpath, exist_ok=True)

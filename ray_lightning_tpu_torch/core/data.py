@@ -5,8 +5,10 @@ them to the device in one copy per array.
 The shuffle plan is the JAX package's, ``np.random.default_rng(seed +
 epoch).permutation``, so the port and the JAX package see the same batches
 in the same order. ``num_workers > 0`` assembles batches on background
-threads (``core/prefetch.py``). The rank-sharding ``DistributedSampler`` is
-not ported yet (ROADMAP.md, queue 1 item 6).
+threads (``core/prefetch.py``). Over several ranks the Trainer re-wraps a
+``DataLoader`` with a ``DistributedSampler`` (rank ``rank`` of
+``num_replicas`` takes every ``num_replicas``-th index of one seeded
+per-epoch permutation), as the JAX Trainer does.
 """
 from __future__ import annotations
 
@@ -54,6 +56,48 @@ class DictDataset(Dataset):
         return {k: v[idx] for k, v in self.arrays.items()}
 
 
+class DistributedSampler:
+    """Deterministic rank-sharded index sampler
+    (``ray_lightning_tpu/core/data.py::DistributedSampler``). ``set_epoch``
+    reshuffles with ``seed + epoch``, so every replica agrees on the
+    permutation, and each takes a strided slice. Without ``drop_last`` the
+    permutation is padded by wrapping so every replica sees the same count."""
+
+    def __init__(self, data_len: int, num_replicas: int = 1, rank: int = 0,
+                 shuffle: bool = True, seed: int = 0, drop_last: bool = False):
+        if rank >= num_replicas:
+            raise ValueError(f"rank {rank} >= num_replicas {num_replicas}")
+        self.data_len = data_len
+        self.num_replicas = num_replicas
+        self.rank = rank
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.epoch = 0
+        if drop_last:
+            self.num_samples = data_len // num_replicas
+        else:
+            self.num_samples = math.ceil(data_len / num_replicas)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self):
+        return self.num_samples
+
+    def __iter__(self):
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self.epoch)
+            indices = rng.permutation(self.data_len)
+        else:
+            indices = np.arange(self.data_len)
+        total = self.num_samples * self.num_replicas
+        if not self.drop_last and total > len(indices):
+            indices = np.concatenate([indices, indices[:total - len(indices)]])
+        indices = indices[:total]
+        return iter(indices[self.rank::self.num_replicas].tolist())
+
+
 def _to_numpy(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -87,13 +131,15 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = False, collate_fn: Optional[Callable] = None,
-                 seed: int = 0, num_workers: int = 0, prefetch_factor: int = 2):
+                 seed: int = 0, sampler: Optional[DistributedSampler] = None,
+                 num_workers: int = 0, prefetch_factor: int = 2):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.collate_fn = collate_fn or default_collate
         self.seed = seed
+        self.sampler = sampler
         self.num_workers = int(num_workers)
         self.prefetch_factor = int(prefetch_factor)
         if self.num_workers < 0:
@@ -102,11 +148,23 @@ class DataLoader:
             raise ValueError(f"prefetch_factor must be >= 1, got {prefetch_factor}")
         self._epoch = 0
 
+    def with_sampler(self, sampler: DistributedSampler) -> "DataLoader":
+        """The same loader over ``sampler``'s indices (the sampler owns the
+        shuffle): how the Trainer shards a loader across ranks."""
+        return DataLoader(
+            self.dataset, batch_size=self.batch_size, shuffle=False,
+            drop_last=self.drop_last, collate_fn=self.collate_fn,
+            seed=self.seed, sampler=sampler, num_workers=self.num_workers,
+            prefetch_factor=self.prefetch_factor,
+        )
+
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
+        if self.sampler is not None:
+            self.sampler.set_epoch(epoch)
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.sampler) if self.sampler is not None else len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
         return math.ceil(n / self.batch_size)
@@ -115,7 +173,9 @@ class DataLoader:
     # plan (index chunks) is cheap and ordered, the assembly (__getitem__,
     # collate, numpy) is the work that runs in parallel
     def _batch_plan(self):
-        if self.shuffle:
+        if self.sampler is not None:
+            indices = list(self.sampler)
+        elif self.shuffle:
             rng = np.random.default_rng(self.seed + self._epoch)
             indices = rng.permutation(len(self.dataset)).tolist()
         else:

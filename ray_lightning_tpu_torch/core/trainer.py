@@ -1,6 +1,7 @@
-"""The Trainer on one device (``ray_lightning_tpu/core/trainer.py``):
-fit / validate / test / predict with the JAX Trainer's arguments, logged
-metric names and epoch reduction.
+"""The Trainer (``ray_lightning_tpu/core/trainer.py``): fit / validate /
+test / predict with the JAX Trainer's arguments, logged metric names and
+epoch reduction, on one device or, through the Ray strategies, over several
+worker processes.
 
 A training step is eager PyTorch: the module's ``training_step`` on the
 parameter tree (``nn.Parameter`` leaves, or a cast of them under a mixed
@@ -15,10 +16,15 @@ the step loop: batches go up from pinned memory on a side stream
 back in one copy at the drain points (epoch end, validation, the end of
 fit), as the JAX Trainer's ``_step_log_buffer`` does.
 
-Not ported yet, and refused loudly (ROADMAP.md, queue 1 item 6): the
-strategies over several devices (``devices > 1``, any strategy but
-``SingleDeviceStrategy``). Not ported: the TPU accelerator
-(``accelerator="tpu"``), elastic membership and telemetry.
+With a strategy that has a launcher (``RayStrategy``, ``RayShardedStrategy``,
+``HorovodRayStrategy``) the entry points hand the stage to it: the stage
+runs in each worker process, where the strategy's rank shards the data
+(``DistributedSampler``), its engine runs the collectives of each update
+(``parallel/data_parallel.py``), epoch metrics are averaged over the ranks,
+and only rank 0 logs and writes checkpoints; the main process gets rank 0's
+weights and metrics back. One process drives one device: ``devices > 1``
+and a strategy named by a string are refused (ROADMAP.md). Not ported: the
+TPU accelerator (``accelerator="tpu"``), elastic membership and telemetry.
 """
 from __future__ import annotations
 
@@ -38,13 +44,17 @@ from ray_lightning_tpu_torch.callbacks.base import (
     restore_callback_states,
 )
 from ray_lightning_tpu_torch.callbacks.checkpoint import ModelCheckpoint
-from ray_lightning_tpu_torch.core.data import ensure_loader
+from ray_lightning_tpu_torch.core.data import (
+    DataLoader,
+    DistributedSampler,
+    ensure_loader,
+)
 from ray_lightning_tpu_torch.core.module import LightningModule
 from ray_lightning_tpu_torch.core.prefetch import AsyncLoader, DevicePrefetcher
 from ray_lightning_tpu_torch.device import DeviceLike, resolve_device
 from ray_lightning_tpu_torch.loggers.base import Logger
 from ray_lightning_tpu_torch.loggers.csv_logger import CSVLogger
-from ray_lightning_tpu_torch.strategies.base import SingleDeviceStrategy
+from ray_lightning_tpu_torch.strategies.base import SingleDeviceStrategy, Strategy
 from ray_lightning_tpu_torch.utils.precision import (
     cast_floats,
     matmul_precision_scope,
@@ -57,9 +67,11 @@ from ray_lightning_tpu_torch.utils.tree import tree_leaves, tree_map
 
 __version__ = "0.1.0"
 
-_SEVERAL_DEVICES = ("is not ported yet (ROADMAP.md, queue 1 item 6: the "
-                    "strategies over torch.distributed); the port trains on "
-                    "one device")
+_SEVERAL_DEVICES = ("is not ported (ROADMAP.md): one process of the port "
+                    "drives one device; to train over several devices pass "
+                    "strategy=RayStrategy(num_workers=N) (or "
+                    "RayShardedStrategy, HorovodRayStrategy), which starts one "
+                    "worker process per device")
 
 
 @dataclass
@@ -364,7 +376,7 @@ class Trainer:
         accumulate_grad_batches: int = 1,
         precision: Optional[Union[str, int]] = None,
         seed: Optional[int] = None,
-        strategy: Optional[SingleDeviceStrategy] = None,
+        strategy: Optional[Strategy] = None,
         min_epochs: int = 0,
         accelerator: str = "auto",
         devices: Any = "auto",
@@ -379,10 +391,10 @@ class Trainer:
         Trainer reads it from an environment variable)."""
         if strategy is None:
             strategy = SingleDeviceStrategy()
-        elif not isinstance(strategy, SingleDeviceStrategy):
+        elif not isinstance(strategy, Strategy):
             raise NotImplementedError(
-                f"strategy={strategy!r}: strategies over several devices "
-                + _SEVERAL_DEVICES + " (SingleDeviceStrategy)"
+                f"strategy={strategy!r}: a strategy named by a string "
+                + _SEVERAL_DEVICES
             )
         if int(accumulate_grad_batches) != accumulate_grad_batches or (
                 accumulate_grad_batches < 1):
@@ -478,6 +490,19 @@ class Trainer:
         self._input_prefetcher: Optional[DevicePrefetcher] = None
         self._input_stats = {"starved_s": 0.0, "batches": 0}
         self._copy_stream = None
+        # the data-parallel engine of a multi-rank strategy, inside a worker
+        self._dp = None
+        self._sampler_seed = 0
+        # the workers' kernel launches of the last launched stage
+        self.worker_launch_counts: Optional[Dict[str, int]] = None
+
+    def __getstate__(self):
+        """What ships to a worker: no optimizer, stream, engine or parameter
+        copies (the module carries the parameters it starts from)."""
+        state = dict(self.__dict__)
+        state.update(_optim=None, _updates=[], _copy_stream=None, _dp=None,
+                     _input_prefetcher=None, _step_log_buffer=[], _params=None)
+        return state
 
     # ------------------------------------------------------------------ #
     # properties and dispatch
@@ -489,6 +514,15 @@ class Trainer:
     @property
     def global_rank(self) -> int:
         return self.strategy.global_rank
+
+    @property
+    def is_global_zero(self) -> bool:
+        return self.strategy.is_global_zero
+
+    @property
+    def is_global_zero_writer(self) -> bool:
+        """Whether this process writes logs and checkpoints (rank 0)."""
+        return self.strategy.is_global_zero
 
     @property
     def lightning_module(self) -> Optional[LightningModule]:
@@ -571,15 +605,34 @@ class Trainer:
             raise ValueError("no model provided")
         self._module = model
         model.trainer = self
+        launcher = self.strategy.launcher
         self.state.status = "running"
         try:
-            result = fn(model, *args)
+            if launcher is not None:
+                result = launcher.launch(fn, model, *args, trainer=self)
+            else:
+                result = fn(model, *args)
             self.state.status = "finished"
             return result
         except BaseException as e:
             self.state.status = "interrupted"
             self._cb("on_exception", e)
             raise
+
+    def _maybe_shard_loader(self, loader, shuffle: bool):
+        """Over several ranks, a ``DataLoader`` without a sampler is
+        re-wrapped with this rank's ``DistributedSampler`` (seeded with the
+        run's seed, which the launcher fixes in the main process for every
+        worker)."""
+        kwargs = self.strategy.distributed_sampler_kwargs
+        if (kwargs is None or not self.use_distributed_sampler
+                or not isinstance(loader, DataLoader)
+                or loader.sampler is not None):
+            return loader
+        sampler = DistributedSampler(len(loader.dataset), shuffle=shuffle,
+                                     seed=self._sampler_seed,
+                                     drop_last=loader.drop_last, **kwargs)
+        return loader.with_sampler(sampler)
 
     def _resolve_loader(self, explicit, datamodule, hook_name: str):
         if explicit is not None:
@@ -679,6 +732,7 @@ class Trainer:
         policy = self.precision_policy
         batch = round_matmul_inputs(self.matmul_precision,
                                     cast_floats(batch, policy.compute_dtype))
+        self._gather_params()
         update = self._micro_step + 1 == self.accumulate_grad_batches
         with matmul_precision_scope(self.matmul_precision):
             if not self._optim.alternating:
@@ -735,12 +789,18 @@ class Trainer:
         of the update steps. A leaf the loss did not reach gets a zero
         gradient, as optax gives it (its moments decay and weight decay
         applies)."""
-        held = {id(p) for opt in unit.optimizers
-                for g in opt.param_groups for p in g["params"]}
+        held = self._held_ids(unit)
         for leaf in unit.leaves:
             if leaf.grad is None and id(leaf) in held:
                 leaf.grad = torch.zeros_like(leaf)
+        if self._dp is not None and self._dp.zero_stage:
+            self._dp.sharded_update(self._unit_index(unit), unit,
+                                    self.accumulate_grad_batches,
+                                    self.gradient_clip_val)
+            return
         grads = [leaf.grad for leaf in unit.leaves if leaf.grad is not None]
+        if self._dp is not None:
+            self._dp.all_reduce_mean_(grads)
         if self.accumulate_grad_batches > 1:
             torch._foreach_div_(grads, float(self.accumulate_grad_batches))
         if self.gradient_clip_val:
@@ -751,6 +811,32 @@ class Trainer:
             sched.step()
         for leaf in unit.leaves:
             leaf.grad = None
+
+    def _held_ids(self, unit: _Update):
+        """The ids of the leaves the unit's optimizers hold (under ZeRO
+        they hold flat shards; the leaves are those of its flat groups)."""
+        if self._dp is not None and self._dp.zero_stage:
+            return {id(t) for fg in self._dp._groups[self._unit_index(unit)]
+                    for t in fg.leaves}
+        return {id(p) for opt in unit.optimizers
+                for g in opt.param_groups for p in g["params"]}
+
+    def _unit_index(self, unit: _Update) -> int:
+        return next(i for i, u in enumerate(self._updates) if u is unit)
+
+    def _gather_params(self) -> None:
+        """Under ZeRO stage 3, all-gather the parameters that the last
+        update left sharded (a collective: every rank reaches the same
+        calls)."""
+        if self._dp is not None and self._dp.zero_stage == 3:
+            self._dp.ensure_full()
+
+    def _reduce_over_ranks(self, metrics: Dict[str, np.ndarray]):
+        if self._dp is None:
+            return metrics
+        kinds = {name: (meta.reduce if meta else "mean") for name, meta in
+                 ((n, self._module._log_meta.get(n)) for n in metrics)}
+        return self._dp.reduce_metrics(metrics, kinds)
 
     @torch.no_grad()
     def _eval_step(self, phase: str, batch, batch_idx: int):
@@ -776,6 +862,7 @@ class Trainer:
     def _fit_impl(self, model, train_dataloaders, val_dataloaders, datamodule,
                   ckpt_path):
         seed = seed_everything(self.seed)
+        self._sampler_seed = seed
         self._step_log_buffer = []
         self._input_prefetcher = None
         self._input_stats = {"starved_s": 0.0, "batches": 0}
@@ -795,6 +882,9 @@ class Trainer:
                                           "val_dataloader")
         if train_loader is None:
             raise ValueError("fit requires a train dataloader")
+        train_loader = self._maybe_shard_loader(train_loader, shuffle=True)
+        if val_loader is not None:
+            val_loader = self._maybe_shard_loader(val_loader, shuffle=False)
 
         if model._params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -802,18 +892,30 @@ class Trainer:
         else:
             host = model._params
         self._params = self._place_params(host)
+        # the masters are a copy: a fresh init would otherwise stay
+        # allocated beside them for the whole fit
+        del host
         model._params = self._params  # configure_optimizers reads them
         self._optim = _normalize_optimizers(model.configure_optimizers())
         if self._optim.labels is not None:
             _check_labels(self._optim, self._params)
         self._build_updates()
         self._micro_step = 0
+        self._dp = self.strategy.data_parallel(self)
+        if self._dp is not None:
+            self._dp.broadcast_(list(tree_leaves(self._params)))
+            if ckpt_path is not None and self._dp.zero_stage:
+                raise NotImplementedError(
+                    f"ckpt_path with ZeRO stage {self._dp.zero_stage}: "
+                    "resuming sharded optimizer states is not ported yet "
+                    "(ROADMAP.md); resume with RayStrategy (stage 0)")
+            self._dp.setup(self._updates)
         if ckpt_path is not None:
             self._restore_checkpoint(ckpt_path)
         if self._optim.alternating:
             self._check_optimizer_idx()
 
-        if self.logger is not None:
+        if self.logger is not None and self.is_global_zero:
             self.logger.log_hyperparams(dict(model.hparams))
 
         self._hook("on_fit_start")
@@ -835,12 +937,13 @@ class Trainer:
                     self.should_stop = True
                 if self.should_stop and self.current_epoch < self.min_epochs:
                     self.should_stop = False
+            self._gather_params()
         finally:
             self._drain_step_logs()
             self._fold_input_stats()
             self._hook("on_train_end")
             self._hook("on_fit_end")
-            if self.logger is not None:
+            if self.logger is not None and self.is_global_zero:
                 self.logger.finalize(self.state.status)
             self._cb("teardown", "fit")
             model.teardown("fit")
@@ -933,7 +1036,8 @@ class Trainer:
 
         self._drain_step_logs()
         self._fold_input_stats()
-        epoch_metrics = aggregator.reduce(model._log_meta.get)
+        epoch_metrics = self._reduce_over_ranks(
+            aggregator.reduce(model._log_meta.get))
         epoch_out: Dict[str, np.ndarray] = {}
         for name, value in epoch_metrics.items():
             meta = model._log_meta.get(name)
@@ -943,7 +1047,7 @@ class Trainer:
             self.callback_metrics[out_name] = value
             self.logged_metrics[out_name] = value
             epoch_out[out_name] = value
-        if self.logger is not None and epoch_out:
+        if self.logger is not None and epoch_out and self.is_global_zero:
             self.logger.log_metrics(epoch_out, step=self.global_step)
 
         if (
@@ -953,9 +1057,10 @@ class Trainer:
         ):
             self._run_validation(val_loader)
 
+        self._gather_params()
         self._hook("on_train_epoch_end")
 
-        if self.enable_progress_bar:
+        if self.enable_progress_bar and self.is_global_zero:
             # one batched read-back of the first scalar metrics
             head = {k: v for k, v in list(self.callback_metrics.items())[:6]
                     if np.asarray(v).size == 1}
@@ -984,6 +1089,7 @@ class Trainer:
         aggregator.update(epoch_logs, batch_size)
         if (
             self.logger is not None
+            and self.is_global_zero
             and self.log_every_n_steps
             and self.global_step % self.log_every_n_steps == 0
         ):
@@ -1017,6 +1123,7 @@ class Trainer:
     def _run_validation(self, val_loader):
         # a drain point: deferred step rows land before the val rows
         self._drain_step_logs()
+        self._gather_params()
         self._hook("on_validation_epoch_start")
         self._cb("on_validation_start")
         metrics = self._run_eval_epoch(val_loader, limit=self.limit_val_batches,
@@ -1038,12 +1145,13 @@ class Trainer:
             aggregator.update(logs, self._batch_size_of(batch))
             hook = "on_test_batch_end" if phase == "test" else "on_validation_batch_end"
             self._cb(hook, logs, batch, batch_idx)
-        metrics = aggregator.reduce(self._module._log_meta.get)
+        metrics = self._reduce_over_ranks(
+            aggregator.reduce(self._module._log_meta.get))
         if record:
             for name, value in metrics.items():
                 self.callback_metrics[name] = value
                 self.logged_metrics[name] = value
-            if self.logger is not None and metrics:
+            if self.logger is not None and metrics and self.is_global_zero:
                 self.logger.log_metrics(metrics, step=self.global_step)
         return metrics
 
@@ -1081,7 +1189,7 @@ class Trainer:
     # ------------------------------------------------------------------ #
     def _setup_eval(self, model, dataloaders, datamodule, ckpt_path, stage,
                     hook_name):
-        seed_everything(self.seed)
+        self._sampler_seed = seed_everything(self.seed)
         if datamodule is not None:
             datamodule.prepare_data()
             datamodule.setup(stage)
@@ -1090,6 +1198,9 @@ class Trainer:
         loader = self._resolve_loader(dataloaders, datamodule, hook_name)
         if loader is None:
             raise ValueError(f"{stage} requires a dataloader")
+        loader = self._maybe_shard_loader(loader, shuffle=False)
+        self._dp = (self.strategy.data_parallel(self)
+                    if self.strategy.world_size > 1 else None)
         if ckpt_path is not None:
             model._params = torch.load(ckpt_path, map_location="cpu",
                                        weights_only=True)["state_dict"]
@@ -1118,7 +1229,7 @@ class Trainer:
         if phase == "test":
             self._cb("on_test_epoch_end")
             self._cb("on_test_end")
-        if self.logger is not None:
+        if self.logger is not None and self.is_global_zero:
             self.logger.save()
         return [dict(metrics)]
 
@@ -1153,8 +1264,18 @@ class Trainer:
     # checkpoints
     # ------------------------------------------------------------------ #
     def dump_checkpoint(self, weights_only: bool = False) -> Dict[str, Any]:
+        """The checkpoint as a dict. Under ZeRO stage >= 1 the optimizer
+        states are this rank's shard and are left out (a resume from them
+        is refused); under stage 3 the parameters must be whole, which they
+        are at validation and at the epoch's end."""
         model = self._module
         params = self._params if self._params is not None else model._params
+        if self._dp is not None and self._dp.zero_stage == 3 and self._dp.released:
+            raise RuntimeError(
+                "dump_checkpoint under ZeRO stage 3 between steps: the "
+                "parameters are sharded; checkpoints are written at "
+                "validation and at the epoch's end, where every rank has "
+                "gathered them")
         ckpt: Dict[str, Any] = {
             "epoch": self.current_epoch,
             "epoch_complete": bool(self._epoch_ended),
@@ -1164,7 +1285,9 @@ class Trainer:
             "hyper_parameters": dict(model.hparams),
         }
         if not weights_only:
-            if self._optim is not None:
+            if self._dp is not None and self._dp.zero_stage:
+                ckpt["zero_stage"] = self._dp.zero_stage
+            elif self._optim is not None:
                 ckpt["optimizer_states"] = [
                     opt.state_dict() for opt in self._optim.optimizers]
                 scheds = [s for ss in self._optim.schedulers for s in ss]
@@ -1191,6 +1314,8 @@ class Trainer:
         file in the same directory and renamed into place, so a reader never
         sees a half-written checkpoint."""
         ckpt = self.dump_checkpoint(weights_only)
+        if not self.is_global_zero_writer:
+            return
         filepath = os.path.abspath(filepath)
         directory = os.path.dirname(filepath)
         os.makedirs(directory, exist_ok=True)
@@ -1212,6 +1337,11 @@ class Trainer:
         callback states. A mid-epoch save re-runs its epoch from the
         start."""
         ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        if ckpt.get("zero_stage"):
+            raise NotImplementedError(
+                f"{ckpt_path} was written under ZeRO stage "
+                f"{ckpt['zero_stage']} without optimizer states; resuming it "
+                "is not ported yet (ROADMAP.md)")
         with torch.no_grad():
             for dst, src in zip(tree_leaves(self._params),
                                 tree_leaves(ckpt["state_dict"])):

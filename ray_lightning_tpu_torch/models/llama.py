@@ -5,10 +5,12 @@ its LightningModule.
 Parameters are a plain dict with the JAX package's layout: stacked
 ``[L, in, out]`` layer leaves applied as ``x @ W``, with a MoE config's
 experts in a nested ``layers["moe"]`` subtree, so the converter
-(``models/convert.py``) moves tensors without transposing them. Training a
-mixture of experts (its auxiliary loss) and the pipeline / tensor /
-sequence / expert-parallel paths are not part of the port yet: ``lm_loss``
-and ``LlamaModule`` refuse a MoE config, and ``forward`` takes no mesh.
+(``models/convert.py``) moves tensors without transposing them. A MoE
+config trains on one device: ``forward`` routes with the capacity bound and
+returns the layers' mean Switch auxiliary loss when asked, ``lm_loss`` adds
+it at ``moe_aux_weight``. The pipeline / tensor / sequence / expert-parallel
+paths are not part of the port yet: ``forward`` takes no mesh, and
+``LlamaModule.param_shardings`` refuses a mesh.
 Rematerialisation is per layer (``torch.utils.checkpoint``) with the JAX
 package's two policies: ``"nothing"`` recomputes the whole layer in
 backward, ``"dots"`` keeps the layer's projections and recomputes the rest.
@@ -86,7 +88,7 @@ class LlamaConfig:
     # mixture-of-experts MLP (0 = dense): top-k routing over n_experts;
     # capacity_factor bounds each expert's tokens in forward (generation
     # routes without a bound); moe_aux_weight is the auxiliary loss's
-    # weight in training, which the port does not run yet
+    # weight in lm_loss
     n_experts: int = 0
     expert_top_k: int = 2
     capacity_factor: float = 1.5
@@ -262,13 +264,14 @@ def layer_params(params: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin,
                    attn_fn: Callable, norm_fn: Callable = rmsnorm,
-                   moe_lossless: bool = False):
+                   moe_lossless: bool = False, with_aux: bool = False):
     """One pre-norm block (attention + gated MLP or mixture of experts) on
     x [B, S, D]. Returns (x, (k, v)) with this layer's post-rope k, v in
     cache layout [B, Hkv, S, hd] — the prefill path reuses it to fill the
-    cache. A MoE layer routes with its capacity bound, or every expert
-    densely under ``moe_lossless`` (generation); its auxiliary loss is
-    dropped, since the port does not train a mixture of experts yet."""
+    cache — and, with ``with_aux``, (x, (k, v), aux): the layer's Switch
+    auxiliary loss (an fp32 0 for a dense layer and under
+    ``moe_lossless``, as in JAX). A MoE layer routes with its capacity
+    bound, or every expert densely under ``moe_lossless`` (generation)."""
     B, S = x.shape[0], x.shape[1]
     hd = cfg.head_dim
     nh = lp["wq"].shape[-1] // hd
@@ -286,16 +289,20 @@ def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin,
     att = att.transpose(1, 2).reshape(B, S, nh * hd)
     x = x + att @ lp["wo"]
     h2 = norm_fn(x, lp["mlp_norm"], cfg.norm_eps)
-    if cfg.n_experts and "moe" in lp:
-        if moe_lossless:
-            x = x + moe_ffn_lossless(lp["moe"], h2, top_k=cfg.expert_top_k)
-        else:
-            out, _ = moe_ffn(lp["moe"], h2, top_k=cfg.expert_top_k,
-                             capacity_factor=cfg.capacity_factor)
-            x = x + out
+    aux = None
+    if cfg.n_experts and "moe" in lp and not moe_lossless:
+        out, aux = moe_ffn(lp["moe"], h2, top_k=cfg.expert_top_k,
+                           capacity_factor=cfg.capacity_factor)
+        x = x + out
+    elif cfg.n_experts and "moe" in lp:
+        x = x + moe_ffn_lossless(lp["moe"], h2, top_k=cfg.expert_top_k)
     else:
         x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
-    return x, (k, v)
+    if not with_aux:
+        return x, (k, v)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, (k, v), aux
 
 
 # the products with no batch dimension: a projection x @ W reaches the
@@ -345,20 +352,28 @@ def _unflat_layers(paths, leaves) -> Dict[str, Any]:
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
-            plain: bool = False, return_hidden: bool = False) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V] in ``cfg.dtype`` (the JAX
-    ``forward`` without its MoE auxiliary loss: a MoE config routes with
-    its capacity bound, as there). With ``return_hidden`` the result is
-    instead the final-norm hidden states [B, S, D]: the chunked loss
-    applies the head itself, one sequence chunk at a time.
+            plain: bool = False, return_hidden: bool = False,
+            return_aux: bool = False):
+    """tokens [B, S] -> logits [B, S, V] in ``cfg.dtype``; a MoE config
+    routes with its capacity bound, as in JAX. With ``return_hidden`` the
+    result is instead the final-norm hidden states [B, S, D]: the chunked
+    loss applies the head itself, one sequence chunk at a time. With
+    ``return_aux`` the result is the pair (that, moe_aux), as the JAX
+    ``forward`` returns it: moe_aux is the mean over the layers of the
+    Switch auxiliary loss, an fp32 scalar (0 for a dense config). Without
+    it, callers that want only the logits (generation, ``predict_step``)
+    get them alone.
 
     With ``cfg.remat`` and grad mode on, each layer runs under
     ``torch.utils.checkpoint``: backward recomputes it (the flash forward
     and the layer's two norms run again) instead of keeping its
     activations; under ``remat_policy="dots"`` the seven projections'
-    outputs are kept and only the rest is recomputed. ``plain=True`` runs the kernels' plain versions even on
-    CUDA tensors: the reference that tests and the chip check hold the
-    kernel path against."""
+    outputs are kept and only the rest is recomputed. The auxiliary loss
+    leaves the checkpointed layer as its second output: the recompute in
+    backward routes the same tokens again to rebuild the saved tensors, and
+    its aux is not used. ``plain=True`` runs the kernels' plain versions
+    even on CUDA tensors: the reference that tests and the chip check hold
+    the kernel path against."""
     S = tokens.shape[1]
     dev = tokens.device
     cos, sin = rope_angles(S, cfg.head_dim, cfg.rope_theta,
@@ -373,24 +388,28 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
     paths, stacked = zip(*_flat_layers(params["layers"]))
 
     def layer_fn(x, *leaves):
-        return _decoder_layer(x, _unflat_layers(paths, leaves), cfg, cos, sin,
-                              attn_fn, norm)[0]
+        x, _, aux = _decoder_layer(x, _unflat_layers(paths, leaves), cfg, cos,
+                                   sin, attn_fn, norm, with_aux=True)
+        return x, aux
 
     # unbind once: its backward stacks the L layer gradients in one op,
     # where per-layer indexing would add L full-size zero-padded gradients
     per_layer = [t.unbind(0) for t in stacked]
     remat = _remat_kwargs(cfg) if cfg.remat and torch.is_grad_enabled() else None
     x = params["embed"][tokens.long()]
+    auxes = []
     for i in range(cfg.n_layers):
         leaves = [t[i] for t in per_layer]
         if remat is not None:
-            x = checkpoint(layer_fn, x, *leaves, **remat)
+            x, aux = checkpoint(layer_fn, x, *leaves, **remat)
         else:
-            x = layer_fn(x, *leaves)
+            x, aux = layer_fn(x, *leaves)
+        auxes.append(aux)
     x = norm(x, params["final_norm"], cfg.norm_eps)
-    if return_hidden:
-        return x
-    return x @ params["lm_head"]
+    out = x if return_hidden else x @ params["lm_head"]
+    if not return_aux:
+        return out
+    return out, torch.stack(auxes).mean()
 
 
 def lm_loss(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
@@ -398,34 +417,29 @@ def lm_loss(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
     """Next-token cross entropy (``models/llama.py::lm_loss``): the full
     sequence is fed, targets are the tokens rolled by one, and the last
     position is masked out. With ``cfg.loss_chunks > 1`` the loss is
-    computed over sequence chunks (``ops/losses.py``). Returns (loss,
-    {"loss", "ppl"}). A MoE config is refused: its auxiliary loss is not
-    ported yet."""
-    _refuse_moe_training(cfg)
+    computed over sequence chunks (``ops/losses.py``). A MoE config adds
+    ``moe_aux_weight`` times the layers' mean auxiliary loss. Returns
+    (loss, {"loss", "ppl"}, and "moe_aux" for a MoE config); ppl is
+    exp(cross entropy), without the auxiliary term."""
     tokens = tokens.long()
     targets = torch.roll(tokens, -1, dims=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
     if cfg.loss_chunks > 1:
-        h = forward(params, tokens, cfg, plain=plain, return_hidden=True)
+        h, moe_aux = forward(params, tokens, cfg, plain=plain,
+                             return_hidden=True, return_aux=True)
         total, count = chunked_softmax_cross_entropy(
             h, params["lm_head"], targets, mask, cfg.loss_chunks
         )
     else:
-        logits = forward(params, tokens, cfg, plain=plain)
+        logits, moe_aux = forward(params, tokens, cfg, plain=plain,
+                                  return_aux=True)
         total, count = masked_softmax_cross_entropy(logits, targets, mask)
     ce = total / count
-    return ce, {"loss": ce, "ppl": torch.exp(ce)}
-
-
-def _refuse_moe_training(cfg: LlamaConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "training a mixture-of-experts config is not ported yet: the "
-            "router's auxiliary loss (moe_aux_weight) would be dropped. The "
-            "port serves MoE configs (generation, the paged engine, "
-            "forward); see ROADMAP.md for MoE training"
-        )
+    if not cfg.n_experts:
+        return ce, {"loss": ce, "ppl": torch.exp(ce)}
+    loss = ce + cfg.moe_aux_weight * moe_aux
+    return loss, {"loss": loss, "ppl": torch.exp(ce), "moe_aux": moe_aux}
 
 
 def _warmup_cosine(step: int, peak: float, warmup: int, decay: int) -> float:
@@ -448,7 +462,6 @@ class LlamaModule(LightningModule):
         if isinstance(config, dict):  # rebuilt from checkpoint hparams
             config = LlamaConfig.from_dict(config)
         self.config = config or LlamaConfig.tiny()
-        _refuse_moe_training(self.config)
         self.lr = lr
         self.warmup_steps = warmup_steps
         self.total_steps = total_steps
@@ -462,6 +475,18 @@ class LlamaModule(LightningModule):
     def init_params(self, generator: torch.Generator, device: DeviceLike = None):
         return init_params(self.config, generator, device)
 
+    def param_shardings(self, mesh):
+        """The JAX module's megatron-tp / fsdp / expert-parallel layout over
+        a mesh. The port has no mesh yet: refused (ROADMAP.md, queue 1:
+        expert parallelism and the tensor-parallel layouts)."""
+        raise NotImplementedError(
+            "LlamaModule.param_shardings: the port has no device mesh, so "
+            "tensor and expert parallelism (moe_param_specs, "
+            "moe_ffn_local_experts) are not ported yet; see ROADMAP.md. "
+            "Data-parallel training over several processes is RayStrategy / "
+            "RayShardedStrategy"
+        )
+
     def _tokens_of(self, batch):
         if isinstance(batch, dict):
             return batch["input_ids"]
@@ -471,12 +496,17 @@ class LlamaModule(LightningModule):
         loss, logs = lm_loss(params, self._tokens_of(batch), self.config)
         self.log("train_loss", loss, on_step=True, on_epoch=True)
         self.log("train_ppl", logs["ppl"], on_step=True, on_epoch=False)
+        if "moe_aux" in logs:
+            self.log("train_moe_aux", logs["moe_aux"], on_step=False,
+                     on_epoch=True)
         return loss
 
     def validation_step(self, params, batch, batch_idx):
         loss, logs = lm_loss(params, self._tokens_of(batch), self.config)
         self.log("val_loss", loss)
         self.log("val_ppl", logs["ppl"])
+        if "moe_aux" in logs:
+            self.log("val_moe_aux", logs["moe_aux"])
 
     def predict_step(self, params, batch, batch_idx):
         return forward(params, self._tokens_of(batch), self.config)

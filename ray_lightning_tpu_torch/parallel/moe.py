@@ -6,9 +6,10 @@ no-drop evaluation that generation uses (``moe_ffn_lossless``).
 Leaves are stacked over the expert dim: ``router [D, E]`` (fp32 whatever the
 model's dtype), ``w_gate``/``w_up [E, D, F]`` and ``w_down [E, F, D]``,
 applied as ``x @ W``. The expert products stay library matmuls: the JAX
-package computes them outside any Pallas kernel. Expert parallelism
+package computes them outside any Pallas kernel, and their backward in
+training is autograd over these plain ops. Expert parallelism
 (``moe_ffn_local_experts``, ``moe_param_specs``) is not part of the port
-yet.
+yet: both refuse (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -133,3 +134,23 @@ def moe_ffn(params: Dict[str, Any], x: torch.Tensor, top_k: int = 2,
     disp, combine, aux = _route(xt, params["router"], top_k, capacity)
     out = _expert_ffn(disp, combine, xt, params)
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+_NO_EXPERT_PARALLELISM = (
+    "expert parallelism is not ported yet (ROADMAP.md, queue 1: expert "
+    "parallelism): the port has no device mesh with an 'ep' axis. A MoE "
+    "config trains on one device through moe_ffn, or data-parallel through "
+    "RayStrategy"
+)
+
+
+def moe_ffn_local_experts(*args, **kwargs):
+    """``parallel/moe.py::moe_ffn_local_experts`` (each 'ep' rank runs its
+    own experts, tokens move by all-to-all): refused, see ROADMAP.md."""
+    raise NotImplementedError("moe_ffn_local_experts: " + _NO_EXPERT_PARALLELISM)
+
+
+def moe_param_specs(*args, **kwargs):
+    """``parallel/moe.py::moe_param_specs`` (the experts' partition over
+    'ep'): refused, see ROADMAP.md."""
+    raise NotImplementedError("moe_param_specs: " + _NO_EXPERT_PARALLELISM)

@@ -949,3 +949,88 @@ def test_verify_step_on_card_matches_cpu(cuda, layout):
             assert counts["rmsnorm"] == 2 * L * prefills + (2 * L + 1) * steps
             assert engine.stats["accepted_tokens"] > engine.stats["spec_row_ticks"]
     assert streams[0] == streams[1]
+
+
+def test_moe_training_step_on_card_matches_cpu(cuda):
+    """One MoE training step of tiny_moe in fp32 with remat, capacity factor
+    1.5 (tokens are dropped) and the auxiliary loss: the loss, the aux loss
+    and every gradient (the router's and the experts' included) on the card
+    (kernels) equal the CPU's (plain versions), 1e-5 relative on the
+    losses and 1e-4 of each leaf's max on the gradients (fp32 sums in other
+    orders); the card's step launched the training kernels."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        init_params,
+        lm_loss,
+    )
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(LlamaConfig.tiny_moe(), dtype=torch.float32,
+                              remat=True, capacity_factor=1.5)
+    host = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(4))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        params = tree_map(lambda t: t.detach().to(dev).clone().requires_grad_(),
+                          host)
+        loss, logs = lm_loss(params, tokens.to(dev), cfg)
+        loss.backward()
+        out[dev] = (loss.item(), logs["moe_aux"].item(),
+                    [t.grad.cpu() for t in tree_leaves(params)],
+                    kernels.launch_counts())
+    (lk, ak, gk, ck), (lc, ac, gc, cc) = out["cuda"], out["cpu"]
+    assert abs(lk - lc) <= 1e-5 * abs(lc)
+    assert abs(ak - ac) <= 1e-5 * abs(ac) and ac > 0
+    for a, b in zip(gk, gc):
+        assert float(b.abs().max()) > 0
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    L = cfg.n_layers
+    assert ck["flash_fwd"] == 2 * L and ck["flash_bwd_dq"] == L
+    assert ck["rmsnorm"] == 4 * L + 1 and set(cc.values()) == {0}
+
+
+def test_ray_strategy_on_card_matches_single_device(cuda):
+    """RayStrategy(num_workers=1, use_gpu=True): one worker process owns the
+    card in an NCCL group of world size 1 and trains a tiny fp32 model for
+    3 steps; the weights it sends back equal a SingleDeviceStrategy run of
+    the same seed bitwise (the same kernels, deterministic, on the same
+    card), and the worker's launch counts equal the single-device run's."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch import runtime as rt
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.strategies import RayStrategy
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32,
+                              max_seq=64)
+    runs = {}
+    try:
+        for name, strategy in (("single", None),
+                               ("ray", RayStrategy(num_workers=1, use_gpu=True,
+                                                   timeout_s=120))):
+            kernels.reset_launch_counts()
+            module = LlamaModule(cfg, lr=3e-3, warmup_steps=1, total_steps=3)
+            trainer = Trainer(device="cuda", strategy=strategy, max_steps=3,
+                              seed=0, logger=False, enable_checkpointing=False)
+            trainer.fit(module, datamodule=SyntheticLMDataModule(
+                cfg, batch_size=4, n_train=12, n_val=4))
+            counts = (trainer.worker_launch_counts if strategy is not None
+                      else kernels.launch_counts())
+            runs[name] = (list(tree_leaves(module.params)), counts, trainer)
+    finally:
+        rt.shutdown()
+    (single, single_counts, _), (ray, ray_counts, trainer) = (runs["single"],
+                                                              runs["ray"])
+    assert trainer.strategy.launcher.backend == "nccl"
+    assert trainer.global_step == 3 and "val_loss" in trainer.callback_metrics
+    assert ray_counts == single_counts and ray_counts["flash_bwd_dkv"] > 0
+    for a, b in zip(ray, single):
+        assert a.device.type == "cuda" and torch.equal(a, b.detach())

@@ -90,11 +90,11 @@ def test_converter_refuses_mismatches():
     with pytest.raises(TypeError):
         params_from_jax(tree, dataclasses.replace(tcfg, dtype=torch.bfloat16),
                         device="cpu")
-    # a MoE config now carries over (it serves); training it is refused
+    # a MoE config carries over (it serves and trains): it builds a module
     moe_cfg = tllama.LlamaConfig.from_dict(jllama.LlamaConfig.tiny_moe().to_dict())
     assert moe_cfg.n_experts == 4
-    with pytest.raises(NotImplementedError):
-        tllama.LlamaModule(moe_cfg)
+    module = tllama.LlamaModule(moe_cfg)
+    assert module.config is moe_cfg and module.hparams["config"]["n_experts"] == 4
 
 
 @pytest.mark.parametrize("variant", ["dense", "attn_bias", "window"])

@@ -19,8 +19,6 @@ import torch
 from ray_lightning_tpu.models import generation as jgen
 from ray_lightning_tpu.models import llama as jllama
 from ray_lightning_tpu.parallel import moe as jmoe
-from ray_lightning_tpu_torch.core import Trainer
-from ray_lightning_tpu_torch.core.module import LightningModule
 from ray_lightning_tpu_torch.models import generation as tgen
 from ray_lightning_tpu_torch.models import llama as tllama
 from ray_lightning_tpu_torch.models.convert import params_from_jax, params_to_numpy
@@ -291,36 +289,23 @@ def test_engine_greedy_streams_match_jax_generate():
     assert set(engine.kernel_launches().values()) == {0}
 
 
-class _MoELossModule(LightningModule):
-    """A user's module that trains an MoE config through lm_loss."""
-
-    def __init__(self, cfg):
-        super().__init__()
-        self.cfg = cfg
-
-    def init_params(self, generator, device=None):
-        return tllama.init_params(self.cfg, generator, device)
-
-    def training_step(self, params, batch, batch_idx):
-        return tllama.lm_loss(params, batch, self.cfg)[0]
-
-    def configure_optimizers(self):
-        return torch.optim.SGD(list(jax.tree_util.tree_leaves(self.params)),
-                               lr=0.1)
-
-
 def test_moe_training_is_refused():
+    """MoE training runs on one device (tests/test_torch_moe_training.py);
+    what stays refused is expert parallelism: the mesh layout of a MoE
+    config and the 'ep' collectives."""
     cfg = dataclasses.replace(tllama.LlamaConfig.tiny_moe(), dtype=torch.float32)
+    module = tllama.LlamaModule(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        module.param_shardings(object())
+    with pytest.raises(NotImplementedError, match="expert parallelism"):
+        tllama.LlamaModule(cfg.to_dict()).param_shardings(object())
     params = tllama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.zeros((1, 8, cfg.dim))
+    with pytest.raises(NotImplementedError, match="expert parallelism"):
+        tmoe.moe_ffn_local_experts(tllama.layer_params(params, 0)["moe"], x)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmoe.moe_param_specs(cfg)
+    # the one-device path a user's module takes is not refused any more
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tllama.lm_loss(params, tokens, cfg)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tllama.LlamaModule(cfg)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tllama.LlamaModule(cfg.to_dict())  # rebuilt from checkpoint hparams
-    loader = [tokens, tokens]
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        Trainer(device="cpu", max_steps=1, logger=False,
-                enable_checkpointing=False).fit(_MoELossModule(cfg),
-                                                train_dataloaders=loader)
+    loss = tllama.lm_loss(params, tokens, cfg)[0]
+    assert torch.isfinite(loss)
