@@ -169,16 +169,37 @@ final line):
    the kernel checks, the kernels are held against their plain versions at
    these paths' shapes (RMSNorm [4096,4096] bf16 and flash q [2,32,2048,128]
    forward and backward, timed; the two-rank fp32 shapes, checked);
-14. the ``kernels`` JSON line (launches from the main paths: serving,
+14. expert parallelism (``ray_ep``) — ``train_ray_ep``: Mixtral-8x7B
+   widths cut to 1 layer (1.713 B parameters), capacity factor 1.5, aux
+   weight 0.01, fp32 masters, bf16-mixed, AdamW, remat, batch 2 x 2048,
+   4 steps and one validation batch, first in the main process twice (the
+   reference, then one process that sums the experts in the ep run's
+   order), then through ``RayStrategy(num_workers=2, mesh_spec=
+   MeshSpec(axes={"ep": 2}))``: two workers share the card over gloo, each
+   holding 4 of the 8 experts; losses within 1e-3 relative of the
+   reference's, the returned weights (every expert) against the ep-order
+   run's: no element past 2^-7 of its leaf's max and each leaf's update
+   within 1e-2 in norm (their gap to the reference printed beside the two
+   references' own); every step of the worker beside the reference's, the ep
+   collectives' host time in a profiled step, start-up, the experts'
+   gather and the weights' way back; the workers' launches. Then
+   ``ep_exactness``: fp32 at narrow widths, one SGD step at lr 1, {"ep": 2}
+   at world 2, {"dp": 2, "ep": 2} at world 4 at stage 0 and ZeRO 3, and
+   {"ep": 2} at capacity factor 1.5: each equal to one process on the
+   global batch within 1e-5. The kernel phase holds paged decode at its
+   repaired shapes (G 16; head dims 80 and 96) and times flash at Qwen2.5's
+   G 7;
+15. the ``kernels`` JSON line (launches from the main paths: serving,
    serving_slot, serving_spec, serving_spec_slot, generate_window,
    serving_qwen_yarn, generate_longrope, serving_moe, training,
    training_complete, train_moe, train_ray_ddp, train_ray_zero3,
-   train_ray_horovod, ray_two_ranks; the last four from the workers'
-   counts, which each worker process keeps from 0 and the launcher sums),
-   the card line, and the final ``{"ok": true, ...}`` line.
+   train_ray_horovod, ray_two_ranks, train_ray_ep, ep_exactness; the Ray
+   paths from the workers' counts, which each worker process keeps from 0
+   and the launcher sums), the card line, and the final ``{"ok": true,
+   ...}`` line.
 
-``python3 chip_smoke.py --phases kernels,train_moe,ray,ray_two_ranks`` runs
-the named phases alone and prints no result: a rehearsal of a phase.
+``python3 chip_smoke.py --phases kernels,ray_ep`` runs the named phases
+alone and prints no result: a rehearsal of a phase.
 
 Timings are printed beside the card's name and power limit; they are this
 card's numbers, and the fields are described in PERF.md.
@@ -311,8 +332,14 @@ def _template_label(mangled, names):
     return f"{m.group(1)}<{','.join(args)}>"
 
 
-def report_registers(kernels):
-    """Registers and spills (nvcc -Xptxas -v) of the flash kernels, one line
+# the sources whose registers and spills report_registers reads
+PTXAS_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu",
+                 "rmsnorm.cu", "argmax.cu")
+
+
+def report_registers(usage_of):
+    """Registers and spills (nvcc -Xptxas -v: ``usage_of[source]`` is
+    ``kernels.resource_usage(source)``) of the flash kernels, one line
     each: the tensor-core (bf16) instantiations, two of the forward and four
     of the backward, must not spill; and of every instantiation of the paged
     decode (dtype x G x hd), RMSNorm and argmax kernels, one line per
@@ -321,7 +348,7 @@ def report_registers(kernels):
 
     tc = {"flash_fwd.cu": 0, "flash_bwd.cu": 0}
     for source in tc:
-        usage = kernels.resource_usage(source)
+        usage = usage_of[source]
         for mangled, u in sorted(usage.items()):
             m = re.search(r"(flash_\w*?_kernel_(?:bf16|f32))(?:ILi(\d+)E)?",
                           mangled)
@@ -336,17 +363,21 @@ def report_registers(kernels):
     check(tc == {"flash_fwd.cu": 2, "flash_bwd.cu": 4},
           f"expected 2 bf16 forward and 4 bf16 backward instantiations, "
           f"found {tc}")
-    # dtype x G x hd; dtype x (5 vector lengths x (3 warps a row with w
-    # staged + 4 warps a row with w in registers) + the scalar kernel)
-    expect = {"paged_decode.cu": (("paged_decode_kernel",), 32),
+    # dtype x G x hd x (the cache at that width, or narrower: padded); dtype
+    # x (5 vector lengths x (3 warps a row with w staged + 4 warps a row with
+    # w in registers) + the scalar kernel)
+    expect = {"paged_decode.cu": (("paged_decode_kernel",), 64),
               "rmsnorm.cu": (("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel"), 42)}
-    # the instantiations the main paths launch: decode, prefill, training
-    main_path = ("paged_decode_kernel<bf16,4,128>", "paged_decode_kernel<bf16,8,128>",
+    # the instantiations the main paths launch: decode (and hd 80/96 on the
+    # 128-wide padded one), prefill, training
+    main_path = ("paged_decode_kernel<bf16,4,128,0>",
+                 "paged_decode_kernel<bf16,8,128,0>",
+                 "paged_decode_kernel<bf16,4,128,1>",
                  "rmsnorm_vec_kernel<bf16,4,4,0>",
                  "rmsnorm_vec_kernel<bf16,16,1,1>", "rmsnorm_vec_kernel<bf16,8,1,1>")
     for source, (names, count) in expect.items():
         usage = {_template_label(k, names): u
-                 for k, u in kernels.resource_usage(source).items()}
+                 for k, u in usage_of[source].items()}
         spills = [k for k, u in usage.items()
                   if u["spill_stores"] or u["spill_loads"]]
         regs = [u["registers"] for u in usage.values()]
@@ -359,7 +390,7 @@ def report_registers(kernels):
         check(not spills, f"{source}: {spills} spill registers")
     # the argmax kernel: vector or element loads x with or without noise
     usage = {}
-    for k, u in kernels.resource_usage("argmax.cu").items():
+    for k, u in usage_of["argmax.cu"].items():
         m = re.search(r"argmax_kernelILb(\d)ELb(\d)E", k)
         usage[f"argmax_kernel<{'vec' if m and m.group(1) == '1' else 'elem'},"
               f"{'noise' if m and m.group(2) == '1' else 'greedy'}>"] = u
@@ -500,6 +531,27 @@ def check_flash(torch, F):
                 f"{main['plain_ms']:.4f} library_ms(SDPA) {lib:.4f} "
                 f"bound_ms {b:.5f} ({by}); {b / main['ms']:.2%} of its bound, "
                 f"{main['ms'] / lib:.2f}x SDPA")
+        if name == "qwen2.5 group 7 bf16":
+            kr = k.repeat_interleave(7, dim=1)
+            vr = v.repeat_interleave(7, dim=1)
+            pairs = S * (S + 1) // 2
+            nbytes = (q.numel() * 2 * 2 + k.numel() * 2 * 2 + hq * S * 4)
+            b, by = bound(nbytes, 4 * hq * pairs * hd, BF16_FLOPS)
+            main["at_qwen_group_7"] = dict(
+                shape=f"q[{B},{hq},{S},{hd}] kv[{B},{hkv},{S},{hd}] bf16 causal "
+                      "(serving_qwen_yarn's prefill, G 7)",
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: flash_attention(q, k, v)),
+                plain_ms=time_ms(torch, lambda: flash_attention_plain(
+                    q, k, v, True, None, None)),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, kr, vr, is_causal=True)),
+                bound_ms=b, bound_by=by)
+            r = main["at_qwen_group_7"]
+            log(f"flash {name}: kernel_ms {r['ms']:.4f} plain_ms "
+                f"{r['plain_ms']:.4f} library_ms(SDPA) {r['library_ms']:.4f} "
+                f"bound_ms {b:.5f} ({by}); {b / r['ms']:.2%} of its bound")
+            del kr, vr
         del q, k, v, o, lse, po, plse
     main["at_generate_prefill_shape"], err = check_flash_window(
         torch, F, g, 32, 8, 128, 4096, "generate_window")
@@ -742,9 +794,11 @@ def check_paged(torch, F):
     row, bf16 cache), timed with L2 flushed at two shapes: ragged positions
     (the test shape) and the full cache (every row at pos 1023); and at
     ``serving_qwen_yarn``'s layout (8 rows x 4 KV heads x G 7, which the
-    wrapper pads to the G 8 instantiation) at the ragged positions. A CUDA
-    graph of one call, replayed with new positions written in place, must
-    equal eager calls bitwise."""
+    wrapper pads to the G 8 instantiation) at the ragged positions; then at
+    the repaired shapes, ragged: G 16 (8 rows x 8 KV heads, two launches of
+    8 query heads) and head dims 80 and 96 (8 rows x 8 KV heads x G 4, on
+    the 128-wide instantiation). A CUDA graph of one call, replayed with new
+    positions written in place, must equal eager calls bitwise."""
     import numpy as np
 
     from ray_lightning_tpu_torch.ops.paged_attention import (
@@ -756,7 +810,7 @@ def check_paged(torch, F):
     n_blocks = B * maxb + 1
     g = torch.Generator(device="cuda").manual_seed(3)
 
-    def layout(hkv, G):
+    def layout(hkv, G, hd=hd):
         kc = torch.randn(n_blocks, hkv, bs, hd, generator=g, device="cuda").bfloat16()
         vc = torch.randn(n_blocks, hkv, bs, hd, generator=g, device="cuda").bfloat16()
         return torch.randn(B, hkv, G, hd, generator=g, device="cuda"), kc, vc
@@ -776,7 +830,7 @@ def check_paged(torch, F):
         return torch.from_numpy(tables).cuda()
 
     def measure(name, pos, free_last, q, kc, vc):
-        hkv, G = q.shape[1], q.shape[2]
+        hkv, G, hd = q.shape[1], q.shape[2], q.shape[3]
         t_tab = tables_for(pos, free_last)
         t_pos = torch.from_numpy(pos).cuda()
         got = paged_decode_attention(q, kc, vc, t_tab, t_pos)
@@ -812,12 +866,12 @@ def check_paged(torch, F):
             plain_ms=time_ms(torch, lambda: paged_decode_attention_plain(
                 q, kc, vc, t_tab, t_pos), cold=True),
             bound_ms=b, bound_by=by, library_ms=lib,
-            shape=f"8 rows x {hkv} KV heads x G {G}, hd 128, bs 16, {name}, "
+            shape=f"8 rows x {hkv} KV heads x G {G}, hd {hd}, bs 16, {name}, "
                   "bf16 cache",
         )
         warm = time_ms(torch, lambda: paged_decode_attention(
             q, kc, vc, t_tab, t_pos))
-        log(f"paged decode G {G} {name} (times with L2 flushed; kernel_ms "
+        log(f"paged decode G {G} hd {hd} {name} (times with L2 flushed; kernel_ms "
             f"{warm:.4f} with the cache hot in L2): max_abs_err {err:.3g} "
             f"(tol 1e-4), bitwise repeatable; kernel_ms {r['ms']:.4f} (eager "
             f"{r['ms_eager']:.4f}) plain_ms {r['plain_ms']:.4f} "
@@ -834,8 +888,17 @@ def check_paged(torch, F):
     qwen = layout(4, 7)
     out["at_group_7"], _, _ = measure("pos up to 1000", ragged, True, *qwen)
     del qwen
+    # the repaired shapes: a group above 8, head dims between the
+    # instantiated widths
+    for key, shape in (("at_group_16", (8, 16)), ("at_head_dim_80", (8, 4, 80)),
+                       ("at_head_dim_96", (8, 4, 96))):
+        inputs = layout(*shape)
+        out[key], _, _ = measure("pos up to 1000", ragged, True, *inputs)
+        del inputs
     out["max_abs_err"] = max(out["max_abs_err"], full["max_abs_err"],
-                             out["at_group_7"]["max_abs_err"])
+                             *(out[k]["max_abs_err"] for k in (
+                                 "at_group_7", "at_group_16", "at_head_dim_80",
+                                 "at_head_dim_96")))
 
     # one call captured in a CUDA graph, replayed with new positions
     static_pos = t_pos.clone()
@@ -1831,6 +1894,15 @@ def _leaves(tree):
     from ray_lightning_tpu_torch.utils.tree import tree_leaves
 
     return list(tree_leaves(tree))
+
+
+def _paths(tree, prefix=""):
+    """(key path, leaf) of a dict tree, in tree_leaves order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
 
 
 def tree_bytes(tree):
@@ -3175,6 +3247,473 @@ def ray_two_ranks(torch, card):
     return total_counts
 
 
+RAY_EP_STEPS = 4  # steps of the ep run and of its references
+RAY_EP_LAYERS = 1  # Mixtral-8x7B widths: 1.713 B parameters, fp32 masters
+RAY_EP_LOSS_RTOL = 1e-3  # bf16-mixed: the experts' sum in another order
+# the ep run's weights against the one-process run of the same arithmetic
+# (``two_member_moe_ffn``): the ep run's sums, in the ep run's order, so
+# the two agree to fp32 rounding, and each leaf's update (the weights less
+# the initial ones) within RAY_EP_TWIN_UPDATE_RTOL of the reference's in
+# norm; a missing or misplaced expert update parts them by about 1
+RAY_EP_TWIN_TOL = 2.0 ** -7
+RAY_EP_TWIN_UPDATE_RTOL = 1e-2
+
+
+class EpCollectives(_Callback):
+    """In a worker: one training step (``step``, a global step) under
+    torch.profiler; its wall time and the host time of the step's ep
+    collectives, the ``moe_ep_all_reduce`` spans of ``parallel/moe.py`` (a
+    gloo all-reduce through a host copy: the copy out, the reduction, the
+    copy back), with their count. Comes back with rank 0's callback
+    states."""
+
+    def __init__(self, step=2):
+        self.step = step
+        self.result = None
+        self._prof = None
+        self._t = None
+
+    def __getstate__(self):
+        return {"step": self.step, "result": self.result, "_prof": None,
+                "_t": None}
+
+    def on_train_batch_start(self, trainer, module, batch, batch_idx):
+        import torch
+
+        if trainer.global_step != self.step:
+            return
+        torch.cuda.synchronize()
+        self._prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        self._t = time.perf_counter()
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
+        import torch
+
+        if self._prof is None:
+            return
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - self._t) * 1e3
+        self._prof.__exit__(None, None, None)
+        spans = [e for e in self._prof.key_averages()
+                 if e.key == "moe_ep_all_reduce"]
+        self.result = {"step_ms": wall_ms,
+                       "ep_ms": sum(e.cpu_time_total for e in spans) / 1e3,
+                       "ep_calls": sum(e.count for e in spans)}
+        self._prof = None
+
+    def state_dict(self):
+        return {"result": self.result}
+
+    def load_state_dict(self, state):
+        self.result = state["result"]
+
+
+class StepLosses(_Callback):
+    """Each step's loss on this rank, back with rank 0's callback states."""
+
+    def __init__(self):
+        self.losses = []
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
+        self.losses.append(outputs["loss"])
+
+    def on_train_end(self, trainer, module):
+        self.losses = [float(x) for x in self.losses]
+
+    def state_dict(self):
+        return {"losses": [float(x) for x in self.losses]}
+
+    def load_state_dict(self, state):
+        self.losses = list(state["losses"])
+
+
+class ShardedSGDLlama(SGDLlama):
+    """The one-process reference of ``dp`` data-parallel ranks that route
+    their own batches (``moe_ffn_local_experts`` routes the member's x):
+    the loss of a step is the mean over the dp shards of the global batch,
+    in GlobalBatchSampler's order, of ``lm_loss`` on each."""
+
+    dp = 1
+
+    def training_step(self, params, batch, batch_idx):
+        import torch
+
+        from ray_lightning_tpu_torch.models.llama import lm_loss
+
+        parts = [lm_loss(params, t, self.config)[0]
+                 for t in self._tokens_of(batch).chunk(self.dp)]
+        return torch.stack(parts).mean()
+
+
+def ep_config(torch, narrow=False):
+    """Mixtral-8x7B widths through ``moe_train_config``, cut to
+    RAY_EP_LAYERS layer (``narrow``: its 2-layer narrow widths)."""
+    cfg = moe_train_config(torch, torch.float32, narrow=narrow)
+    return cfg if narrow else dataclasses.replace(cfg, n_layers=RAY_EP_LAYERS)
+
+
+def two_member_moe_ffn(torch):
+    """``moe_ffn`` with the arithmetic of ``moe_ffn_local_experts`` at ep 2,
+    in one process and with no collective: each of two members takes the
+    input and the router through f (the backward sums the two members'
+    cotangents, as gloo's all-reduce of two ranks does: a + b), runs
+    ``member_share`` on its 4 experts' slices, and the two fp32 partial
+    outputs are summed (g); the aux loss, equal on both, reaches each
+    member's ScaleBwd with the loss's cotangent, as each member's own loss
+    seeds it. The train_ray_ep reference that sums in the ep run's order."""
+    from ray_lightning_tpu_torch.parallel.moe import member_share
+
+    class Fork(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone(), x.clone()
+
+        @staticmethod
+        def backward(ctx, g0, g1):
+            return g0 + g1
+
+    class Join(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a0, a1):
+            return a0.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, g
+
+    def moe_ffn(params, x, top_k=2, capacity_factor=1.5, capacity=None):
+        b, s, d = x.shape
+        e = params["router"].shape[-1]
+        half = e // 2
+        t = b * s
+        if capacity is None:
+            capacity = max(1, int(capacity_factor * top_k * t / e))
+        xts = Fork.apply(x.reshape(t, d))
+        routers = Fork.apply(params["router"])
+        outs, auxs = [], []
+        for m in (0, 1):
+            local = {k: v[m * half:(m + 1) * half]
+                     for k, v in params.items() if k != "router"}
+            out, aux = member_share(local, xts[m], routers[m], top_k,
+                                    capacity, m * half, 2)
+            outs.append(out)
+            auxs.append(aux)
+        out = outs[0] + outs[1]
+        return out.reshape(b, s, d).to(x.dtype), Join.apply(*auxs)
+
+    return moe_ffn
+
+
+def _ep_gaps(torch, paths, got, want, init):
+    """Per leaf of two runs' weights (leaf lists, ``got`` against ``want``,
+    both from ``init``): (path, gap over the leaf's max, elements past
+    RAY_EP_TWIN_TOL of the max, elements, ||got - want|| / ||want - init||,
+    the update's gap in norm). Each leaf on the card, one at a time."""
+    rows = []
+    for path, a, b, w0 in zip(paths, got, want, init):
+        a = a.detach().to("cuda", torch.float32)
+        b = b.to("cuda", torch.float32)
+        d = (a - b).abs()
+        peak = max(float(b.abs().max()), 1e-30)
+        upd = float(torch.linalg.vector_norm(b - w0.to("cuda", torch.float32)))
+        rows.append((path, float(d.max()) / peak,
+                     int((d > RAY_EP_TWIN_TOL * peak).sum()), b.numel(),
+                     float(torch.linalg.vector_norm(d)) / max(upd, 1e-30)))
+        del a, b, d
+    return rows
+
+
+def _gap_line(rows):
+    past = sum(r[2] for r in rows)
+    worst = max(rows, key=lambda r: r[1])
+    return (f"{past} of {sum(r[3] for r in rows)} elements past "
+            f"{RAY_EP_TWIN_TOL:.3g} of their leaf's max, worst {worst[1]:.3g} "
+            f"({worst[0]}), the updates' gap in norm at most "
+            f"{max(r[4] for r in rows):.3g}; by leaf (gap / max, past, update "
+            "gap): " + ", ".join(f"{p} {g:.3g} {n} {u:.3g}"
+                                 for p, g, n, _, u in rows))
+
+
+def train_ray_ep(torch, card):
+    """Expert parallelism at full width: Mixtral-8x7B widths cut to 1 layer
+    (8 experts of ffn 14336, top-2, capacity factor 1.5, aux weight 0.01),
+    fp32 masters, bf16-mixed, AdamW, remat, batch 2 x 2048, RAY_EP_STEPS
+    steps and one validation batch. First two references in the main
+    process: one process as it runs (``moe_ffn``), then one process that
+    sums the experts as the ep run does (``two_member_moe_ffn``); then
+    RayStrategy(num_workers=2, mesh_spec=MeshSpec(axes={"ep": 2})): two
+    workers share the card over gloo, each holding 4 of the 8 experts, on
+    the same batches. Checks: the losses within 1e-3 relative of the first
+    reference's; the returned weights hold all 8 experts and agree with
+    the second reference's (every element within RAY_EP_TWIN_TOL of its
+    leaf's max, each leaf's update within RAY_EP_TWIN_UPDATE_RTOL in norm).
+    Printed: the weights' gap to the first reference, and the two
+    references' gap to each other (what the order of the sums alone does);
+    every step time of the worker and of the reference with their medians,
+    the ep collectives' host time in a profiled step, start-up, the gather
+    and the weights' way back; the workers' launches, each one process's."""
+    import statistics
+
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.core import DataLoader, Trainer
+    from ray_lightning_tpu_torch.models import llama
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.parallel.mesh import MeshSpec
+    from ray_lightning_tpu_torch.strategies import RayStrategy
+
+    smoke = _smoke_module()
+    cfg = ep_config(torch)
+    check(cfg.n_experts == 8 and cfg.dim == 4096 and cfg.ffn_dim == 14336
+          and cfg.n_layers == RAY_EP_LAYERS and cfg.capacity_factor == 1.5
+          and cfg.remat, f"train_ray_ep config {cfg}")
+    batch, steps = MOE_TRAIN_BATCH, RAY_EP_STEPS
+    n_train = batch * steps
+    dm = SyntheticLMDataModule(cfg, batch_size=batch, n_train=n_train,
+                               n_val=batch)
+    dm.setup("fit")
+    loader = DataLoader(dm.train_data, batch_size=batch, drop_last=True,
+                        sampler=smoke.GlobalBatchSampler(n_train, 1, batch, 0))
+    expect = training_launches(cfg.n_layers, steps, 1)
+    init = []
+
+    class InitialWeights(_Callback):
+        def on_train_start(self, trainer, module):
+            init.extend(t.detach().cpu().clone() for t in _leaves(module.params))
+
+    def module():
+        return LlamaModule(cfg, lr=3e-4, warmup_steps=2, total_steps=steps)
+
+    def reference(moe_fn, callbacks=()):
+        clock, losses = smoke.StepTimes(), smoke.StepLosses()
+        trainer = Trainer(device="cuda", precision="bf16-mixed",
+                          max_steps=steps, logger=False,
+                          enable_checkpointing=False, seed=0,
+                          callbacks=[clock, losses, *callbacks])
+        ref_module = module()
+        kept = llama.moe_ffn
+        llama.moe_ffn = moe_fn
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        try:
+            trainer.fit(ref_module, train_dataloaders=loader,
+                        val_dataloaders=dm.val_dataloader())
+            torch.cuda.synchronize()
+        finally:
+            llama.moe_ffn = kept
+        counts = kernels.launch_counts()
+        check(counts == expect, f"train_ray_ep reference launches {counts} "
+              f"!= {expect}")
+        out = {"losses": losses.losses, "step_ms": clock.step_ms,
+               "s": time.perf_counter() - t,
+               "peak": torch.cuda.max_memory_allocated() / 2**30,
+               "val": float(trainer.callback_metrics["val_loss"]),
+               "weights": [t.detach().cpu() for t in _leaves(ref_module.params)]}
+        del trainer, ref_module
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    plain = reference(llama.moe_ffn, [InitialWeights()])
+    twin = reference(two_member_moe_ffn(torch))
+
+    # the last step is profiled: the timed steps (2-3) run unprofiled
+    clock, losses = smoke.StepTimes(), smoke.StepLosses()
+    ep = smoke.EpCollectives(step=steps - 1)
+    strategy = RayStrategy(num_workers=2, use_gpu=True,
+                           resources_per_worker={"GPU": 0.5},
+                           mesh_spec=MeshSpec(axes={"ep": 2}))
+    trainer = Trainer(device="cuda", strategy=strategy, precision="bf16-mixed",
+                      max_steps=steps, logger=False, enable_checkpointing=False,
+                      seed=0, callbacks=[clock, losses, ep])
+    ep_module = module()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    trainer.fit(ep_module, datamodule=SyntheticLMDataModule(
+        cfg, batch_size=batch, n_train=n_train, n_val=batch))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    main_counts = kernels.launch_counts()
+    check(set(main_counts.values()) == {0},
+          f"train_ray_ep: the main process launched kernels: {main_counts}")
+    counts = trainer.worker_launch_counts
+    check(counts == {k: 2 * v for k, v in expect.items()},
+          f"train_ray_ep worker launches {counts}: each of 2 workers should "
+          f"launch {expect}")
+    launcher = strategy.launcher
+    check(launcher.backend == "gloo", f"train_ray_ep backend {launcher.backend}")
+    got = ep_module.params
+    check(got["layers"]["moe"]["w_gate"].shape[1] == cfg.n_experts,
+          "train_ray_ep: the returned weights lack experts: "
+          f"{tuple(got['layers']['moe']['w_gate'].shape)}")
+    paths = [p for p, _ in _paths(got)]
+    vs_twin = _ep_gaps(torch, paths, _leaves(got), twin["weights"], init)
+    vs_plain = _ep_gaps(torch, paths, _leaves(got), plain["weights"], init)
+    refs_gap = _ep_gaps(torch, paths, twin["weights"], plain["weights"], init)
+    # every step of each run: [1:-1] are the steps that run unprofiled and
+    # without validation (the last holds both)
+    ep_steps, ref_steps = clock.step_ms, plain["step_ms"]
+    med = statistics.median(ep_steps[1:-1])
+    ref_ms = statistics.median(ref_steps[1:-1])
+    r, tm = ep.result, launcher.timings
+    T, D = batch * cfg.max_seq, cfg.dim
+    # a step, per layer: g's fp32 [T, D] sum in forward and again in the
+    # remat recompute, f's bf16 [T, D] input cotangent and the router's
+    ep_bytes = cfg.n_layers * (2 * T * D * 4 + T * D * 2 + D * cfg.n_experts * 2)
+    n_params = cfg.num_params()
+    expert_params = cfg.n_layers * 3 * cfg.n_experts * cfg.dim * cfg.ffn_dim
+    log(f"train_ray_ep on {card}: Mixtral-8x7B widths cut to {cfg.n_layers} "
+        f"layer ({n_params / 1e9:.3f} B params; each ep member "
+        f"{expert_params / 2 / 1e9:.3f} B of experts and "
+        f"{(n_params - expert_params) / 1e9:.3f} B of the rest), fp32 masters, "
+        f"bf16-mixed, AdamW, remat, batch {batch} x {cfg.max_seq}, capacity "
+        f"factor {cfg.capacity_factor}: RayStrategy(num_workers=2, "
+        f"mesh_spec=MeshSpec(axes={{'ep': 2}})), 2 workers on one card over "
+        f"{launcher.backend}: fit {fit_s:.1f}s (references in process "
+        f"{plain['s']:.1f}s and {twin['s']:.1f}s, peak {plain['peak']:.2f} "
+        f"GiB); start-up {tm['setup_s']:.2f}s, the stage {tm['run_s']:.2f}s, "
+        f"weights back {tm['weights_s']:.2f}s (the experts' all-gather "
+        f"{tm['gather_s']:.2f}s, rank 0 serialising {tm['collect_s']:.2f}s, "
+        f"the transfer {tm['transfer_s']:.2f}s, loading {tm['load_s']:.2f}s)")
+    log(f"train_ray_ep steps: worker median {med:.1f} ms over steps 2-"
+        f"{steps - 1} (every step: "
+        f"{', '.join(f'{x:.1f}' for x in ep_steps)} ms; the first warms up, "
+        f"the last is profiled and holds validation) vs one process median "
+        f"{ref_ms:.1f} ms (every step: "
+        f"{', '.join(f'{x:.1f}' for x in ref_steps)} ms; the ep-order "
+        f"reference: {', '.join(f'{x:.1f}' for x in twin['step_ms'])} ms)"
+        + (f"; profiled step {r['step_ms']:.1f} ms with {r['ep_calls']} ep "
+           f"all-reduces taking {r['ep_ms']:.1f} ms of host time "
+           f"({ep_bytes / 2**20:.0f} MiB a step through host copies over "
+           f"gloo, {ep_bytes / (r['ep_ms'] / 1e3) / 1e9:.2f} GB/s)"
+           if r is not None else ""))
+    log(f"train_ray_ep losses {losses.losses} vs reference {plain['losses']} "
+        f"(rtol {RAY_EP_LOSS_RTOL}) and the ep-order reference "
+        f"{twin['losses']}; val_loss "
+        f"{float(trainer.callback_metrics.get('val_loss', float('nan'))):.6f} "
+        f"vs {plain['val']:.6f} and {twin['val']:.6f}; worker launches "
+        f"{counts} (2 x one process's)")
+    log(f"train_ray_ep weights vs the ep-order reference (checked): "
+        + _gap_line(vs_twin))
+    log(f"train_ray_ep weights vs the one-process reference: "
+        + _gap_line(vs_plain))
+    log(f"train_ray_ep the ep-order reference vs the one-process reference "
+        f"(the order of the sums alone): " + _gap_line(refs_gap))
+    check(len(losses.losses) == steps and all(
+        abs(a - b) <= RAY_EP_LOSS_RTOL * abs(b)
+        for a, b in zip(losses.losses, plain["losses"])),
+        f"train_ray_ep losses {losses.losses} vs reference {plain['losses']} "
+        f"(rtol {RAY_EP_LOSS_RTOL})")
+    for name in ("val_loss", "val_moe_aux", "train_moe_aux"):
+        check(name in trainer.callback_metrics and math.isfinite(
+            float(trainer.callback_metrics[name])), f"train_ray_ep: {name}")
+    check(r is not None and r["ep_calls"] > 0,
+          f"train_ray_ep: no ep collective in the profiled step: {r}")
+    for path, rel, past, n, upd in vs_twin:
+        check(past == 0 and upd <= RAY_EP_TWIN_UPDATE_RTOL,
+              f"train_ray_ep: {path}: {past} of {n} elements past "
+              f"{RAY_EP_TWIN_TOL:.3g} of the leaf's max (worst {rel:.3g}) and "
+              f"the update {upd:.3g} from the ep-order reference's in norm "
+              f"(tol {RAY_EP_TWIN_UPDATE_RTOL:g})")
+    out = {"step_ms": med, "ref_step_ms": ref_ms, "ep_ms": r["ep_ms"],
+           "ep_step_ms": r["step_ms"], "setup_s": tm["setup_s"],
+           "gather_s": tm["gather_s"], "weights_s": tm["weights_s"],
+           "fit_s": fit_s}
+    del trainer, ep_module, got, plain, twin, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def ep_exactness(torch, card):
+    """Expert parallelism at narrow fp32 widths (Mixtral's layout, dim 1024,
+    ffn 1024, 8 experts top-2, 2 layers), one SGD step at lr 1 on 2 rows of
+    256 per dp rank, against one process on the global batch (the mean over
+    its dp shards' losses: each dp rank routes its own batch): {"ep": 2} at
+    world 2 and {"dp": 2, "ep": 2} at world 4 (four workers at 0.25 "GPU"
+    each) at capacity factor E / top_k, the same mesh under ZeRO 3, and
+    {"ep": 2} at capacity factor 1.5 (the routing is replicated over the
+    ep group, so the drops are the reference's). Each run returns all 8
+    experts, within 1e-5 of the reference."""
+    from ray_lightning_tpu_torch.core import DataLoader, Trainer
+    from ray_lightning_tpu_torch.models.llama import SyntheticLMDataModule
+    from ray_lightning_tpu_torch.parallel.mesh import MeshSpec
+    from ray_lightning_tpu_torch.strategies import (
+        RayShardedStrategy,
+        RayStrategy,
+    )
+
+    smoke = _smoke_module()
+    base = ep_config(torch, narrow=True)
+    no_drop = dataclasses.replace(base, capacity_factor=base.n_experts
+                                  / base.expert_top_k)
+    per_rank = RAY_TWO_RANK_BATCH
+    total_counts, rows = None, []
+    for name, cfg, spec, world, dp, zero in (
+        ("ep2", no_drop, {"ep": 2}, 2, 1, 0),
+        ("dp2_ep2", no_drop, {"dp": 2, "ep": 2}, 4, 2, 0),
+        ("dp2_ep2_zero3", no_drop, {"dp": 2, "ep": 2}, 4, 2, 3),
+        ("ep2_cf1.5", base, {"ep": 2}, 2, 1, 0),
+    ):
+        n_train = per_rank * dp
+        dm = SyntheticLMDataModule(cfg, batch_size=per_rank, n_train=n_train)
+        dm.setup("fit")
+        loader = DataLoader(dm.train_data, batch_size=per_rank * dp,
+                            drop_last=True, sampler=smoke.GlobalBatchSampler(
+                                n_train, dp, per_rank, 0))
+        ref_module = smoke.ShardedSGDLlama(cfg, lr=1.0, warmup_steps=0,
+                                           total_steps=1)
+        ref_module.dp = dp
+        Trainer(device="cuda", max_steps=1, logger=False, seed=0,
+                enable_checkpointing=False).fit(ref_module,
+                                                train_dataloaders=loader)
+        want = ref_module.params
+        kw = dict(num_workers=world, use_gpu=True,
+                  resources_per_worker={"GPU": 1.0 / world},
+                  mesh_spec=MeshSpec(axes=spec))
+        strategy = (RayShardedStrategy(zero_stage=zero, **kw) if zero
+                    else RayStrategy(**kw))
+        module = smoke.SGDLlama(cfg, lr=1.0, warmup_steps=0, total_steps=1)
+        trainer = Trainer(device="cuda", strategy=strategy, max_steps=1,
+                          logger=False, seed=0, enable_checkpointing=False)
+        t = time.perf_counter()
+        trainer.fit(module, train_dataloaders=dm.train_dataloader())
+        fit_s = time.perf_counter() - t
+        got = module.params
+        check(got["layers"]["moe"]["w_gate"].shape[1] == cfg.n_experts,
+              f"ep_exactness {name}: the returned weights lack experts")
+        gap = max(max_err(a.detach().to(b.device), b.detach())
+                  for a, b in zip(_leaves(got), _leaves(want)))
+        check(gap <= 1e-5, f"ep_exactness {name}: {gap:.3g} from one process "
+              "on the global batch (tol 1e-5)")
+        counts = trainer.worker_launch_counts
+        one = training_launches(cfg.n_layers, 1, 0, remat=cfg.remat)
+        check(counts == {k: world * v for k, v in one.items()},
+              f"ep_exactness {name}: launches {counts}")
+        total_counts = ({k: total_counts[k] + v for k, v in counts.items()}
+                        if total_counts else dict(counts))
+        rows.append(f"{name} (world {world}, capacity factor "
+                    f"{cfg.capacity_factor:g}{', ZeRO 3' if zero else ''}) gap "
+                    f"{gap:.3g}, fit {fit_s:.1f}s")
+        del trainer, module, ref_module, want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"ep_exactness on {card}: fp32 Mixtral layout at dim {base.dim}, ffn "
+        f"{base.ffn_dim}, {base.n_layers} layers, {per_rank} x {base.max_seq} "
+        f"rows a dp rank, one SGD step at lr 1, workers sharing the card over "
+        "gloo; every run returns all 8 experts and equals one process on the "
+        "global batch within 1e-5: " + "; ".join(rows)
+        + f"; launches {total_counts}")
+    return total_counts
+
+
 def check_new_path_shapes(torch, F, results):
     """The kernels at the shapes the new paths give them, against their
     plain versions: train_moe's RMSNorm [4096,4096] bf16 and flash q
@@ -3321,7 +3860,7 @@ def check_new_path_shapes(torch, F, results):
 # the phases of a run; ``--phases a,b`` runs those alone and prints no
 # result (a rehearsal of new phases)
 PHASES = ("kernels", "serving", "generation", "moe_serving", "training",
-          "train_moe", "ray", "ray_two_ranks")
+          "train_moe", "ray", "ray_two_ranks", "ray_ep")
 
 
 def main(argv=None):
@@ -3354,11 +3893,18 @@ def main(argv=None):
     log(f"device: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         "TF32 off for matmul and cuDNN")
 
+    # the libraries' nvcc runs and the ptxas reports' all at once
+    from concurrent.futures import ThreadPoolExecutor
+
     t = time.perf_counter()
-    libs = kernels.build()
-    log(f"built {len(libs)} kernel libraries in {time.perf_counter() - t:.1f}s: "
-        + ", ".join(p.name for p in libs))
-    report_registers(kernels)
+    with ThreadPoolExecutor(len(PTXAS_SOURCES)) as pool:
+        usage = {source: pool.submit(kernels.resource_usage, source)
+                 for source in PTXAS_SOURCES}
+        libs = kernels.build()
+        usage = {source: f.result() for source, f in usage.items()}
+    log(f"built {len(libs)} kernel libraries and their ptxas reports in "
+        f"{time.perf_counter() - t:.1f}s: " + ", ".join(p.name for p in libs))
+    report_registers(usage)
 
     phases = PHASES if only is None else only
     unknown = [p for p in phases if p not in PHASES]
@@ -3405,6 +3951,9 @@ def main(argv=None):
         by_path.update(ray_paths)
     if "ray_two_ranks" in phases:
         by_path["ray_two_ranks"] = ray_two_ranks(torch, card)
+    if "ray_ep" in phases:
+        by_path["train_ray_ep"], _ = train_ray_ep(torch, card)
+        by_path["ep_exactness"] = ep_exactness(torch, card)
     if only is not None:
         log(f"phases {phases} done in {time.perf_counter() - T0:.1f}s; a "
             "partial run prints no result")

@@ -69,7 +69,12 @@ class ModelCheckpoint(Callback):
         return fn(self.best_k_models, key=self.best_k_models.get)
 
     def _save(self, trainer, module) -> None:
-        if trainer.sanity_checking or not trainer.is_global_zero_writer:
+        if trainer.sanity_checking:
+            return
+        # under an ep mesh every rank gathers the experts here, at one
+        # point, whether or not rank 0 then writes
+        whole = trainer.whole_state(self.save_weights_only)
+        if not trainer.is_global_zero_writer:
             return
         metrics = trainer.callback_metrics
         os.makedirs(self.dirpath, exist_ok=True)
@@ -112,7 +117,8 @@ class ModelCheckpoint(Callback):
                     os.remove(worst)
 
         if should_save:
-            trainer.save_checkpoint(path, weights_only=self.save_weights_only)
+            trainer.save_checkpoint(path, weights_only=self.save_weights_only,
+                                    whole=whole)
             if score is not None:
                 self.best_k_models[path] = score
                 if self.best_model_score is None or self._is_better(
@@ -131,7 +137,8 @@ class ModelCheckpoint(Callback):
 
         if self.save_last:
             last = os.path.join(self.dirpath, "last" + self.CHECKPOINT_EXT)
-            trainer.save_checkpoint(last, weights_only=self.save_weights_only)
+            trainer.save_checkpoint(last, weights_only=self.save_weights_only,
+                                    whole=whole)
             self.last_model_path = last
 
     def on_validation_end(self, trainer, module) -> None:

@@ -803,7 +803,9 @@ class Trainer:
             self._dp.all_reduce_mean_(grads)
         if self.accumulate_grad_batches > 1:
             torch._foreach_div_(grads, float(self.accumulate_grad_batches))
-        if self.gradient_clip_val:
+        if self.gradient_clip_val and self._dp is not None:
+            self._dp.clip_(unit.leaves, self.gradient_clip_val)
+        elif self.gradient_clip_val:
             _clip_by_global_norm(grads, self.gradient_clip_val)
         for opt in unit.optimizers:
             opt.step()
@@ -830,6 +832,54 @@ class Trainer:
         calls)."""
         if self._dp is not None and self._dp.zero_stage == 3:
             self._dp.ensure_full()
+
+    def _apply_mesh(self, model) -> None:
+        """Under a strategy's ``ProcessMesh``: hand it to the module
+        (``param_shardings``, which also gives the per-leaf layout) and,
+        where its 'ep' axis splits the experts, keep this member's slice of
+        every expert leaf (``DataParallel.shard_experts``)."""
+        mesh = self.strategy.process_mesh
+        if mesh is None:
+            return
+        shardings = getattr(model, "param_shardings", None)
+        specs = shardings(mesh) if shardings is not None else None
+        if mesh.size("ep") > 1:
+            if specs is None:
+                raise NotImplementedError(
+                    f"{type(model).__name__} gives no param_shardings, so an "
+                    "'ep' mesh axis cannot tell its expert leaves")
+            self._params = self._dp.shard_experts(self._params, specs)
+
+    def whole_params(self):
+        """The parameter tree with every expert leaf whole: under an ep mesh
+        each leaf's slices are all-gathered over the ep group (a collective:
+        every rank calls it at the same point); else the tree itself."""
+        params = self._params if self._params is not None else (
+            self._module._params if self._module is not None else None)
+        if params is None or self._dp is None or not self._dp.expert_dims:
+            return params
+        return self._dp.gather_experts(params)
+
+    def whole_state(self, weights_only: bool = False
+                    ) -> Optional[Dict[str, Any]]:
+        """What a checkpoint holds under an ep mesh, each expert leaf
+        gathered whole over the ep group (a collective: every rank calls it
+        at the same point, before rank 0 writes): ``state_dict``, and unless
+        ``weights_only`` the stage-0 ``optimizer_states`` and a partial
+        accumulation's ``grads``. None without an ep mesh (a checkpoint
+        then reads the rank's own tensors)."""
+        dp = self._dp
+        if dp is None or not dp.expert_dims:
+            return None
+        whole: Dict[str, Any] = {"state_dict": self.whole_params()}
+        if weights_only:
+            return whole
+        if not dp.zero_stage and self._optim is not None:
+            whole["optimizer_states"] = [dp.gather_optimizer_state(opt)
+                                         for opt in self._optim.optimizers]
+        if self._micro_step:
+            whole["grads"] = dp.gather_grads(list(tree_leaves(self._params)))
+        return whole
 
     def _reduce_over_ranks(self, metrics: Dict[str, np.ndarray]):
         if self._dp is None:
@@ -895,15 +945,20 @@ class Trainer:
         # the masters are a copy: a fresh init would otherwise stay
         # allocated beside them for the whole fit
         del host
+        # over several ranks: the whole tree from global rank 0 over the
+        # world, then (under an ep mesh) each member's slice of the experts,
+        # and only then the optimizers, on the leaves each rank keeps
+        self._dp = self.strategy.data_parallel(self)
+        if self._dp is not None:
+            self._dp.broadcast_(list(tree_leaves(self._params)))
+            self._apply_mesh(model)
         model._params = self._params  # configure_optimizers reads them
         self._optim = _normalize_optimizers(model.configure_optimizers())
         if self._optim.labels is not None:
             _check_labels(self._optim, self._params)
         self._build_updates()
         self._micro_step = 0
-        self._dp = self.strategy.data_parallel(self)
         if self._dp is not None:
-            self._dp.broadcast_(list(tree_leaves(self._params)))
             if ckpt_path is not None and self._dp.zero_stage:
                 raise NotImplementedError(
                     f"ckpt_path with ZeRO stage {self._dp.zero_stage}: "
@@ -1213,6 +1268,8 @@ class Trainer:
             lambda t: torch.as_tensor(t).detach().to(self.device),
             cast_floats(model._params, self.precision_policy.param_dtype),
         )
+        if self._dp is not None:
+            self._apply_mesh(model)
         return loader
 
     def _eval_impl(self, model, dataloaders, datamodule, ckpt_path, phase: str):
@@ -1263,11 +1320,16 @@ class Trainer:
     # ------------------------------------------------------------------ #
     # checkpoints
     # ------------------------------------------------------------------ #
-    def dump_checkpoint(self, weights_only: bool = False) -> Dict[str, Any]:
+    def dump_checkpoint(self, weights_only: bool = False,
+                        whole: Optional[Dict[str, Any]] = None
+                        ) -> Dict[str, Any]:
         """The checkpoint as a dict. Under ZeRO stage >= 1 the optimizer
         states are this rank's shard and are left out (a resume from them
         is refused); under stage 3 the parameters must be whole, which they
-        are at validation and at the epoch's end."""
+        are at validation and at the epoch's end. Under an ep mesh the
+        experts are written whole: from ``whole`` (:meth:`whole_state`,
+        gathered by every rank), else gathered here, which every rank must
+        then call."""
         model = self._module
         params = self._params if self._params is not None else model._params
         if self._dp is not None and self._dp.zero_stage == 3 and self._dp.released:
@@ -1276,6 +1338,10 @@ class Trainer:
                 "parameters are sharded; checkpoints are written at "
                 "validation and at the epoch's end, where every rank has "
                 "gathered them")
+        if whole is None:
+            whole = self.whole_state(weights_only)
+        if whole is not None:
+            params = whole["state_dict"]
         ckpt: Dict[str, Any] = {
             "epoch": self.current_epoch,
             "epoch_complete": bool(self._epoch_ended),
@@ -1288,18 +1354,21 @@ class Trainer:
             if self._dp is not None and self._dp.zero_stage:
                 ckpt["zero_stage"] = self._dp.zero_stage
             elif self._optim is not None:
-                ckpt["optimizer_states"] = [
-                    opt.state_dict() for opt in self._optim.optimizers]
+                ckpt["optimizer_states"] = (
+                    whole["optimizer_states"] if whole is not None else
+                    [opt.state_dict() for opt in self._optim.optimizers])
                 scheds = [s for ss in self._optim.schedulers for s in ss]
                 if scheds:
                     ckpt["lr_schedulers"] = [s.state_dict() for s in scheds]
             if self._micro_step:
                 # a partial accumulation (MultiSteps' state lives in the
                 # optimizer state, so the JAX checkpoint carries it too)
+                grads = (whole["grads"] if whole is not None else
+                         [t.grad for t in tree_leaves(params)])
                 ckpt["accumulation"] = {
                     "micro_step": self._micro_step,
-                    "grads": [None if t.grad is None else t.grad.detach().cpu()
-                              for t in tree_leaves(params)],
+                    "grads": [None if g is None else g.detach().cpu()
+                              for g in grads],
                 }
             ckpt["callbacks"] = collect_callback_states(self.callbacks)
             ckpt["callback_metrics"] = {
@@ -1309,11 +1378,12 @@ class Trainer:
         model.on_save_checkpoint(ckpt)
         return ckpt
 
-    def save_checkpoint(self, filepath: str, weights_only: bool = False) -> None:
+    def save_checkpoint(self, filepath: str, weights_only: bool = False,
+                        whole: Optional[Dict[str, Any]] = None) -> None:
         """``torch.save`` of :meth:`dump_checkpoint`, written to a temporary
         file in the same directory and renamed into place, so a reader never
         sees a half-written checkpoint."""
-        ckpt = self.dump_checkpoint(weights_only)
+        ckpt = self.dump_checkpoint(weights_only, whole)
         if not self.is_global_zero_writer:
             return
         filepath = os.path.abspath(filepath)
@@ -1342,12 +1412,19 @@ class Trainer:
                 f"{ckpt_path} was written under ZeRO stage "
                 f"{ckpt['zero_stage']} without optimizer states; resuming it "
                 "is not ported yet (ROADMAP.md)")
+        state_dict = ckpt["state_dict"]
+        dp = self._dp
+        experts = dp is not None and bool(dp.expert_dims)
+        if experts:  # the whole tree, cut to this member's expert slices
+            state_dict = dp.slice_whole(state_dict)
         with torch.no_grad():
             for dst, src in zip(tree_leaves(self._params),
-                                tree_leaves(ckpt["state_dict"])):
+                                tree_leaves(state_dict)):
                 dst.copy_(src)
         optim = self._optim
         for opt, state in zip(optim.optimizers, ckpt.get("optimizer_states", [])):
+            if experts:
+                state = dp.slice_optimizer_state(opt, state)
             opt.load_state_dict(state)
         for sched, state in zip([s for ss in optim.schedulers for s in ss],
                                 ckpt.get("lr_schedulers", [])):
@@ -1355,7 +1432,12 @@ class Trainer:
         accumulation = ckpt.get("accumulation")
         if accumulation is not None:
             self._micro_step = int(accumulation["micro_step"])
-            for leaf, g in zip(tree_leaves(self._params), accumulation["grads"]):
+            grads = accumulation["grads"]
+            if experts:
+                grads = [None if g is None else (
+                    dp.slice_expert(g, dp.expert_dims[i]) if i in dp.expert_dims
+                    else g) for i, g in enumerate(grads)]
+            for leaf, g in zip(tree_leaves(self._params), grads):
                 leaf.grad = None if g is None else g.to(self.device, leaf.dtype)
         base = int(ckpt.get("epoch", 0))
         self.current_epoch = base + 1 if ckpt.get("epoch_complete", True) else base

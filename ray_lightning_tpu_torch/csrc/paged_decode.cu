@@ -50,16 +50,26 @@
 //   and a subset of the group's positions; the subsets are summed once per
 //   chunk in a fixed order.
 // - One launch per call. Each block writes its chunk's partial state (max,
-//   sum, unnormalised output per query head) and counts its arrival in a
-//   persistent int32 counter per (row, KV head) that lives in this library
-//   (g_arrivals, zero at load). The last block to arrive resets the counter
-//   to 0 and merges the chunks in chunk order, so the result is bitwise
-//   deterministic (no float atomics) and the call needs no memset: it can be
-//   captured in a CUDA graph and replayed. A row with one chunk skips the
-//   partials and writes its output directly. Calls on one stream are ordered;
-//   two calls that run at once on two streams would share the counters, and
-//   the port makes none. The C signature is unchanged: the counters need no
-//   argument.
+//   sum, unnormalised output per query head) and counts its arrival in an
+//   int32 counter per (row, KV head) that the caller passes (`arrivals`: the
+//   wrapper keeps one zeroed buffer per (device, stream), so two calls that
+//   run at once on two streams never share a counter). The last block to
+//   arrive resets the counter to 0 and merges the chunks in chunk order, so
+//   the result is bitwise deterministic (no float atomics) and the call needs
+//   no memset: it can be captured in a CUDA graph and replayed. A row with one
+//   chunk skips the partials and writes its output directly.
+// - Any head dim that is a multiple of 8, up to 256. The widths 32, 64, 128
+//   and 256 keep their compile-time row strides (kPadded false). Another
+//   width runs on the instantiation of the next width up (kPadded true): the
+//   cache's rows are read at the real head dim's stride, the 16-byte chunks
+//   past it are zero-filled in shared memory (cp.async with a source size of
+//   0), and q and the output come at the padded width (the wrapper pads q
+//   with zeros and slices the output); the pool is never padded. A multiple
+//   of 8 keeps every row 16-byte aligned in bf16 and fp32.
+// - Groups: 1, 2, 4 and 8 are instantiated; the wrapper pads 3, 5-7 with zero
+//   query heads and splits a group above 8 into launches of at most 8 heads
+//   over the same caches and tables (each launch reads its KV head's blocks
+//   again: G 16 moves twice the bytes of one pass).
 
 #include <cmath>
 #include <cstdint>
@@ -73,8 +83,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRingBytes = 32768;    // the shared-memory ring of K/V tiles
 constexpr int kMaxRows = 1 << 16;    // B * Hkv the arrival counters cover
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ int g_arrivals[kMaxRows];
 
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
@@ -107,6 +115,10 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src));
+}
+// 16 bytes when `bytes` is 16, zeros when it is 0 (nothing is read)
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(dst), "l"(src), "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -158,6 +170,9 @@ __device__ __forceinline__ void unpack8(const uint2& u, float* f, const float*) 
   f[0] = __uint_as_float(u.x);
   f[1] = __uint_as_float(u.y);
 }
+__device__ __forceinline__ float zero_of(const float*) { return 0.f; }
+__device__ __forceinline__ __nv_bfloat16 zero_of(const __nv_bfloat16*) { return __float2bfloat16(0.f); }
+
 // G consecutive floats of shared memory, in the widest loads they allow
 template <int G>
 __device__ __forceinline__ void load_g(const float* src, float* dst) {
@@ -198,16 +213,22 @@ __host__ __device__ constexpr int head_bytes(int g, int tp, int max_pages) {
 
 // grid: (B * Hkv, n_chunks), `split` positions per chunk; dynamic shared
 // memory: a group's scores [kGP][G], the chunk's table entries, q, then the
-// ring (reused at the end for the position subsets' sums and the merge)
-template <typename T, int G, int HD>
+// ring (reused at the end for the position subsets' sums and the merge).
+// kPadded: the cache's head dim `hd` is below HD (q and out are HD wide)
+template <typename T, int G, int HD, bool kPadded>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, const int* __restrict__ tables,
                     const int* __restrict__ pos, float* __restrict__ out,
                     float* __restrict__ part_m, float* __restrict__ part_l,
-                    float* __restrict__ part_acc, int hkv, int bs, int max_blocks,
-                    int split, float qscale, bool vec) {
+                    float* __restrict__ part_acc, int* __restrict__ arrivals,
+                    int hkv, int bs, int max_blocks, int split, int hd,
+                    float qscale, bool vec) {
   using C = Cfg<T, G, HD>;
+  // the cache's row stride and the 16-byte chunks of a row that hold data:
+  // compile-time at an instantiated width
+  const int row_len = kPadded ? hd : HD;
+  const int row_chunks = kPadded ? hd * static_cast<int>(sizeof(T)) / 16 : C::kChunks;
   extern __shared__ __align__(128) unsigned char smem[];
   const int max_pages = (split + bs - 1) / bs + 1;
   float* s_s = reinterpret_cast<float*>(smem);            // scores, then P
@@ -256,7 +277,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
 
   const int n_pos = end - start;
   const int n_tiles = (n_pos + C::kTP - 1) / C::kTP;
-  const long head_stride = static_cast<long>(bs) * HD;  // elements of one page of one head
+  const long head_stride = static_cast<long>(bs) * row_len;  // elements of one page of one head
 
   // tile t of the chunk into ring slot `slot`
   auto load_tile = [&](int t, int slot) {
@@ -271,11 +292,15 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
         const int p = p0 + r;
         const int page = p / bs;
         const long blk = table_s[page - first_page];
-        const long off = (blk * hkv + h) * head_stride + static_cast<long>(p - page * bs) * HD
-                         + c * C::kEPC;
+        const long row = (blk * hkv + h) * head_stride + static_cast<long>(p - page * bs) * row_len;
         const int so = r * C::kRowBytes + c * 16;
-        cp_async16(smem_addr(k_dst + so), kc + off);
-        cp_async16(smem_addr(v_dst + so), vc + off);
+        if (!kPadded || c < row_chunks) {
+          cp_async16(smem_addr(k_dst + so), kc + row + c * C::kEPC);
+          cp_async16(smem_addr(v_dst + so), vc + row + c * C::kEPC);
+        } else {  // past the real head dim: zeros, nothing read
+          cp_async16_zfill(smem_addr(k_dst + so), kc + row, 0);
+          cp_async16_zfill(smem_addr(v_dst + so), vc + row, 0);
+        }
       }
     } else {
       T* kd = reinterpret_cast<T*>(k_dst);
@@ -286,9 +311,10 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
         const int p = p0 + r;
         const int page = p / bs;
         const long blk = table_s[page - first_page];
-        const long off = (blk * hkv + h) * head_stride + static_cast<long>(p - page * bs) * HD + d;
-        kd[i] = kc[off];
-        vd[i] = vc[off];
+        const long off = (blk * hkv + h) * head_stride + static_cast<long>(p - page * bs) * row_len + d;
+        const bool in_row = !kPadded || d < row_len;
+        kd[i] = in_row ? kc[off] : zero_of(static_cast<const T*>(nullptr));
+        vd[i] = in_row ? vc[off] : zero_of(static_cast<const T*>(nullptr));
       }
     }
   };
@@ -467,7 +493,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
   __syncthreads();
   if (tid == 0) {
     __threadfence();
-    last_s = atomicAdd(&g_arrivals[bh], 1) == n_used - 1;
+    last_s = atomicAdd(&arrivals[bh], 1) == n_used - 1;
     __threadfence();
   }
   __syncthreads();
@@ -477,7 +503,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
   // other blocks' partials are read from L2 (__ldcg), past this SM's L1.
   // The partial outputs of the first kUnroll chunks are loaded before the
   // chunks' weights are known, so both are in flight together.
-  if (tid == 0) g_arrivals[bh] = 0;
+  if (tid == 0) arrivals[bh] = 0;
   const long prow0 = static_cast<long>(bh) * n_chunks;
   constexpr int kOut = (G * HD + kThreads - 1) / kThreads;  // outputs a thread
   constexpr int kUnroll = 32 / kOut > 1 ? 32 / kOut : 1;      // chunks in flight
@@ -539,88 +565,114 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T, int G, int HD>
-int launch(const void* q, const void* kc, const void* vc, const void* tables,
-           const void* pos, void* out, float* pm, float* pl, float* pa, int batch,
-           int hkv, int bs, int max_blocks, int n_chunks, int split, float scale,
-           bool vec, cudaStream_t s) {
+// one call's operands (the scratch already split into its three parts)
+struct Args {
+  const void *q, *kc, *vc, *tables, *pos;
+  void* out;
+  float *pm, *pl, *pa;
+  int* arrivals;
+  int batch, hkv, bs, max_blocks, n_chunks, split, hd;
+  float scale;
+  bool vec;
+  cudaStream_t s;
+};
+
+template <typename T, int G, int HD, bool kPadded>
+int launch(const Args& a) {
   using C = Cfg<T, G, HD>;
-  const int max_pages = (split + bs - 1) / bs + 1;  // pages one chunk can touch
+  const int max_pages = (a.split + a.bs - 1) / a.bs + 1;  // pages one chunk can touch
   // the ring, or the merge's two floats per (chunk, head) where more
-  const int tail = kRingBytes > n_chunks * G * 8 ? kRingBytes : n_chunks * G * 8;
+  const int tail = kRingBytes > a.n_chunks * G * 8 ? kRingBytes : a.n_chunks * G * 8;
   const size_t smem = static_cast<size_t>(head_bytes(G, C::kGP, max_pages)) + G * HD * 4 + tail;
-  auto kernel = paged_decode_kernel<T, G, HD>;
+  auto kernel = paged_decode_kernel<T, G, HD, kPadded>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid(batch * hkv, n_chunks);
-  kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
-      static_cast<const int*>(tables), static_cast<const int*>(pos),
-      static_cast<float*>(out), pm, pl, pa, hkv, bs, max_blocks, split, scale * kLog2e, vec);
+  const dim3 grid(a.batch * a.hkv, a.n_chunks);
+  kernel<<<grid, kThreads, smem, a.s>>>(
+      static_cast<const float*>(a.q), static_cast<const T*>(a.kc), static_cast<const T*>(a.vc),
+      static_cast<const int*>(a.tables), static_cast<const int*>(a.pos),
+      static_cast<float*>(a.out), a.pm, a.pl, a.pa, a.arrivals, a.hkv, a.bs, a.max_blocks,
+      a.split, a.hd, a.scale * kLog2e, a.vec);
   return static_cast<int>(cudaGetLastError());
 }
 
+// an instantiated width runs as it is; a multiple of 8 below 256 runs on the
+// next instantiated width up
 template <typename T, int G>
-int dispatch_hd(int hd, const void* q, const void* kc, const void* vc, const void* tables,
-                const void* pos, void* out, float* pm, float* pl, float* pa, int batch,
-                int hkv, int bs, int max_blocks, int n_chunks, int split, float scale,
-                bool vec, cudaStream_t s) {
-  switch (hd) {
-    case 32: return launch<T, G, 32>(q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
-    case 64: return launch<T, G, 64>(q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
-    case 128: return launch<T, G, 128>(q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
-    case 256: return launch<T, G, 256>(q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+int dispatch_hd(const Args& a) {
+  switch (a.hd) {
+    case 32: return launch<T, G, 32, false>(a);
+    case 64: return launch<T, G, 64, false>(a);
+    case 128: return launch<T, G, 128, false>(a);
+    case 256: return launch<T, G, 256, false>(a);
+    default: break;
   }
+  if (a.hd <= 0 || a.hd % 8 != 0 || a.hd > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.hd < 32) return launch<T, G, 32, true>(a);
+  if (a.hd < 64) return launch<T, G, 64, true>(a);
+  if (a.hd < 128) return launch<T, G, 128, true>(a);
+  return launch<T, G, 256, true>(a);
 }
 
 template <typename T>
-int dispatch(int group, int hd, const void* q, const void* kc, const void* vc,
-             const void* tables, const void* pos, void* out, float* pm, float* pl,
-             float* pa, int batch, int hkv, int bs, int max_blocks, int n_chunks,
-             int split, float scale, bool vec, cudaStream_t s) {
+int dispatch(int group, const Args& a) {
   switch (group) {
-    case 1: return dispatch_hd<T, 1>(hd, q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
-    case 2: return dispatch_hd<T, 2>(hd, q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
-    case 4: return dispatch_hd<T, 4>(hd, q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
-    case 8: return dispatch_hd<T, 8>(hd, q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
+    case 1: return dispatch_hd<T, 1>(a);
+    case 2: return dispatch_hd<T, 2>(a);
+    case 4: return dispatch_hd<T, 4>(a);
+    case 8: return dispatch_hd<T, 8>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q: [B, Hkv, G, hd] fp32, 16-byte aligned; k/v cache: [N, Hkv, bs, hd] of `dtype`
-// (0 = float32, 1 = bfloat16); tables: [B, max_blocks] int32; pos: [B] int32;
-// out: [B, Hkv, G, hd] fp32. `split` positions per chunk; scratch: fp32,
-// B * Hkv * n_chunks * G * (hd + 2) floats with
-// n_chunks = ceil(max_blocks * bs / split). G in {1, 2, 4, 8}, hd in
-// {32, 64, 128, 256}, B * Hkv <= 65536. One kernel launch.
+// q: [B, Hkv, G, HDp] fp32, 16-byte aligned, where HDp is hd itself when hd is
+// 32, 64, 128 or 256 and else the next of them up (q zero past hd); k/v cache:
+// [N, Hkv, bs, hd] of `dtype` (0 = float32, 1 = bfloat16), hd a multiple of 8
+// up to 256; tables: [B, max_blocks] int32; pos: [B] int32; out: [B, Hkv, G,
+// HDp] fp32. `split` positions per chunk; scratch: fp32,
+// B * Hkv * n_chunks * G * (HDp + 2) floats with
+// n_chunks = ceil(max_blocks * bs / split); arrivals: B * Hkv int32 counters,
+// zero before the call and zero after it, used by no call running at the same
+// time. G in {1, 2, 4, 8}, B * Hkv <= 65536. One kernel launch.
 extern "C" int rlt_paged_decode(const void* q, const void* kc, const void* vc,
                                 const void* tables, const void* pos, void* out,
-                                void* scratch, int batch, int hkv, int group,
-                                int hd, int bs, int max_blocks, int split,
+                                void* scratch, void* arrivals, int batch, int hkv,
+                                int group, int hd, int bs, int max_blocks, int split,
                                 float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0) return static_cast<int>(cudaGetLastError());
   if (split <= 0 || bs <= 0 || max_blocks <= 0 || static_cast<long>(batch) * hkv > kMaxRows ||
-      reinterpret_cast<uintptr_t>(q) % 16 != 0)
+      reinterpret_cast<uintptr_t>(q) % 16 != 0 || arrivals == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_chunks = (max_blocks * bs + split - 1) / split;
   const long rows = static_cast<long>(batch) * hkv * n_chunks * group;
-  float* pm = static_cast<float*>(scratch);
-  float* pl = pm + rows;
-  float* pa = pl + rows;
-  // 16-byte copies need 16-byte-aligned caches (rows are >= 64 bytes)
-  const bool vec = (reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc)) % 16 == 0;
-  if (dtype == 0)
-    return dispatch<float>(group, hd, q, kc, vc, tables, pos, out, pm, pl, pa, batch, hkv,
-                           bs, max_blocks, n_chunks, split, scale, vec, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(group, hd, q, kc, vc, tables, pos, out, pm, pl, pa,
-                                   batch, hkv, bs, max_blocks, n_chunks, split, scale, vec, s);
+  Args a;
+  a.q = q; a.kc = kc; a.vc = vc; a.tables = tables; a.pos = pos; a.out = out;
+  a.pm = static_cast<float*>(scratch);
+  a.pl = a.pm + rows;
+  a.pa = a.pl + rows;
+  a.arrivals = static_cast<int*>(arrivals);
+  a.batch = batch; a.hkv = hkv; a.bs = bs; a.max_blocks = max_blocks;
+  a.n_chunks = n_chunks; a.split = split; a.hd = hd; a.scale = scale; a.s = s;
+  // 16-byte copies need 16-byte-aligned caches (rows are multiples of 16 bytes)
+  a.vec = (reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc)) % 16 == 0;
+  if (dtype == 0) return dispatch<float>(group, a);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(group, a);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The id of the CUDA-graph capture sequence `stream` is in, 0 when it is not
+// capturing: the wrapper gives each capture arrival counters of its own.
+extern "C" unsigned long long rlt_paged_capture_id(void* stream) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long id = 0;
+  if (cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, &id) != cudaSuccess ||
+      status != cudaStreamCaptureStatusActive)
+    return 0;
+  return id;
 }

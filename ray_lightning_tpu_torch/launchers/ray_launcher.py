@@ -15,9 +15,10 @@ runtime:
 - ``run_function_on_workers``: the trainer and the module, pickled once on
   the main process (stdlib pickle inside a ``torch.save`` stream, classes by
   reference), go through the object store to every local worker (inline to
-  a remote one); each worker runs the Trainer's stage; rank 0 returns its
-  weights as a ``torch.save`` stream, its metrics, its callback states and
-  the best checkpoint's path;
+  a remote one); each worker runs the Trainer's stage; every rank then
+  gathers the whole tree (under an ep mesh, the expert slices over the ep
+  group) and rank 0 returns its weights as a ``torch.save`` stream, its
+  metrics, its callback states and the best checkpoint's path;
 - the main process loads them into its trainer and module, as if it had trained.
 
 Relaunching a failed group, elastic membership, the hang supervisor, the
@@ -26,6 +27,7 @@ tune queue and telemetry are not ported (ROADMAP.md).
 from __future__ import annotations
 
 import io
+import math
 import os
 import pickle
 import secrets
@@ -132,9 +134,15 @@ def _wrapping_function(global_rank: int, num_workers: int, payload_ref,
     if trainer.device.type == "cuda":
         torch.cuda.synchronize(trainer.device)
     counts = kernels.launch_counts()
+    # every rank, at this one point: under an ep mesh the expert slices are
+    # all-gathered, so that rank 0 returns every expert
+    t = time.perf_counter()
+    params = trainer.whole_params()
+    gather_s = time.perf_counter() - t
     if global_rank != 0:
         return RankReport(counts)
-    return _collect_rank_zero_results(trainer, results, counts)
+    return _collect_rank_zero_results(trainer, results, counts, params,
+                                      gather_s)
 
 
 def _to_host_metrics(metrics: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -142,10 +150,10 @@ def _to_host_metrics(metrics: Dict[str, Any]) -> Dict[str, np.ndarray]:
             for k, v in metrics.items()}
 
 
-def _collect_rank_zero_results(trainer, results, counts) -> WorkerOutput:
+def _collect_rank_zero_results(trainer, results, counts, params,
+                               gather_s: float) -> WorkerOutput:
     t = time.perf_counter()
     ckpt_cb = trainer.checkpoint_callback
-    params = trainer._params if trainer._params is not None else trainer._module._params
     stream = to_state_stream(params) if params is not None else None
     return WorkerOutput(
         best_model_path=ckpt_cb.best_model_path if ckpt_cb else None,
@@ -160,6 +168,7 @@ def _collect_rank_zero_results(trainer, results, counts) -> WorkerOutput:
         launch_counts=counts,
         collect_s=time.perf_counter() - t,
         sent_at=time.time(),
+        gather_s=gather_s,
     )
 
 
@@ -167,10 +176,11 @@ class RayLauncher:
     """Starts, feeds and stops one strategy's worker group. Timing of the
     last launch is in ``timings``: ``setup_s`` (spawn, rendezvous),
     ``run_s`` (from shipping the payload to the last worker's reply), and
-    the weights' way back, ``weights_s``: rank 0 serialising them
-    (``collect_s``), the reply's transfer and unpickling (``transfer_s``,
-    between the two processes' wall clocks on one host) and the main process
-    loading them onto its device (``load_s``)."""
+    the weights' way back, ``weights_s``: under an ep mesh the ranks'
+    all-gather of the expert slices (``gather_s``, 0 otherwise), rank 0
+    serialising them (``collect_s``), the reply's transfer and unpickling
+    (``transfer_s``, between the two processes' wall clocks on one host) and
+    the main process loading them onto its device (``load_s``)."""
 
     is_interactive_compatible = True  # workers boot as fresh interpreters
 
@@ -258,9 +268,15 @@ class RayLauncher:
         placement = "spread" if len(rt.nodes()) > 1 else None
         assignments = rt.plan_placement(demands, placement)
         tag = secrets.token_hex(3)
+        # as Ray does for an actor: its CPU ops use the CPUs it demands
+        # (unless the caller set OMP_NUM_THREADS), not every core of the
+        # host each, which oversubscribes a host shared by several workers
+        threads = [{"OMP_NUM_THREADS": str(max(1, math.ceil(d["CPU"])))}
+                   for d in demands]
         self._workers = rt.create_actors(
             [(RayExecutor, (), {}) for _ in range(n)],
             names=[f"torchrt-worker-{i}-{os.getpid()}-{tag}" for i in range(n)],
+            per_actor_env=None if "OMP_NUM_THREADS" in os.environ else threads,
             demands=demands, assignments=assignments, timeout=timeout)
         self._any_remote = any(rt.actor_node_id(w) != 0 for w in self._workers)
         if self._any_remote:
@@ -332,6 +348,7 @@ class RayLauncher:
                 counts[k] = counts.get(k, 0) + v
         output = next(r for r in results if isinstance(r, WorkerOutput))
         self.timings["collect_s"] = output.collect_s
+        self.timings["gather_s"] = output.gather_s
         self.timings["transfer_s"] = max(0.0, received - output.sent_at)
         return output._replace(launch_counts=counts)
 
@@ -348,7 +365,7 @@ class RayLauncher:
             trainer._module._params = params
             trainer._params = params
         self.timings["load_s"] = time.perf_counter() - t
-        self.timings["weights_s"] = (output.collect_s
+        self.timings["weights_s"] = (output.gather_s + output.collect_s
                                      + self.timings.get("transfer_s", 0.0)
                                      + self.timings["load_s"])
         trainer.callback_metrics.update(output.callback_metrics)

@@ -28,6 +28,7 @@ class WorkerOutput(NamedTuple):
     launch_counts: Dict[str, int]
     collect_s: float  # rank 0 serialising its weights
     sent_at: float  # rank 0's wall clock as it returns
+    gather_s: float = 0.0  # the ranks' all-gather of the expert slices
 
 
 class RankReport(NamedTuple):

@@ -56,6 +56,22 @@ RopeTable = Tuple[torch.Tensor, torch.Tensor]
 EOS_POLL_STEPS = 8
 
 
+def require_every_expert(params: Dict[str, Any], cfg: LlamaConfig,
+                         where: str) -> None:
+    """Generation routes every token over every expert on one device
+    (``moe_ffn_lossless``), as the JAX package serves MoE: params that hold
+    an expert-parallel member's slice of the experts refuse."""
+    if not cfg.n_experts:
+        return
+    held = params["layers"]["moe"]["w_gate"].shape[1]
+    if held != cfg.n_experts:
+        raise ValueError(
+            f"{where}: the params hold {held} of the config's "
+            f"{cfg.n_experts} experts (an expert-parallel member's slice); "
+            "generation runs every expert on one device, so it takes the "
+            "whole tree (the Ray strategies return it whole)")
+
+
 def _default_table_or_raise(cfg: LlamaConfig, seq_len: int,
                             device: DeviceLike) -> RopeTable:
     """The rope table of a caller that passed ``rope_table=None``. longrope
@@ -497,6 +513,7 @@ def generate(params: Dict[str, Any], prompt, cfg: LlamaConfig,
         )
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    require_every_expert(params, cfg, "generate")
     dev = resolve_device(device)
     if params["embed"].device != dev:
         raise ValueError(

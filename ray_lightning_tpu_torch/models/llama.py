@@ -8,9 +8,12 @@ experts in a nested ``layers["moe"]`` subtree, so the converter
 (``models/convert.py``) moves tensors without transposing them. A MoE
 config trains on one device: ``forward`` routes with the capacity bound and
 returns the layers' mean Switch auxiliary loss when asked, ``lm_loss`` adds
-it at ``moe_aux_weight``. The pipeline / tensor / sequence / expert-parallel
-paths are not part of the port yet: ``forward`` takes no mesh, and
-``LlamaModule.param_shardings`` refuses a mesh.
+it at ``moe_aux_weight``. Expert parallelism runs over the ranks of a Ray
+strategy: ``LlamaModule.param_shardings`` gives the layout of a
+``ProcessMesh`` with 'dp' and 'ep' axes (``param_specs``), and ``forward``
+and ``lm_loss`` take the mesh and route each MoE layer through
+``moe_ffn_local_experts`` over its 'ep' group. The pipeline, tensor and
+sequence-parallel layouts are not part of the port yet and refuse.
 Rematerialisation is per layer (``torch.utils.checkpoint``) with the JAX
 package's two policies: ``"nothing"`` recomputes the whole layer in
 backward, ``"dots"`` keeps the layer's projections and recomputes the rest.
@@ -47,10 +50,13 @@ from ray_lightning_tpu_torch.ops.rope import (
     normalize_rope_scaling,
     rope_angles,
 )
+from ray_lightning_tpu_torch.parallel.mesh import refuse_unported_axes
 from ray_lightning_tpu_torch.parallel.moe import (
     init_moe_params,
     moe_ffn,
+    moe_ffn_local_experts,
     moe_ffn_lossless,
+    moe_param_specs,
 )
 from ray_lightning_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -262,16 +268,98 @@ def layer_params(params: Dict[str, Any], i: int) -> Dict[str, Any]:
     return tree_map(lambda v: v[i], params["layers"])
 
 
+Spec = Tuple[Any, ...]
+
+
+def param_specs(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Per-leaf mesh axes (``models/llama.py::param_specs``, its
+    ``PartitionSpec`` entries as plain tuples): the megatron tp layout
+    (column-parallel in-projections, row-parallel out-projections), 'fsdp'
+    on the other big axis, the stacked layer axis over 'pp', a MoE layer's
+    experts over 'ep' (``moe_param_specs``). Names a mesh lacks are dropped
+    by :func:`filter_spec`."""
+    layer_specs: Dict[str, Any] = {
+        "attn_norm": ("pp", None),
+        "wq": ("pp", "fsdp", "tp"),
+        "wk": ("pp", "fsdp", "tp"),
+        "wv": ("pp", "fsdp", "tp"),
+        "wo": ("pp", "tp", "fsdp"),
+        "mlp_norm": ("pp", None),
+    }
+    if cfg.attn_bias:
+        layer_specs.update(bq=("pp", "tp"), bk=("pp", "tp"), bv=("pp", "tp"))
+    if cfg.n_experts:
+        layer_specs["moe"] = {
+            k: ("pp", *s[1:])
+            for k, s in moe_param_specs(n_layers=cfg.n_layers).items()
+        }
+    else:
+        layer_specs.update(
+            w_gate=("pp", "fsdp", "tp"),
+            w_up=("pp", "fsdp", "tp"),
+            w_down=("pp", "tp", "fsdp"),
+        )
+    return {
+        "embed": (None, ("fsdp", "tp")),
+        "layers": layer_specs,
+        "final_norm": (None,),
+        "lm_head": ("fsdp", "tp"),
+    }
+
+
+def filter_spec(spec: Spec, axes: Dict[str, int]) -> Spec:
+    """``_filter_spec``: drop the axis names a mesh does not have (or has
+    at size 1); an emptied tuple entry becomes None."""
+    def keep(a):
+        return a in axes and axes[a] != 1
+
+    out = []
+    for entry in spec:
+        if entry is None:
+            out.append(None)
+        elif isinstance(entry, (tuple, list)):
+            kept = tuple(a for a in entry if keep(a))
+            out.append(kept if kept else None)
+        else:
+            out.append(entry if keep(entry) else None)
+    return tuple(out)
+
+
+def _map_specs(fn, specs):
+    """``fn`` over the spec tuples of a nested dict of specs."""
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    return fn(specs)
+
+
+def check_expert_parallel(cfg: LlamaConfig, ep: int) -> None:
+    """The JAX stage set-up's check: ep must divide the experts."""
+    if cfg.n_experts and ep > 1 and cfg.n_experts % ep:
+        raise ValueError(f"ep={ep} must divide n_experts={cfg.n_experts}")
+
+
+def _ep_group(cfg: LlamaConfig, mesh):
+    """The mesh's 'ep' group when it splits this config's experts, else
+    None (every expert local)."""
+    if mesh is None or not cfg.n_experts or mesh.size("ep") == 1:
+        return None
+    check_expert_parallel(cfg, mesh.size("ep"))
+    return mesh.group("ep")
+
+
 def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin,
                    attn_fn: Callable, norm_fn: Callable = rmsnorm,
-                   moe_lossless: bool = False, with_aux: bool = False):
+                   moe_lossless: bool = False, with_aux: bool = False,
+                   ep_group=None):
     """One pre-norm block (attention + gated MLP or mixture of experts) on
     x [B, S, D]. Returns (x, (k, v)) with this layer's post-rope k, v in
     cache layout [B, Hkv, S, hd] — the prefill path reuses it to fill the
     cache — and, with ``with_aux``, (x, (k, v), aux): the layer's Switch
     auxiliary loss (an fp32 0 for a dense layer and under
     ``moe_lossless``, as in JAX). A MoE layer routes with its capacity
-    bound, or every expert densely under ``moe_lossless`` (generation)."""
+    bound, or every expert densely under ``moe_lossless`` (generation);
+    with an ``ep_group`` its experts are this member's slice
+    (``moe_ffn_local_experts``)."""
     B, S = x.shape[0], x.shape[1]
     hd = cfg.head_dim
     nh = lp["wq"].shape[-1] // hd
@@ -291,8 +379,13 @@ def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin,
     h2 = norm_fn(x, lp["mlp_norm"], cfg.norm_eps)
     aux = None
     if cfg.n_experts and "moe" in lp and not moe_lossless:
-        out, aux = moe_ffn(lp["moe"], h2, top_k=cfg.expert_top_k,
-                           capacity_factor=cfg.capacity_factor)
+        if ep_group is not None:
+            out, aux = moe_ffn_local_experts(
+                lp["moe"], h2, ep_group, top_k=cfg.expert_top_k,
+                capacity_factor=cfg.capacity_factor)
+        else:
+            out, aux = moe_ffn(lp["moe"], h2, top_k=cfg.expert_top_k,
+                               capacity_factor=cfg.capacity_factor)
         x = x + out
     elif cfg.n_experts and "moe" in lp:
         x = x + moe_ffn_lossless(lp["moe"], h2, top_k=cfg.expert_top_k)
@@ -353,7 +446,7 @@ def _unflat_layers(paths, leaves) -> Dict[str, Any]:
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
             plain: bool = False, return_hidden: bool = False,
-            return_aux: bool = False):
+            return_aux: bool = False, mesh=None):
     """tokens [B, S] -> logits [B, S, V] in ``cfg.dtype``; a MoE config
     routes with its capacity bound, as in JAX. With ``return_hidden`` the
     result is instead the final-norm hidden states [B, S, D]: the chunked
@@ -373,8 +466,15 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
     backward routes the same tokens again to rebuild the saved tensors, and
     its aux is not used. ``plain=True`` runs the kernels' plain versions
     even on CUDA tensors: the reference that tests and the chip check hold
-    the kernel path against."""
+    the kernel path against.
+
+    ``mesh``: a joined ``ProcessMesh`` whose 'ep' axis splits a MoE
+    config's experts; ``params`` then hold this member's E / ep experts
+    (``LlamaModule.param_shardings``) and every MoE layer runs
+    ``moe_ffn_local_experts`` over the 'ep' group (a collective: every
+    member of the group runs the same forward)."""
     S = tokens.shape[1]
+    ep_group = _ep_group(cfg, mesh)
     dev = tokens.device
     cos, sin = rope_angles(S, cfg.head_dim, cfg.rope_theta,
                            scaling=cfg.rope_scaling, device=dev)
@@ -389,7 +489,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
 
     def layer_fn(x, *leaves):
         x, _, aux = _decoder_layer(x, _unflat_layers(paths, leaves), cfg, cos,
-                                   sin, attn_fn, norm, with_aux=True)
+                                   sin, attn_fn, norm, with_aux=True,
+                                   ep_group=ep_group)
         return x, aux
 
     # unbind once: its backward stacks the L layer gradients in one op,
@@ -413,27 +514,29 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
 
 
 def lm_loss(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
-            plain: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            plain: bool = False, mesh=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy (``models/llama.py::lm_loss``): the full
     sequence is fed, targets are the tokens rolled by one, and the last
     position is masked out. With ``cfg.loss_chunks > 1`` the loss is
     computed over sequence chunks (``ops/losses.py``). A MoE config adds
     ``moe_aux_weight`` times the layers' mean auxiliary loss. Returns
     (loss, {"loss", "ppl"}, and "moe_aux" for a MoE config); ppl is
-    exp(cross entropy), without the auxiliary term."""
+    exp(cross entropy), without the auxiliary term. ``mesh`` as in
+    :func:`forward`."""
     tokens = tokens.long()
     targets = torch.roll(tokens, -1, dims=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
     if cfg.loss_chunks > 1:
         h, moe_aux = forward(params, tokens, cfg, plain=plain,
-                             return_hidden=True, return_aux=True)
+                             return_hidden=True, return_aux=True, mesh=mesh)
         total, count = chunked_softmax_cross_entropy(
             h, params["lm_head"], targets, mask, cfg.loss_chunks
         )
     else:
         logits, moe_aux = forward(params, tokens, cfg, plain=plain,
-                                  return_aux=True)
+                                  return_aux=True, mesh=mesh)
         total, count = masked_softmax_cross_entropy(logits, targets, mask)
     ce = total / count
     if not cfg.n_experts:
@@ -471,21 +574,29 @@ class LlamaModule(LightningModule):
             lr=lr, warmup_steps=warmup_steps, total_steps=total_steps,
             weight_decay=weight_decay,
         )
+        # the ProcessMesh the strategy hands over (param_shardings), in a
+        # worker; the steps route the experts over its 'ep' group
+        self.mesh = None
 
     def init_params(self, generator: torch.Generator, device: DeviceLike = None):
         return init_params(self.config, generator, device)
 
     def param_shardings(self, mesh):
-        """The JAX module's megatron-tp / fsdp / expert-parallel layout over
-        a mesh. The port has no mesh yet: refused (ROADMAP.md, queue 1:
-        expert parallelism and the tensor-parallel layouts)."""
-        raise NotImplementedError(
-            "LlamaModule.param_shardings: the port has no device mesh, so "
-            "tensor and expert parallelism (moe_param_specs, "
-            "moe_ffn_local_experts) are not ported yet; see ROADMAP.md. "
-            "Data-parallel training over several processes is RayStrategy / "
-            "RayShardedStrategy"
-        )
+        """The module's layout over ``mesh`` (``LlamaModule.
+        param_shardings``): the tree of per-leaf axis tuples,
+        :func:`param_specs` filtered to the mesh's axes, or None without a
+        mesh. Sets ``self.mesh``, which the steps pass to ``lm_loss``.
+        ``mesh`` is a ``ProcessMesh`` (anything with an ``axes`` mapping of
+        names to sizes); an axis the port does not lay over ranks ('tp',
+        'pp', 'sp', 'fsdp') refuses, and ep must divide the experts."""
+        if mesh is None:
+            return None
+        axes = dict(mesh.axes)
+        refuse_unported_axes(axes)
+        check_expert_parallel(self.config, axes.get("ep", 1))
+        self.mesh = mesh
+        return _map_specs(lambda spec: filter_spec(spec, axes),
+                          param_specs(self.config))
 
     def _tokens_of(self, batch):
         if isinstance(batch, dict):
@@ -493,7 +604,8 @@ class LlamaModule(LightningModule):
         return batch
 
     def training_step(self, params, batch, batch_idx):
-        loss, logs = lm_loss(params, self._tokens_of(batch), self.config)
+        loss, logs = lm_loss(params, self._tokens_of(batch), self.config,
+                             mesh=self.mesh)
         self.log("train_loss", loss, on_step=True, on_epoch=True)
         self.log("train_ppl", logs["ppl"], on_step=True, on_epoch=False)
         if "moe_aux" in logs:
@@ -502,14 +614,16 @@ class LlamaModule(LightningModule):
         return loss
 
     def validation_step(self, params, batch, batch_idx):
-        loss, logs = lm_loss(params, self._tokens_of(batch), self.config)
+        loss, logs = lm_loss(params, self._tokens_of(batch), self.config,
+                             mesh=self.mesh)
         self.log("val_loss", loss)
         self.log("val_ppl", logs["ppl"])
         if "moe_aux" in logs:
             self.log("val_moe_aux", logs["moe_aux"])
 
     def predict_step(self, params, batch, batch_idx):
-        return forward(params, self._tokens_of(batch), self.config)
+        return forward(params, self._tokens_of(batch), self.config,
+                       mesh=self.mesh)
 
     def configure_optimizers(self):
         """AdamW (b1 0.9, b2 0.95, eps 1e-8, weight decay on every leaf)

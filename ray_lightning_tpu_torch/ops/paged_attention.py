@@ -22,20 +22,21 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ray_lightning_tpu_torch.kernels import (
     CudaKernel,
     dtype_code,
+    load_library,
     require_cuda,
     stream_of,
 )
 
 PAGED_DECODE_KERNEL = CudaKernel(
     "paged_decode", "paged_decode.cu", "rlt_paged_decode",
-    [ctypes.c_void_p] * 7
+    [ctypes.c_void_p] * 8
     + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     replaces="ray_lightning_tpu/ops/paged_attention.py:196",
@@ -44,10 +45,13 @@ PAGED_DECODE_KERNEL = CudaKernel(
 # 16-position tiles at hd 128 in bf16, all in flight at once (csrc note)
 PAGED_SPLIT = 64
 # the GQA groups the kernel is instantiated for; the wrapper pads any group
-# up to 8 to the next of them (paged_group)
+# up to 8 to the next of them (paged_group) and splits a larger one into
+# launches of at most 8 query heads (paged_group_chunks)
 PAGED_GROUPS = (1, 2, 4, 8)
+# the head dims the kernel is instantiated for; another multiple of 8 runs on
+# the next of them up (paged_head_dim)
 PAGED_HEAD_DIMS = (32, 64, 128, 256)
-# (row, KV head) pairs the kernel's persistent arrival counters cover
+# (row, KV head) pairs the kernel's arrival counters cover
 PAGED_MAX_ROWS = 1 << 16
 
 ARGMAX_KERNEL = CudaKernel(
@@ -84,9 +88,10 @@ def paged_decode_attention_plain(q, k_cache, v_cache, block_tables, pos,
 
 
 def paged_group(group: int) -> int:
-    """The instantiated group a GQA group of ``group`` query heads runs
-    at: the smallest of ``PAGED_GROUPS`` that holds it. Raises for groups
-    above 8."""
+    """The instantiated group one launch of a GQA group of ``group`` query
+    heads runs at: the smallest of ``PAGED_GROUPS`` that holds it. Raises
+    for groups above 8 (the wrapper splits those first,
+    ``paged_group_chunks``)."""
     for g in PAGED_GROUPS:
         if group <= g:
             return g
@@ -96,14 +101,38 @@ def paged_group(group: int) -> int:
     )
 
 
+def paged_group_chunks(group: int) -> List[Tuple[int, int]]:
+    """The slices [lo, hi) of q's group dim that one launch each takes: at
+    most ``PAGED_GROUPS[-1]`` query heads (G 16 is two launches of 8, G 12
+    one of 8 and one of 4)."""
+    step = PAGED_GROUPS[-1]
+    return [(lo, min(lo + step, group)) for lo in range(0, group, step)]
+
+
+def paged_head_dim(hd: int) -> int:
+    """The instantiated head dim a cache of head dim ``hd`` runs at: ``hd``
+    itself when it is one of ``PAGED_HEAD_DIMS``, else the next of them up
+    (the kernel reads the rows at ``hd``'s stride and masks past it; q and
+    the output are padded to it, the pool never). Raises for a width the
+    kernel's tiles cannot serve: not a multiple of 8 (a row would not be
+    16-byte aligned), or above 256."""
+    if hd <= 0 or hd % 8 or hd > PAGED_HEAD_DIMS[-1]:
+        raise ValueError(
+            f"paged_decode_attention: the kernel takes head dims that are "
+            f"multiples of 8 up to {PAGED_HEAD_DIMS[-1]}, got hd={hd}"
+        )
+    return next(w for w in PAGED_HEAD_DIMS if hd <= w)
+
+
 def paged_decode_plan(batch: int, hkv: int, group: int, hd: int, bs: int,
                       max_blocks: int) -> dict:
-    """The kernel's launch plan, from host-known sizes only (never ``pos``,
-    which lies on the card): ``split`` positions per block, ``chunks``
-    blocks per (row, KV head) and the fp32 ``scratch`` floats for the
-    chunks' partial states (max and sum per query head of the padded group
-    ``paged_group(group)``, unnormalised output), which the last block of
-    each (row, KV head) merges."""
+    """One launch's plan, from host-known sizes only (never ``pos``, which
+    lies on the card): ``split`` positions per block, ``chunks`` blocks per
+    (row, KV head) and the fp32 ``scratch`` floats for the chunks' partial
+    states (max and sum per query head of the padded group
+    ``paged_group(group)``, unnormalised output at the padded head dim
+    ``paged_head_dim(hd)``), which the last block of each (row, KV head)
+    merges."""
     if batch * hkv > PAGED_MAX_ROWS:
         raise ValueError(
             f"paged_decode_attention: B * Hkv = {batch * hkv} exceeds the "
@@ -112,7 +141,59 @@ def paged_decode_plan(batch: int, hkv: int, group: int, hd: int, bs: int,
     padded = paged_group(group)
     chunks = -(-max_blocks * bs // PAGED_SPLIT)
     return {"split": PAGED_SPLIT, "chunks": chunks,
-            "scratch": batch * hkv * chunks * padded * (hd + 2)}
+            "scratch": batch * hkv * chunks * padded * (paged_head_dim(hd) + 2)}
+
+
+def over_group_chunks(q: torch.Tensor,
+                      run: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """``run`` on each slice of ``paged_group_chunks`` of q's group dim (q:
+    [B, Hkv, G, hd]), the outputs concatenated along it: how the wrapper
+    serves a group above 8 (tested on the CPU with the plain version as
+    ``run``)."""
+    outs = [run(q[:, :, lo:hi]) for lo, hi in paged_group_chunks(q.shape[2])]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+# (device index, stream handle) -> the zeroed arrival counters of the eager
+# calls on that stream: the kernel's last block of each (row, KV head)
+# resets its counter, so a buffer stays zero between calls, and two streams
+# never share one
+_ARRIVALS: Dict[Tuple[int, int], torch.Tensor] = {}
+# (device index, capture id, counters) of the CUDA-graph capture of the last
+# captured call
+_CAPTURED: List[Optional[Tuple[int, int, torch.Tensor]]] = [None]
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_id_fn():
+    fn = load_library(PAGED_DECODE_KERNEL.source).rlt_paged_capture_id
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_ulonglong
+    return fn
+
+
+def _arrivals(device: torch.device, stream: int) -> torch.Tensor:
+    """The arrival counters of a call on ``stream``. A CUDA-graph capture
+    gets counters of its own, allocated in the graph's memory at its first
+    call and zeroed by a memset the graph records, so each replay starts
+    from zero: a graph never reads counters that another graph captured on
+    the same stream (torch.cuda.graph's one capture stream) left, and
+    graphs replayed on two streams at once share none."""
+    if torch.cuda.is_current_stream_capturing():
+        capture = int(_capture_id_fn()(stream))
+        held = _CAPTURED[0]
+        if held is None or held[:2] != (device.index, capture):
+            held = (device.index, capture,
+                    torch.zeros(PAGED_MAX_ROWS, dtype=torch.int32,
+                                device=device))
+            _CAPTURED[0] = held
+        return held[2]
+    key = (device.index, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None:
+        buf = torch.zeros(PAGED_MAX_ROWS, dtype=torch.int32, device=device)
+        _ARRIVALS[key] = buf
+    return buf
 
 
 def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -124,14 +205,20 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     (trash-padded); pos: [B] int32. Returns fp32 [B, Hkv, G, hd], the
     attention of each row over its logical positions [0, pos[b]].
 
-    Any group up to 8 runs: a group the kernel is not instantiated for (3,
-    5, 6, 7; Qwen2.5-7B has 7) is padded with zero query heads up to the
-    next instantiated one and the padded heads' outputs are sliced off, as
-    the JAX kernel pads its group to the sublane tile. Padding, not more
-    instantiations: a KV head's blocks are read once for its whole group,
-    so the K/V bytes, which bound the kernel, do not change, and the extra
-    query heads cost only registers and FMAs in a latency-bound kernel;
-    the library's build time and the 32 instantiations stay as they are."""
+    Any group runs, and any head dim that is a multiple of 8 up to 256, as
+    the JAX kernel pads its group to the sublane tile and its head dim to
+    the lane tile. A group the kernel is not instantiated for (3, 5, 6, 7;
+    Qwen2.5-7B has 7) is padded with zero query heads up to the next
+    instantiated one and the padded heads' outputs are sliced off: a KV
+    head's blocks are read once for its whole group, so the K/V bytes,
+    which bound the kernel, do not change, and the extra query heads cost
+    only registers and FMAs in a latency-bound kernel. A group above 8
+    (Llama-3.1-405B's and Falcon-40B's 16) is split into launches of at
+    most 8 query heads over the same caches and tables, each padded the same
+    way, one launch each (``over_group_chunks``). A head dim between the
+    instantiated ones (Phi-2's 80, Phi-3's 96) runs on the next instantiated
+    width up, with q zero-padded to it and the output sliced back; the cache
+    is read at its own stride."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_cache, v_cache, block_tables, pos, sm_scale
@@ -155,32 +242,34 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             "paged_decode_attention: block_tables [B, max_blocks] and pos [B] "
             "must be int32"
         )
-    if group > PAGED_GROUPS[-1] or hd not in PAGED_HEAD_DIMS:
-        raise ValueError(
-            f"paged_decode_attention: the kernel takes GQA groups "
-            f"{PAGED_GROUPS} and head dims {PAGED_HEAD_DIMS}, got G={group}, "
-            f"hd={hd}"
-        )
     code = dtype_code("paged_decode_attention", k_cache.dtype)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
-    max_blocks = block_tables.shape[1]
-    plan = paged_decode_plan(B, hkv, group, hd, bs, max_blocks)
-    gp = paged_group(group)
-    if gp != group:
-        qp = q.new_zeros((B, hkv, gp, hd))
-        qp[:, :, :group] = q
-        q = qp
-    elif q.data_ptr() % 16:  # the kernel reads q in 16-byte loads
-        q = q.clone()
-    scratch = torch.empty(plan["scratch"], dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
-    PAGED_DECODE_KERNEL.launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), B, hkv, gp, hd, bs, max_blocks, plan["split"],
-        float(scale), code, stream_of(q),
-    )
-    return out if gp == group else out[:, :, :group]
+    hdp = paged_head_dim(hd)
+    stream = stream_of(q)
+    arrivals = _arrivals(q.device, stream)
+
+    def launch(qc: torch.Tensor) -> torch.Tensor:
+        g = qc.shape[2]
+        plan = paged_decode_plan(B, hkv, g, hd, bs, block_tables.shape[1])
+        gp = paged_group(g)
+        if (gp, hdp) != (g, hd) or not qc.is_contiguous():
+            qp = qc.new_zeros((B, hkv, gp, hdp))
+            qp[:, :, :g, :hd] = qc
+            qc = qp
+        elif qc.data_ptr() % 16:  # the kernel reads q in 16-byte loads
+            qc = qc.clone()
+        scratch = torch.empty(plan["scratch"], dtype=torch.float32,
+                              device=q.device)
+        out = torch.empty_like(qc)
+        PAGED_DECODE_KERNEL.launch(
+            qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), arrivals.data_ptr(), B, hkv, gp, hd, bs,
+            block_tables.shape[1], plan["split"], float(scale), code, stream,
+        )
+        return out if (gp, hdp) == (g, hd) else out[:, :, :g, :hd]
+
+    return over_group_chunks(q, launch)
 
 
 # --------------------------------------------------------------------- #

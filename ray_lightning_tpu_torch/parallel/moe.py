@@ -7,9 +7,15 @@ Leaves are stacked over the expert dim: ``router [D, E]`` (fp32 whatever the
 model's dtype), ``w_gate``/``w_up [E, D, F]`` and ``w_down [E, F, D]``,
 applied as ``x @ W``. The expert products stay library matmuls: the JAX
 package computes them outside any Pallas kernel, and their backward in
-training is autograd over these plain ops. Expert parallelism
-(``moe_ffn_local_experts``, ``moe_param_specs``) is not part of the port
-yet: both refuse (ROADMAP.md).
+training is autograd over these plain ops.
+
+Expert parallelism (``moe_ffn_local_experts``) runs over the 'ep' subgroup
+of a :class:`~ray_lightning_tpu_torch.parallel.mesh.ProcessMesh`: each
+member holds E / ep experts of every layer (``moe_param_specs`` says which
+leaves are split), routes over all E with the full router, runs its own
+experts and all-reduces the output over the group. The collectives are
+autograd Functions, the port's copies of the megatron f/g pair and
+``scale_bwd`` (``parallel/pipeline_1f1b.py``).
 """
 from __future__ import annotations
 
@@ -17,9 +23,11 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ray_lightning_tpu_torch.device import DeviceLike, resolve_device
+from ray_lightning_tpu_torch.parallel.data_parallel import all_reduce_
 
 
 def init_moe_params(generator: torch.Generator, dim: int, ffn_dim: int,
@@ -136,21 +144,155 @@ def moe_ffn(params: Dict[str, Any], x: torch.Tensor, top_k: int = 2,
     return out.reshape(b, s, d).to(x.dtype), aux
 
 
-_NO_EXPERT_PARALLELISM = (
-    "expert parallelism is not ported yet (ROADMAP.md, queue 1: expert "
-    "parallelism): the port has no device mesh with an 'ep' axis. A MoE "
-    "config trains on one device through moe_ffn, or data-parallel through "
-    "RayStrategy"
-)
+def moe_param_specs(n_layers: Optional[int] = None
+                    ) -> Dict[str, Tuple[Optional[str], ...]]:
+    """The experts' layout over mesh axes, as the JAX ``moe_param_specs``'s
+    ``PartitionSpec`` entries in plain tuples: the expert dim over 'ep' (and
+    the JAX package's 'fsdp' / 'tp' inside each expert), the router
+    replicated; with ``n_layers`` a leading stacked-layer entry ``None``."""
+    lead = (None,) if n_layers else ()
+    return {
+        "router": (*lead, None, None),
+        "w_gate": (*lead, "ep", "fsdp", "tp"),
+        "w_up": (*lead, "ep", "fsdp", "tp"),
+        "w_down": (*lead, "ep", "tp", "fsdp"),
+    }
 
 
-def moe_ffn_local_experts(*args, **kwargs):
-    """``parallel/moe.py::moe_ffn_local_experts`` (each 'ep' rank runs its
-    own experts, tokens move by all-to-all): refused, see ROADMAP.md."""
-    raise NotImplementedError("moe_ffn_local_experts: " + _NO_EXPERT_PARALLELISM)
+# --------------------------------------------------------------------- #
+# the ep collectives as autograd Functions
+# --------------------------------------------------------------------- #
+def _ep_all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` in place over the ep group (through a host copy under
+    gloo, ``data_parallel.all_reduce_``), as a ``moe_ep_all_reduce`` span of
+    torch.profiler: what a profiled step reads as the ep collectives' time."""
+    with torch.profiler.record_function("moe_ep_all_reduce"):
+        return all_reduce_(t, group)
 
 
-def moe_param_specs(*args, **kwargs):
-    """``parallel/moe.py::moe_param_specs`` (the experts' partition over
-    'ep'): refused, see ROADMAP.md."""
-    raise NotImplementedError("moe_param_specs: " + _NO_EXPERT_PARALLELISM)
+class IdentityFwdAllReduceBwd(torch.autograd.Function):
+    """Megatron's "f" (``identity_fwd_psum_bwd``): forward identity,
+    backward the sum over the group. Placed where a replicated value
+    enters a member's partial computation (its experts), so that each
+    member's partial cotangent is summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ep_all_reduce_(grad.contiguous().clone(), ctx.group), None
+
+
+class AllReduceFwdIdentityBwd(torch.autograd.Function):
+    """Megatron's "g" (``psum_fwd_identity_bwd``): forward the sum over the
+    group, backward identity (each member's cotangent of the replicated
+    sum is already the cotangent of its partial)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _ep_all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class ScaleBwd(torch.autograd.Function):
+    """``scale_bwd``: forward identity, backward the cotangent times
+    ``factor``. A value computed replicated on every member of a group
+    whose inputs' cotangents an f operator sums: seeding each member with
+    1 / group size makes the sum recover one copy."""
+
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.factor, None
+
+
+def member_share(params: Dict[str, Any], xt: torch.Tensor,
+                 router: torch.Tensor, top_k: int, capacity: int, start: int,
+                 ep: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ep member's part of :func:`moe_ffn_local_experts`, between its
+    f operators and its g: routing over all E experts (xt [T, D]), the
+    dispatch/combine columns of its experts ``[start, start + E_local)``
+    and their FFNs. Returns (the member's partial output [T, D] fp32, aux
+    seeded at 1 / ``ep`` in backward); at ``ep`` 1 every expert is local."""
+    disp, combine, aux = _route(xt, router, top_k, capacity)
+    if ep > 1:
+        aux = ScaleBwd.apply(aux, 1.0 / ep)
+        e_local = params["w_gate"].shape[0]
+        disp = disp[:, start:start + e_local]
+        combine = combine[:, start:start + e_local]
+    return _expert_ffn(disp, combine, xt, params), aux
+
+
+def moe_ffn_local_experts(params: Dict[str, Any], x: torch.Tensor, axis,
+                          top_k: int = 2, capacity_factor: float = 1.5,
+                          capacity: Optional[int] = None, tp_axis=None,
+                          vjp_safe: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism (``parallel/moe.py::moe_ffn_local_experts``):
+    this member holds E_local = E / ep experts (``w_*`` leaves of
+    [E_local, ...]) and the full router; ``axis`` is the 'ep' subgroup of a
+    :class:`~ray_lightning_tpu_torch.parallel.mesh.ProcessMesh` (the
+    member's ep coordinate is its rank in the group), or ``None`` when
+    every expert is local. x: [B, S, D] -> (out [B, S, D] in x's dtype,
+    aux).
+
+    Routing (gates, capacity positions, aux) runs over all E experts, with
+    the capacity of the member's own tokens, so it is the same on every
+    member of the group and top-k and capacity mean what they mean in
+    :func:`moe_ffn`. The member slices the dispatch/combine columns of its
+    experts, ``[start, start + E_local)`` with ``start`` its ep coordinate
+    times E_local, runs them, and the outputs are summed over the group.
+    The aux loss needs no collective: every member computes it from the
+    full gate matrix.
+
+    Under autograd the collectives are the f/g pair and ``ScaleBwd``: the
+    input and the router enter through f (backward sums each member's
+    partial cotangent), the combined output leaves through g (forward sum,
+    backward identity), and the aux loss is seeded at 1 / ep in backward,
+    so that f's sum restores one copy of its cotangent. JAX needs the pair
+    only under a manual ``jax.vjp`` (``vjp_safe``), because its autodiff of
+    ``shard_map`` transposes a plain ``psum`` itself; torch's
+    ``dist.all_reduce`` has no autograd rule, so the port is always in
+    JAX's manual case and runs the pair whatever ``vjp_safe`` says (the
+    argument stays for the signature). ``tp_axis`` (tensor parallelism
+    inside each expert) is not ported and refuses."""
+    if tp_axis is not None:
+        raise NotImplementedError(
+            f"moe_ffn_local_experts(tp_axis={tp_axis!r}): tensor parallelism "
+            "inside the experts is not ported yet (ROADMAP.md, queue 1 item "
+            "9: the parallelism layer)")
+    b, s, d = x.shape
+    e = params["router"].shape[-1]
+    e_local = params["w_gate"].shape[0]
+    t = b * s
+    xt = x.reshape(t, d)
+    if capacity is None:
+        capacity = max(1, int(capacity_factor * top_k * t / e))
+    # reduce over ep only when this member really holds a slice of the
+    # experts: a sum of whole outputs would multiply them by the group size
+    ep_sharded = axis is not None and e_local != e
+    router = params["router"]
+    if ep_sharded:
+        ep = dist.get_world_size(axis)
+        if e_local * ep != e:
+            raise ValueError(
+                f"moe_ffn_local_experts: {e_local} local experts x ep={ep} != "
+                f"n_experts={e}")
+        xt = IdentityFwdAllReduceBwd.apply(xt, axis)
+        router = IdentityFwdAllReduceBwd.apply(router, axis)
+    start = dist.get_rank(axis) * e_local if ep_sharded else 0
+    out, aux = member_share(params, xt, router, top_k, capacity, start,
+                            ep if ep_sharded else 1)
+    if ep_sharded:
+        out = AllReduceFwdIdentityBwd.apply(out, axis)
+    return out.reshape(b, s, d).to(x.dtype), aux

@@ -68,6 +68,7 @@ from ray_lightning_tpu_torch.models.generation import (
     decode_step_verify,
     init_kv_cache,
     prefill_hidden,
+    require_every_expert,
 )
 from ray_lightning_tpu_torch.ops.paged_attention import (
     fused_sample,
@@ -252,6 +253,7 @@ class InferenceEngine:
                 f"params live on {params['embed'].device}, the engine on "
                 f"{self.device}"
             )
+        require_every_expert(params, cfg, "InferenceEngine")
         self.cfg = cfg
         self.engine_config = ecfg
         self.params = params

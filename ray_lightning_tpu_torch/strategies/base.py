@@ -83,6 +83,12 @@ class Strategy:
     def global_batch_size(self, local_batch_size: int) -> int:
         return local_batch_size * self.world_size
 
+    @property
+    def process_mesh(self):
+        """The named axes laid over the ranks (``parallel/mesh.py::
+        ProcessMesh``), or None: one data axis over every rank."""
+        return None
+
     # ------------------------------------------------------------------ #
     # the Trainer's hooks
     # ------------------------------------------------------------------ #

@@ -22,8 +22,15 @@ it the rank, the sampler's shard and the collectives
 - ``HorovodRayStrategy``: the reference's ring-allreduce name for the same
   engine as ``RayStrategy``, with ``num_slots``.
 
+``mesh_spec`` (``parallel/mesh.py::MeshSpec`` with the axes 'dp' and 'ep')
+lays named axes over the ranks, row-major: the members of an 'ep' group see
+the same batch and each holds E / ep of a MoE model's experts
+(``moe_ffn_local_experts``); the sampler shards the data over 'dp' and the
+engine reduces gradients, ZeRO shards and metrics over the 'dp' group, as
+``ShardingPolicy(data_axes=("dp",))`` does in JAX.
+
 The constructors take the JAX strategies' arguments. Those that steer what
-the port does not have (device meshes, partition rules, gradient
+the port does not have (other mesh axes, partition rules, gradient
 compression, several devices per worker, relaunch on failure, elastic
 membership, the hang supervisor, telemetry, the XLA cache) refuse any value
 but their default with a message that names ROADMAP.md.
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
+from ray_lightning_tpu_torch.parallel.mesh import MeshSpec, ProcessMesh
 from ray_lightning_tpu_torch.parallel.sharding import ShardingPolicy
 from ray_lightning_tpu_torch.strategies.base import Strategy
 from ray_lightning_tpu_torch.utils.common import rank_zero_warn
@@ -55,7 +63,9 @@ class RayStrategy(Strategy):
     card ``local_rank`` and the group runs NCCL, unless more workers than
     cards share a host, and then gloo through host copies. ``use_gpu=True``
     with a CPU Trainer is refused. ``timeout_s`` bounds the workers'
-    start-up, the rendezvous and every collective.
+    start-up, the rendezvous and every collective. ``mesh_spec``: a
+    ``MeshSpec`` over 'dp' and 'ep' whose resolved sizes multiply to
+    ``num_workers`` (see the module's note).
     """
 
     strategy_name = "ddp_ray"
@@ -71,7 +81,7 @@ class RayStrategy(Strategy):
         platform: Optional[str] = None,
         devices_per_worker: Optional[int] = None,
         chips_per_host: Optional[int] = None,
-        mesh_spec: Optional[Any] = None,
+        mesh_spec: Optional[MeshSpec] = None,
         sharding_policy: Optional[ShardingPolicy] = None,
         dcn_grad_compression: Optional[str] = None,
         debug_collectives: bool = False,
@@ -105,7 +115,6 @@ class RayStrategy(Strategy):
                     "a worker over several devices (a device mesh)")
         for name, value, what in (
             ("chips_per_host", chips_per_host, "TPU chip partitioning"),
-            ("mesh_spec", mesh_spec, "a device mesh"),
             ("dcn_grad_compression", dcn_grad_compression,
              "gradient compression (parallel/compression.py)"),
             ("elastic", elastic or None, "elastic membership"),
@@ -126,6 +135,10 @@ class RayStrategy(Strategy):
         if zero_gather_group_size != 8:
             _refuse("zero_gather_group_size", zero_gather_group_size,
                     "the quantized ZeRO all-gather")
+        if mesh_spec is not None:
+            # the sizes multiply to the world; unported axes refuse
+            ProcessMesh(mesh_spec, int(num_workers), 0)
+        self.mesh_spec = mesh_spec
         self.sharding_policy = sharding_policy or ShardingPolicy.ddp()
         self.num_workers = int(num_workers)
         self.num_cpus_per_worker = num_cpus_per_worker
@@ -142,15 +155,18 @@ class RayStrategy(Strategy):
         self._is_remote = False
         # (global_rank, world, local_rank, node_rank) inside a worker
         self._worker_ctx: Optional[Tuple[int, int, int, int]] = None
+        self._mesh: Optional[ProcessMesh] = None
 
     @property
     def zero_stage(self) -> int:
         return self.sharding_policy.zero_stage
 
-    # the launcher (main-process actor handles) never ships to a worker
+    # the launcher (main-process actor handles) and the mesh's process
+    # groups never ship to a worker
     def __getstate__(self):
         state = dict(self.__dict__)
         state["_launcher"] = None
+        state["_mesh"] = None
         return state
 
     @property
@@ -173,6 +189,7 @@ class RayStrategy(Strategy):
                             node_rank: Optional[int] = None) -> None:
         self._worker_ctx = (global_rank, num_workers, local_rank,
                             global_rank if node_rank is None else node_rank)
+        self._mesh = None
 
     # ------------------------------------------------------------------ #
     # topology
@@ -196,10 +213,40 @@ class RayStrategy(Strategy):
         return (self._worker_ctx[3] if self._worker_ctx is not None
                 else self.global_rank)
 
+    @property
+    def process_mesh(self) -> Optional[ProcessMesh]:
+        """``mesh_spec`` laid over the ranks (None without one): this rank's
+        coordinates; its groups exist once :meth:`data_parallel` ran in a
+        worker."""
+        if self.mesh_spec is None:
+            return None
+        mesh = self._mesh
+        if mesh is None or (mesh.rank, mesh.world_size) != (
+                self.global_rank, self.world_size):
+            mesh = self._mesh = ProcessMesh(self.mesh_spec, self.world_size,
+                                            self.global_rank)
+        return mesh
+
+    @property
+    def distributed_sampler_kwargs(self) -> Optional[Dict[str, int]]:
+        """One shard of the data per dp coordinate: under a mesh the members
+        of an ep group read the same shard."""
+        mesh = self.process_mesh
+        if mesh is None:
+            return super().distributed_sampler_kwargs
+        return {"num_replicas": mesh.size("dp"), "rank": mesh.coords["dp"]}
+
+    def global_batch_size(self, local_batch_size: int) -> int:
+        mesh = self.process_mesh
+        dp = self.world_size if mesh is None else mesh.size("dp")
+        return local_batch_size * dp
+
     # ------------------------------------------------------------------ #
     def data_parallel(self, trainer):
-        """This worker's engine over the default process group, which the
-        launcher has joined before the stage starts."""
+        """This worker's engine over the process group the launcher has
+        joined before the stage starts: the default group, or under a mesh
+        the 'dp' subgroup, with the 'ep' subgroup for the experts (the mesh's
+        groups are created here, on every rank at the same point)."""
         import torch
         import torch.distributed as dist
 
@@ -212,8 +259,15 @@ class RayStrategy(Strategy):
                 "that its launcher starts (Trainer.fit in the main process)")
         backend = dist.get_backend()
         comm = (trainer.device if backend == "nccl" else torch.device("cpu"))
-        return DataParallel(self.world_size, self.global_rank, self.zero_stage,
-                            comm)
+        mesh = self.process_mesh
+        if mesh is None:
+            return DataParallel(self.world_size, self.global_rank,
+                                self.zero_stage, comm)
+        mesh.join()
+        return DataParallel(mesh.size("dp"), mesh.coords["dp"], self.zero_stage,
+                            comm, group=mesh.group("dp"),
+                            ep_group=mesh.group("ep"), ep_size=mesh.size("ep"),
+                            ep_rank=mesh.coords["ep"])
 
 
 class RayShardedStrategy(RayStrategy):

@@ -7,7 +7,7 @@ without the conftest:
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
 Shapes are small and deliberately odd (ragged tiles and lengths one off a
-tile edge, head dims from 17 to 128, groups of 1 to 8, windows across a
+tile edge, head dims from 8 to 256, groups of 1 to 16, windows across a
 tile edge, block sizes 8 and 32, positions on page and chunk edges,
 unaligned inputs, a vocabulary that is no power of two),
 beside the main-path shapes chip_smoke.py checks.
@@ -290,6 +290,124 @@ def test_paged_decode_kernel_replays_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(static_out, paged_decode_attention(q, kc, vc, tab, t_pos))
+
+
+@pytest.mark.parametrize("group", [12, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_above_group_8(cuda, group, dtype):
+    """Groups above the largest instantiated one (Llama-3.1-405B's and
+    Falcon-40B's 16) run as launches of at most 8 query heads over the same
+    caches: against the plain version at 1e-4, one launch per slice."""
+    from ray_lightning_tpu_torch.ops.paged_attention import (
+        PAGED_DECODE_KERNEL,
+        paged_decode_attention,
+        paged_decode_attention_plain,
+        paged_group_chunks,
+    )
+
+    q, kc, vc, tab, pos = _paged_inputs(cuda, 8, 2, group, 128, 16, 10, dtype,
+                                        _edge_positions(16, 10), group)
+    before = PAGED_DECODE_KERNEL.launches
+    got = paged_decode_attention(q, kc, vc, tab, pos)
+    assert PAGED_DECODE_KERNEL.launches == before + len(paged_group_chunks(group))
+    assert got.shape == q.shape
+    _close(got, paged_decode_attention_plain(q, kc, vc, tab, pos), 1e-4)
+
+
+@pytest.mark.parametrize("group,hd", [(4, 80), (4, 96), (1, 40), (7, 48),
+                                      (8, 8), (2, 200), (16, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_paged_decode_kernel_at_other_head_dims(cuda, group, hd, dtype, offset):
+    """Head dims between the instantiated ones (Phi-2's 80, Phi-3's 96)
+    run on the next instantiated width, the cache read at its own stride:
+    against the plain version at 1e-4, on aligned caches (16-byte copies,
+    the chunks past hd zero-filled) and caches one element off (element
+    loads); one launch per call up to G 8. A width that is no multiple of
+    8 refuses naming it."""
+    from ray_lightning_tpu_torch.ops.paged_attention import (
+        PAGED_DECODE_KERNEL,
+        paged_decode_attention,
+        paged_decode_attention_plain,
+        paged_group_chunks,
+    )
+
+    q, kc, vc, tab, pos = _paged_inputs(cuda, 8, 2, group, hd, 16, 10, dtype,
+                                        _edge_positions(16, 10), hd,
+                                        offset=offset)
+    before = PAGED_DECODE_KERNEL.launches
+    got = paged_decode_attention(q, kc, vc, tab, pos)
+    assert PAGED_DECODE_KERNEL.launches == before + len(paged_group_chunks(group))
+    assert got.shape == q.shape
+    _close(got, paged_decode_attention_plain(q, kc, vc, tab, pos), 1e-4)
+    if offset == 0 and hd == 80:
+        bad = _paged_inputs(cuda, 2, 2, group, 36, 16, 4, dtype, [5, 20], 1)
+        with pytest.raises(ValueError, match="hd=36"):
+            paged_decode_attention(*bad)
+
+
+def test_paged_decode_kernel_on_two_streams_at_once(cuda):
+    """Calls interleaved on two streams, with nothing ordering them, equal
+    serial calls bitwise: each stream has its own arrival counters, so the
+    chunks of two calls in flight never merge into each other."""
+    from ray_lightning_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    pos = [1023, 1000, 777, 512, 300, 128, 65, None]
+    inputs = [_paged_inputs(cuda, 8, 8, 4, 128, 16, 64, torch.bfloat16, pos, s)
+              for s in (11, 12)]
+    want = [paged_decode_attention(*x) for x in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(50):
+        for k in (0, 1):
+            with torch.cuda.stream(streams[k]):
+                outs[k].append(paged_decode_attention(*inputs[k]))
+    torch.cuda.synchronize()
+    assert not torch.equal(want[0], want[1])
+    for k in (0, 1):
+        for got in outs[k]:
+            assert torch.equal(got, want[k])
+
+
+def test_paged_decode_kernel_in_cuda_graphs(cuda):
+    """Two graphs captured on torch.cuda.graph's default capture stream (one
+    stream for every graph), the second replayed first, then both replayed
+    many times at once on two streams, equal eager calls bitwise: each
+    capture zeroes counters of its own inside its graph, so no replay reads
+    counters that another graph left, or shares them with a replay in
+    flight. The second graph's group of 12 is two launches on one buffer."""
+    from ray_lightning_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    pos = [1023, 1000, 777, 512, 300, 128, 65, None]
+    inputs = [_paged_inputs(cuda, 8, 8, g, 128, 16, 64, torch.bfloat16, pos, s)
+              for g, s in ((4, 21), (12, 22))]
+    want = [paged_decode_attention(*x) for x in inputs]  # loads the kernel
+    torch.cuda.synchronize()
+    graphs, outs = [], []
+    for x in inputs:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(paged_decode_attention(*x))
+        graphs.append(graph)
+    for out in outs:
+        out.zero_()
+    graphs[1].replay()
+    graphs[0].replay()
+    torch.cuda.synchronize()
+    for got, w in zip(outs, want):
+        assert torch.equal(got, w)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(50):
+        for k in (0, 1):
+            with torch.cuda.stream(streams[k]):
+                graphs[k].replay()
+    torch.cuda.synchronize()
+    for got, w in zip(outs, want):
+        assert torch.equal(got, w)
 
 
 def _argmax_rows(cuda, B, V, pattern, seed):

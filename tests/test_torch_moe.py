@@ -23,6 +23,7 @@ from ray_lightning_tpu_torch.models import generation as tgen
 from ray_lightning_tpu_torch.models import llama as tllama
 from ray_lightning_tpu_torch.models.convert import params_from_jax, params_to_numpy
 from ray_lightning_tpu_torch.parallel import moe as tmoe
+from ray_lightning_tpu_torch.parallel.mesh import MeshSpec
 from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
 
 BF16_RTOL = 2.0 ** -6
@@ -290,21 +291,23 @@ def test_engine_greedy_streams_match_jax_generate():
 
 
 def test_moe_training_is_refused():
-    """MoE training runs on one device (tests/test_torch_moe_training.py);
-    what stays refused is expert parallelism: the mesh layout of a MoE
-    config and the 'ep' collectives."""
+    """MoE training runs on one device (tests/test_torch_moe_training.py) and
+    with expert parallelism over a mesh's 'ep' axis
+    (tests/test_torch_expert_parallel.py); what stays refused is tensor
+    parallelism: a mesh with 'tp' given to param_shardings, and the experts'
+    tp_axis."""
     cfg = dataclasses.replace(tllama.LlamaConfig.tiny_moe(), dtype=torch.float32)
     module = tllama.LlamaModule(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        module.param_shardings(object())
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tllama.LlamaModule(cfg.to_dict()).param_shardings(object())
+        module.param_shardings(MeshSpec(axes={"tp": 2}))
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        tllama.LlamaModule(cfg.to_dict()).param_shardings(
+            MeshSpec(axes={"dp": 2, "tp": 2}))
     params = tllama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     x = torch.zeros((1, 8, cfg.dim))
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tmoe.moe_ffn_local_experts(tllama.layer_params(params, 0)["moe"], x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.moe_param_specs(cfg)
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        tmoe.moe_ffn_local_experts(tllama.layer_params(params, 0)["moe"], x,
+                                   None, tp_axis="tp")
     # the one-device path a user's module takes is not refused any more
     tokens = torch.zeros((1, 8), dtype=torch.long)
     loss = tllama.lm_loss(params, tokens, cfg)[0]

@@ -40,6 +40,7 @@ from ray_lightning_tpu_torch.models.llama import (
     LlamaModule,
     SyntheticLMDataModule,
 )
+from ray_lightning_tpu_torch.parallel.mesh import MeshSpec
 from ray_lightning_tpu_torch.parallel.sharding import ShardingPolicy
 from ray_lightning_tpu_torch.strategies import (
     HorovodRayStrategy,
@@ -115,14 +116,16 @@ def test_horovod_parity_props():
 @pytest.mark.parametrize("kw", [
     dict(max_failures=1), dict(elastic=True), dict(min_workers=1),
     dict(hang_timeout=5.0), dict(heartbeat_interval=1.0),
-    dict(telemetry=True), dict(mesh_spec=object()),
+    dict(telemetry=True), dict(mesh_spec=MeshSpec(axes={"tp": 2})),
     dict(partition_rules="^w$=dp"), dict(dcn_grad_compression="int8"),
     dict(devices_per_worker=4), dict(xla_cache_dir="/nonexistent"),
     dict(zero_quantized_allgather=True), dict(use_tpu=True),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_strategy_arguments_are_refused(kw):
     """Each argument that steers what the port does not have refuses with a
-    message that names ROADMAP.md; the JAX strategy accepts it."""
+    message that names ROADMAP.md; the JAX strategy accepts it. A mesh
+    takes 'dp' and 'ep' (tests/test_torch_expert_parallel.py): a 'tp' axis
+    refuses."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RayStrategy(num_workers=2, **kw)
 

@@ -1,7 +1,8 @@
 """Module-level helpers for the port's worker-process tests
-(tests/test_torch_ray_strategy.py, tests/test_torch_cuda.py). Workers import
-them by reference from the main process's sys.path, so this module imports
-neither JAX nor the JAX package."""
+(tests/test_torch_ray_strategy.py, tests/test_torch_expert_parallel.py,
+tests/test_torch_cuda.py). Workers import them by reference from the main
+process's sys.path, so this module imports neither JAX nor the JAX
+package."""
 import numpy as np
 import torch
 
@@ -69,8 +70,9 @@ class GlobalBatchSampler:
     epoch), so a loader of batch ``world * batch`` sees the union of the
     ranks' batches."""
 
-    def __init__(self, n, world, batch, seed):
+    def __init__(self, n, world, batch, seed, shuffle=True):
         self.n, self.world, self.batch, self.seed = n, world, batch, seed
+        self.shuffle = shuffle  # False: the unshuffled validation shards
         self.epoch = 0
 
     def set_epoch(self, epoch):
@@ -80,7 +82,8 @@ class GlobalBatchSampler:
         return (self.n // self.world) // self.batch * self.batch * self.world
 
     def __iter__(self):
-        perm = np.random.default_rng(self.seed + self.epoch).permutation(self.n)
+        perm = (np.random.default_rng(self.seed + self.epoch).permutation(self.n)
+                if self.shuffle else np.arange(self.n))
         per_rank = [perm[r::self.world] for r in range(self.world)]
         out = []
         for b in range(len(per_rank[0]) // self.batch):
@@ -118,3 +121,39 @@ class Record:
 
     def __call__(self):
         RECEIVED.append((self.rank, self.value))
+
+
+def ep_moe_worker(rank, world, init_method, inputs_path, out_path):
+    """One member of an ep group of ``world`` processes over gloo: for each
+    case of ``inputs_path`` (whole MoE params, x, the output's and the aux
+    loss's cotangents, top_k, capacity_factor), ``moe_ffn_local_experts``
+    on this member's slice of the experts, then backward; saves the
+    output, aux and the gradients of the router, x and the slice to
+    ``out_path.format(rank)``."""
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.parallel.moe import moe_ffn_local_experts
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init_method,
+                            world_size=world, rank=rank)
+    try:
+        group = dist.new_group(list(range(world)))
+        results = []
+        for case in torch.load(inputs_path, weights_only=True):
+            e_local = case["params"]["w_gate"].shape[0] // world
+            local = {k: (v if k == "router" else
+                         v[rank * e_local:(rank + 1) * e_local]).clone()
+                     .requires_grad_(True)
+                     for k, v in case["params"].items()}
+            x = case["x"].clone().requires_grad_(True)
+            out, aux = moe_ffn_local_experts(
+                local, x, group, top_k=case["top_k"],
+                capacity_factor=case["capacity_factor"])
+            ((out * case["out_ct"]).sum() + aux * case["aux_ct"]).backward()
+            results.append({"out": out.detach(), "aux": aux.detach(),
+                            "x": x.grad,
+                            **{k: v.grad for k, v in local.items()}})
+        torch.save(results, out_path.format(rank))
+    finally:
+        dist.destroy_process_group()
