@@ -189,14 +189,33 @@ final line):
    global batch within 1e-5. The kernel phase holds paged decode at its
    repaired shapes (G 16; head dims 80 and 96) and times flash at Qwen2.5's
    G 7;
-15. the ``kernels`` JSON line (launches from the main paths: serving,
+15. the tune integration (``tune``) — ``tune_asha``: ``tune.run`` over lr
+   in {3e-4, 1e-3, 0} with ``ASHAScheduler(grace_period=1,
+   reduction_factor=2, max_t=4)``, two trials at a time
+   (``resources_per_trial={"CPU": 2, "GPU": 0.5}``), each a trial process
+   fitting the training path's model (``LlamaConfig.small()``, bf16, batch
+   8 x 2048, 6 steps, a validation batch every 2) through
+   ``RayStrategy(num_workers=1, use_gpu=True, resources_per_worker={"GPU":
+   0.5})`` and reporting through ``TuneReportCallback``: every trial
+   TERMINATED or STOPPED, finite rows, a TERMINATED trial's 3 rows and its
+   worker's exact launches, the lr 0 trial started after both others'
+   rung-1 reports and stopped by ASHA before its third; ``tune_pbt``: PBT
+   over three narrow fp32 trials at once (``two_rank_config``, one worker
+   each, a checkpoint and a report at every step through
+   ``TuneReportCheckpointCallback``): some trial exploits a donor and its
+   parameters after the restore equal the donor's checkpoint bitwise; the
+   checkpoint's bytes and its way to the trial directory. After each
+   sweep no process of it runs or holds the card and the card's used
+   memory is back within 1 GiB; the phases' time beside their 150 s
+   budget;
+16. the ``kernels`` JSON line (launches from the main paths: serving,
    serving_slot, serving_spec, serving_spec_slot, generate_window,
    serving_qwen_yarn, generate_longrope, serving_moe, training,
    training_complete, train_moe, train_ray_ddp, train_ray_zero3,
-   train_ray_horovod, ray_two_ranks, train_ray_ep, ep_exactness; the Ray
-   paths from the workers' counts, which each worker process keeps from 0
-   and the launcher sums), the card line, and the final ``{"ok": true,
-   ...}`` line.
+   train_ray_horovod, ray_two_ranks, train_ray_ep, ep_exactness, tune_asha,
+   tune_pbt; the Ray and tune paths from the workers' counts, which each
+   worker process keeps from 0 and the launcher sums), the card line, and
+   the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --phases kernels,ray_ep`` runs the named phases
 alone and prints no result: a rehearsal of a phase.
@@ -216,8 +235,9 @@ from pathlib import Path
 try:  # the classes below ship to worker processes by reference
     from ray_lightning_tpu_torch.callbacks import Callback as _Callback
     from ray_lightning_tpu_torch.models.llama import LlamaModule as _LlamaModule
+    from ray_lightning_tpu_torch.tune import ASHAScheduler as _ASHAScheduler
 except ImportError:  # a directory without the port: main() fails loudly
-    _Callback = _LlamaModule = object
+    _Callback = _LlamaModule = _ASHAScheduler = object
 
 T0 = time.perf_counter()
 
@@ -3714,6 +3734,522 @@ def ep_exactness(torch, card):
     return total_counts
 
 
+# --------------------------------------------------------------------- #
+# phase 15: the tune integration
+# --------------------------------------------------------------------- #
+TUNE_ASHA_STEPS = 6  # steps of a tune_asha trial, a validation batch every 2
+TUNE_ASHA_VAL_EVERY = 2
+TUNE_ASHA_LRS = (3e-4, 1e-3, 0.0)  # the lr 0 trial starts third
+# steps of a tune_pbt trial, a validation at each: 8 ran the phase past its
+# budget (PBT kept exploiting the lagging trial until the others finished,
+# each restart ~20 s), so cut to 4
+TUNE_PBT_STEPS = 4
+TUNE_PBT_BATCH = 2
+TUNE_PBT_LRS = (3e-3, 1e-3, 0.0)
+TUNE_PBT_PACE_S = 0.5  # after each validation, so that the reports interleave
+TUNE_BARRIER_S = 60.0  # bound of the wait for every tune_pbt trial to start
+
+
+class TuneClock(_Callback):
+    """In a trial's worker: its pid at the start of fit, and the wall time
+    at each validation's end, appended to ``clock.jsonl`` in the trial
+    directory under ``tag``. One placed before the Tune callback and one
+    after it bracket the checkpoint's serialisation and its ``put_queue``."""
+
+    def __init__(self, trial_dir, tag):
+        self.trial_dir, self.tag = trial_dir, tag
+
+    def _write(self, **row):
+        import os
+
+        with open(os.path.join(self.trial_dir, "clock.jsonl"), "a") as f:
+            f.write(json.dumps(dict(row, tag=self.tag, pid=os.getpid())) + "\n")
+
+    def on_fit_start(self, trainer, module):
+        import torch.distributed as dist
+
+        self._write(event="fit_start", t=time.time(),
+                    backend=dist.get_backend() if dist.is_initialized() else None)
+
+    def on_validation_end(self, trainer, module):
+        if not trainer.sanity_checking:
+            self._write(event="validation_end", t=time.time(),
+                        step=trainer.global_step)
+
+
+class TuneBarrier(_Callback):
+    """In a trial's worker, once its model is on the card: marks ``tag`` in
+    ``directory`` and waits (at most TUNE_BARRIER_S) until ``n`` marks are
+    there, so that trials that started seconds apart train together. A
+    restarted trial finds its mark there and goes on."""
+
+    def __init__(self, directory, tag, n):
+        self.directory, self.tag, self.n = directory, tag, n
+
+    def on_train_start(self, trainer, module):
+        import os
+
+        os.makedirs(self.directory, exist_ok=True)
+        open(os.path.join(self.directory, self.tag), "w").close()
+        deadline = time.monotonic() + TUNE_BARRIER_S
+        while (len(os.listdir(self.directory)) < self.n
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+
+
+class TunePace(_Callback):
+    """Sleeps after each validation, once the Tune callback has reported."""
+
+    def __init__(self, seconds):
+        self.seconds = seconds
+
+    def on_validation_end(self, trainer, module):
+        if not trainer.sanity_checking:
+            time.sleep(self.seconds)
+
+
+class TuneRestoreCheck(_Callback):
+    """At the start of training (``fit(ckpt_path=...)`` has restored the
+    donor's checkpoint) writes whether the parameters equal the stream in
+    the file, bitwise."""
+
+    def __init__(self, ckpt_path, out_path):
+        self.ckpt_path, self.out_path = ckpt_path, out_path
+
+    def on_train_start(self, trainer, module):
+        import torch
+
+        from ray_lightning_tpu_torch.utils.serialization import load_state_stream
+        from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+        with open(self.ckpt_path, "rb") as f:
+            want = list(tree_leaves(load_state_stream(f.read())["state_dict"]))
+        got = [t.detach().cpu() for t in tree_leaves(trainer.params)]
+        same = len(got) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+        with open(self.out_path, "w") as f:
+            json.dump({"bitwise": same, "global_step": trainer.global_step}, f)
+
+
+class RecordingASHA(_ASHAScheduler):
+    """``ASHAScheduler`` that keeps every report's (trial, iteration) in
+    arrival order and the iteration of each trial's first STOP."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.seen, self.stops = [], {}
+
+    def on_result(self, trial_id, metrics, iteration):
+        decision = super().on_result(trial_id, metrics, iteration)
+        self.seen.append((trial_id, iteration))
+        if decision[0] == "STOP":
+            self.stops.setdefault(trial_id, iteration)
+        return decision
+
+
+def _trial_file(name, payload, append=False):
+    """``payload`` as JSON in the trial directory (a line of it with
+    ``append``: each incarnation of an exploited trial adds one)."""
+    import os
+
+    from ray_lightning_tpu_torch.tune.session import get_trial_session
+
+    path = os.path.join(get_trial_session().trial_dir, name)
+    with open(path, "a" if append else "w") as f:
+        f.write(json.dumps(payload) + ("\n" if append else ""))
+
+
+def tune_asha_trainable(config):
+    """One tune_asha trial: LlamaConfig.small() (bf16, remat, batch 8 x
+    2048, AdamW, warm-up 1) through RayStrategy(num_workers=1, use_gpu=True,
+    resources_per_worker={"GPU": 0.5}), a validation batch every 2 steps, 6
+    steps, val_loss reported by TuneReportCallback. Writes the workers'
+    launch counts, the launcher's timings and backend to the trial
+    directory (never as rows)."""
+    import os
+
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.strategies import RayStrategy
+    from ray_lightning_tpu_torch.tune import TuneReportCallback
+    from ray_lightning_tpu_torch.tune.session import get_trial_session
+
+    trial_dir = get_trial_session().trial_dir
+    started = time.time()
+    cfg = LlamaConfig.small()
+    strategy = RayStrategy(num_workers=1, use_gpu=True,
+                           resources_per_worker={"GPU": 0.5})
+    module = LlamaModule(cfg, lr=config["lr"], warmup_steps=1,
+                         total_steps=TUNE_ASHA_STEPS)
+    dm = SyntheticLMDataModule(cfg, batch_size=TRAIN_BATCH,
+                               n_train=TRAIN_BATCH * TUNE_ASHA_STEPS,
+                               n_val=TRAIN_BATCH)
+    trainer = Trainer(device="cuda", strategy=strategy,
+                      max_steps=TUNE_ASHA_STEPS, logger=False,
+                      enable_checkpointing=False, seed=0,
+                      val_check_interval=TUNE_ASHA_VAL_EVERY,
+                      limit_val_batches=1,
+                      callbacks=[TuneReportCallback({"val_loss": "val_loss"}),
+                                 TuneClock(trial_dir, "after")])
+    _trial_file("trials.jsonl", {"pid": os.getpid(), "started": started},
+                append=True)
+    trainer.fit(module, datamodule=dm)
+    _trial_file("finished.json", {
+        "launches": trainer.worker_launch_counts,
+        "timings": strategy.launcher.timings,
+        "backend": strategy.launcher.backend,
+        "layers": cfg.n_layers, "steps": trainer.global_step})
+
+
+def tune_pbt_trainable(config):
+    """One tune_pbt trial: two_rank_config (fp32, 2 layers) through one
+    worker on the card, a validation and its checkpoint at every step,
+    TUNE_PBT_STEPS steps, through TuneReportCheckpointCallback; its worker
+    first waits (bounded) for every trial of the sweep to reach training,
+    and after each validation it paces. With ``__checkpoint_path__`` it resumes from the donor's
+    checkpoint and checks the restore bitwise."""
+    import os
+
+    import torch
+
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.strategies import RayStrategy
+    from ray_lightning_tpu_torch.tune import TuneReportCheckpointCallback
+    from ray_lightning_tpu_torch.tune.session import get_trial_session
+
+    sess = get_trial_session()
+    _trial_file("trials.jsonl", {"pid": os.getpid(), "started": time.time()},
+                append=True)
+    cfg = two_rank_config(torch)
+    ckpt = config.get("__checkpoint_path__")
+    callbacks = [TuneBarrier(config["barrier"], sess.trial_id, config["trials"]),
+                 TuneClock(sess.trial_dir, "before"),
+                 TuneReportCheckpointCallback({"val_loss": "val_loss"}),
+                 TuneClock(sess.trial_dir, "after"),
+                 TunePace(TUNE_PBT_PACE_S)]
+    if ckpt:
+        callbacks.append(TuneRestoreCheck(
+            ckpt, os.path.join(sess.trial_dir, "restore.json")))
+    strategy = RayStrategy(num_workers=1, use_gpu=True)
+    module = LlamaModule(cfg, lr=config["lr"], warmup_steps=0,
+                         total_steps=TUNE_PBT_STEPS)
+    dm = SyntheticLMDataModule(cfg, batch_size=TUNE_PBT_BATCH,
+                               n_train=TUNE_PBT_BATCH * TUNE_PBT_STEPS,
+                               n_val=TUNE_PBT_BATCH)
+    trainer = Trainer(device="cuda", strategy=strategy,
+                      max_steps=TUNE_PBT_STEPS, logger=False,
+                      enable_checkpointing=False, seed=0,
+                      val_check_interval=1, limit_val_batches=1,
+                      callbacks=callbacks)
+    trainer.fit(module, datamodule=dm, ckpt_path=ckpt)
+    _trial_file("finished.json", {
+        "launches": trainer.worker_launch_counts,
+        "backend": strategy.launcher.backend, "steps": trainer.global_step})
+
+
+def _compute_apps():
+    """The pids of the processes that hold a context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return sorted(int(x) for x in out.stdout.split() if x.strip().isdigit())
+
+
+def _card_used_mib():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return int(out.stdout.split()[0])
+
+
+def _alive(pid):
+    """Whether ``pid`` still runs (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (FileNotFoundError, IndexError):
+        return False
+
+
+def _read_json(path):
+    import os
+
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def _read_lines(path):
+    import os
+
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _sweep_pids(analysis):
+    """Every trial process and worker a sweep's trials recorded."""
+    import os
+
+    pids = set()
+    for t in analysis.trials:
+        for name in ("trials.jsonl", "clock.jsonl"):
+            pids.update(r["pid"] for r in _read_lines(
+                os.path.join(t.logdir, name)))
+    return sorted(pids)
+
+
+def _card_clean(before_apps, before_mib, pids, label):
+    """No process of the sweep on the card or alive, and the card's used
+    memory back within 1 GiB: waits up to 30 s for the exits."""
+    import os
+
+    deadline = time.monotonic() + 30.0
+    while True:
+        apps = _compute_apps()
+        left = [p for p in pids if _alive(p)]
+        extra = sorted(set(apps) - set(before_apps))
+        if (not left and not extra) or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    used = _card_used_mib()
+    check(not left, f"{label}: processes of the sweep still run: {left}")
+    check(not extra, f"{label}: processes of the sweep still hold the card: "
+          f"{extra} (before {before_apps})")
+    check(used <= before_mib + 1024, f"{label}: the card's used memory "
+          f"{used} MiB, {before_mib} MiB before the sweep")
+    log(f"{label}: after the sweep the card's compute apps are {apps} "
+        f"(before {before_apps}; this process {os.getpid()}); the sweep's "
+        f"{len(pids)} processes (trials and workers) are gone; used memory "
+        f"{used} MiB (before {before_mib})")
+
+
+def _trial_errors(analysis, label):
+    errored = [t for t in analysis.trials if t.status == "ERROR"]
+    for t in errored:
+        log(f"{label}: {t.trial_id} ERROR:\n{t.error}")
+    check(not errored, f"{label}: {len(errored)} trial(s) ended in ERROR")
+
+
+def tune_asha(torch, card, root):
+    """ASHA over lr in {3e-4, 1e-3, 0} on the training path's model, two
+    trials at a time on the card (each a trial process and one worker
+    claiming half the card). Every trial TERMINATED or STOPPED, every
+    val_loss finite, a TERMINATED trial's 3 rows and its workers' exact
+    launches; the lr 0 trial starts after both others reported at rung 1
+    and ASHA stops it before its third report; then nothing of the sweep
+    is left on the card."""
+    import os
+
+    from ray_lightning_tpu_torch import tune
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig
+
+    smoke = _smoke_module()
+    gc.collect()
+    torch.cuda.empty_cache()
+    apps, used = _compute_apps(), _card_used_mib()
+    scheduler = smoke.RecordingASHA(
+        metric="val_loss", mode="min", grace_period=1, reduction_factor=2,
+        max_t=4)
+    t = time.perf_counter()
+    start = time.time()
+    analysis = tune.run(
+        smoke.tune_asha_trainable,
+        config={"lr": tune.grid_search(list(TUNE_ASHA_LRS))},
+        metric="val_loss", mode="min", scheduler=scheduler,
+        local_dir=root, name="tune_asha",
+        resources_per_trial={"CPU": 2, "GPU": 0.5}, max_concurrent_trials=2)
+    wall_s = time.perf_counter() - t
+    _trial_errors(analysis, "tune_asha")
+    cfg = LlamaConfig.small()
+    n_val = TUNE_ASHA_STEPS // TUNE_ASHA_VAL_EVERY
+    expect = training_launches(cfg.n_layers, TUNE_ASHA_STEPS, n_val)
+    counts = {k: 0 for k in expect}
+    rows = []
+    by_lr = {}
+    for trial in analysis.trials:
+        check(trial.status in ("TERMINATED", "STOPPED"),
+              f"tune_asha: {trial.trial_id} ended {trial.status}")
+        values = [r["val_loss"] for r in trial.results]
+        check(values and all(math.isfinite(v) for v in values),
+              f"tune_asha: {trial.trial_id} val_loss {values}")
+        info = _read_lines(os.path.join(trial.logdir, "trials.jsonl"))[0]
+        events = _read_lines(os.path.join(trial.logdir, "clock.jsonl"))
+        clock = [r for r in events if r["event"] == "validation_end"]
+        backends = [r["backend"] for r in events if r["event"] == "fit_start"]
+        first = (f"{clock[0]['t'] - info['started']:.1f}s after the trainable "
+                 f"began, {clock[0]['t'] - start:.1f}s after the sweep began"
+                 if clock else "no report timed")
+        done = _read_json(os.path.join(trial.logdir, "finished.json"))
+        if trial.status == "TERMINATED":
+            check(len(trial.results) == n_val,
+                  f"tune_asha: {trial.trial_id} has {len(trial.results)} rows")
+            check(done is not None and done["launches"] == expect,
+                  f"tune_asha: {trial.trial_id} worker launches "
+                  f"{done and done['launches']} != {expect}")
+            check(done["backend"] == "nccl", f"tune_asha: backend {done}")
+            for k, v in done["launches"].items():
+                counts[k] += v
+        by_lr[trial.config["lr"]] = trial
+        tm = done["timings"] if done else {}
+        rows.append(
+            f"{trial.trial_id} lr {trial.config['lr']:g}: {trial.status}, "
+            f"{len(trial.results)} rows, val_loss "
+            f"{[round(v, 4) for v in values]}, first report {first}, worker "
+            f"backend {backends}"
+            + (f"; launcher start-up "
+               f"{tm['setup_s']:.2f}s, the stage {tm['run_s']:.2f}s, weights "
+               f"back {tm['weights_s']:.2f}s" if done else ""))
+    zero = by_lr[0.0]
+    stop_at = scheduler.stops.get(zero.trial_id)
+    check(zero.status == "STOPPED" and stop_at is not None and stop_at < n_val,
+          f"tune_asha: the lr 0 trial ended {zero.status}, stopped at "
+          f"{stop_at}")
+    order = scheduler.seen
+    others = [t.trial_id for t in analysis.trials if t is not zero]
+    first_zero = order.index((zero.trial_id, 1))
+    check(all((o, 1) in order[:first_zero] for o in others),
+          f"tune_asha: the lr 0 trial reported before the others' rung 1: "
+          f"{order}")
+    log(f"tune_asha on {card}: ASHA(grace 1, reduction 2, max_t 4) over lr "
+        f"{list(TUNE_ASHA_LRS)}, LlamaConfig.small() ({cfg.n_layers} layers, "
+        f"bf16, remat, AdamW) at batch {TRAIN_BATCH} x {cfg.max_seq}, "
+        f"{TUNE_ASHA_STEPS} steps, a validation batch every "
+        f"{TUNE_ASHA_VAL_EVERY}; two trials at a time on the card, each one "
+        f"worker with half of it; the sweep {wall_s:.1f}s: " + "; ".join(rows)
+        + f"; the lr 0 trial stopped by ASHA at rung {stop_at}; reports in "
+        f"arrival order {order}; launches of the finished trials {counts}")
+    _card_clean(apps, used, _sweep_pids(analysis), "tune_asha")
+    return counts, wall_s
+
+
+def tune_pbt(torch, card, root):
+    """PBT over three narrow fp32 trials at once, each one worker on the
+    card, a checkpoint and a report at every step: some trial exploits a
+    donor and its first step starts from the donor's checkpointed weights,
+    bitwise; the checkpoint's bytes and its way from ``put_queue`` to the
+    trial directory; then nothing of the sweep is left on the card."""
+    import os
+
+    from ray_lightning_tpu_torch import tune
+
+    smoke = _smoke_module()
+    gc.collect()
+    torch.cuda.empty_cache()
+    apps, used = _compute_apps(), _card_used_mib()
+    scheduler = tune.PopulationBasedTraining(
+        metric="val_loss", mode="min", perturbation_interval=2,
+        hyperparam_mutations={"lr": tune.loguniform(1e-4, 1e-1)},
+        quantile_fraction=0.34, seed=0)
+    t = time.perf_counter()
+    analysis = tune.run(
+        smoke.tune_pbt_trainable,
+        config={"lr": tune.grid_search(list(TUNE_PBT_LRS)),
+                "barrier": os.path.join(root, "pbt_barrier"),
+                "trials": len(TUNE_PBT_LRS)},
+        metric="val_loss", mode="min", scheduler=scheduler, local_dir=root,
+        name="tune_pbt", resources_per_trial={"CPU": 1, "GPU": 0.3},
+        max_concurrent_trials=len(TUNE_PBT_LRS))
+    wall_s = time.perf_counter() - t
+    _trial_errors(analysis, "tune_pbt")
+    cfg = two_rank_config(torch)
+    counts = {}
+    exploited, rows, ckpt_rows = [], [], []
+    for trial in analysis.trials:
+        check(trial.status == "TERMINATED",
+              f"tune_pbt: {trial.trial_id} ended {trial.status}")
+        values = [r["val_loss"] for r in trial.results]
+        check(values and all(math.isfinite(v) for v in values),
+              f"tune_pbt: {trial.trial_id} val_loss {values}")
+        restored = _read_json(os.path.join(trial.logdir, "restore.json"))
+        start_step = 0
+        if "__checkpoint_path__" in trial.config:
+            check(restored is not None and restored["bitwise"],
+                  f"tune_pbt: {trial.trial_id} did not restore its donor's "
+                  f"checkpoint bitwise: {restored}")
+            exploited.append(trial)
+            start_step = restored["global_step"]
+        done = _read_json(os.path.join(trial.logdir, "finished.json"))
+        check(done is not None, f"tune_pbt: {trial.trial_id} wrote no counts")
+        # this incarnation's steps, each with a validation (a restore at
+        # max_steps still runs one step, as the Trainer stops after a step)
+        steps = done["steps"] - start_step
+        expect = training_launches(cfg.n_layers, steps, steps, remat=False)
+        check(steps >= 1 and done["launches"] == expect,
+              f"tune_pbt: {trial.trial_id} launches {done['launches']} over "
+              f"{steps} steps != {expect}")
+        for k, v in done["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        donor = (trial.config["__checkpoint_path__"].split(os.sep)[-3]
+                 if restored else None)
+        rows.append(f"{trial.trial_id} lr {trial.config['lr']:.3g}"
+                    + (f" (from {donor}'s step {start_step}, bitwise)"
+                       if donor else "")
+                    + f": {len(trial.results)} rows, last val_loss "
+                    f"{values[-1]:.4f}")
+        clock = _read_lines(os.path.join(trial.logdir, "clock.jsonl"))
+        before = [r for r in clock if r["tag"] == "before"
+                  and r["event"] == "validation_end"]
+        after = [r for r in clock if r["tag"] == "after"
+                 and r["event"] == "validation_end"]
+        if (not exploited or exploited[-1] is not trial) and (
+                len(trial.checkpoints) == len(before) == len(after)):
+            # one incarnation: its checkpoints pair with its validations
+            for c, b, a in zip(trial.checkpoints, before, after):
+                ckpt_rows.append((os.path.getsize(c["path"]), a["t"] - b["t"],
+                                  os.path.getmtime(c["path"]) - b["t"]))
+    check(exploited, "tune_pbt: no trial exploited a donor")
+    check(ckpt_rows, "tune_pbt: no checkpoint was timed")
+    sizes = sorted({r[0] for r in ckpt_rows})
+    send = sorted(r[1] for r in ckpt_rows)
+    land = sorted(r[2] for r in ckpt_rows)
+    log(f"tune_pbt on {card}: PBT(interval 2, quantile 0.34, seed 0) over lr "
+        f"{list(TUNE_PBT_LRS)}, fp32 dim {cfg.dim}, {cfg.n_layers} layers, "
+        f"batch {TUNE_PBT_BATCH} x {cfg.max_seq}, {TUNE_PBT_STEPS} steps, a "
+        f"checkpoint and a report at each, three trials at once, each one "
+        f"worker on the card; the sweep {wall_s:.1f}s: " + "; ".join(rows)
+        + f"; {len(exploited)} exploit(s) restored bitwise; checkpoint "
+        f"{sizes} bytes, {len(ckpt_rows)} timed from the validation's end: "
+        f"to its file in the trial directory (serialised in the worker, "
+        f"put_queue to the queue actor, drained by the trial process, "
+        f"written) median {_median(land):.3f}s (max {land[-1]:.3f}); the "
+        f"worker blocked (the checkpoint's and the report's put_queue) "
+        f"median {_median(send):.3f}s (max {send[-1]:.3f}); launches "
+        f"{counts}")
+    _card_clean(apps, used, _sweep_pids(analysis), "tune_pbt")
+    return counts, wall_s
+
+
+def tune_phase(torch, card):
+    """Both tune paths, in a directory of the checkout's build/ that is
+    removed after; their time beside the 150 s budget."""
+    import shutil
+    import tempfile
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="tune_", dir=build)
+    try:
+        asha_counts, asha_s = tune_asha(torch, card, root)
+        pbt_counts, pbt_s = tune_pbt(torch, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"tune phases on {card}: tune_asha {asha_s:.1f}s + tune_pbt "
+        f"{pbt_s:.1f}s = {asha_s + pbt_s:.1f}s (budget 150 s)")
+    return {"tune_asha": asha_counts, "tune_pbt": pbt_counts}
+
+
 def check_new_path_shapes(torch, F, results):
     """The kernels at the shapes the new paths give them, against their
     plain versions: train_moe's RMSNorm [4096,4096] bf16 and flash q
@@ -3860,7 +4396,7 @@ def check_new_path_shapes(torch, F, results):
 # the phases of a run; ``--phases a,b`` runs those alone and prints no
 # result (a rehearsal of new phases)
 PHASES = ("kernels", "serving", "generation", "moe_serving", "training",
-          "train_moe", "ray", "ray_two_ranks", "ray_ep")
+          "train_moe", "ray", "ray_two_ranks", "ray_ep", "tune")
 
 
 def main(argv=None):
@@ -3954,6 +4490,8 @@ def main(argv=None):
     if "ray_ep" in phases:
         by_path["train_ray_ep"], _ = train_ray_ep(torch, card)
         by_path["ep_exactness"] = ep_exactness(torch, card)
+    if "tune" in phases:
+        by_path.update(tune_phase(torch, card))
     if only is not None:
         log(f"phases {phases} done in {time.perf_counter() - T0:.1f}s; a "
             "partial run prints no result")

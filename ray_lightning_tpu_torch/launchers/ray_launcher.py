@@ -21,8 +21,13 @@ runtime:
   metrics, its callback states and the best checkpoint's path;
 - the main process loads them into its trainer and module, as if it had trained.
 
-Relaunching a failed group, elastic membership, the hang supervisor, the
-tune queue and telemetry are not ported (ROADMAP.md).
+Inside a tune trial (``tune.session.is_session_enabled()`` in the launching
+process) ``setup_workers`` also makes the tune queue; every worker's session
+gets its handle, and ``process_results`` runs the callables the Tune
+callbacks put there, in the trial process, while it waits for the workers.
+
+Relaunching a failed group, elastic membership, the hang supervisor and
+telemetry are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ from ray_lightning_tpu_torch.launchers.utils import (
     WorkerOutput,
 )
 from ray_lightning_tpu_torch.session import init_session, reset_session
+from ray_lightning_tpu_torch.tune import session as tune_session
 from ray_lightning_tpu_torch.utils.seed import seed_everything
 from ray_lightning_tpu_torch.utils.serialization import (
     load_state_stream,
@@ -57,10 +63,21 @@ from ray_lightning_tpu_torch.utils.serialization import (
 )
 
 
-def process_results(futures: List[rt.CallFuture]) -> List[Any]:
-    """Wait for every worker's future. Raises a worker's error, preferring a
-    process failure (a dead worker) over the collective errors its peers
-    then raise."""
+def _drain_queue(queue) -> None:
+    """Run the callables the workers put into the tune queue (a Tune
+    callback's report or checkpoint must run in the trial process)."""
+    if queue is None:
+        return
+    for item in queue.get_all():
+        if callable(item):
+            item()
+
+
+def process_results(futures: List[rt.CallFuture], queue=None) -> List[Any]:
+    """Wait for every worker's future, running what the workers put into
+    ``queue`` (the tune queue) as it arrives and once more after the last
+    future settles. Raises a worker's error, preferring a process failure
+    (a dead worker) over the collective errors its peers then raise."""
     remaining = list(futures)
     settled: Dict[int, Any] = {}
     first_error: Optional[Exception] = None
@@ -90,6 +107,8 @@ def process_results(futures: List[rt.CallFuture]) -> List[Any]:
                 for fut in ready:
                     check(fut)
             raise first_error
+        _drain_queue(queue)
+    _drain_queue(queue)
     return [settled[id(f)] for f in futures]
 
 
@@ -107,7 +126,8 @@ def compute_local_ranks(node_ips: List[str]) -> List[Tuple[int, int]]:
 
 
 def _wrapping_function(global_rank: int, num_workers: int, payload_ref,
-                       local_rank: int, node_rank: int, device: str):
+                       local_rank: int, node_rank: int, device: str,
+                       queue_handle=None):
     """Runs in each worker (``RayExecutor.execute``): rebuild the trainer,
     take this rank's place and device, run the stage, and return rank 0's
     results (a ``RankReport`` of the kernel launches from the others)."""
@@ -123,8 +143,8 @@ def _wrapping_function(global_rank: int, num_workers: int, payload_ref,
                                  local_rank=local_rank, node_rank=node_rank)
     trainer.device = torch.device(device)
     reset_session()
-    # the session's queue serves the tune integration, not ported yet
-    init_session(rank=global_rank, queue=None)
+    # the tune queue's handle inside a trial, else None
+    init_session(rank=global_rank, queue=queue_handle)
     module = trainer._module
     module.trainer = trainer
     kernels.reset_launch_counts()
@@ -190,6 +210,7 @@ class RayLauncher:
         self._worker_ranks: List[Tuple[int, int]] = []
         self._devices: List[str] = []
         self._any_remote = False
+        self._tune_queue: Optional[rt.Queue] = None
         self.backend: Optional[str] = None
         self.timings: Dict[str, float] = {}
 
@@ -320,6 +341,9 @@ class RayLauncher:
                            for w in self._workers], timeout=timeout)
             if sums != [float(n)] * n:
                 raise RuntimeError(f"all-reduce smoke test gave {sums}")
+        if tune_session.is_session_enabled():
+            self._tune_queue = rt.make_queue(cross_host=self._any_remote,
+                                             timeout=timeout)
 
     # ------------------------------------------------------------------ #
     def run_function_on_workers(self, payload: bytes) -> WorkerOutput:
@@ -328,15 +352,17 @@ class RayLauncher:
         t0 = time.perf_counter()
         payload_ref: Any = payload if self._any_remote else rt.put(payload)
         n = len(self._workers)
+        queue = self._tune_queue
+        queue_handle = queue.handle() if queue is not None else None
         try:
             futures = [
                 w.execute.remote(_wrapping_function, rank, n, payload_ref,
                                  self._worker_ranks[rank][1],
                                  self._worker_ranks[rank][0],
-                                 self._devices[rank])
+                                 self._devices[rank], queue_handle)
                 for rank, w in enumerate(self._workers)
             ]
-            results = process_results(futures)
+            results = process_results(futures, queue)
             received = time.time()
         finally:
             if not isinstance(payload_ref, bytes):
@@ -376,7 +402,8 @@ class RayLauncher:
         trainer.worker_launch_counts = dict(output.launch_counts)
 
     def teardown_workers(self) -> None:
-        """Leave the process group, then stop every worker process."""
+        """Leave the process group, stop every worker process and the tune
+        queue."""
         if self._workers:
             try:
                 rt.get([w.shutdown_distributed.remote() for w in self._workers],
@@ -386,3 +413,6 @@ class RayLauncher:
         for w in self._workers:
             rt.kill(w)
         self._workers = []
+        if self._tune_queue is not None:
+            self._tune_queue.shutdown()
+            self._tune_queue = None

@@ -305,15 +305,19 @@ class ActorHandle:
 
         return _Method()
 
-    def shutdown(self, timeout: float = 5.0) -> None:
-        """Ask the actor to exit (best effort) and close this connection."""
+    def shutdown(self, timeout: float = 5.0) -> bool:
+        """Ask the actor to exit (best effort) and close this connection.
+        Returns whether the actor acknowledged within ``timeout`` (a busy
+        actor serves the request only after its running call)."""
         try:
             self.call(_SHUTDOWN).result(timeout=timeout)
+            acked = True
         except Exception:
-            pass
+            acked = False
         conn = self.__dict__.pop("_connection", None)
         if conn is not None:
             conn.close()
+        return acked
 
 
 def make_authkey() -> bytes:

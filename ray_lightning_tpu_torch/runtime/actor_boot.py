@@ -11,6 +11,13 @@ context (the main process's ``sys.path`` and working directory, the interface to
 bind); the pickled class; the pickled ``(args, kwargs)``. Handshake on
 stdout: ``TORCHRT_ACTOR_READY <port>``, or ``TORCHRT_ACTOR_ERROR`` and a
 traceback.
+
+The creator keeps the write end of stdin open for the actor's life, so the
+actor sees end-of-file on it only when the creator has gone, whatever way
+it went (a graceful exit, SIGTERM, SIGKILL). A daemon thread waits for that
+and exits the process: an actor never outlives the process that created
+it, and a trial process that is stopped takes its workers, and their CUDA
+contexts, with it.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import os
 import pickle
 import struct
 import sys
+import threading
 import traceback
 
 _LEN = struct.Struct("!Q")
@@ -39,6 +47,20 @@ def _read_msg(stream) -> bytes:
     return _read_exact(stream, n)
 
 
+def _exit_with_creator(stdin) -> None:
+    """Exit this process once ``stdin`` reaches end-of-file."""
+
+    def watch():
+        try:
+            stdin.read()
+        except (OSError, ValueError):
+            pass
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True,
+                     name="torchrt-creator-watch").start()
+
+
 def main() -> None:
     from ray_lightning_tpu_torch.runtime.actor import serve_instance
 
@@ -52,8 +74,11 @@ def main() -> None:
         for p in reversed(ctx.get("sys_path", [])):
             if p not in sys.path:
                 sys.path.insert(0, p)
-        cls = pickle.loads(_read_msg(stdin))
-        args, kwargs = pickle.loads(_read_msg(stdin))
+        cls_blob = _read_msg(stdin)
+        args_blob = _read_msg(stdin)
+        _exit_with_creator(stdin)
+        cls = pickle.loads(cls_blob)
+        args, kwargs = pickle.loads(args_blob)
         instance = cls(*args, **kwargs)
     except BaseException:
         sys.stdout.write("TORCHRT_ACTOR_ERROR\n" + traceback.format_exc())

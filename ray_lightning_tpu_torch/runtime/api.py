@@ -281,7 +281,10 @@ def _spawn_local_proc(spec: Tuple[bytes, bytes], authkey: bytes,
                       child_env: Dict[str, str], ctx: Dict[str, Any],
                       bind_host: str = "127.0.0.1") -> subprocess.Popen:
     """Boot one actor interpreter on this host (the node agent uses it for
-    remote spawns too). ``ctx`` is the main process's ``sys_path`` and ``cwd``."""
+    remote spawns too). ``ctx`` is the main process's ``sys_path`` and ``cwd``.
+    The child's stdin pipe stays open in this process for the child's life:
+    the actor exits when it reads end-of-file there, that is when this
+    process is gone (``actor_boot.py``)."""
     blobs = [authkey, json.dumps(dict(ctx, bind_host=bind_host)).encode(),
              *spec]
     proc = subprocess.Popen(
@@ -467,8 +470,9 @@ def actor_node_id(handle: ActorHandle) -> int:
 def kill(handle: ActorHandle, no_restart: bool = True, timeout: float = 5.0,
          force: bool = False) -> None:
     """A graceful shutdown call, then the process is reaped (terminated,
-    then killed, if it does not exit within ``timeout``). ``force`` kills at
-    once."""
+    then killed, if it does not exit within ``timeout``). A local actor that
+    did not acknowledge the call within ``timeout`` (busy in a call) is
+    terminated at once. ``force`` kills at once."""
     entry = _state.actors.pop(handle.name, None)
     node = None
     if entry is not None:
@@ -476,8 +480,9 @@ def kill(handle: ActorHandle, no_restart: bool = True, timeout: float = 5.0,
             node = _get_node(entry[2])
         except KeyError:
             node = None
+    acked = False
     if not force:
-        handle.shutdown(timeout=timeout)
+        acked = handle.shutdown(timeout=timeout)
     if node is not None and node.agent is not None:
         try:
             node.agent.kill_actor.remote(handle.name, timeout, force).result(
@@ -492,6 +497,8 @@ def kill(handle: ActorHandle, no_restart: bool = True, timeout: float = 5.0,
         if proc is not None:
             if force:
                 proc.kill()
+            elif not acked:
+                proc.terminate()
             try:
                 proc.wait(timeout=timeout)
             except subprocess.TimeoutExpired:

@@ -1152,3 +1152,46 @@ def test_ray_strategy_on_card_matches_single_device(cuda):
     assert ray_counts == single_counts and ray_counts["flash_bwd_dkv"] > 0
     for a, b in zip(ray, single):
         assert a.device.type == "cuda" and torch.equal(a, b.detach())
+
+
+def test_tune_sweep_of_two_trials_sharing_the_card(cuda, tmp_path):
+    """``tune.run`` of two trials at once, each claiming half the card
+    (``resources_per_trial={"CPU": 1, "GPU": 0.5}``) and training a narrow
+    bf16 model for 2 steps through one worker: both terminate with finite
+    rows, and afterwards none of their processes (trials and workers) runs
+    or holds the card."""
+    import math
+    import os
+    import subprocess
+
+    from ray_lightning_tpu_torch import runtime as rt
+    from ray_lightning_tpu_torch import tune
+
+    import torch_tune_helpers as helpers
+
+    def apps():
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60, check=True)
+        return {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+
+    before = apps()
+    try:
+        analysis = tune.run(
+            helpers.cuda_sweep_trainable,
+            config={"lr": tune.grid_search([1e-3, 3e-3])}, metric="val_loss",
+            local_dir=str(tmp_path), resources_per_trial={"CPU": 1, "GPU": 0.5},
+            max_concurrent_trials=2, verbose=0)
+    finally:
+        rt.shutdown()
+    assert [t.status for t in analysis.trials] == ["TERMINATED"] * 2, [
+        t.error for t in analysis.trials]
+    for t in analysis.trials:
+        assert len(t.results) == 2
+        assert all(math.isfinite(r["val_loss"]) for r in t.results)
+    pids = [int(name.split("-")[1]) for t in analysis.trials
+            for name in os.listdir(t.logdir)
+            if name.startswith(("trial-", "worker-"))]
+    assert len(pids) == 4
+    assert helpers.wait_gone(pids, timeout=30) == []
+    assert apps() <= before
