@@ -208,14 +208,39 @@ final line):
    sweep no process of it runs or holds the card and the card's used
    memory is back within 1 GiB; the phases' time beside their 150 s
    budget;
-16. the ``kernels`` JSON line (launches from the main paths: serving,
+16. a Ray fit that survives a crash and a hang (``faults``) —
+   ``train_ray_faults``: the training path's model (``LlamaConfig.small()``,
+   bf16, remat, AdamW, batch 8 x 2048, epochs of 4 steps, 8 steps) through
+   ``RayStrategy(num_workers=1, use_gpu=True)``, first without a fault
+   (the reference), then with ``max_failures=2, hang_timeout=10.0,
+   heartbeat_interval=1.0``, a ``ModelCheckpoint`` at the first epoch's end
+   (``every_n_epochs=2``) and
+   ``TORCHRT_FAULT="rank0:crash@step5,rank0:hang@step7"`` fused: the crash
+   relaunches the group from the step-4 checkpoint, the supervisor declares
+   the hang, kills the group, and the relaunch resumes from it again.
+   Exactly two relaunches, both fuses blown, ``global_step`` 8, the weights
+   bitwise the reference's, the last group's exact launches; each fault's
+   time to the next group's first step, the detection time beside
+   ``hang_timeout``, the checkpoint's bytes and write time, the step median
+   with heartbeats against the reference's. ``train_ray_zero_resume``:
+   ``ray_two_ranks``' narrow fp32 config through
+   ``RayShardedStrategy(num_workers=2, zero_stage=3, max_failures=1)`` over
+   gloo on the card, ``rank1:crash@step3`` fused, a checkpoint at each
+   2-step epoch's end: the weights bitwise those of an uninterrupted ZeRO-3
+   fit of the same world, and the step-2 checkpoint's whole optimizer
+   states (SGD with momentum: ``MomentumLlama``) within 1e-6 of a
+   one-process fit's on the global batch. After the phase no worker process
+   runs or holds the card and its used memory is back within 1 GiB; the
+   phase's time beside its 150 s budget;
+17. the ``kernels`` JSON line (launches from the main paths: serving,
    serving_slot, serving_spec, serving_spec_slot, generate_window,
    serving_qwen_yarn, generate_longrope, serving_moe, training,
    training_complete, train_moe, train_ray_ddp, train_ray_zero3,
    train_ray_horovod, ray_two_ranks, train_ray_ep, ep_exactness, tune_asha,
-   tune_pbt; the Ray and tune paths from the workers' counts, which each
-   worker process keeps from 0 and the launcher sums), the card line, and
-   the final ``{"ok": true, ...}`` line.
+   tune_pbt, train_ray_faults, train_ray_zero_resume; the Ray and tune
+   paths from the workers' counts, which each worker process keeps from 0
+   and the launcher sums; a relaunched path's from its last group), the
+   card line, and the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --phases kernels,ray_ep`` runs the named phases
 alone and prints no result: a rehearsal of a phase.
@@ -234,10 +259,13 @@ from pathlib import Path
 
 try:  # the classes below ship to worker processes by reference
     from ray_lightning_tpu_torch.callbacks import Callback as _Callback
+    from ray_lightning_tpu_torch.callbacks import (
+        ModelCheckpoint as _ModelCheckpoint,
+    )
     from ray_lightning_tpu_torch.models.llama import LlamaModule as _LlamaModule
     from ray_lightning_tpu_torch.tune import ASHAScheduler as _ASHAScheduler
 except ImportError:  # a directory without the port: main() fails loudly
-    _Callback = _LlamaModule = _ASHAScheduler = object
+    _Callback = _ModelCheckpoint = _LlamaModule = _ASHAScheduler = object
 
 T0 = time.perf_counter()
 
@@ -2851,6 +2879,23 @@ class SGDLlama(_LlamaModule):
         return torch.optim.SGD(list(tree_leaves(self.params)), lr=self.lr)
 
 
+class MomentumLlama(_LlamaModule):
+    """LlamaModule with SGD with momentum 0.9 at ``lr``: a per-element
+    optimizer state (the momentum buffer) whose value after a few steps is
+    a linear function of the gradients, so that two runs' states differ by
+    their gradients' rounding. AdamW's moments would not: an element whose
+    gradient sits at the rounding floor moves by a part of lr, and the next
+    step's gradients then differ by more than rounding."""
+
+    def configure_optimizers(self):
+        import torch
+
+        from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+        return torch.optim.SGD(list(tree_leaves(self.params)), lr=self.lr,
+                               momentum=0.9)
+
+
 class GlobalBatchSampler:
     """The one-process reference of ``world`` ranks: at each step rank 0's
     batch, then rank 1's, ... (each rank's indices those of its
@@ -3743,7 +3788,7 @@ TUNE_ASHA_LRS = (3e-4, 1e-3, 0.0)  # the lr 0 trial starts third
 # steps of a tune_pbt trial, a validation at each: 8 ran the phase past its
 # budget (PBT kept exploiting the lagging trial until the others finished,
 # each restart ~20 s), so cut to 4
-TUNE_PBT_STEPS = 4
+TUNE_PBT_STEPS = 2
 TUNE_PBT_BATCH = 2
 TUNE_PBT_LRS = (3e-3, 1e-3, 0.0)
 TUNE_PBT_PACE_S = 0.5  # after each validation, so that the reports interleave
@@ -4250,6 +4295,369 @@ def tune_phase(torch, card):
     return {"tune_asha": asha_counts, "tune_pbt": pbt_counts}
 
 
+FAULT_EPOCH_STEPS = 4  # train_ray_faults: a checkpoint at each epoch's end
+FAULT_STEPS = 8
+FAULT_SPEC = "rank0:crash@step5,rank0:hang@step7"
+FAULT_HANG_TIMEOUT, FAULT_BEAT = 10.0, 1.0
+ZERO_RESUME_EPOCH_STEPS, ZERO_RESUME_STEPS = 2, 4
+ZERO_RESUME_SPEC = "rank1:crash@step3"
+ZERO_STATE_TOL = 1e-6  # absolute, on momentum buffers of ~1e-2
+FAULTS_BUDGET_S = 150.0
+
+
+class GroupClock(_Callback):
+    """Appends ``{"pid", "wall", "step"}`` to ``path`` at the first training
+    batch of each worker group (global rank 0): when each relaunched group
+    took its first step, and every worker's pid."""
+
+    def __init__(self, path):
+        self.path = path
+        self._seen = False
+
+    def on_train_batch_start(self, trainer, module, batch, batch_idx):
+        import os
+
+        if self._seen or trainer.global_rank != 0:
+            return
+        self._seen = True
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"pid": os.getpid(), "wall": time.time(),
+                                "step": trainer.global_step}) + "\n")
+
+    def on_fit_start(self, trainer, module):
+        import os
+
+        with open(self.path + ".pids", "a") as f:
+            f.write(f"{os.getpid()}\n")
+
+
+class TimedCheckpoint(_ModelCheckpoint):
+    """ModelCheckpoint that appends each save's step, seconds (the gather,
+    the device-to-host copies and the write) and file bytes to
+    ``log_path``."""
+
+    def __init__(self, log_path, **kwargs):
+        super().__init__(**kwargs)
+        self.log_path = log_path
+
+    def _save(self, trainer, module):
+        import os
+
+        t = time.perf_counter()
+        super()._save(trainer, module)
+        if trainer.is_global_zero and self.best_model_path and os.path.exists(
+                self.best_model_path):
+            with open(self.log_path, "a") as f:
+                f.write(json.dumps({
+                    "step": trainer.global_step,
+                    "s": time.perf_counter() - t,
+                    "bytes": os.path.getsize(self.best_model_path)}) + "\n")
+
+
+def _fault_env(spec, fuse_dir):
+    """Set the fault spec and its fuse directory for the workers to come;
+    returns a function that takes them away again."""
+    import os
+
+    os.environ["TORCHRT_FAULT"] = spec
+    os.environ["TORCHRT_FAULT_FUSE"] = fuse_dir
+
+    def clear():
+        os.environ.pop("TORCHRT_FAULT", None)
+        os.environ.pop("TORCHRT_FAULT_FUSE", None)
+
+    return clear
+
+
+def _fault_fit(torch, strategy, cfg, steps, batch, epoch_steps, callbacks,
+               lr=3e-4, warmup=2, module_cls=None, ckpt=None):
+    """Trainer.fit of LlamaModule on the card through ``strategy``, epochs
+    of ``epoch_steps`` steps of ``batch`` rows a rank and one validation
+    batch each, with the ModelCheckpoint ``ckpt`` (None: none)."""
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+
+    world = strategy.num_workers if strategy is not None else 1
+    module = (module_cls or LlamaModule)(cfg, lr=lr, warmup_steps=warmup,
+                                         total_steps=steps)
+    dm = SyntheticLMDataModule(cfg, batch_size=batch,
+                               n_train=batch * world * epoch_steps,
+                               n_val=batch * world)
+    trainer = Trainer(device="cuda", strategy=strategy, max_steps=steps,
+                      logger=False, seed=0, enable_checkpointing=ckpt is not None,
+                      callbacks=list(callbacks) + ([ckpt] if ckpt else []))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer.fit(module, datamodule=dm)
+    torch.cuda.synchronize()
+    return trainer, module, time.perf_counter() - t
+
+
+def train_ray_faults(torch, card, root):
+    """The training main path's model through RayStrategy(num_workers=1,
+    use_gpu=True): a reference fit, then the same fit under a fused crash
+    at step 5 and hang at step 7 with max_failures=2 and the hang
+    supervisor; it must relaunch exactly twice and end bitwise on the
+    reference's weights."""
+    import os
+
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig
+    from ray_lightning_tpu_torch.strategies import RayStrategy
+
+    smoke = _smoke_module()
+    cfg = LlamaConfig.small()
+    ref_clock = smoke.StepTimes()
+    ref, ref_module, ref_s = _fault_fit(
+        torch, RayStrategy(num_workers=1, use_gpu=True), cfg, FAULT_STEPS,
+        TRAIN_BATCH, FAULT_EPOCH_STEPS, [ref_clock])
+    check(ref.global_step == FAULT_STEPS, f"train_ray_faults reference "
+          f"global_step {ref.global_step}")
+    want = [t.detach().clone() for t in _leaves(ref_module.params)]
+    ref_ms = _median(ref_clock.step_ms[1:-1])
+    del ref, ref_module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fuses = os.path.join(root, "fuses")
+    groups = os.path.join(root, "groups.jsonl")
+    saves = os.path.join(root, "saves.jsonl")
+    clock = smoke.StepTimes()
+    strategy = RayStrategy(num_workers=1, use_gpu=True, max_failures=2,
+                           hang_timeout=FAULT_HANG_TIMEOUT,
+                           heartbeat_interval=FAULT_BEAT)
+    # a checkpoint at the first epoch's end only (every_n_epochs=2): the
+    # relaunches resume from it; one at the last step would add a write
+    ckpt = smoke.TimedCheckpoint(saves, dirpath=os.path.join(root, "ckpts"),
+                                 every_n_epochs=2)
+    clear = _fault_env(FAULT_SPEC, fuses)
+    try:
+        trainer, module, fit_s = _fault_fit(
+            torch, strategy, cfg, FAULT_STEPS, TRAIN_BATCH, FAULT_EPOCH_STEPS,
+            [clock, smoke.GroupClock(groups)], ckpt=ckpt)
+    finally:
+        clear()
+    launcher = strategy.launcher
+    failures = launcher.failures
+    check([f["error"] for f in failures] == ["ActorError", "WorkerHangError"],
+          f"train_ray_faults: relaunches {[(f['error'], f['message'][:200]) for f in failures]}")
+    check(trainer.global_step == FAULT_STEPS,
+          f"train_ray_faults: global_step {trainer.global_step}")
+    marks = {}
+    for name in ("rank0-crash-at5", "rank0-hang-at7"):
+        path = os.path.join(fuses, name)
+        check(os.path.exists(path), f"train_ray_faults: fuse {name} not blown")
+        with open(path) as f:
+            marks[name] = float(f.read())
+    starts = _read_lines(groups)
+    check([g["step"] for g in starts] == [0, 4, 4],
+          f"train_ray_faults: groups started at steps {starts}")
+    check(all("step=4" in f["resume"] for f in failures),
+          f"train_ray_faults: resumed from {[f['resume'] for f in failures]}")
+    got = list(_leaves(module.params))
+    check(len(got) == len(want) and all(
+        torch.equal(a.detach(), b) for a, b in zip(got, want)),
+        "train_ray_faults: the faulted fit's weights differ from the "
+        "reference's")
+    counts = trainer.worker_launch_counts
+    last = FAULT_STEPS - starts[-1]["step"]
+    expect = training_launches(cfg.n_layers, last, 1)
+    check(counts == expect, f"train_ray_faults: the last group's launches "
+          f"{counts} != {expect}")
+    crash_to_step = starts[1]["wall"] - marks["rank0-crash-at5"]
+    hang_to_step = starts[2]["wall"] - marks["rank0-hang-at7"]
+    detect = failures[1]["at"] - marks["rank0-hang-at7"]
+    silence = failures[1]["silence"].get(0, float("nan"))
+    check(detect <= FAULT_HANG_TIMEOUT + 2 * FAULT_BEAT,
+          f"train_ray_faults: hang detected {detect:.2f}s after it began")
+    written = _read_lines(saves)
+    med = _median(clock.step_ms[1:-1])
+    pids = [int(p) for p in open(groups + ".pids").read().split()]
+    log(f"train_ray_faults on {card}: LlamaConfig.small() bf16 batch "
+        f"{TRAIN_BATCH} x {cfg.max_seq}, epochs of {FAULT_EPOCH_STEPS} steps, "
+        f"{FAULT_STEPS} steps, RayStrategy(num_workers=1, use_gpu=True, "
+        f"max_failures=2, hang_timeout={FAULT_HANG_TIMEOUT}, "
+        f"heartbeat_interval={FAULT_BEAT}) under {FAULT_SPEC!r}: 2 relaunches "
+        f"({[f['error'] for f in failures]}), both from the step-4 "
+        f"checkpoint; groups began at steps {[g['step'] for g in starts]}; "
+        f"weights bitwise the reference's; fit {fit_s:.1f}s (reference "
+        f"{ref_s:.1f}s)")
+    log(f"train_ray_faults recovery on {card}: crash -> the next group's first "
+        f"step {crash_to_step:.2f}s; hang -> detection {detect:.2f}s "
+        f"(hang_timeout {FAULT_HANG_TIMEOUT}s, heartbeat {FAULT_BEAT}s; the "
+        f"rank silent {silence:.2f}s at the trip) -> the next group's first "
+        f"step {hang_to_step:.2f}s; the last group's launcher start-up "
+        f"{launcher.timings['setup_s']:.2f}s, its longest gap between beats "
+        f"{launcher.timings.get('max_beat_gap_s', float('nan')):.2f}s")
+    log(f"train_ray_faults checkpoints on {card}: " + "; ".join(
+        f"step {w['step']}: {w['bytes'] / 1e9:.3f} GB in {w['s']:.2f}s "
+        f"({w['bytes'] / 1e9 / max(w['s'], 1e-9):.2f} GB/s)" for w in written)
+        + f"; step median with heartbeats {med:.1f} ms over "
+        f"{len(clock.step_ms) - 2} steps of the last group "
+        f"({[round(x, 1) for x in clock.step_ms]}) vs the reference's "
+        f"{ref_ms:.1f} ms without ({(med / ref_ms - 1) * 100:+.2f}%)")
+    del trainer, module, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"crash_to_step_s": crash_to_step, "detect_s": detect,
+                    "hang_to_step_s": hang_to_step, "pids": pids,
+                    "step_ms": med, "ref_step_ms": ref_ms, "saves": written}
+
+
+def train_ray_zero_resume(torch, card, root):
+    """ray_two_ranks' narrow fp32 config through RayShardedStrategy(
+    num_workers=2, zero_stage=3, max_failures=1) over gloo on the card, with
+    SGD with momentum (``MomentumLlama``): rank 1 crashes at step 3 (fused),
+    the group resumes from the step-2 checkpoint; the weights equal an
+    uninterrupted ZeRO-3 fit's bitwise, and the step-2 checkpoint's whole
+    optimizer states those of a one-process fit on the global batch within
+    1e-6 (absolute; each state's gap relative to its largest element is
+    printed too). (Under AdamW the two ranks and
+    the one process part at the rounding floor after the first step, and
+    their second-step states then differ by ~6e-5 of a state's max at stage
+    0 as at stage 3: a CPU run of this config.)"""
+    import os
+
+    from ray_lightning_tpu_torch.core import DataLoader, Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.strategies import RayShardedStrategy
+
+    smoke = _smoke_module()
+    cfg = two_rank_config(torch)
+    world, batch = 2, RAY_TWO_RANK_BATCH
+
+    def strategy(max_failures=0):
+        return RayShardedStrategy(num_workers=world, use_gpu=True,
+                                  zero_stage=3, max_failures=max_failures,
+                                  resources_per_worker={"GPU": 0.5})
+
+    ref, ref_module, ref_s = _fault_fit(
+        torch, strategy(), cfg, ZERO_RESUME_STEPS, batch,
+        ZERO_RESUME_EPOCH_STEPS, [], lr=3e-3, warmup=0,
+        module_cls=smoke.MomentumLlama)
+    want = [t.detach().clone() for t in _leaves(ref_module.params)]
+    del ref, ref_module
+
+    groups = os.path.join(root, "zero_groups.jsonl")
+    ckpt_dir = os.path.join(root, "zero_ckpts")
+    zero = strategy(max_failures=1)
+    clear = _fault_env(ZERO_RESUME_SPEC, os.path.join(root, "zero_fuses"))
+    try:
+        trainer, module, fit_s = _fault_fit(
+            torch, zero, cfg, ZERO_RESUME_STEPS, batch,
+            ZERO_RESUME_EPOCH_STEPS, [smoke.GroupClock(groups)], lr=3e-3,
+            warmup=0, module_cls=smoke.MomentumLlama,
+            ckpt=smoke.TimedCheckpoint(
+                os.path.join(root, "zero_saves.jsonl"), dirpath=ckpt_dir,
+                save_top_k=-1))
+    finally:
+        clear()
+    failures = zero.launcher.failures
+    check([f["error"] for f in failures] == ["ActorError"],
+          f"train_ray_zero_resume: relaunches {failures}")
+    check("step=2" in failures[0]["resume"],
+          f"train_ray_zero_resume: resumed from {failures[0]['resume']}")
+    check(trainer.global_step == ZERO_RESUME_STEPS,
+          f"train_ray_zero_resume: global_step {trainer.global_step}")
+    got = list(_leaves(module.params))
+    check(all(torch.equal(a.detach(), b) for a, b in zip(got, want)),
+          "train_ray_zero_resume: weights differ from the uninterrupted "
+          "ZeRO-3 fit's")
+    counts = trainer.worker_launch_counts
+    last = ZERO_RESUME_STEPS - ZERO_RESUME_EPOCH_STEPS
+    expect = {k: world * v for k, v in training_launches(
+        cfg.n_layers, last, 1, remat=False).items()}
+    check(counts == expect, f"train_ray_zero_resume: launches {counts} != "
+          f"{expect}")
+
+    # the one process on the global batch, for the step-2 states
+    dm = SyntheticLMDataModule(cfg, batch_size=batch * world,
+                               n_train=batch * world * ZERO_RESUME_EPOCH_STEPS)
+    dm.setup("fit")
+    loader = DataLoader(dm.train_data, batch_size=batch * world,
+                        drop_last=True, sampler=smoke.GlobalBatchSampler(
+                            dm.train_data.__len__(), world, batch, 0))
+    one_module = smoke.MomentumLlama(cfg, lr=3e-3, warmup_steps=0,
+                                    total_steps=ZERO_RESUME_STEPS)
+    one = Trainer(device="cuda", max_steps=ZERO_RESUME_EPOCH_STEPS,
+                  logger=False, seed=0, enable_checkpointing=False)
+    one.fit(one_module, train_dataloaders=loader)
+    one_state = one.optimizer.state_dict()
+    (name,) = [n for n in os.listdir(ckpt_dir)
+               if f"step={ZERO_RESUME_EPOCH_STEPS}." in n]
+    saved = torch.load(os.path.join(ckpt_dir, name), map_location="cpu",
+                       weights_only=True)
+    check(saved["zero_stage"] == 3, f"zero_stage {saved.get('zero_stage')}")
+    (states,) = saved["optimizer_states"]
+    check(sorted(states["state"]) == sorted(one_state["state"]),
+          "train_ray_zero_resume: the checkpoint's states cover other leaves")
+    worst, worst_rel = 0.0, 0.0
+    for idx, state in one_state["state"].items():
+        for key, w in state.items():
+            g = states["state"][idx][key]
+            w = w.detach().cpu()
+            if not w.dim():
+                check(torch.equal(g, w), f"state {idx} {key}: {g} vs {w}")
+                continue
+            err = max_err(g, w)
+            worst = max(worst, err)
+            worst_rel = max(worst_rel, err / max(float(w.abs().max()), 1e-30))
+    check(worst <= ZERO_STATE_TOL, f"train_ray_zero_resume: a state "
+          f"{worst:.3g} from the one process's")
+    start = _read_lines(groups)
+    log(f"train_ray_zero_resume on {card}: fp32 dim {cfg.dim}, {cfg.n_layers} "
+        f"layers, {world} ranks of {batch} x {cfg.max_seq} over gloo, ZeRO 3, "
+        f"SGD with momentum 0.9, epochs of {ZERO_RESUME_EPOCH_STEPS} steps, "
+        f"{ZERO_RESUME_STEPS} steps under {ZERO_RESUME_SPEC!r}: 1 relaunch "
+        f"from the step-2 checkpoint (groups began at steps "
+        f"{[g['step'] for g in start]}), weights bitwise the uninterrupted "
+        f"fit's (fit {fit_s:.1f}s vs {ref_s:.1f}s); the checkpoint's whole "
+        f"momentum buffers vs one process on the global batch: worst "
+        f"{worst:.3g} (tol {ZERO_STATE_TOL}), {worst_rel:.3g} of a state's "
+        f"max; launches {counts}")
+    del trainer, module, got, want, one, one_module, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    pids = [int(p) for p in open(groups + ".pids").read().split()]
+    return counts, pids
+
+
+def faults_phase(torch, card):
+    """Both fault paths in a directory of the checkout's build/ that is
+    removed after; then nothing of them is left on the card; the phase's
+    time beside its budget."""
+    import shutil
+    import tempfile
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="faults_", dir=build)
+    # this process's own context first (a rehearsal of this phase alone has
+    # none yet), so that the apps before include it
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    apps, used = _compute_apps(), _card_used_mib()
+    t = time.perf_counter()
+    try:
+        faults_counts, info = train_ray_faults(torch, card, root)
+        zero_counts, zero_pids = train_ray_zero_resume(torch, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t
+    _card_clean(apps, used, info["pids"] + zero_pids, "faults")
+    log(f"faults phase on {card}: {phase_s:.1f}s (budget {FAULTS_BUDGET_S:.0f}"
+        " s)")
+    return {"train_ray_faults": faults_counts,
+            "train_ray_zero_resume": zero_counts}
+
+
 def check_new_path_shapes(torch, F, results):
     """The kernels at the shapes the new paths give them, against their
     plain versions: train_moe's RMSNorm [4096,4096] bf16 and flash q
@@ -4396,7 +4804,7 @@ def check_new_path_shapes(torch, F, results):
 # the phases of a run; ``--phases a,b`` runs those alone and prints no
 # result (a rehearsal of new phases)
 PHASES = ("kernels", "serving", "generation", "moe_serving", "training",
-          "train_moe", "ray", "ray_two_ranks", "ray_ep", "tune")
+          "train_moe", "ray", "ray_two_ranks", "ray_ep", "tune", "faults")
 
 
 def main(argv=None):
@@ -4492,6 +4900,8 @@ def main(argv=None):
         by_path["ep_exactness"] = ep_exactness(torch, card)
     if "tune" in phases:
         by_path.update(tune_phase(torch, card))
+    if "faults" in phases:
+        by_path.update(faults_phase(torch, card))
     if only is not None:
         log(f"phases {phases} done in {time.perf_counter() - T0:.1f}s; a "
             "partial run prints no result")

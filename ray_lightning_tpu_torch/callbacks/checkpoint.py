@@ -71,11 +71,16 @@ class ModelCheckpoint(Callback):
     def _save(self, trainer, module) -> None:
         if trainer.sanity_checking:
             return
-        # under an ep mesh every rank gathers the experts here, at one
-        # point, whether or not rank 0 then writes
+        # under an ep mesh or ZeRO every rank gathers the experts and the
+        # optimizer states here, at one point, whether or not rank 0 then
+        # writes; then every rank waits for the writer (beating, under a
+        # hang supervisor)
         whole = trainer.whole_state(self.save_weights_only)
-        if not trainer.is_global_zero_writer:
-            return
+        if trainer.is_global_zero_writer:
+            self._write(trainer, whole)
+        trainer.await_checkpoint_writer()
+
+    def _write(self, trainer, whole) -> None:
         metrics = trainer.callback_metrics
         os.makedirs(self.dirpath, exist_ok=True)
 

@@ -25,6 +25,14 @@ and only rank 0 logs and writes checkpoints; the main process gets rank 0's
 weights and metrics back. One process drives one device: ``devices > 1``
 and a strategy named by a string are refused (ROADMAP.md). Not ported: the
 TPU accelerator (``accelerator="tpu"``), elastic membership and telemetry.
+
+Each training and validation batch starts with a health tick: a fault
+scripted for this rank at this step fires (``runtime/faults.py``), then a
+heartbeat goes to the main process's hang supervisor (``session.py``,
+throttled; a no-op outside a worker). A tick reads no tensor, so it adds no
+host sync to a step. A worker group that the launcher relaunched after a
+failure resumes from ``_relaunch_ckpt_path``, the newest checkpoint the run
+wrote, in place of the ``ckpt_path`` that fit was given.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from ray_lightning_tpu_torch import session as worker_session
 from ray_lightning_tpu_torch.callbacks.base import (
     Callback,
     collect_callback_states,
@@ -54,6 +63,7 @@ from ray_lightning_tpu_torch.core.prefetch import AsyncLoader, DevicePrefetcher
 from ray_lightning_tpu_torch.device import DeviceLike, resolve_device
 from ray_lightning_tpu_torch.loggers.base import Logger
 from ray_lightning_tpu_torch.loggers.csv_logger import CSVLogger
+from ray_lightning_tpu_torch.runtime import faults
 from ray_lightning_tpu_torch.strategies.base import SingleDeviceStrategy, Strategy
 from ray_lightning_tpu_torch.utils.precision import (
     cast_floats,
@@ -309,6 +319,30 @@ class _Update:
     leaves: List[torch.Tensor]
 
 
+class _SyncedFile:
+    """A file that ``torch.save`` writes into, synced to disk after every
+    ``SYNC_BYTES`` with a heartbeat after each sync: a checkpoint's write
+    proceeds in bounded steps, each a sign of life."""
+
+    SYNC_BYTES = 256 * 2**20
+
+    def __init__(self, f, step: int):
+        self.f, self.step, self.pending = f, step, 0
+
+    def write(self, data) -> int:
+        n = self.f.write(data)
+        self.pending += memoryview(data).nbytes
+        if self.pending >= self.SYNC_BYTES:
+            self.f.flush()
+            os.fsync(self.f.fileno())
+            self.pending = 0
+            worker_session.emit_heartbeat(self.step)
+        return n
+
+    def flush(self) -> None:
+        self.f.flush()
+
+
 @torch.no_grad()
 def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
     """``optax.clip_by_global_norm``: when the global norm g reaches
@@ -495,6 +529,9 @@ class Trainer:
         self._sampler_seed = 0
         # the workers' kernel launches of the last launched stage
         self.worker_launch_counts: Optional[Dict[str, int]] = None
+        # set by the launcher for a relaunched worker group: the checkpoint
+        # its fit resumes from
+        self._relaunch_ckpt_path: Optional[str] = None
 
     def __getstate__(self):
         """What ships to a worker: no optimizer, stream, engine or parameter
@@ -862,20 +899,24 @@ class Trainer:
 
     def whole_state(self, weights_only: bool = False
                     ) -> Optional[Dict[str, Any]]:
-        """What a checkpoint holds under an ep mesh, each expert leaf
-        gathered whole over the ep group (a collective: every rank calls it
-        at the same point, before rank 0 writes): ``state_dict``, and unless
-        ``weights_only`` the stage-0 ``optimizer_states`` and a partial
-        accumulation's ``grads``. None without an ep mesh (a checkpoint
-        then reads the rank's own tensors)."""
+        """What a checkpoint holds under an ep mesh or ZeRO, gathered whole
+        (a collective: every rank calls it at the same point, before rank 0
+        writes): ``state_dict`` with each expert leaf whole over the ep
+        group, and unless ``weights_only`` the ``optimizer_states`` as a
+        stage-0 optimizer of the whole model holds them (under ZeRO the
+        shards all-gathered, ``DataParallel.gather_zero_state``) and a
+        partial accumulation's ``grads``. None otherwise (a checkpoint then
+        reads the rank's own tensors)."""
         dp = self._dp
-        if dp is None or not dp.expert_dims:
+        if dp is None or not (dp.expert_dims or dp.zero_stage):
             return None
         whole: Dict[str, Any] = {"state_dict": self.whole_params()}
         if weights_only:
             return whole
-        if not dp.zero_stage and self._optim is not None:
-            whole["optimizer_states"] = [dp.gather_optimizer_state(opt)
+        if self._optim is not None:
+            gather = (dp.gather_zero_state if dp.zero_stage
+                      else dp.gather_optimizer_state)
+            whole["optimizer_states"] = [gather(opt)
                                          for opt in self._optim.optimizers]
         if self._micro_step:
             whole["grads"] = dp.gather_grads(list(tree_leaves(self._params)))
@@ -959,12 +1000,11 @@ class Trainer:
         self._build_updates()
         self._micro_step = 0
         if self._dp is not None:
-            if ckpt_path is not None and self._dp.zero_stage:
-                raise NotImplementedError(
-                    f"ckpt_path with ZeRO stage {self._dp.zero_stage}: "
-                    "resuming sharded optimizer states is not ported yet "
-                    "(ROADMAP.md); resume with RayStrategy (stage 0)")
             self._dp.setup(self._updates)
+        if self._relaunch_ckpt_path is not None:
+            # a relaunched group: the newest state of this run beats the
+            # checkpoint the fit started from
+            ckpt_path = self._relaunch_ckpt_path
         if ckpt_path is not None:
             self._restore_checkpoint(ckpt_path)
         if self._optim.alternating:
@@ -1068,6 +1108,7 @@ class Trainer:
 
         for batch_idx, batch, device_batch in self._prefetch_shard(
                 train_loader, limit_train):
+            self._health_tick(train=True)
             self._cb("on_train_batch_start", batch, batch_idx)
             logs = self._train_step(device_batch)
             self._record_train_logs(logs, aggregator, self._batch_size_of(batch))
@@ -1124,6 +1165,15 @@ class Trainer:
                      if head else {})
             print(f"[epoch {self.current_epoch}] {n_batches} steps in "
                   f"{time.perf_counter() - t_epoch:.1f}s {shown}", flush=True)
+
+    def _health_tick(self, train: bool) -> None:
+        """A batch's liveness tick: fire a fault scripted for this rank at
+        this global step (training batches only: a validation batch must not
+        fire a step's fault again), then a heartbeat. Both are no-ops
+        unless set up."""
+        if train:
+            faults.fire_step_faults(self.global_step)
+        worker_session.emit_heartbeat(self.global_step)
 
     def _record_train_logs(self, logs, aggregator: _EpochAggregator,
                            batch_size: int) -> None:
@@ -1196,6 +1246,7 @@ class Trainer:
         for batch_idx, batch in enumerate(loader):
             if limit is not None and batch_idx >= limit:
                 break
+            self._health_tick(train=False)
             logs = self._eval_step(phase, self._to_device(batch), batch_idx)
             aggregator.update(logs, self._batch_size_of(batch))
             hook = "on_test_batch_end" if phase == "test" else "on_validation_batch_end"
@@ -1323,13 +1374,12 @@ class Trainer:
     def dump_checkpoint(self, weights_only: bool = False,
                         whole: Optional[Dict[str, Any]] = None
                         ) -> Dict[str, Any]:
-        """The checkpoint as a dict. Under ZeRO stage >= 1 the optimizer
-        states are this rank's shard and are left out (a resume from them
-        is refused); under stage 3 the parameters must be whole, which they
-        are at validation and at the epoch's end. Under an ep mesh the
-        experts are written whole: from ``whole`` (:meth:`whole_state`,
-        gathered by every rank), else gathered here, which every rank must
-        then call."""
+        """The checkpoint as a dict. Under ZeRO or an ep mesh the optimizer
+        states and experts are written whole: from ``whole``
+        (:meth:`whole_state`, gathered by every rank), else gathered here,
+        which every rank must then call; ``zero_stage`` records the stage
+        it was written under. Under stage 3 the parameters must be whole,
+        which they are at validation and at the epoch's end."""
         model = self._module
         params = self._params if self._params is not None else model._params
         if self._dp is not None and self._dp.zero_stage == 3 and self._dp.released:
@@ -1353,7 +1403,7 @@ class Trainer:
         if not weights_only:
             if self._dp is not None and self._dp.zero_stage:
                 ckpt["zero_stage"] = self._dp.zero_stage
-            elif self._optim is not None:
+            if self._optim is not None:
                 ckpt["optimizer_states"] = (
                     whole["optimizer_states"] if whole is not None else
                     [opt.state_dict() for opt in self._optim.optimizers])
@@ -1386,13 +1436,17 @@ class Trainer:
         ckpt = self.dump_checkpoint(weights_only, whole)
         if not self.is_global_zero_writer:
             return
+        # a checkpoint of GBs can outlast a hang_timeout: it is written in
+        # synced steps with a beat after each (_SyncedFile), so that only a
+        # stalled write goes silent
+        worker_session.emit_heartbeat(self.global_step, force=True)
         filepath = os.path.abspath(filepath)
         directory = os.path.dirname(filepath)
         os.makedirs(directory, exist_ok=True)
         fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
         try:
             with os.fdopen(fd, "wb") as f:
-                torch.save(ckpt, f)
+                torch.save(ckpt, _SyncedFile(f, self.global_step))
                 f.flush()
                 os.fsync(f.fileno())
             os.replace(tmp, filepath)
@@ -1400,18 +1454,31 @@ class Trainer:
             if os.path.exists(tmp):
                 os.unlink(tmp)
             raise
+        worker_session.emit_heartbeat(self.global_step, force=True)
+
+    def await_checkpoint_writer(self) -> None:
+        """Every rank, after a checkpoint that rank 0 writes: over several
+        ranks with a heartbeat channel, wait for the writer in a barrier and
+        beat meanwhile, so that a long write does not leave the waiting
+        ranks silent (a no-op otherwise)."""
+        if self.world_size <= 1 or not worker_session.heartbeat_enabled():
+            return
+        import torch.distributed as dist
+
+        work = dist.barrier(async_op=True)
+        while not work.is_completed():
+            worker_session.emit_heartbeat(self.global_step)
+            time.sleep(0.01)
+        work.wait()
 
     def _restore_checkpoint(self, ckpt_path: str) -> None:
         """Resume a fit: parameters (in the policy's dtype), optimizer and
         scheduler states, a partial gradient accumulation, progress and
-        callback states. A mid-epoch save re-runs its epoch from the
-        start."""
+        callback states. The optimizer states are whole, whatever the (world
+        size, ZeRO stage) they were written under: under ZeRO each rank
+        cuts its shards from them. A mid-epoch save re-runs its epoch from
+        the start."""
         ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-        if ckpt.get("zero_stage"):
-            raise NotImplementedError(
-                f"{ckpt_path} was written under ZeRO stage "
-                f"{ckpt['zero_stage']} without optimizer states; resuming it "
-                "is not ported yet (ROADMAP.md)")
         state_dict = ckpt["state_dict"]
         dp = self._dp
         experts = dp is not None and bool(dp.expert_dims)
@@ -1421,9 +1488,14 @@ class Trainer:
             for dst, src in zip(tree_leaves(self._params),
                                 tree_leaves(state_dict)):
                 dst.copy_(src)
+        zero = dp is not None and dp.zero_stage
+        if zero:  # the leaves are views of the flat buffers: the shards too
+            dp.sync_shards()
         optim = self._optim
         for opt, state in zip(optim.optimizers, ckpt.get("optimizer_states", [])):
-            if experts:
+            if zero:
+                state = dp.slice_zero_state(opt, state)
+            elif experts:
                 state = dp.slice_optimizer_state(opt, state)
             opt.load_state_dict(state)
         for sched, state in zip([s for ss in optim.schedulers for s in ss],

@@ -26,8 +26,21 @@ process) ``setup_workers`` also makes the tune queue; every worker's session
 gets its handle, and ``process_results`` runs the callables the Tune
 callbacks put there, in the trial process, while it waits for the workers.
 
-Relaunching a failed group, elastic membership, the hang supervisor and
-telemetry are not ported (ROADMAP.md).
+Failures (``strategy.max_failures``): a worker group whose process died,
+or that the hang supervisor killed, is torn down (its processes are waited
+for until they have exited, so a relaunched worker finds the card free) and
+started again, up to ``max_failures`` times, on a fresh rendezvous port.
+The relaunched group resumes from the newest ``.ckpt`` that this run wrote
+(``_find_relaunch_checkpoint``: files older than the launch are ignored,
+``save_weights_only`` families skipped), passed to each worker's fit as
+``trainer._relaunch_ckpt_path``. A user exception in the stage is not
+retried: it would fail again. With ``strategy.hang_timeout`` the workers'
+sessions beat into a heartbeat queue that a ``runtime/supervisor.py``
+thread drains; a rank silent for longer is declared hung, the group is
+killed, and the wait raises ``WorkerHangError``, a process failure that the
+relaunch takes like a crash. ``failures`` records each failure.
+
+Elastic membership and telemetry are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -44,7 +57,10 @@ import numpy as np
 import torch
 
 from ray_lightning_tpu_torch import runtime as rt
+from ray_lightning_tpu_torch.callbacks.checkpoint import ModelCheckpoint
+from ray_lightning_tpu_torch.runtime import faults
 from ray_lightning_tpu_torch.runtime.actor import dumps
+from ray_lightning_tpu_torch.runtime.supervisor import Supervisor
 from ray_lightning_tpu_torch.callbacks.base import (
     collect_callback_states,
     restore_callback_states,
@@ -54,7 +70,11 @@ from ray_lightning_tpu_torch.launchers.utils import (
     RayExecutor,
     WorkerOutput,
 )
-from ray_lightning_tpu_torch.session import init_session, reset_session
+from ray_lightning_tpu_torch.session import (
+    emit_done,
+    init_session,
+    reset_session,
+)
 from ray_lightning_tpu_torch.tune import session as tune_session
 from ray_lightning_tpu_torch.utils.seed import seed_everything
 from ray_lightning_tpu_torch.utils.serialization import (
@@ -73,11 +93,15 @@ def _drain_queue(queue) -> None:
             item()
 
 
-def process_results(futures: List[rt.CallFuture], queue=None) -> List[Any]:
+def process_results(futures: List[rt.CallFuture], queue=None,
+                    supervisor: Optional[Supervisor] = None) -> List[Any]:
     """Wait for every worker's future, running what the workers put into
     ``queue`` (the tune queue) as it arrives and once more after the last
     future settles. Raises a worker's error, preferring a process failure
-    (a dead worker) over the collective errors its peers then raise."""
+    (a dead worker) over the collective errors its peers then raise. With a
+    ``supervisor`` each round first raises its hang verdict, if it has one:
+    it kills the group after recording the verdict, so a hang is reported
+    as a hang and not as the lost connections that follow."""
     remaining = list(futures)
     settled: Dict[int, Any] = {}
     first_error: Optional[Exception] = None
@@ -93,21 +117,33 @@ def process_results(futures: List[rt.CallFuture], queue=None) -> List[Any]:
         except Exception as e:
             first_error = first_error or e
 
-    while remaining:
-        ready, remaining = rt.wait(remaining, num_returns=1, timeout=0.1)
-        for fut in ready:
-            check(fut)
-        if first_error is not None:
-            # a crashed peer's lost connection surfaces in a moment: let it
-            # win, so the error names the root cause
-            grace = time.monotonic() + 3.0
-            while remaining and time.monotonic() < grace:
-                ready, remaining = rt.wait(remaining, num_returns=1,
-                                           timeout=0.2)
-                for fut in ready:
-                    check(fut)
-            raise first_error
-        _drain_queue(queue)
+    try:
+        while remaining:
+            ready, remaining = rt.wait(remaining, num_returns=1, timeout=0.1)
+            if supervisor is not None:
+                supervisor.poll()
+            for fut in ready:
+                check(fut)
+            if first_error is not None:
+                # a crashed peer's lost connection surfaces in a moment: let
+                # it win, so the error names the root cause
+                grace = time.monotonic() + 3.0
+                while remaining and time.monotonic() < grace:
+                    ready, remaining = rt.wait(remaining, num_returns=1,
+                                               timeout=0.2)
+                    for fut in ready:
+                        check(fut)
+                raise first_error
+            _drain_queue(queue)
+    except BaseException:
+        # what a worker queued before it failed still runs (a Tune
+        # checkpoint written just before a crash is the one a retry needs)
+        try:
+            _drain_queue(queue)
+        except Exception as e:
+            print(f"process_results: draining the queue: {e!r}",
+                  file=sys.stderr)
+        raise
     _drain_queue(queue)
     return [settled[id(f)] for f in futures]
 
@@ -127,7 +163,8 @@ def compute_local_ranks(node_ips: List[str]) -> List[Tuple[int, int]]:
 
 def _wrapping_function(global_rank: int, num_workers: int, payload_ref,
                        local_rank: int, node_rank: int, device: str,
-                       queue_handle=None):
+                       queue_handle=None, heartbeat_handle=None,
+                       heartbeat_interval: float = 1.0):
     """Runs in each worker (``RayExecutor.execute``): rebuild the trainer,
     take this rank's place and device, run the stage, and return rank 0's
     results (a ``RankReport`` of the kernel launches from the others)."""
@@ -143,13 +180,17 @@ def _wrapping_function(global_rank: int, num_workers: int, payload_ref,
                                  local_rank=local_rank, node_rank=node_rank)
     trainer.device = torch.device(device)
     reset_session()
-    # the tune queue's handle inside a trial, else None
-    init_session(rank=global_rank, queue=queue_handle)
+    # the tune queue's handle inside a trial, else None; the heartbeat
+    # queue's with a hang_timeout
+    init_session(rank=global_rank, queue=queue_handle,
+                 heartbeat=heartbeat_handle,
+                 heartbeat_interval=heartbeat_interval)
     module = trainer._module
     module.trainer = trainer
     kernels.reset_launch_counts()
     trainer.state.status = "running"
     results = getattr(trainer, fn_name)(*fn_args)
+    emit_done()
     trainer.state.status = "finished"
     if trainer.device.type == "cuda":
         torch.cuda.synchronize(trainer.device)
@@ -192,8 +233,26 @@ def _collect_rank_zero_results(trainer, results, counts, params,
     )
 
 
+# how long a killed worker may take to exit (a process that holds a CUDA
+# context frees it as it exits)
+_KILL_WAIT_S = 60.0
+
+
+def _exited(pid: int) -> bool:
+    """Whether process ``pid`` has exited (gone, or a zombie)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except (FileNotFoundError, ProcessLookupError, IndexError):
+        return True
+
+
 class RayLauncher:
-    """Starts, feeds and stops one strategy's worker group. Timing of the
+    """Starts, feeds and stops one strategy's worker group. Each failure
+    that the launch relaunched or raised is in ``failures``: its attempt,
+    the error's type and message, when the main process caught it (wall
+    clock), the checkpoint the next group resumes from, and for a hang the
+    ranks' silence when the supervisor tripped. Timing of the
     last launch is in ``timings``: ``setup_s`` (spawn, rendezvous),
     ``run_s`` (from shipping the payload to the last worker's reply), and
     the weights' way back, ``weights_s``: under an ep mesh the ranks'
@@ -211,8 +270,11 @@ class RayLauncher:
         self._devices: List[str] = []
         self._any_remote = False
         self._tune_queue: Optional[rt.Queue] = None
+        self._hb_queue: Optional[rt.Queue] = None
+        self._supervisor: Optional[Supervisor] = None
         self.backend: Optional[str] = None
         self.timings: Dict[str, float] = {}
+        self.failures: List[Dict[str, Any]] = []
 
     # ------------------------------------------------------------------ #
     def launch(self, function, *args, trainer=None) -> Any:
@@ -233,21 +295,78 @@ class RayLauncher:
         # with the same permutation: the seed is fixed here, once
         seed = seed_everything(trainer.seed)
         original_seed, trainer.seed = trainer.seed, seed
+        # checkpoints older than this are another run's
+        launch_t0 = time.time()
+        trainer._relaunch_ckpt_path = None
+        self.failures = []
+        attempt = 0
         try:
             # pickled before any worker starts: what cannot be shipped fails
             # at once
             payload = self._payload(function, args, trainer)
             if strategy.init_hook is not None:
                 dumps(strategy.init_hook, "the init_hook")
-            t = time.perf_counter()
-            self.setup_workers(device)
-            self.timings = {"setup_s": time.perf_counter() - t}
-            output = self.run_function_on_workers(payload)
-            self._recover_results_in_main_process(output, trainer)
-            return output.trainer_results
+            while True:
+                failed = False
+                try:
+                    t = time.perf_counter()
+                    self.setup_workers(device)
+                    self.timings = {"setup_s": time.perf_counter() - t}
+                    output = self.run_function_on_workers(payload)
+                    self._recover_results_in_main_process(output, trainer)
+                    return output.trainer_results
+                except rt.ActorError as e:
+                    failed = True
+                    record = {"attempt": attempt, "error": type(e).__name__,
+                              "message": str(e), "at": time.time(),
+                              "silence": dict(self._supervisor.silence_at_trip)
+                              if self._supervisor is not None else {}}
+                    self.failures.append(record)
+                    # only a dead (or killed) worker is worth a relaunch: a
+                    # user exception would fail again in a fresh group
+                    if attempt >= strategy.max_failures or not e.is_process_failure:
+                        raise
+                finally:
+                    self.teardown_workers(force=failed)
+                attempt += 1
+                resume = self._find_relaunch_checkpoint(trainer, launch_t0)
+                record["resume"] = resume
+                print(f"RayLauncher: worker failure ({record['error']}); "
+                      f"relaunching (attempt {attempt}/{strategy.max_failures})"
+                      + (f" from {resume}" if resume else " from scratch"),
+                      file=sys.stderr)
+                trainer._relaunch_ckpt_path = resume
+                payload = self._payload(function, args, trainer)
         finally:
             trainer.seed = original_seed
-            self.teardown_workers()
+            trainer._relaunch_ckpt_path = None
+
+    @staticmethod
+    def _find_relaunch_checkpoint(trainer, not_before: float) -> Optional[str]:
+        """The newest ``.ckpt`` of the trainer's ``ModelCheckpoint``
+        directories written since ``not_before`` (the launch), so that a
+        relaunched group continues where the failed one had saved. Older
+        files are another run's; ``save_weights_only`` families hold no
+        optimizer or callback states and are skipped. None: from scratch.
+        (The JAX launcher also considers orbax checkpoints, not ported.)"""
+        candidates = []
+        for cb in trainer.callbacks:
+            if not isinstance(cb, ModelCheckpoint) or cb.save_weights_only:
+                continue
+            d = cb.dirpath or cb.default_dirpath(trainer)
+            if not os.path.isdir(d):
+                continue
+            for name in os.listdir(d):
+                if not name.endswith(ModelCheckpoint.CHECKPOINT_EXT):
+                    continue
+                path = os.path.join(d, name)
+                try:
+                    mtime = os.path.getmtime(path)
+                except OSError:
+                    continue
+                if mtime >= not_before:
+                    candidates.append((mtime, path))
+        return max(candidates)[1] if candidates else None
 
     @staticmethod
     def _payload(function, args, trainer) -> bytes:
@@ -292,13 +411,17 @@ class RayLauncher:
         # as Ray does for an actor: its CPU ops use the CPUs it demands
         # (unless the caller set OMP_NUM_THREADS), not every core of the
         # host each, which oversubscribes a host shared by several workers
-        threads = [{"OMP_NUM_THREADS": str(max(1, math.ceil(d["CPU"])))}
-                   for d in demands]
+        # each worker knows its rank from its first instruction (a fault
+        # scripted @boot fires before its ready line)
+        per_actor_env = [{faults.RANK_ENV: str(i)} for i in range(n)]
+        if "OMP_NUM_THREADS" not in os.environ:
+            for env, d in zip(per_actor_env, demands):
+                env["OMP_NUM_THREADS"] = str(max(1, math.ceil(d["CPU"])))
         self._workers = rt.create_actors(
             [(RayExecutor, (), {}) for _ in range(n)],
             names=[f"torchrt-worker-{i}-{os.getpid()}-{tag}" for i in range(n)],
-            per_actor_env=None if "OMP_NUM_THREADS" in os.environ else threads,
-            demands=demands, assignments=assignments, timeout=timeout)
+            per_actor_env=per_actor_env, demands=demands,
+            assignments=assignments, timeout=timeout)
         self._any_remote = any(rt.actor_node_id(w) != 0 for w in self._workers)
         if self._any_remote:
             ips = rt.get([w.get_node_ip.remote() for w in self._workers],
@@ -344,6 +467,9 @@ class RayLauncher:
         if tune_session.is_session_enabled():
             self._tune_queue = rt.make_queue(cross_host=self._any_remote,
                                              timeout=timeout)
+        if strategy.hang_timeout:
+            self._hb_queue = rt.make_queue(cross_host=self._any_remote,
+                                           timeout=timeout)
 
     # ------------------------------------------------------------------ #
     def run_function_on_workers(self, payload: bytes) -> WorkerOutput:
@@ -354,17 +480,38 @@ class RayLauncher:
         n = len(self._workers)
         queue = self._tune_queue
         queue_handle = queue.handle() if queue is not None else None
+        hb = self._hb_queue
+        interval = self._strategy.heartbeat_interval
+        supervisor = None
+        if hb is not None:
+            supervisor = self._supervisor = Supervisor(
+                n, drain=lambda: hb.get_all(timeout=5.0),
+                hang_timeout=self._strategy.hang_timeout,
+                heartbeat_interval=interval,
+                kill_group=self._kill_worker_group, is_alive=self._worker_alive,
+                label=f"worker group ({n} ranks)")
+            supervisor.start()
         try:
             futures = [
                 w.execute.remote(_wrapping_function, rank, n, payload_ref,
                                  self._worker_ranks[rank][1],
                                  self._worker_ranks[rank][0],
-                                 self._devices[rank], queue_handle)
+                                 self._devices[rank], queue_handle,
+                                 hb.handle() if hb is not None else None,
+                                 interval)
                 for rank, w in enumerate(self._workers)
             ]
-            results = process_results(futures, queue)
+            results = process_results(futures, queue, supervisor)
             received = time.time()
+            if supervisor is not None:
+                gaps = [h.max_gap for h in [*supervisor.health.values(),
+                                            *supervisor.finished.values()]
+                        if h is not None]
+                self.timings["max_beat_gap_s"] = max(gaps, default=0.0)
         finally:
+            if supervisor is not None:
+                # the thread ends at once, or after its kill of the group
+                supervisor.stop(timeout=_KILL_WAIT_S + 10)
             if not isinstance(payload_ref, bytes):
                 rt.delete(payload_ref)
         self.timings["run_s"] = time.perf_counter() - t0
@@ -401,18 +548,53 @@ class RayLauncher:
         restore_callback_states(trainer.callbacks, output.callback_states)
         trainer.worker_launch_counts = dict(output.launch_counts)
 
-    def teardown_workers(self) -> None:
-        """Leave the process group, stop every worker process and the tune
-        queue."""
-        if self._workers:
+    def _worker_alive(self, rank: int) -> bool:
+        """The supervisor's probe: whether rank's process still runs. Only a
+        local worker can be probed; a remote one counts as alive, so that
+        its silence is a hang (killing it is safe either way)."""
+        w = self._workers[rank] if rank < len(self._workers) else None
+        if w is None or rt.actor_node_id(w) != 0 or not w._pid:
+            return w is not None
+        return not _exited(w._pid)
+
+    def _kill_worker_group(self) -> None:
+        """The supervisor's verdict: kill every worker now, and wait for
+        each to exit. The survivors of a hung group wait in collectives with
+        the hung rank: nothing graceful is left to do."""
+        for w in list(self._workers):
+            try:
+                rt.kill(w, force=True, timeout=_KILL_WAIT_S)
+            except Exception as e:
+                print(f"RayLauncher: killing {w.name}: {e}", file=sys.stderr)
+
+    def teardown_workers(self, force: bool = False) -> None:
+        """Leave the process group, stop every worker process and the
+        queues. ``force`` (after a failure) kills the workers at once: a
+        survivor may be blocked in a collective with a dead rank. Either
+        way every local worker has exited when this returns, so that a
+        relaunched group finds its card free."""
+        if self._workers and not force:
             try:
                 rt.get([w.shutdown_distributed.remote() for w in self._workers],
                        timeout=30)
             except Exception as e:  # the kill below still reaps them
                 print(f"RayLauncher: shutdown_distributed: {e}", file=sys.stderr)
+        pids = [w._pid for w in self._workers
+                if rt.actor_node_id(w) == 0 and w._pid]
         for w in self._workers:
-            rt.kill(w)
+            rt.kill(w, force=force, timeout=_KILL_WAIT_S if force else 5.0)
         self._workers = []
-        if self._tune_queue is not None:
-            self._tune_queue.shutdown()
-            self._tune_queue = None
+        deadline = time.monotonic() + _KILL_WAIT_S
+        left = [p for p in pids if not _exited(p)]
+        while left and time.monotonic() < deadline:
+            time.sleep(0.05)
+            left = [p for p in left if not _exited(p)]
+        if left:
+            raise RuntimeError(f"worker processes {left} did not exit within "
+                               f"{_KILL_WAIT_S}s of being killed")
+        for name in ("_tune_queue", "_hb_queue"):
+            queue = getattr(self, name)
+            if queue is not None:
+                queue.shutdown()
+                setattr(self, name, None)
+        self._supervisor = None

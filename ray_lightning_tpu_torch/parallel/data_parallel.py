@@ -27,6 +27,15 @@ gradient norm of a clip, and an elementwise optimizer (AdamW's moments,
 its weight decay) leaves it at zero: the shards' step is the unsharded
 step. Optimizers that are not elementwise are refused under ZeRO.
 
+A ZeRO checkpoint holds whole optimizer states: ``gather_zero_state``
+all-gathers each flat group's per-element states (a collective: every rank
+calls it at the same point, before rank 0 writes) and cuts them into the
+states of the leaves, in the optimizer's original parameter order, which is
+the state dict a stage-0 optimizer gives. ``slice_zero_state`` cuts such a
+state back to this rank's shards, so a checkpoint written under one (world
+size, stage) resumes under another, as the JAX package's whole-state
+checkpoint does.
+
 With the gloo backend (CPU ranks, or ranks sharing one card) collectives
 run on host copies of the buffers; with NCCL on the card itself
 (``all_reduce_``, which the ep collectives of ``parallel/moe.py`` share).
@@ -168,6 +177,10 @@ class DataParallel:
         self._dim_of: Dict[int, int] = {}
         # _Update index -> its flat groups (ZeRO)
         self._groups: Dict[int, List[_FlatGroup]] = {}
+        # ZeRO: id(shard) -> its flat group; id(optimizer) -> its parameter
+        # groups' leaves before they were re-pointed at the shards
+        self._group_of_shard: Dict[int, _FlatGroup] = {}
+        self._leaves_of: Dict[int, List[List[torch.Tensor]]] = {}
 
     # ------------------------------------------------------------------ #
     # collectives on the backend's device
@@ -339,6 +352,8 @@ class DataParallel:
                         "use RayStrategy (zero_stage 0)")
                 if opt.state:
                     raise RuntimeError("ZeRO set-up after an optimizer step")
+                self._leaves_of[id(opt)] = [list(g["params"])
+                                            for g in opt.param_groups]
                 for group in opt.param_groups:
                     leaves = [p for p in group["params"] if p.requires_grad]
                     made = []
@@ -351,7 +366,141 @@ class DataParallel:
                         continue
                     group["params"] = [fg.shard for fg in made]
                     groups.extend(made)
+                    self._group_of_shard.update({id(fg.shard): fg
+                                                 for fg in made})
             self._groups[u] = groups
+
+    @torch.no_grad()
+    def sync_shards(self) -> None:
+        """Copy each flat buffer's slice into this rank's shard: after the
+        leaves were written in place (a checkpoint's restore), the shards
+        the optimizer steps hold the same values."""
+        for groups in self._groups.values():
+            for fg in groups:
+                lo = fg.rank * fg.shard_size
+                fg.shard.copy_(fg.full[lo:lo + fg.shard_size])
+
+    # ------------------------------------------------------------------ #
+    # ZeRO checkpoints: whole optimizer states
+    # ------------------------------------------------------------------ #
+    def _whole_shape(self, leaf: torch.Tensor) -> torch.Size:
+        """A leaf's shape in the whole model (an expert slice's whole leaf)."""
+        if not self.is_expert(leaf):
+            return leaf.shape
+        shape = list(leaf.shape)
+        shape[self._dim_of[id(leaf)]] *= self.ep_size
+        return torch.Size(shape)
+
+    def _whole_index(self, opt) -> Dict[int, int]:
+        """id(leaf) -> the leaf's index in a stage-0 state dict of ``opt``
+        (its parameter groups' leaves before ZeRO re-pointed them)."""
+        index: Dict[int, int] = {}
+        for group in self._leaves_of[id(opt)]:
+            for leaf in group:
+                index.setdefault(id(leaf), len(index))
+        return index
+
+    @torch.no_grad()
+    def gather_zero_state(self, opt) -> Dict[str, Any]:
+        """``opt``'s state under ZeRO as a stage-0 optimizer of the whole
+        model gives it: each shard's per-element states (those of the
+        shard's shape) all-gathered into the flat buffer's and cut into the
+        leaves' (expert slices also gathered over the ep group), scalar
+        states (AdamW's step) given to every leaf of the group, indexed in
+        the optimizer's original parameter order. A collective: every rank
+        calls it for the same optimizers in the same order."""
+        sd = opt.state_dict()
+        originals = self._leaves_of[id(opt)]
+        index = self._whole_index(opt)
+        state: Dict[int, Dict[str, Any]] = {}
+        for group in opt.param_groups:
+            for p in group["params"]:
+                st = opt.state.get(p)
+                if not st:
+                    continue
+                fg = self._group_of_shard.get(id(p))
+                if fg is None:  # a leaf kept whole (no shard)
+                    state[index[id(p)]] = {k: v.clone() if torch.is_tensor(v)
+                                           else v for k, v in st.items()}
+                    continue
+                flat = {}
+                for key, v in st.items():
+                    if _per_element(key, v, p.shape):
+                        full = torch.empty(fg.size, dtype=v.dtype,
+                                           device=v.device)
+                        self._all_gather(full, v.detach())
+                        flat[key] = full
+                for leaf, o, k, shape in zip(fg.leaves, fg.offsets, fg.numels,
+                                             fg.shapes):
+                    leaf_state = {}
+                    for key, v in st.items():
+                        if key in flat:
+                            t = flat[key][o:o + k].view(shape)
+                            leaf_state[key] = (
+                                self.gather_expert(t, self._dim_of[id(leaf)])
+                                if self.is_expert(leaf) else t.clone())
+                        else:
+                            # one tensor a leaf: a stage-0 optimizer steps
+                            # each leaf's own
+                            leaf_state[key] = (v.clone() if torch.is_tensor(v)
+                                               else v)
+                    state[index[id(leaf)]] = leaf_state
+        groups = [dict(g, params=[index[id(leaf)] for leaf in leaves])
+                  for g, leaves in zip(sd["param_groups"], originals)]
+        return {"state": state, "param_groups": groups}
+
+    def slice_zero_state(self, opt, sd: Dict[str, Any]) -> Dict[str, Any]:
+        """A whole state (:meth:`gather_zero_state`'s, or a stage-0
+        optimizer's) cut to this rank's shards, as ``opt.state_dict()``
+        would give it under ZeRO: each flat group's per-element states laid
+        into its zero-padded flat buffer and sliced, its scalar states taken
+        from its first leaf."""
+        originals = self._leaves_of[id(opt)]
+        if len(sd["param_groups"]) != len(originals):
+            raise ValueError(
+                f"the checkpoint's optimizer has {len(sd['param_groups'])} "
+                f"parameter groups, this one {len(originals)}")
+        index = self._whole_index(opt)
+        whole = sd["state"]
+        state: Dict[int, Dict[str, Any]] = {}
+        groups = []
+        n = 0
+        for saved, group in zip(sd["param_groups"], opt.param_groups):
+            ids = []
+            for p in group["params"]:
+                ids.append(n)
+                fg = self._group_of_shard.get(id(p))
+                if fg is None:
+                    if index[id(p)] in whole:
+                        state[n] = whole[index[id(p)]]
+                    n += 1
+                    continue
+                per_leaf = [whole.get(index[id(leaf)]) for leaf in fg.leaves]
+                n += 1
+                if all(st is None for st in per_leaf):
+                    continue
+                if any(st is None for st in per_leaf):
+                    raise ValueError(
+                        "the checkpoint holds optimizer states for some "
+                        "leaves of a parameter group and not for others")
+                first = per_leaf[0]
+                shard_state = {}
+                lo = fg.rank * fg.shard_size
+                for key, v in first.items():
+                    if not _per_element(key, v, self._whole_shape(fg.leaves[0])):
+                        shard_state[key] = v.clone() if torch.is_tensor(v) else v
+                        continue
+                    flat = torch.zeros(fg.size, dtype=v.dtype)
+                    for leaf, st, o, k in zip(fg.leaves, per_leaf, fg.offsets,
+                                              fg.numels):
+                        t = st[key]
+                        if self.is_expert(leaf):
+                            t = self.slice_expert(t, self._dim_of[id(leaf)])
+                        flat[o:o + k].copy_(t.reshape(-1))
+                    shard_state[key] = flat[lo:lo + fg.shard_size].clone()
+                state[ids[-1]] = shard_state
+            groups.append(dict(saved, params=ids))
+        return {"state": state, "param_groups": groups}
 
     # ------------------------------------------------------------------ #
     # the update
@@ -497,6 +646,13 @@ class DataParallel:
             for n, v in zip(names, vals.cpu().numpy()):
                 out[n] = np.asarray(v)
         return out
+
+
+def _per_element(key: str, value: Any, shape: torch.Size) -> bool:
+    """Whether an optimizer state holds one value an element of a parameter
+    of ``shape`` (AdamW's moments), not one a parameter (its step)."""
+    return (torch.is_tensor(value) and key != "step"
+            and value.shape == shape)
 
 
 def _specs_by_leaf(params, specs) -> List[Any]:

@@ -1,10 +1,12 @@
 """The port's worker runtime (``ray_lightning_tpu/runtime/``): actor
-processes, the object store, the queue and the node agent. Importing it
-starts nothing; :func:`init` (or the first actor) brings it up.
+processes, the object store, the queue and the node agent; fault injection
+(``faults.py``, the rank family) and the hang supervisor
+(``supervisor.py``). Importing it starts nothing; :func:`init` (or the
+first actor) brings it up.
 
 Not ported (each refuses, see ROADMAP.md): the native shared-memory queue
-and store (``runtime/native/``), the zygote fork server, fault injection,
-elastic membership, the supervisor and telemetry publishing."""
+and store (``runtime/native/``), the zygote fork server, elastic membership
+and telemetry publishing."""
 from ray_lightning_tpu_torch.runtime.actor import (
     ActorError,
     ActorHandle,

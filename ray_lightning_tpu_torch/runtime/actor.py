@@ -13,8 +13,10 @@
 Messages are stdlib ``pickle``: classes and functions travel by reference
 (the worker imports them from the main process's ``sys.path``), so a lambda or a
 class defined inside a function cannot be sent. Such a call raises
-``TypeError`` on the caller's side, before anything is sent. The JAX
-package's fault hooks and call telemetry are not ported (ROADMAP.md).
+``TypeError`` on the caller's side, before anything is sent. A fault
+scripted ``@boot`` fires in ``actor_boot.py`` before ``serve_instance``
+announces the actor (the JAX package fires it in ``serve_instance``); the
+JAX package's call telemetry is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 

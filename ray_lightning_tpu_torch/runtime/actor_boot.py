@@ -10,7 +10,9 @@ Bootstrap on stdin, each message length-prefixed: the authkey; a JSON
 context (the main process's ``sys.path`` and working directory, the interface to
 bind); the pickled class; the pickled ``(args, kwargs)``. Handshake on
 stdout: ``TORCHRT_ACTOR_READY <port>``, or ``TORCHRT_ACTOR_ERROR`` and a
-traceback.
+traceback. A fault scripted ``@boot`` for this actor's rank
+(``runtime/faults.py``) fires before the ready line, so the spawner sees a
+start-up failure that it may retry.
 
 The creator keeps the write end of stdin open for the actor's life, so the
 actor sees end-of-file on it only when the creator has gone, whatever way
@@ -62,6 +64,7 @@ def _exit_with_creator(stdin) -> None:
 
 
 def main() -> None:
+    from ray_lightning_tpu_torch.runtime import faults
     from ray_lightning_tpu_torch.runtime.actor import serve_instance
 
     stdin = sys.stdin.buffer
@@ -84,6 +87,7 @@ def main() -> None:
         sys.stdout.write("TORCHRT_ACTOR_ERROR\n" + traceback.format_exc())
         sys.stdout.flush()
         sys.exit(1)
+    faults.fire_boot_faults()
     serve_instance(instance, authkey, ready_stream=sys.stdout,
                    bind_host=ctx.get("bind_host") or "127.0.0.1")
 

@@ -1,16 +1,23 @@
 """The per-worker session (``ray_lightning_tpu/session.py``): the worker's
-rank and its queue back to the main process. The launcher's wrapping function
-calls :func:`init_session` once per trainer entry point in each worker;
-``put_queue`` hands the main process a callable (pickled by reference)
-that it runs while it waits for the workers.
+rank, its queue back to the main process and its heartbeat channel. The
+launcher's wrapping function calls :func:`init_session` once per trainer
+entry point in each worker; ``put_queue`` hands the main process a callable
+(pickled by reference) that it runs while it waits for the workers.
 
-The JAX session also carries heartbeats for the hang supervisor and
-telemetry payloads; neither is ported (ROADMAP.md), so the port's session
-has no heartbeat channel.
+``heartbeat(step)`` publishes ``(rank, step, wall_time)`` beats, at most one
+per ``heartbeat_interval``, to the queue that the main process's
+``runtime/supervisor.py`` drains to tell live workers from hung ones;
+``emit_done`` sends the last, of step -1, when the stage has returned. A
+beat is lossy and never raises. The JAX session's telemetry payload on the
+beats (and ``flush_telemetry``) is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Optional
+
+from ray_lightning_tpu_torch.runtime import faults
+from ray_lightning_tpu_torch.runtime.supervisor import DONE
 
 # how long a worker waits to deliver an item before it fails with an error
 # that names its rank, instead of blocking training
@@ -18,9 +25,14 @@ PUT_TIMEOUT = 30.0
 
 
 class RayLightningSession:
-    def __init__(self, rank: int, queue: Optional[Any]):
+    def __init__(self, rank: int, queue: Optional[Any],
+                 heartbeat: Optional[Any] = None,
+                 heartbeat_interval: float = 1.0):
         self._rank = rank
         self._queue = queue
+        self._heartbeat = heartbeat
+        self._heartbeat_interval = max(float(heartbeat_interval), 0.01)
+        self._last_beat = 0.0  # monotonic; 0: the first tick always beats
 
     @property
     def rank(self) -> int:
@@ -39,16 +51,39 @@ class RayLightningSession:
                 f"main process's queue within {timeout}s ({type(e).__name__}: {e})"
             ) from e
 
+    def heartbeat(self, step: int, force: bool = False) -> None:
+        """Publish a liveness beat, at most one per ``heartbeat_interval``
+        unless ``force``. Lossy by design: a lost beat costs nothing (the
+        next one re-arms the watchdog), so a put is bounded short and every
+        failure is swallowed. A beat reads no tensor: ``step`` is the host's
+        counter."""
+        if self._heartbeat is None:
+            return
+        now = time.monotonic()
+        if not force and now - self._last_beat < self._heartbeat_interval:
+            return
+        if faults.heartbeats_dropped(step):
+            return
+        self._last_beat = now
+        try:
+            self._heartbeat.put((self._rank, int(step), time.time()),
+                                timeout=1.0)
+        except Exception:
+            pass
+
 
 _session: Optional[RayLightningSession] = None
 
 
-def init_session(rank: int, queue: Optional[Any]) -> None:
+def init_session(rank: int, queue: Optional[Any],
+                 heartbeat: Optional[Any] = None,
+                 heartbeat_interval: float = 1.0) -> None:
     global _session
     if _session is not None:
         raise ValueError("A session already exists in this process; only one "
                          "training session may be active per worker.")
-    _session = RayLightningSession(rank=rank, queue=queue)
+    _session = RayLightningSession(rank=rank, queue=queue, heartbeat=heartbeat,
+                                   heartbeat_interval=heartbeat_interval)
 
 
 def reset_session() -> None:
@@ -70,3 +105,22 @@ def get_actor_rank() -> int:
 
 def put_queue(item: Callable) -> None:
     get_session().put_queue(item)
+
+
+def heartbeat_enabled() -> bool:
+    """Whether this process's session beats to a supervisor."""
+    return _session is not None and _session._heartbeat is not None
+
+
+def emit_done() -> None:
+    """The last beat of a worker whose stage has returned: the supervisor
+    stops watching it (a no-op without a heartbeat channel)."""
+    if _session is not None:
+        _session.heartbeat(DONE, force=True)
+
+
+def emit_heartbeat(step: int, force: bool = False) -> None:
+    """The Trainer's tick: a no-op without a session (a Trainer in the main
+    process) or without a heartbeat channel."""
+    if _session is not None:
+        _session.heartbeat(step, force=force)

@@ -29,11 +29,19 @@ the same batch and each holds E / ep of a MoE model's experts
 engine reduces gradients, ZeRO shards and metrics over the 'dp' group, as
 ``ShardingPolicy(data_axes=("dp",))`` does in JAX.
 
+Failures: ``max_failures`` relaunches a worker group whose process died (or
+that the hang supervisor killed) up to that many times, resuming from the
+newest checkpoint the run wrote (``launchers/ray_launcher.py``);
+``hang_timeout`` (seconds of heartbeat silence, None or 0 for none) and
+``heartbeat_interval`` drive the supervisor (``runtime/supervisor.py``). As
+in JAX they are constructor arguments; the port reads no environment
+variable for them.
+
 The constructors take the JAX strategies' arguments. Those that steer what
 the port does not have (other mesh axes, partition rules, gradient
-compression, several devices per worker, relaunch on failure, elastic
-membership, the hang supervisor, telemetry, the XLA cache) refuse any value
-but their default with a message that names ROADMAP.md.
+compression, several devices per worker, elastic membership, telemetry, the
+XLA cache) refuse any value but their default with a message that names
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -65,7 +73,8 @@ class RayStrategy(Strategy):
     with a CPU Trainer is refused. ``timeout_s`` bounds the workers'
     start-up, the rendezvous and every collective. ``mesh_spec``: a
     ``MeshSpec`` over 'dp' and 'ep' whose resolved sizes multiply to
-    ``num_workers`` (see the module's note).
+    ``num_workers`` (see the module's note). ``max_failures``,
+    ``hang_timeout`` and ``heartbeat_interval``: see the module's note.
     """
 
     strategy_name = "ddp_ray"
@@ -119,8 +128,6 @@ class RayStrategy(Strategy):
              "gradient compression (parallel/compression.py)"),
             ("elastic", elastic or None, "elastic membership"),
             ("min_workers", min_workers, "elastic membership"),
-            ("heartbeat_interval", heartbeat_interval, "the hang supervisor"),
-            ("hang_timeout", hang_timeout, "the hang supervisor"),
             ("telemetry", telemetry or None, "telemetry publishing"),
             ("xla_cache_dir", xla_cache_dir, "XLA's compilation cache"),
             ("partition_rules", partition_rules, "partition rules"),
@@ -129,9 +136,11 @@ class RayStrategy(Strategy):
         ):
             if value is not None:
                 _refuse(name, value, what)
-        if max_failures:
-            _refuse("max_failures", max_failures,
-                    "relaunching a failed worker group (runtime faults)")
+        if heartbeat_interval is not None and float(heartbeat_interval) <= 0:
+            raise ValueError(f"heartbeat_interval must be > 0, got "
+                             f"{heartbeat_interval}")
+        if hang_timeout is not None and float(hang_timeout) < 0:
+            raise ValueError(f"hang_timeout must be >= 0, got {hang_timeout}")
         if zero_gather_group_size != 8:
             _refuse("zero_gather_group_size", zero_gather_group_size,
                     "the quantized ZeRO all-gather")
@@ -148,6 +157,11 @@ class RayStrategy(Strategy):
         self.platform = platform
         self.debug_collectives = bool(debug_collectives)
         self.timeout_s = float(timeout_s)
+        self.max_failures = int(max_failures)
+        # supervision is opt-in: None (or 0) watches nothing
+        self.hang_timeout = float(hang_timeout) if hang_timeout else None
+        self.heartbeat_interval = (1.0 if heartbeat_interval is None
+                                   else float(heartbeat_interval))
         if kwargs:
             rank_zero_warn("ignoring unsupported strategy kwargs: %s",
                            sorted(kwargs))

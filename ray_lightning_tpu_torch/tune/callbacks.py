@@ -12,10 +12,10 @@ Unlike the JAX package, which ships lambdas and closures, the callables are
 pickles with the standard library, by reference.
 
 The checkpoint is ``to_state_stream(trainer.dump_checkpoint(...))``, which
-``Trainer.fit(ckpt_path=...)`` reads back. Under an ep mesh every rank
-gathers the experts (``trainer.whole_state()``, a collective) before rank 0
-writes. Under ZeRO stage >= 1 it holds no optimizer states, and a resume
-from it raises ``NotImplementedError`` (ROADMAP.md).
+``Trainer.fit(ckpt_path=...)`` reads back. Under an ep mesh or ZeRO every
+rank gathers the experts and the optimizer states' shards
+(``trainer.whole_state()``, a collective) before rank 0 writes, so a retry
+or a PBT exploit of a ZeRO trial resumes from whole states.
 """
 from __future__ import annotations
 

@@ -1195,3 +1195,102 @@ def test_tune_sweep_of_two_trials_sharing_the_card(cuda, tmp_path):
     assert len(pids) == 4
     assert helpers.wait_gone(pids, timeout=30) == []
     assert apps() <= before
+
+
+def _card_apps_and_used():
+    import subprocess
+
+    def query(*fields):
+        return subprocess.run(["nvidia-smi", *fields], capture_output=True,
+                              text=True, timeout=60, check=True).stdout
+    apps = {int(x) for x in query("--query-compute-apps=pid",
+                                  "--format=csv,noheader").split()
+            if x.strip().isdigit()}
+    used = int(query("--query-gpu=memory.used",
+                     "--format=csv,noheader,nounits").split()[0])
+    return apps, used
+
+
+def _fault_fit(tmp_path, strategy, epochs=3):
+    """A tiny fp32 model on the card through ``strategy``: two steps an
+    epoch, a validation batch and a checkpoint at each epoch's end."""
+    from ray_lightning_tpu_torch.callbacks import ModelCheckpoint
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+
+    import torch_fault_helpers as helpers
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32,
+                              max_seq=64)
+    module = LlamaModule(cfg, lr=3e-3, warmup_steps=1, total_steps=2 * epochs)
+    trainer = Trainer(device="cuda", strategy=strategy, max_epochs=epochs,
+                      seed=0, logger=False, limit_train_batches=2,
+                      limit_val_batches=1,
+                      callbacks=[ModelCheckpoint(dirpath=str(tmp_path / "ckpts")),
+                                 helpers.WorkerPids(str(tmp_path / "pids"))])
+    trainer.fit(module, datamodule=SyntheticLMDataModule(
+        cfg, batch_size=4, n_train=8, n_val=4))
+    return trainer, module
+
+
+def test_crash_and_resume_on_card_is_bitwise(cuda, tmp_path, monkeypatch):
+    """RayStrategy(num_workers=1, use_gpu=True, max_failures=1) under a fused
+    rank0:crash@step3: the worker dies holding its CUDA context, the group
+    is relaunched (after the dead worker's pid has exited) from the epoch-0
+    checkpoint, and the weights equal the uninterrupted fit's bitwise."""
+    from ray_lightning_tpu_torch import runtime as rt
+    from ray_lightning_tpu_torch.runtime import faults
+    from ray_lightning_tpu_torch.strategies import RayStrategy
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    try:
+        _, want = _fault_fit(tmp_path / "ref", RayStrategy(
+            num_workers=1, use_gpu=True, timeout_s=120))
+        monkeypatch.setenv(faults.FAULT_ENV, "rank0:crash@step3")
+        monkeypatch.setenv(faults.FUSE_ENV, str(tmp_path / "fuses"))
+        strategy = RayStrategy(num_workers=1, use_gpu=True, max_failures=1,
+                               timeout_s=120)
+        trainer, got = _fault_fit(tmp_path / "faulted", strategy)
+    finally:
+        rt.shutdown()
+    assert [f["error"] for f in strategy.launcher.failures] == ["ActorError"]
+    assert trainer.global_step == 6 and strategy.launcher.backend == "nccl"
+    for a, b in zip(tree_leaves(got.params), tree_leaves(want.params)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_supervisor_kills_a_hung_worker_holding_the_card(cuda, tmp_path,
+                                                         monkeypatch):
+    """A worker that hangs at step 1 while holding a CUDA context and its
+    model: with hang_timeout 3 s and max_failures 0 the supervisor kills it
+    and the fit raises WorkerHangError; the worker's process is gone, no
+    process of it holds the card, and the card's used memory is back within
+    1 GiB."""
+    import torch_fault_helpers as helpers
+    from ray_lightning_tpu_torch import runtime as rt
+    from ray_lightning_tpu_torch.launchers.ray_launcher import _exited
+    from ray_lightning_tpu_torch.runtime import faults
+    from ray_lightning_tpu_torch.runtime.supervisor import WorkerHangError
+    from ray_lightning_tpu_torch.strategies import RayStrategy
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    apps, used = _card_apps_and_used()
+    monkeypatch.setenv(faults.FAULT_ENV, "rank0:hang@step1")
+    strategy = RayStrategy(num_workers=1, use_gpu=True, max_failures=0,
+                           hang_timeout=3.0, heartbeat_interval=0.5,
+                           timeout_s=120)
+    try:
+        with pytest.raises(WorkerHangError, match="hang detected"):
+            _fault_fit(tmp_path, strategy, epochs=1)
+    finally:
+        rt.shutdown()
+    (pid,) = helpers.pids_in(str(tmp_path / "pids"))
+    assert _exited(pid)
+    after_apps, after_used = _card_apps_and_used()
+    assert pid not in after_apps and after_apps <= apps
+    assert after_used <= used + 1024

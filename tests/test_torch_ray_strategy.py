@@ -125,7 +125,24 @@ def test_unported_strategy_arguments_are_refused(kw):
     """Each argument that steers what the port does not have refuses with a
     message that names ROADMAP.md; the JAX strategy accepts it. A mesh
     takes 'dp' and 'ep' (tests/test_torch_expert_parallel.py): a 'tp' axis
-    refuses."""
+    refuses. ``max_failures``, ``hang_timeout`` and ``heartbeat_interval``
+    are ported (tests/test_torch_faults.py): each takes the JAX strategy's
+    value, and what stays refused is elastic membership beside it; a
+    negative ``hang_timeout`` or ``heartbeat_interval`` raises ValueError
+    naming it, as the JAX strategy's does."""
+    name, value = next(iter(kw.items()))
+    if name in ("max_failures", "hang_timeout", "heartbeat_interval"):
+        assert getattr(RayStrategy(num_workers=2, **kw), name) == getattr(
+            JRayStrategy(num_workers=2, **kw), name) == value
+        for companion in (dict(elastic=True), dict(min_workers=1),
+                          dict(telemetry=True)):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                RayStrategy(num_workers=2, **kw, **companion)
+        if name != "max_failures":
+            for cls in (RayStrategy, JRayStrategy):
+                with pytest.raises(ValueError, match=name):
+                    getattr(cls(num_workers=2, **{name: -1.0}), name)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RayStrategy(num_workers=2, **kw)
 

@@ -8,9 +8,9 @@ port's Trainer, and the launcher's tune queue
 - Through ``tune.run``: a trainable fitting through ``RayStrategy`` over
   gloo reports from rank 0's worker through the session queue, the
   launcher's tune queue and the trial process to the controller; a PBT
-  exploit and a ``max_failures`` retry resume from a checkpoint bitwise; a
-  ZeRO stage 1 checkpoint holds no optimizer states and its resume raises
-  (ROADMAP.md item 6d).
+  exploit and a ``max_failures`` retry resume from a checkpoint bitwise,
+  a ZeRO stage 1 trial's too: its checkpoint holds whole optimizer
+  states.
 - Under an ep mesh every rank gathers the experts before rank 0 writes the
   checkpoint: no deadlock, every expert in it.
 
@@ -202,23 +202,31 @@ def test_max_failures_retry_resumes_from_its_checkpoint_bitwise(tmp_path):
 
 
 def test_zero_checkpoint_resume_through_tune_is_refused(tmp_path):
-    """RayShardedStrategy(zero_stage=1) writes the Tune checkpoint without
-    optimizer states; the retry passes it to fit, which raises
-    NotImplementedError, and the trial ends in ERROR with that message
-    (a fence: ROADMAP.md item 6d rewrites it)."""
+    """(The name is the fence's that this test was; resuming ZeRO is
+    ported.) RayShardedStrategy(zero_stage=1) writes the Tune checkpoint
+    with whole optimizer states (every rank gathers its shards before rank 0
+    writes); the ``max_failures=1`` retry passes it to fit, which resumes:
+    the parameters after the restore equal the checkpoint's bitwise, and
+    the trial ends TERMINATED at the last step."""
     analysis = tune.run(
         helpers.zero_trainable,
         config={"lr": 3e-3, "steps": 4, "root": str(tmp_path)},
         metric="val_loss", local_dir=str(tmp_path), name="zero",
         max_failures=1, verbose=0)
     (trial,) = analysis.trials
-    assert trial.status == "ERROR"
-    assert trial.num_failures == 1
-    assert "NotImplementedError" in trial.error
-    assert "ZeRO stage 1" in trial.error
+    assert trial.status == "TERMINATED", trial.error
+    assert trial.num_failures == 1 and trial.error is None
+    with open(os.path.join(trial.logdir, "restore.json")) as f:
+        restored = json.load(f)
+    assert restored["bitwise"] and restored["global_step"] == 2
     with open(trial.checkpoints[-1]["path"], "rb") as f:
         ckpt = load_state_stream(f.read())
-    assert ckpt["zero_stage"] == 1 and "optimizer_states" not in ckpt
+    assert ckpt["zero_stage"] == 1 and ckpt["global_step"] == 4
+    (states,) = ckpt["optimizer_states"]
+    leaves = list(tree_leaves(ckpt["state_dict"]))
+    assert len(states["state"]) == len(leaves)
+    for i, leaf in enumerate(leaves):
+        assert states["state"][i]["exp_avg"].shape == leaf.shape
 
 
 def test_checkpoint_under_an_ep_mesh_holds_every_expert(tmp_path):

@@ -322,7 +322,7 @@ def ddp_trainable(config):
 
 def zero_trainable(config):
     """ZeRO stage 1 in one worker: crashes once after a checkpoint; the
-    retry passes that checkpoint to fit, which refuses it."""
+    retry passes that checkpoint to fit, which resumes from it."""
     from ray_lightning_tpu_torch.strategies import RayShardedStrategy
 
     extra = [CrashOnce(os.path.join(config["root"], "crashed"), 2)]
