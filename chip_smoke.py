@@ -165,7 +165,10 @@ final line):
    gloo (NCCL refuses two ranks on one device), a narrow fp32 config, one
    AdamW step of 2 rows each: both ranks hold the same parameters, equal to
    one process stepping on the global batch of 4 within 1e-5; for
-   ``RayStrategy`` and ``RayShardedStrategy`` at stages 1, 2 and 3. Beside
+   ``RayStrategy`` and ``RayShardedStrategy`` at stages 1, 2 and 3; the
+   first fit's workers boot as fresh interpreters, then the same fit and
+   the others fork theirs from the zygote (``TORCHRT_ZYGOTE=1``, warmed
+   while the reference trains), and both start-ups are printed. Beside
    the kernel checks, the kernels are held against their plain versions at
    these paths' shapes (RMSNorm [4096,4096] bf16 and flash q [2,32,2048,128]
    forward and backward, timed; the two-rank fp32 shapes, checked);
@@ -186,7 +189,8 @@ final line):
    ``ep_exactness``: fp32 at narrow widths, one SGD step at lr 1, {"ep": 2}
    at world 2, {"dp": 2, "ep": 2} at world 4 at stage 0 and ZeRO 3, and
    {"ep": 2} at capacity factor 1.5: each equal to one process on the
-   global batch within 1e-5. The kernel phase holds paged decode at its
+   global batch within 1e-5, their worker groups forked from the zygote.
+   The kernel phase holds paged decode at its
    repaired shapes (G 16; head dims 80 and 96) and times flash at Qwen2.5's
    G 7;
 15. the tune integration (``tune``) — ``tune_asha``: ``tune.run`` over lr
@@ -231,13 +235,37 @@ final line):
    states (SGD with momentum: ``MomentumLlama``) within 1e-6 of a
    one-process fit's on the global batch. After the phase no worker process
    runs or holds the card and its used memory is back within 1 GiB; the
-   phase's time beside its 150 s budget;
-17. the ``kernels`` JSON line (launches from the main paths: serving,
+   phase's time beside its 150 s budget. In the tune and faults phases
+   the tune queue and the heartbeat queue of every Ray path must be the
+   native shared-memory ring and the trainer's payload a native store
+   segment: a fallback to the actor queue fails the run;
+17. elastic membership (``elastic``) — ``train_ray_elastic``: the training
+   path's model (``LlamaConfig.small()``, bf16, remat, AdamW) through
+   ``RayStrategy(num_workers=2, use_gpu=True, elastic=True, min_workers=1,
+   max_failures=0, hang_timeout=10.0, heartbeat_interval=1.0)``, two
+   workers sharing the card over gloo at 4 x 2048 rows each, 3 epochs of
+   2 steps, ``TORCHRT_FAULT="rank1:crash@step3"`` fused: the group shrinks
+   to the survivor without a relaunch and a spare forked from the zygote
+   joins at the next epoch boundary from the survivor's handoff. The fit
+   finishes with ``max_failures=0``; the worlds are {1, 2}; one survivor
+   pid runs through every epoch; three processes in all; the last epoch at
+   world 2; ``resizes == {"shrink": 1, "grow": 1}``; the members' weights
+   bitwise equal; the weights within 2^-7 of a leaf's max of one process
+   training the recorded global batches in order with the group's
+   arithmetic (``elastic_replay``); RMSNorm and the three
+   flash kernels launched in the workers; the heartbeat queue the ring.
+   Printed: the crash to the survivor's first step at world 1, the spare's
+   spawn, the handoff's bytes, write and read, the grow to the first step
+   at world 2, the step median at each world. After the phase no worker
+   or zygote process is left and the card's used memory is back within
+   1 GiB; the phase's time beside its 90 s budget;
+18. the ``kernels`` JSON line (launches from the main paths: serving,
    serving_slot, serving_spec, serving_spec_slot, generate_window,
    serving_qwen_yarn, generate_longrope, serving_moe, training,
    training_complete, train_moe, train_ray_ddp, train_ray_zero3,
    train_ray_horovod, ray_two_ranks, train_ray_ep, ep_exactness, tune_asha,
-   tune_pbt, train_ray_faults, train_ray_zero_resume; the Ray and tune
+   tune_pbt, train_ray_faults, train_ray_zero_resume, train_ray_elastic;
+   the Ray and tune
    paths from the workers' counts, which each worker process keeps from 0
    and the launcher sums; a relaunched path's from its last group), the
    card line, and the final ``{"ok": true, ...}`` line.
@@ -3217,6 +3245,29 @@ def train_ray_ddp(torch, card):
     return by_path, out
 
 
+class _zygote:
+    """``TORCHRT_ZYGOTE=1`` in this process while the block runs (when
+    ``on``): the worker groups started there are forked from the zygote."""
+
+    def __init__(self, on=True):
+        self.on = on
+
+    def __enter__(self):
+        import os
+
+        self.prev = os.environ.get("TORCHRT_ZYGOTE")
+        if self.on:
+            os.environ["TORCHRT_ZYGOTE"] = "1"
+
+    def __exit__(self, *exc):
+        import os
+
+        if self.prev is None:
+            os.environ.pop("TORCHRT_ZYGOTE", None)
+        else:
+            os.environ["TORCHRT_ZYGOTE"] = self.prev
+
+
 def two_rank_config(torch):
     from ray_lightning_tpu_torch.models.llama import LlamaConfig
 
@@ -3244,7 +3295,12 @@ def ray_two_ranks(torch, card):
         RayStrategy,
     )
 
+    from ray_lightning_tpu_torch import runtime as rt
+
     smoke = _smoke_module()
+    if not rt.is_initialized():
+        rt.init(resources={"GPU": float(torch.cuda.device_count())})
+    zygote = rt.warm_zygote()
     cfg = two_rank_config(torch)
     world, batch = 2, RAY_TWO_RANK_BATCH
     n_train = world * batch
@@ -3261,15 +3317,20 @@ def ray_two_ranks(torch, card):
     expect_one = training_launches(cfg.n_layers, 1, 0, remat=False)
     total_counts = {k: 0 for k in expect_one}
     rows = []
-    for name, strategy in (
+    start_ups = {}
+    for name, strategy, forked in (
         ("ddp", RayStrategy(num_workers=2, use_gpu=True,
-                            resources_per_worker={"GPU": 0.5})),
+                            resources_per_worker={"GPU": 0.5}), False),
+        # the same fit again, its workers forked from the zygote (warmed
+        # above, while the reference trained), and the rest so too
+        ("ddp_zygote", RayStrategy(num_workers=2, use_gpu=True,
+                                   resources_per_worker={"GPU": 0.5}), True),
         ("zero1", RayShardedStrategy(num_workers=2, use_gpu=True, zero_stage=1,
-                                     resources_per_worker={"GPU": 0.5})),
+                                     resources_per_worker={"GPU": 0.5}), True),
         ("zero2", RayShardedStrategy(num_workers=2, use_gpu=True, zero_stage=2,
-                                     resources_per_worker={"GPU": 0.5})),
+                                     resources_per_worker={"GPU": 0.5}), True),
         ("zero3", RayShardedStrategy(num_workers=2, use_gpu=True, zero_stage=3,
-                                     resources_per_worker={"GPU": 0.5})),
+                                     resources_per_worker={"GPU": 0.5}), True),
     ):
         ranks = smoke.RankParams()
         clock = smoke.StepTimes()
@@ -3280,9 +3341,11 @@ def ray_two_ranks(torch, card):
         dmr = SyntheticLMDataModule(cfg, batch_size=batch, n_train=n_train)
         dmr.setup("fit")
         t = time.perf_counter()
-        trainer.fit(module, train_dataloaders=dmr.train_dataloader())
+        with _zygote(forked):
+            trainer.fit(module, train_dataloaders=dmr.train_dataloader())
         fit_s = time.perf_counter() - t
         launcher = strategy.launcher
+        start_ups[name] = launcher.timings["setup_s"]
         check(launcher.backend == "gloo", f"two ranks {name}: backend "
               f"{launcher.backend}")
         check(ranks.max_gap == 0.0, f"two ranks {name}: the ranks' parameters "
@@ -3306,6 +3369,13 @@ def ray_two_ranks(torch, card):
         f"bitwise, and "
         f"equal to one process on the global batch of {world * batch} within "
         "1e-5: " + "; ".join(rows) + f"; launches {total_counts}")
+    log(f"ray_two_ranks start-up on {card}: the first fit's launcher start-up "
+        f"(spawn, CUDA init, rendezvous) {start_ups['ddp']:.2f}s with fresh "
+        f"interpreters, {start_ups['ddp_zygote']:.2f}s forked from the zygote "
+        f"(its own boot {zygote.ready_s or float('nan'):.2f}s, overlapped "
+        f"with the reference's fit); zygote fits "
+        + ", ".join(f"{k} {v:.2f}s" for k, v in start_ups.items()
+                    if k != "ddp"))
     del want, ref_module, ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -3947,6 +4017,7 @@ def tune_asha_trainable(config):
         "launches": trainer.worker_launch_counts,
         "timings": strategy.launcher.timings,
         "backend": strategy.launcher.backend,
+        "transport": strategy.launcher.transport,
         "layers": cfg.n_layers, "steps": trainer.global_step})
 
 
@@ -3997,7 +4068,9 @@ def tune_pbt_trainable(config):
     trainer.fit(module, datamodule=dm, ckpt_path=ckpt)
     _trial_file("finished.json", {
         "launches": trainer.worker_launch_counts,
-        "backend": strategy.launcher.backend, "steps": trainer.global_step})
+        "backend": strategy.launcher.backend,
+        "transport": strategy.launcher.transport,
+        "steps": trainer.global_step})
 
 
 def _compute_apps():
@@ -4055,9 +4128,21 @@ def _sweep_pids(analysis):
     return sorted(pids)
 
 
+def _apps_memory():
+    """Each compute app's used memory on the card, MiB by pid."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    rows = [line.split(",") for line in out.stdout.splitlines() if "," in line]
+    return {int(pid): int(mib) for pid, mib in rows
+            if pid.strip().isdigit() and mib.strip().isdigit()}
+
+
 def _card_clean(before_apps, before_mib, pids, label):
     """No process of the sweep on the card or alive, and the card's used
-    memory back within 1 GiB: waits up to 30 s for the exits."""
+    memory back within 1 GiB: waits up to 30 s for the exits and for the
+    card's memory to be released."""
     import os
 
     deadline = time.monotonic() + 30.0
@@ -4065,19 +4150,32 @@ def _card_clean(before_apps, before_mib, pids, label):
         apps = _compute_apps()
         left = [p for p in pids if _alive(p)]
         extra = sorted(set(apps) - set(before_apps))
-        if (not left and not extra) or time.monotonic() > deadline:
+        used = _card_used_mib()
+        if (not left and not extra and used <= before_mib + 1024) or (
+                time.monotonic() > deadline):
             break
         time.sleep(0.5)
-    used = _card_used_mib()
     check(not left, f"{label}: processes of the sweep still run: {left}")
     check(not extra, f"{label}: processes of the sweep still hold the card: "
           f"{extra} (before {before_apps})")
     check(used <= before_mib + 1024, f"{label}: the card's used memory "
-          f"{used} MiB, {before_mib} MiB before the sweep")
+          f"{used} MiB, {before_mib} MiB before the sweep; by app "
+          f"{_apps_memory()}")
     log(f"{label}: after the sweep the card's compute apps are {apps} "
         f"(before {before_apps}; this process {os.getpid()}); the sweep's "
         f"{len(pids)} processes (trials and workers) are gone; used memory "
         f"{used} MiB (before {before_mib})")
+
+
+def _check_ring(transport, label, queues):
+    """A Ray path's ``queues`` (of "tune_queue", "heartbeat_queue") must be
+    the native ring and its payload a native store segment: a silent
+    fallback to the actor queue or the Python store fails the run."""
+    for q in queues:
+        check(transport.get(q) == "shm", f"{label}: the {q} is "
+              f"{transport.get(q)!r}, not the native ring")
+    check(transport.get("payload") == "native-bytes", f"{label}: the payload "
+          f"went through {transport.get('payload')!r}, not a native segment")
 
 
 def _trial_errors(analysis, label):
@@ -4117,6 +4215,8 @@ def tune_asha(torch, card, root):
         resources_per_trial={"CPU": 2, "GPU": 0.5}, max_concurrent_trials=2)
     wall_s = time.perf_counter() - t
     _trial_errors(analysis, "tune_asha")
+    check(analysis.queue_kind == "shm", f"tune_asha: the trials reported "
+          f"through a {analysis.queue_kind!r} queue, not the native ring")
     cfg = LlamaConfig.small()
     n_val = TUNE_ASHA_STEPS // TUNE_ASHA_VAL_EVERY
     expect = training_launches(cfg.n_layers, TUNE_ASHA_STEPS, n_val)
@@ -4144,6 +4244,8 @@ def tune_asha(torch, card, root):
                   f"tune_asha: {trial.trial_id} worker launches "
                   f"{done and done['launches']} != {expect}")
             check(done["backend"] == "nccl", f"tune_asha: backend {done}")
+            _check_ring(done["transport"], f"tune_asha {trial.trial_id}",
+                        ["tune_queue"])
             for k, v in done["launches"].items():
                 counts[k] += v
         by_lr[trial.config["lr"]] = trial
@@ -4208,6 +4310,8 @@ def tune_pbt(torch, card, root):
         max_concurrent_trials=len(TUNE_PBT_LRS))
     wall_s = time.perf_counter() - t
     _trial_errors(analysis, "tune_pbt")
+    check(analysis.queue_kind == "shm", f"tune_pbt: the trials reported "
+          f"through a {analysis.queue_kind!r} queue, not the native ring")
     cfg = two_rank_config(torch)
     counts = {}
     exploited, rows, ckpt_rows = [], [], []
@@ -4227,6 +4331,8 @@ def tune_pbt(torch, card, root):
             start_step = restored["global_step"]
         done = _read_json(os.path.join(trial.logdir, "finished.json"))
         check(done is not None, f"tune_pbt: {trial.trial_id} wrote no counts")
+        _check_ring(done["transport"], f"tune_pbt {trial.trial_id}",
+                    ["tune_queue"])
         # this incarnation's steps, each with a validation (a restore at
         # max_steps still runs one step, as the Trainer stops after a step)
         steps = done["steps"] - start_step
@@ -4267,7 +4373,8 @@ def tune_pbt(torch, card, root):
         + f"; {len(exploited)} exploit(s) restored bitwise; checkpoint "
         f"{sizes} bytes, {len(ckpt_rows)} timed from the validation's end: "
         f"to its file in the trial directory (serialised in the worker, "
-        f"put_queue to the queue actor, drained by the trial process, "
+        f"put_queue to the tune queue (the native ring; the 69 MB item "
+        f"spilled into a store segment), drained by the trial process, "
         f"written) median {_median(land):.3f}s (max {land[-1]:.3f}); the "
         f"worker blocked (the checkpoint's and the report's put_queue) "
         f"median {_median(send):.3f}s (max {send[-1]:.3f}); launches "
@@ -4440,6 +4547,7 @@ def train_ray_faults(torch, card, root):
     finally:
         clear()
     launcher = strategy.launcher
+    _check_ring(launcher.transport, "train_ray_faults", ["heartbeat_queue"])
     failures = launcher.failures
     check([f["error"] for f in failures] == ["ActorError", "WorkerHangError"],
           f"train_ray_faults: relaunches {[(f['error'], f['message'][:200]) for f in failures]}")
@@ -4557,6 +4665,7 @@ def train_ray_zero_resume(torch, card, root):
                 save_top_k=-1))
     finally:
         clear()
+    _check_ring(zero.launcher.transport, "train_ray_zero_resume", [])
     failures = zero.launcher.failures
     check([f["error"] for f in failures] == ["ActorError"],
           f"train_ray_zero_resume: relaunches {failures}")
@@ -4801,10 +4910,352 @@ def check_new_path_shapes(torch, F, results):
     torch.cuda.empty_cache()
 
 
+ELASTIC_EPOCHS, ELASTIC_EPOCH_STEPS = 3, 2
+ELASTIC_BATCH = 4  # rows of 2048 per worker
+ELASTIC_SPEC = "rank1:crash@step3"  # the second step of epoch 1
+ELASTIC_HANG_TIMEOUT, ELASTIC_BEAT = 10.0, 1.0
+ELASTIC_LR = 3e-4
+ELASTIC_BUDGET_S = 90.0
+
+
+class ElasticProbe(_Callback):
+    """In every process of the elastic fit: a line per epoch start (pid,
+    epoch, step, world), a line per applied step (step, world, logical rank,
+    pid, the step's wall-clock start and end around a device sync) with the
+    step's batch as .npy, and the sha256 of the weights' bytes at the end of
+    fit. The pids show which process lived through which resize, the
+    batches let one process replay the group's global batches, the hashes
+    hold the members bitwise equal."""
+
+    def __init__(self, probe_dir):
+        self.probe_dir = probe_dir
+        self._t = None
+
+    def __getstate__(self):
+        return {"probe_dir": self.probe_dir, "_t": None}
+
+    def _append(self, name, record):
+        import os
+
+        with open(os.path.join(self.probe_dir, name), "a") as f:
+            f.write(json.dumps(record) + "\n")
+
+    def on_train_epoch_start(self, trainer, module):
+        import os
+
+        self._append(f"probe_{os.getpid()}.jsonl", {
+            "pid": os.getpid(), "epoch": trainer.current_epoch,
+            "step": trainer.global_step, "world": trainer.world_size})
+
+    def on_train_batch_start(self, trainer, module, batch, batch_idx):
+        import torch
+
+        torch.cuda.synchronize()
+        self._t = time.time()
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
+        import os
+
+        import numpy as np
+        import torch
+
+        torch.cuda.synchronize()
+        end = time.time()
+        step, rank = trainer.global_step, trainer.global_rank
+        np.save(os.path.join(self.probe_dir, f"batch_s{step}_r{rank}.npy"),
+                np.asarray(batch["input_ids"]))
+        self._append(f"steps_{os.getpid()}.jsonl", {
+            "step": step, "world": trainer.world_size, "rank": rank,
+            "pid": os.getpid(), "start": self._t, "end": end})
+
+    def on_fit_end(self, trainer, module):
+        import hashlib
+        import os
+
+        import torch
+
+        h = hashlib.sha256()
+        for leaf in _leaves(trainer.params):
+            h.update(leaf.detach().contiguous().view(-1).view(torch.uint8)
+                     .cpu().numpy().data)
+        with open(os.path.join(self.probe_dir, f"hash_{os.getpid()}"),
+                  "w") as f:
+            f.write(h.hexdigest())
+
+
+def _elastic_batches(probe_dir):
+    """The applied steps in order, each the union of its ranks' batches in
+    rank order, and the step records."""
+    import glob
+    import os
+
+    import numpy as np
+
+    steps = {}
+    for path in glob.glob(os.path.join(probe_dir, "steps_*.jsonl")):
+        for r in _read_lines(path):
+            steps.setdefault(r["step"], []).append(r)
+    out = []
+    for step in sorted(steps):
+        recs = sorted(steps[step], key=lambda r: r["rank"])
+        world = recs[0]["world"]
+        check([r["rank"] for r in recs] == list(range(world))
+              and all(r["world"] == world for r in recs),
+              f"train_ray_elastic: step {step} records {recs}")
+        out.append((step, world, np.concatenate([np.load(os.path.join(
+            probe_dir, f"batch_s{step}_r{r['rank']}.npy")) for r in recs]),
+            recs))
+    return out
+
+
+def train_ray_elastic(torch, card, root):
+    """The training path's model (LlamaConfig.small(), bf16, remat, AdamW)
+    through RayStrategy(num_workers=2, use_gpu=True, elastic=True,
+    min_workers=1, max_failures=0): two workers share the card over gloo
+    at 4 x 2048 rows each, 3 epochs of 2 steps, rank 1 crashed at step 3
+    (fused). The group shrinks to the survivor, which re-runs epoch 1 at
+    world 1, and a spare forked from the zygote joins at its end from the
+    survivor's handoff. JAX's acceptance checks, then the weights against
+    one process on the recorded global batches (2^-7 of a leaf's max;
+    ``elastic_replay``)."""
+    import os
+
+    from ray_lightning_tpu_torch import runtime as rt
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.strategies import RayStrategy
+
+    smoke = _smoke_module()
+    cfg = LlamaConfig.small()
+    world = 2
+    probe = os.path.join(root, "probes")
+    os.makedirs(probe)
+    steps_total = ELASTIC_EPOCHS * ELASTIC_EPOCH_STEPS + 1  # one re-run step
+    strategy = RayStrategy(num_workers=world, use_gpu=True, elastic=True,
+                           min_workers=1, max_failures=0,
+                           hang_timeout=ELASTIC_HANG_TIMEOUT,
+                           heartbeat_interval=ELASTIC_BEAT,
+                           resources_per_worker={"GPU": 0.5})
+    module = LlamaModule(cfg, lr=ELASTIC_LR, warmup_steps=2,
+                         total_steps=steps_total)
+    dm = SyntheticLMDataModule(cfg, batch_size=ELASTIC_BATCH,
+                               n_train=ELASTIC_BATCH * world
+                               * ELASTIC_EPOCH_STEPS,
+                               n_val=ELASTIC_BATCH * world)
+    trainer = Trainer(device="cuda", strategy=strategy,
+                      max_epochs=ELASTIC_EPOCHS, logger=False, seed=0,
+                      limit_train_batches=ELASTIC_EPOCH_STEPS,
+                      limit_val_batches=1, enable_checkpointing=False,
+                      callbacks=[smoke.ElasticProbe(probe)])
+    fuses = os.path.join(root, "fuses")
+    os.environ["TORCHRT_ELASTIC_DIR"] = root  # the ledger and its handoffs
+    clear = _fault_env(ELASTIC_SPEC, fuses)
+    t = time.perf_counter()
+    try:
+        trainer.fit(module, datamodule=dm)
+        zygote = rt.api._state.zygote
+        zygote_pid, zygote_boot = zygote.pid, zygote.ready_s
+    finally:
+        clear()
+        os.environ.pop("TORCHRT_ELASTIC_DIR", None)
+        # the runtime and its zygote end with the phase
+        rt.shutdown()
+    fit_s = time.perf_counter() - t
+    launcher = strategy.launcher
+    _check_ring(launcher.transport, "train_ray_elastic", ["heartbeat_queue"])
+    check(launcher.backend == "gloo", f"train_ray_elastic: backend "
+          f"{launcher.backend}")
+    check(launcher.failures == [], f"train_ray_elastic: relaunched "
+          f"{launcher.failures}")
+    check(trainer.current_epoch == ELASTIC_EPOCHS, f"train_ray_elastic: "
+          f"ended at epoch {trainer.current_epoch}")
+    el = launcher.elastic
+    check(el["resizes"] == {"shrink": 1, "grow": 1},
+          f"train_ray_elastic: resizes {el['resizes']}")
+    with open(os.path.join(fuses, "rank1-crash-at3")) as f:
+        crashed = float(f.read())
+    records = []
+    import glob
+
+    for path in glob.glob(os.path.join(probe, "probe_*.jsonl")):
+        records.extend(_read_lines(path))
+    worlds = {r["world"] for r in records}
+    check(worlds == {1, 2}, f"train_ray_elastic: worlds {records}")
+    survivors = {r["pid"] for r in records if r["world"] == 1}
+    check(len(survivors) == 1, f"train_ray_elastic: world-1 pids {records}")
+    (survivor,) = survivors
+    check(sorted({r["epoch"] for r in records if r["pid"] == survivor})
+          == list(range(ELASTIC_EPOCHS)), f"train_ray_elastic: the survivor's "
+          f"epochs {records}")
+    last = [r for r in records if r["epoch"] == ELASTIC_EPOCHS - 1]
+    check({r["world"] for r in last} == {2} and len({r["pid"] for r in last})
+          == 2, f"train_ray_elastic: the last epoch {last}")
+    pids = sorted({r["pid"] for r in records})
+    check(len(pids) == 3, f"train_ray_elastic: {len(pids)} processes {pids}")
+    hashes = {}
+    for path in glob.glob(os.path.join(probe, "hash_*")):
+        with open(path) as f:
+            hashes[path] = f.read().strip()
+    check(len(hashes) == 2 and len(set(hashes.values())) == 1,
+          f"train_ray_elastic: the members' weights differ {hashes}")
+    counts = trainer.worker_launch_counts
+    for name in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(counts.get(name, 0) > 0, f"train_ray_elastic: {name} launched "
+              f"{counts.get(name)} times in the workers")
+    apps_clean = (pids, zygote_pid)
+
+    batches = _elastic_batches(probe)
+    check([w for _, w, _, _ in batches] == [2, 2, 2, 1, 1, 2, 2],
+          f"train_ray_elastic: the applied steps' worlds "
+          f"{[(s, w) for s, w, _, _ in batches]}")
+    first_w1 = min((r["start"] for _, w, _, recs in batches if w == 1
+                    for r in recs))
+    logs = [r for log in el["worker_logs"] for r in (log or [])]
+    shrink = next(r for r in logs if r["kind"] == "shrink")
+    grow = next(r for r in logs if r["kind"] == "grow")
+    join = next(r for r in logs if r["kind"] == "join")
+    grow_step = max(s for s, w, _, _ in batches if w == 1) + 1
+    first_w2 = min(r["start"] for s, w, _, recs in batches
+                   if w == 2 and s >= grow_step for r in recs)
+    step_s = {}
+    for s, w, _, recs in batches:
+        step_s.setdefault(w, []).append(max(r["end"] for r in recs)
+                                        - min(r["start"] for r in recs))
+    # the weights the launcher loaded onto this process's card, kept on the
+    # host: the card must hold nothing of the fit when its memory is read
+    weights = [t.detach().cpu() for t in _leaves(module.params)]
+    del trainer, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "batches": batches, "weights": weights,
+            "fit_s": fit_s, "crash_to_step_s": first_w1 - crashed,
+            "grow_to_step_s": first_w2 - grow["wall"],
+            "spare_spawn_s": launcher.timings.get("spare_spawn_s"),
+            "zygote_boot_s": zygote_boot, "shrink": shrink, "grow": grow,
+            "join": join, "step_s": step_s, "setup_s":
+            launcher.timings["setup_s"], "clean": apps_clean,
+            "events": el["events"]}
+
+
+def elastic_replay(torch, batches):
+    """One process on the card training the recorded global batches in
+    order with the group's arithmetic: at each step every rank's rows in a
+    forward and backward of their own, the gradients accumulated in the
+    leaves (the bf16 sum the gloo all-reduce makes), divided by the step's
+    world, then the module's AdamW and schedule. One backward over the
+    global batch sums the head's contributions (the chunked loss gives it
+    8 a rank) in another order, and AdamW turns that rounding into sign
+    flips of near-zero gradients: a rehearsal measured 0.00962 of a leaf's
+    max against it. Returns the parameter tree."""
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        lm_loss,
+    )
+    from ray_lightning_tpu_torch.utils.tree import tree_map
+
+    module = LlamaModule(LlamaConfig.small(), lr=ELASTIC_LR, warmup_steps=2,
+                         total_steps=len(batches))
+    gen = torch.Generator(device="cuda").manual_seed(0)  # the fit's seed
+    module.params = tree_map(lambda t: torch.nn.Parameter(t.detach().clone()),
+                             module.init_params(gen, torch.device("cuda")))
+    conf = module.configure_optimizers()
+    opt, sched = conf["optimizer"], conf["lr_scheduler"]
+    leaves = _leaves(module.params)
+    for _, world, rows, _ in batches:
+        tokens = torch.from_numpy(rows).cuda()
+        for chunk in tokens.split(ELASTIC_BATCH):
+            lm_loss(module.params, chunk, module.config)[0].backward()
+        grads = [t.grad for t in leaves]
+        if world > 1:
+            torch._foreach_div_(grads, float(world))
+        opt.step()
+        sched.step()
+        for t in leaves:
+            t.grad = None
+    return module.params
+
+
+def elastic_phase(torch, card):
+    """train_ray_elastic in a directory of the checkout's build/ that is
+    removed after; then no worker or zygote process is left and the card's
+    memory is back; the replay; the phase's time beside its budget."""
+    import shutil
+    import tempfile
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="elastic_", dir=build)
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    apps, used = _compute_apps(), _card_used_mib()
+    t = time.perf_counter()
+    try:
+        got = train_ray_elastic(torch, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    pids, zygote_pid = got["clean"]
+    _card_clean(apps, used, pids + [zygote_pid], "elastic")
+    want = elastic_replay(torch, got["batches"])
+    bitwise, worst, differ, total = _weights_gap(
+        torch, got["weights"], _leaves(want))
+    by_leaf = ", ".join(
+        f"{path} {max_err(a.float(), b.detach().float().cpu()) / max(float(b.detach().abs().max()), 1e-30):.3g}"
+        for a, (path, b) in zip(got["weights"], _paths(want)))
+    phase_s = time.perf_counter() - t
+    shrink, grow, join = got["shrink"], got["grow"], got["join"]
+    med = {w: _median(v) for w, v in got["step_s"].items()}
+    log(f"train_ray_elastic on {card}: LlamaConfig.small() bf16 remat AdamW, "
+        f"RayStrategy(num_workers=2, use_gpu=True, elastic=True, "
+        f"min_workers=1, max_failures=0, hang_timeout={ELASTIC_HANG_TIMEOUT}, "
+        f"heartbeat_interval={ELASTIC_BEAT}) over gloo at {ELASTIC_BATCH} x "
+        f"2048 rows each, {ELASTIC_EPOCHS} epochs of {ELASTIC_EPOCH_STEPS} "
+        f"steps under {ELASTIC_SPEC!r}: no relaunch, resizes "
+        f"{{'shrink': 1, 'grow': 1}}, worlds {{1, 2}}, one survivor through "
+        f"every epoch, 3 processes, the last epoch at world 2, the members' "
+        f"weights bitwise equal (sha256), the weights vs one process on the "
+        f"recorded global batches: {'bitwise' if bitwise else f'{differ} of {total} elements differ, worst {worst:.3g} of a leaf max'} "
+        f"(tol 2^-7); fit {got['fit_s']:.1f}s (start-up {got['setup_s']:.2f}s)")
+    log(f"train_ray_elastic recovery on {card}: crash -> the survivor's first "
+        f"step at world 1 {got['crash_to_step_s']:.2f}s (shrink: resize "
+        f"{shrink['resize_s']:.2f}s, rendezvous {shrink['reconnect_s']:.3f}s, "
+        f"tier {shrink['tier']}); the spare forked from the zygote in "
+        f"{got['spare_spawn_s']:.3f}s (the zygote's own boot "
+        f"{got['zygote_boot_s']:.2f}s, at the launch); handoff "
+        f"{grow['handoff_bytes'] / 1e9:.3f} GB written in "
+        f"{grow['handoff_write_s']:.2f}s, read in {join['handoff_read_s']:.2f}s"
+        f"; grow -> the first step at world 2 {got['grow_to_step_s']:.2f}s; "
+        f"step median {med.get(2, float('nan')) * 1e3:.0f} ms at world 2 "
+        f"({[round(x * 1e3) for x in got['step_s'].get(2, [])]}), "
+        f"{med.get(1, float('nan')) * 1e3:.0f} ms at world 1 "
+        f"({[round(x * 1e3) for x in got['step_s'].get(1, [])]}); the "
+        f"workers' launches {got['counts']}")
+    log(f"train_ray_elastic vs the replay by leaf (gap / leaf max): "
+        f"{by_leaf}")
+    log(f"elastic phase on {card}: {phase_s:.1f}s (budget "
+        f"{ELASTIC_BUDGET_S:.0f} s)")
+    check(worst <= RAY_BF16_TOL, f"train_ray_elastic: a leaf {worst:.3g} of "
+          f"its max from the one-process replay (tol 2^-7)")
+    counts = got["counts"]
+    del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_ray_elastic": counts}
+
+
+SMOKE_LIMIT_S = 1140.0  # by the script's own clock
+
 # the phases of a run; ``--phases a,b`` runs those alone and prints no
 # result (a rehearsal of new phases)
 PHASES = ("kernels", "serving", "generation", "moe_serving", "training",
-          "train_moe", "ray", "ray_two_ranks", "ray_ep", "tune", "faults")
+          "train_moe", "ray", "ray_two_ranks", "ray_ep", "tune", "faults",
+          "elastic")
 
 
 def main(argv=None):
@@ -4897,16 +5348,23 @@ def main(argv=None):
         by_path["ray_two_ranks"] = ray_two_ranks(torch, card)
     if "ray_ep" in phases:
         by_path["train_ray_ep"], _ = train_ray_ep(torch, card)
-        by_path["ep_exactness"] = ep_exactness(torch, card)
+        with _zygote():  # its worker groups are forked from the zygote
+            by_path["ep_exactness"] = ep_exactness(torch, card)
     if "tune" in phases:
         by_path.update(tune_phase(torch, card))
     if "faults" in phases:
         by_path.update(faults_phase(torch, card))
+    if "elastic" in phases:
+        by_path.update(elastic_phase(torch, card))
     if only is not None:
         log(f"phases {phases} done in {time.perf_counter() - T0:.1f}s; a "
             "partial run prints no result")
         return 0
 
+    total_s = time.perf_counter() - T0
+    check(total_s <= SMOKE_LIMIT_S, f"the run took {total_s:.1f}s by its own "
+          f"clock, past its {SMOKE_LIMIT_S:.0f} s (60 s under the 1200 s "
+          "limit)")
     entries = []
     for k in kernels.KERNELS:
         r = results[k.name]

@@ -65,6 +65,9 @@ class Callback:
 
     def on_exception(self, trainer, module, err: BaseException) -> None: ...
 
+    # an elastic resize was applied (runtime/elastic.py)
+    def on_membership_resize(self, trainer, module) -> None: ...
+
     # checkpoint state round trip (callback state survives a resume)
     def state_dict(self) -> Dict[str, Any]:
         return {}

@@ -24,7 +24,7 @@ runs in each worker process, where the strategy's rank shards the data
 and only rank 0 logs and writes checkpoints; the main process gets rank 0's
 weights and metrics back. One process drives one device: ``devices > 1``
 and a strategy named by a string are refused (ROADMAP.md). Not ported: the
-TPU accelerator (``accelerator="tpu"``), elastic membership and telemetry.
+TPU accelerator (``accelerator="tpu"``) and telemetry.
 
 Each training and validation batch starts with a health tick: a fault
 scripted for this rank at this step fires (``runtime/faults.py``), then a
@@ -33,6 +33,18 @@ throttled; a no-op outside a worker). A tick reads no tensor, so it adds no
 host sync to a step. A worker group that the launcher relaunched after a
 failure resumes from ``_relaunch_ckpt_path``, the newest checkpoint the run
 wrote, in place of the ``ckpt_path`` that fit was given.
+
+In an elastic group (``RayStrategy(elastic=True)``, ``runtime/elastic.py``)
+the tick also polls the membership ledger: a shrink aborts the epoch, and
+so does a collective that failed against a dead peer once the main
+process's shrink arrives. ``_apply_resize`` then moves the worker to the
+new membership epoch: the state it keeps comes through the JAX tiers (the
+live handoff, this rank's own salvage, the checkpoint the main process
+pinned), the process group is joined again at the new world size and rank,
+the data-parallel engine with its buckets and ZeRO shards and the
+optimizers are rebuilt, the samplers re-sharded, and the epoch re-runs
+from its start. A grow is applied at an epoch's end: a survivor writes its
+live state and the spare that joins (``_elastic_join``) loads it.
 """
 from __future__ import annotations
 
@@ -532,13 +544,18 @@ class Trainer:
         # set by the launcher for a relaunched worker group: the checkpoint
         # its fit resumes from
         self._relaunch_ckpt_path: Optional[str] = None
+        # an elastic worker's view of the membership ledger (set in the
+        # worker by the launcher), and what its resizes did
+        self._elastic_agent = None
+        self.elastic_log: List[Dict[str, Any]] = []
 
     def __getstate__(self):
         """What ships to a worker: no optimizer, stream, engine or parameter
         copies (the module carries the parameters it starts from)."""
         state = dict(self.__dict__)
         state.update(_optim=None, _updates=[], _copy_stream=None, _dp=None,
-                     _input_prefetcher=None, _step_log_buffer=[], _params=None)
+                     _input_prefetcher=None, _step_log_buffer=[], _params=None,
+                     _elastic_agent=None)
         return state
 
     # ------------------------------------------------------------------ #
@@ -887,6 +904,27 @@ class Trainer:
                     "'ep' mesh axis cannot tell its expert leaves")
             self._params = self._dp.shard_experts(self._params, specs)
 
+    def _build_engine(self, model, broadcast: bool = True) -> None:
+        """Over several ranks: the data-parallel engine over the joined
+        group, the whole tree from global rank 0 (unless ``broadcast`` is
+        False: a resize or a joining spare loads its state after), then,
+        under an ep mesh, each member's slice of the experts; and the
+        optimizers on the leaves each rank keeps (under ZeRO, its flat
+        shards)."""
+        self._dp = self.strategy.data_parallel(self)
+        if self._dp is not None:
+            if broadcast:
+                self._dp.broadcast_(list(tree_leaves(self._params)))
+            self._apply_mesh(model)
+        model._params = self._params  # configure_optimizers reads them
+        self._optim = _normalize_optimizers(model.configure_optimizers())
+        if self._optim.labels is not None:
+            _check_labels(self._optim, self._params)
+        self._build_updates()
+        self._micro_step = 0
+        if self._dp is not None:
+            self._dp.setup(self._updates)
+
     def whole_params(self):
         """The parameter tree with every expert leaf whole: under an ep mesh
         each leaf's slices are all-gathered over the ep group (a collective:
@@ -952,6 +990,14 @@ class Trainer:
     # ------------------------------------------------------------------ #
     def _fit_impl(self, model, train_dataloaders, val_dataloaders, datamodule,
                   ckpt_path):
+        agent = self._elastic_agent
+        if agent is not None:
+            agent.beat = lambda: worker_session.emit_heartbeat(
+                self.global_step)
+            if agent.is_joiner:
+                # a warm spare: wait to be named in a grow and join its
+                # group before anything reads the world
+                self._elastic_join(agent)
         seed = seed_everything(self.seed)
         self._sampler_seed = seed
         self._step_log_buffer = []
@@ -989,24 +1035,17 @@ class Trainer:
         # over several ranks: the whole tree from global rank 0 over the
         # world, then (under an ep mesh) each member's slice of the experts,
         # and only then the optimizers, on the leaves each rank keeps
-        self._dp = self.strategy.data_parallel(self)
-        if self._dp is not None:
-            self._dp.broadcast_(list(tree_leaves(self._params)))
-            self._apply_mesh(model)
-        model._params = self._params  # configure_optimizers reads them
-        self._optim = _normalize_optimizers(model.configure_optimizers())
-        if self._optim.labels is not None:
-            _check_labels(self._optim, self._params)
-        self._build_updates()
-        self._micro_step = 0
-        if self._dp is not None:
-            self._dp.setup(self._updates)
+        joining = agent is not None and agent.pending_handoff_cmd is not None
+        self._build_engine(model, broadcast=not joining)
         if self._relaunch_ckpt_path is not None:
             # a relaunched group: the newest state of this run beats the
             # checkpoint the fit started from
             ckpt_path = self._relaunch_ckpt_path
         if ckpt_path is not None:
             self._restore_checkpoint(ckpt_path)
+        if joining:
+            # an admitted spare: the survivors' live state beats all else
+            self._load_elastic_handoff(agent)
         if self._optim.alternating:
             self._check_optimizer_idx()
 
@@ -1024,16 +1063,38 @@ class Trainer:
             self._cb("on_sanity_check_end")
             self.sanity_checking = False
 
+        from ray_lightning_tpu_torch.parallel import data_parallel
+
+        if self._dp is not None and worker_session.heartbeat_enabled():
+            data_parallel.set_collective_beat(
+                lambda: worker_session.emit_heartbeat(self.global_step))
         try:
             while self.current_epoch < self.max_epochs and not self.should_stop:
-                self._run_train_epoch(train_loader, val_loader)
+                try:
+                    self._run_train_epoch(train_loader, val_loader)
+                except Exception as err:
+                    cmd = self._elastic_resize_for(err)
+                    if cmd is None:
+                        raise
+                    self._apply_resize(cmd, train_loader, val_loader, err)
+                    # as after a mid-epoch resume: the epoch re-runs from
+                    # its start (some batches train again, none are skipped)
+                    continue
                 self.current_epoch += 1
                 if 0 <= self.max_steps <= self.global_step:
                     self.should_stop = True
                 if self.should_stop and self.current_epoch < self.min_epochs:
                     self.should_stop = False
+                if agent is not None:
+                    # the boundary admits a pending grow (or a resize that
+                    # raced the epoch's end); on the last boundary too, so
+                    # that a joiner waiting to be admitted is released
+                    cmd = agent.poll_epoch_end()
+                    if cmd is not None:
+                        self._apply_resize(cmd, train_loader, val_loader)
             self._gather_params()
         finally:
+            data_parallel.set_collective_beat(None)
             self._drain_step_logs()
             self._fold_input_stats()
             self._hook("on_train_end")
@@ -1174,6 +1235,16 @@ class Trainer:
         if train:
             faults.fire_step_faults(self.global_step)
         worker_session.emit_heartbeat(self.global_step)
+        agent = self._elastic_agent
+        if train and agent is not None:
+            # one stat of the ledger: a resize to apply now aborts the epoch
+            cmd = agent.poll_now()
+            if cmd is not None:
+                from ray_lightning_tpu_torch.runtime.elastic import (
+                    MembershipChanged,
+                )
+
+                raise MembershipChanged(cmd)
 
     def _record_train_logs(self, logs, aggregator: _EpochAggregator,
                            batch_size: int) -> None:
@@ -1478,7 +1549,14 @@ class Trainer:
         size, ZeRO stage) they were written under: under ZeRO each rank
         cuts its shards from them. A mid-epoch save re-runs its epoch from
         the start."""
-        ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        self._load_state(torch.load(ckpt_path, map_location="cpu",
+                                    weights_only=True))
+
+    def _load_state(self, ckpt: Dict[str, Any], progress: bool = True) -> None:
+        """A checkpoint's state (a file's, an elastic handoff's or this
+        rank's own salvage) into the current parameters, optimizers and
+        schedulers, cut to this rank's ZeRO shards and expert slices;
+        ``progress`` also takes its epoch and step."""
         state_dict = ckpt["state_dict"]
         dp = self._dp
         experts = dp is not None and bool(dp.expert_dims)
@@ -1511,10 +1589,216 @@ class Trainer:
                     else g) for i, g in enumerate(grads)]
             for leaf, g in zip(tree_leaves(self._params), grads):
                 leaf.grad = None if g is None else g.to(self.device, leaf.dtype)
-        base = int(ckpt.get("epoch", 0))
-        self.current_epoch = base + 1 if ckpt.get("epoch_complete", True) else base
-        self.global_step = int(ckpt.get("global_step", 0))
+        if progress:
+            base = int(ckpt.get("epoch", 0))
+            self.current_epoch = (base + 1 if ckpt.get("epoch_complete", True)
+                                  else base)
+            self.global_step = int(ckpt.get("global_step", 0))
         restore_callback_states(self.callbacks, ckpt.get("callbacks", {}))
         for k, v in ckpt.get("callback_metrics", {}).items():
             self.callback_metrics[k] = np.asarray(v)
         self._module.on_load_checkpoint(ckpt)
+
+    # ------------------------------------------------------------------ #
+    # elastic membership (shrink and grow without a relaunch)
+    # ------------------------------------------------------------------ #
+    def _elastic_join(self, agent) -> None:
+        """A warm spare's admission: wait for the grow naming this boot id,
+        join its group and take its rank."""
+        from ray_lightning_tpu_torch.runtime import elastic
+
+        t = time.perf_counter()
+        while True:
+            cmd = agent.wait_for_join()
+            try:
+                cmd = agent.connect(cmd)
+                break
+            except elastic.MembershipChanged:
+                continue  # superseded before it connected: wait again
+        self._set_rank(cmd.rank_of(agent.boot_id), cmd.world)
+        self.elastic_log.append({"kind": "join", "epoch": cmd.epoch,
+                                 "world": cmd.world, "join_s":
+                                 time.perf_counter() - t, "wall": time.time()})
+
+    def _set_rank(self, rank: int, world: int) -> None:
+        """Take ``rank`` of ``world``: the strategy's context, and the rank
+        that fault specs target (the logical rank, as in the JAX package)."""
+        strategy = self.strategy
+        strategy._set_worker_context(rank, world, local_rank=strategy.local_rank,
+                                     node_rank=rank)
+        os.environ[faults.RANK_ENV] = str(rank)
+
+    def _load_elastic_handoff(self, agent) -> None:
+        """A joiner's side of the handoff: the survivors' live state (or,
+        when the writer could not salvage it, the pinned checkpoint), then
+        the ack of the membership epoch."""
+        from ray_lightning_tpu_torch.runtime import elastic
+
+        cmd, agent.pending_handoff_cmd = agent.pending_handoff_cmd, None
+        t = time.perf_counter()
+        payload = elastic.read_handoff(cmd.handoff, timeout=agent.join_timeout,
+                                       allow_failed=True)
+        if payload is not None:
+            self._load_state(payload["ckpt"], progress=False)
+            self.current_epoch = int(payload["meta"]["epoch"])
+            self.global_step = int(payload["meta"]["global_step"])
+        elif cmd.restore:
+            self._restore_checkpoint(cmd.restore)
+        else:
+            raise RuntimeError(f"elastic grow (membership epoch {cmd.epoch}): "
+                               "the survivors' state was not handed over and "
+                               "no checkpoint is available")
+        self.elastic_log[-1]["handoff_read_s"] = time.perf_counter() - t
+        agent.ack(cmd)
+        self.elastic_log[-1]["ack_wall"] = time.time()
+
+    def _elastic_resize_for(self, err: BaseException):
+        """The resize an exception out of the epoch stands for, or None: a
+        resize raised by the tick, or a collective that failed against a
+        dead peer, after which the worker waits for the main process's
+        shrink."""
+        agent = self._elastic_agent
+        if agent is None:
+            return None
+        from ray_lightning_tpu_torch.runtime import elastic
+
+        if isinstance(err, elastic.MembershipChanged):
+            return err.cmd
+        if elastic.is_collective_failure(err):
+            return agent.wait_for_resize()
+        return None
+
+    def _salvage_live_state(self, healthy: bool) -> Optional[Dict[str, Any]]:
+        """This rank's live state as a checkpoint dict, or None. A failed
+        collective happens before ``optimizer.step``, so a rank that holds
+        the whole model (no ZeRO, no expert slices) has intact weights and
+        states. Under ZeRO or an ep mesh the state is gathered whole, a
+        collective, which only a healthy group (an epoch-boundary resize,
+        every member calling) can do: after a death the dead rank's shards
+        are gone and the checkpoint tier restores."""
+        dp = self._dp
+        if dp is not None and (dp.zero_stage or dp.expert_dims) and not healthy:
+            return None
+        try:
+            return self.dump_checkpoint()
+        except Exception:
+            return None
+
+    def _apply_resize(self, cmd, train_loader, val_loader, err=None) -> None:
+        """Move this worker to membership epoch ``cmd.epoch``: settle the
+        host buffers, hand over or salvage the live state, join the new
+        group at its world size and rank, rebuild the engine and the
+        optimizers and restore the state through the best tier (the live
+        handoff, this rank's salvage, the pinned checkpoint), then re-shard
+        the samplers and ack."""
+        import torch.distributed as dist
+
+        from ray_lightning_tpu_torch.parallel.mesh import ProcessMesh
+        from ray_lightning_tpu_torch.runtime import elastic
+
+        agent = self._elastic_agent
+        t0, wall0 = time.perf_counter(), time.time()
+        my_rank = cmd.rank_of(agent.boot_id)
+        if my_rank is None:  # evicted while transitioning: not our group
+            raise elastic.MembershipChanged(cmd)
+        spec = getattr(self.strategy, "mesh_spec", None)
+        if spec is not None:
+            try:
+                ProcessMesh(spec, cmd.world, my_rank)
+            except (ValueError, NotImplementedError) as e:
+                raise RuntimeError(
+                    f"elastic {cmd.kind} to world {cmd.world}: the mesh "
+                    f"{spec.axes} cannot be rebuilt at this size ({e})"
+                ) from err
+        try:
+            self._drain_step_logs()
+        except Exception:
+            self._step_log_buffer = []
+        self._fold_input_stats()
+        # a failed update's partial accumulation is dropped: the epoch
+        # re-runs from its start
+        for leaf in tree_leaves(self._params):
+            leaf.grad = None
+        self._micro_step = 0
+        healthy = err is None
+        writer = (cmd.handoff_writer is not None
+                  and agent.boot_id == cmd.handoff_writer)
+        dp = self._dp
+        gathered = dp is not None and bool(dp.zero_stage or dp.expert_dims)
+        salvage = None
+        if writer or (cmd.kind == "shrink" and cmd.world == 1) or (
+                healthy and gathered):
+            salvage = self._salvage_live_state(healthy)
+        meta = {"epoch": int(self.current_epoch),
+                "global_step": int(self.global_step)}
+        record = {"kind": cmd.kind, "epoch": cmd.epoch, "world": cmd.world,
+                  "wall": wall0, "failure": None if err is None
+                  else f"{type(err).__name__}: {str(err)[:200]}"}
+        if writer:
+            t = time.perf_counter()
+            if salvage is not None:
+                record["handoff_bytes"] = elastic.write_handoff(
+                    cmd.handoff, {"ckpt": salvage, "meta": meta})
+            else:  # the readers fall back to the checkpoint tier
+                elastic.write_handoff_failed(cmd.handoff)
+            record["handoff_write_s"] = time.perf_counter() - t
+        worker_session.emit_heartbeat(self.global_step, force=True)
+
+        t = time.perf_counter()
+        if dist.is_initialized():
+            agent.backend = dist.get_backend()
+        cmd = agent.reconnect(cmd)
+        record["reconnect_s"] = time.perf_counter() - t
+        my_rank = cmd.rank_of(agent.boot_id)
+        self._set_rank(my_rank, cmd.world)
+
+        state, progress = None, True
+        if cmd.handoff and not writer:
+            t = time.perf_counter()
+            payload = elastic.read_handoff(cmd.handoff,
+                                           timeout=agent.failure_wait,
+                                           allow_failed=True)
+            record["handoff_read_s"] = time.perf_counter() - t
+            if payload is not None:
+                state, meta, record["tier"] = payload["ckpt"], payload[
+                    "meta"], "handoff"
+                progress = False
+        elif salvage is not None:
+            state, progress, record["tier"] = salvage, False, "salvage"
+        if state is None and cmd.restore:
+            state = torch.load(cmd.restore, map_location="cpu",
+                               weights_only=True)
+            record["tier"] = "checkpoint"
+        if state is None:
+            raise RuntimeError(
+                f"elastic {cmd.kind} (membership epoch {cmd.epoch}): no live "
+                "state survived and no checkpoint is available to restore "
+                "from") from err
+        self._params = self._place_params(state["state_dict"])
+        self._build_engine(self._module, broadcast=False)
+        self._load_state(state, progress=progress)
+        if not progress:
+            self.current_epoch = int(meta["epoch"])
+            self.global_step = int(meta["global_step"])
+        del state, salvage
+        for loader in (train_loader, val_loader):
+            self._resize_sampler(loader)
+        self._cb("on_membership_resize")
+        agent.ack(cmd)
+        record.update(rank=my_rank, resize_s=time.perf_counter() - t0,
+                      ack_wall=time.time())
+        self.elastic_log.append(record)
+        worker_session.emit_heartbeat(self.global_step, force=True)
+
+    def _resize_sampler(self, loader) -> None:
+        """Re-shard a loader's ``DistributedSampler`` over the new ranks."""
+        sampler = getattr(loader, "sampler", None) if loader is not None else None
+        if not isinstance(sampler, DistributedSampler):
+            return
+        kwargs = (self.strategy.distributed_sampler_kwargs
+                  or {"num_replicas": 1, "rank": 0})
+        sampler.num_replicas = kwargs["num_replicas"]
+        sampler.rank = kwargs["rank"]
+        n = sampler.num_replicas
+        sampler.num_samples = (sampler.data_len // n if sampler.drop_last
+                               else -(-sampler.data_len // n))

@@ -40,7 +40,22 @@ thread drains; a rank silent for longer is declared hung, the group is
 killed, and the wait raises ``WorkerHangError``, a process failure that the
 relaunch takes like a crash. ``failures`` records each failure.
 
-Elastic membership and telemetry are not ported (ROADMAP.md).
+Elastic membership (``strategy.elastic``, ``runtime/elastic.py``): the
+group joins through a TCPStore that the main process hosts for each
+membership epoch, and the workers get a ledger directory. A process failure
+or a hang verdict is offered first to an ``ElasticController``: while at
+least ``min_workers`` survive, the group shrinks around the dead rank
+without a relaunch (``process_results`` drops its future), a warm spare is
+forked from the zygote (warmed at set-up) and joins at the next epoch
+boundary, and its future joins the wait. Below ``min_workers`` the
+controller declines and the relaunch above runs, from the checkpoint that
+``_find_relaunch_checkpoint`` finds (also the controller's pinned restore).
+Workers are indexed by boot id (spares get the next ids); each worker's
+resizes come back in ``elastic`` beside the controller's.
+
+The queues (tune, heartbeats) are the native ring (``runtime/queue.py``)
+when the workers share this host and the library builds, else actors.
+Telemetry is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -49,7 +64,9 @@ import math
 import os
 import pickle
 import secrets
+import shutil
 import sys
+import tempfile
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -94,15 +111,21 @@ def _drain_queue(queue) -> None:
 
 
 def process_results(futures: List[rt.CallFuture], queue=None,
-                    supervisor: Optional[Supervisor] = None) -> List[Any]:
+                    supervisor: Optional[Supervisor] = None,
+                    controller=None) -> List[Any]:
     """Wait for every worker's future, running what the workers put into
     ``queue`` (the tune queue) as it arrives and once more after the last
     future settles. Raises a worker's error, preferring a process failure
     (a dead worker) over the collective errors its peers then raise. With a
     ``supervisor`` each round first raises its hang verdict, if it has one:
     it kills the group after recording the verdict, so a hang is reported
-    as a hang and not as the lost connections that follow."""
+    as a hang and not as the lost connections that follow. With an elastic
+    ``controller`` a process failure is first offered to it: when the group
+    shrank around it the dead future is dropped, and the futures of the
+    spares it spawned join the wait. Returns the settled results, spares'
+    included."""
     remaining = list(futures)
+    tracked = list(futures)
     settled: Dict[int, Any] = {}
     first_error: Optional[Exception] = None
 
@@ -112,18 +135,37 @@ def process_results(futures: List[rt.CallFuture], queue=None,
             settled[id(fut)] = fut.result()
         except rt.ActorError as e:
             if e.is_process_failure:
+                if controller is not None and controller.on_future_failure(
+                        fut, e):
+                    return  # absorbed: the group shrank and trains on
                 raise
             first_error = first_error or e
         except Exception as e:
             first_error = first_error or e
 
+    def take_spares() -> bool:
+        if controller is None:
+            return False
+        controller.poll()
+        spares = controller.drain_new_futures()
+        remaining.extend(spares)
+        tracked.extend(spares)
+        # a spare announced after the survivors' last epoch boundary waits
+        # for an admission that never comes: take the grow back
+        stranded = controller.stranded_joiner(remaining)
+        if stranded is not None:
+            controller.cancel_grow(stranded)
+            remaining.clear()
+        return bool(spares)
+
     try:
-        while remaining:
+        while remaining or take_spares():
             ready, remaining = rt.wait(remaining, num_returns=1, timeout=0.1)
             if supervisor is not None:
                 supervisor.poll()
             for fut in ready:
                 check(fut)
+            take_spares()
             if first_error is not None:
                 # a crashed peer's lost connection surfaces in a moment: let
                 # it win, so the error names the root cause
@@ -145,7 +187,7 @@ def process_results(futures: List[rt.CallFuture], queue=None,
                   file=sys.stderr)
         raise
     _drain_queue(queue)
-    return [settled[id(f)] for f in futures]
+    return [settled[id(f)] for f in tracked if id(f) in settled]
 
 
 def compute_local_ranks(node_ips: List[str]) -> List[Tuple[int, int]]:
@@ -164,11 +206,15 @@ def compute_local_ranks(node_ips: List[str]) -> List[Tuple[int, int]]:
 def _wrapping_function(global_rank: int, num_workers: int, payload_ref,
                        local_rank: int, node_rank: int, device: str,
                        queue_handle=None, heartbeat_handle=None,
-                       heartbeat_interval: float = 1.0):
+                       heartbeat_interval: float = 1.0,
+                       backend: Optional[str] = None):
     """Runs in each worker (``RayExecutor.execute``): rebuild the trainer,
     take this rank's place and device, run the stage, and return rank 0's
-    results (a ``RankReport`` of the kernel launches from the others)."""
+    results (a ``RankReport`` of the kernel launches from the others). In
+    an elastic group ``global_rank`` is the worker's boot id; the results
+    follow its rank at the end, which resizes may have changed."""
     from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.runtime import elastic
 
     payload = payload_ref if isinstance(payload_ref, bytes) else rt.get(payload_ref)
     trainer, fn_name, fn_args = torch.load(io.BytesIO(payload),
@@ -179,6 +225,13 @@ def _wrapping_function(global_rank: int, num_workers: int, payload_ref,
     strategy._set_worker_context(global_rank, num_workers,
                                  local_rank=local_rank, node_rank=node_rank)
     trainer.device = torch.device(device)
+    agent = elastic.worker_agent_from_env(global_rank)
+    if agent is not None:
+        agent.backend = backend or "gloo"
+        agent.timeout_s = getattr(strategy, "timeout_s", agent.timeout_s)
+        if agent.is_joiner and trainer.device.type == "cuda":
+            torch.cuda.set_device(trainer.device)
+    trainer._elastic_agent = agent
     reset_session()
     # the tune queue's handle inside a trial, else None; the heartbeat
     # queue's with a hang_timeout
@@ -200,8 +253,8 @@ def _wrapping_function(global_rank: int, num_workers: int, payload_ref,
     t = time.perf_counter()
     params = trainer.whole_params()
     gather_s = time.perf_counter() - t
-    if global_rank != 0:
-        return RankReport(counts)
+    if strategy.global_rank != 0:
+        return RankReport(counts, trainer.elastic_log)
     return _collect_rank_zero_results(trainer, results, counts, params,
                                       gather_s)
 
@@ -230,6 +283,7 @@ def _collect_rank_zero_results(trainer, results, counts, params,
         collect_s=time.perf_counter() - t,
         sent_at=time.time(),
         gather_s=gather_s,
+        elastic_log=trainer.elastic_log,
     )
 
 
@@ -238,13 +292,7 @@ def _collect_rank_zero_results(trainer, results, counts, params,
 _KILL_WAIT_S = 60.0
 
 
-def _exited(pid: int) -> bool:
-    """Whether process ``pid`` has exited (gone, or a zombie)."""
-    try:
-        with open(f"/proc/{pid}/stat") as f:
-            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
-    except (FileNotFoundError, ProcessLookupError, IndexError):
-        return True
+_exited = rt.api.pid_exited
 
 
 class RayLauncher:
@@ -275,6 +323,21 @@ class RayLauncher:
         self.backend: Optional[str] = None
         self.timings: Dict[str, float] = {}
         self.failures: List[Dict[str, Any]] = []
+        # elastic membership: the ledger directory, the stores' host, the
+        # controller of the running stage, the devices of evicted workers
+        # (a spare takes one), what the last stage's resizes did
+        self._elastic_dir: Optional[str] = None
+        self._store_host = None
+        self._controller = None
+        self._spare_ctx: Optional[tuple] = None
+        self._freed: List[Tuple[str, int]] = []
+        self._evicted: set = set()
+        self._launch_ctx: Optional[Tuple[Any, float]] = None
+        self.elastic: Dict[str, Any] = {}
+        # how the last group's traffic travelled: the kinds of its tune and
+        # heartbeat queues ("shm", "actor" or None) and the payload's
+        # object-store backend ("inline" to remote workers)
+        self.transport: Dict[str, Optional[str]] = {}
 
     # ------------------------------------------------------------------ #
     def launch(self, function, *args, trainer=None) -> Any:
@@ -297,6 +360,7 @@ class RayLauncher:
         original_seed, trainer.seed = trainer.seed, seed
         # checkpoints older than this are another run's
         launch_t0 = time.time()
+        self._launch_ctx = (trainer, launch_t0)
         trainer._relaunch_ckpt_path = None
         self.failures = []
         attempt = 0
@@ -340,6 +404,7 @@ class RayLauncher:
         finally:
             trainer.seed = original_seed
             trainer._relaunch_ckpt_path = None
+            self._launch_ctx = None
 
     @staticmethod
     def _find_relaunch_checkpoint(trainer, not_before: float) -> Optional[str]:
@@ -408,15 +473,20 @@ class RayLauncher:
         placement = "spread" if len(rt.nodes()) > 1 else None
         assignments = rt.plan_placement(demands, placement)
         tag = secrets.token_hex(3)
-        # as Ray does for an actor: its CPU ops use the CPUs it demands
-        # (unless the caller set OMP_NUM_THREADS), not every core of the
-        # host each, which oversubscribes a host shared by several workers
-        # each worker knows its rank from its first instruction (a fault
-        # scripted @boot fires before its ready line)
-        per_actor_env = [{faults.RANK_ENV: str(i)} for i in range(n)]
-        if "OMP_NUM_THREADS" not in os.environ:
-            for env, d in zip(per_actor_env, demands):
-                env["OMP_NUM_THREADS"] = str(max(1, math.ceil(d["CPU"])))
+        per_actor_env = [self._worker_env(i, d) for i, d in enumerate(demands)]
+        elastic_group = bool(strategy.elastic) and n > 1
+        if elastic_group:
+            from ray_lightning_tpu_torch.runtime import elastic
+
+            # a fresh ledger per bring-up: a relaunch must not replay the
+            # membership epochs of the group before it
+            self._elastic_dir = tempfile.mkdtemp(
+                prefix="torchrt-elastic-",
+                dir=os.environ.get(elastic.ELASTIC_DIR_ENV) or None)
+            for env in per_actor_env:
+                env[elastic.ELASTIC_DIR_ENV] = self._elastic_dir
+            # the spare's zygote imports while the workers boot
+            rt.api.warm_zygote()
         self._workers = rt.create_actors(
             [(RayExecutor, (), {}) for _ in range(n)],
             names=[f"torchrt-worker-{i}-{os.getpid()}-{tag}" for i in range(n)],
@@ -449,14 +519,30 @@ class RayLauncher:
         if strategy.init_hook is not None:
             rt.get([w.execute.remote(strategy.init_hook) for w in self._workers],
                    timeout=timeout)
-        host = ips[0]
-        port = rt.get(self._workers[0].find_free_port.remote(), timeout=timeout)
-        init_method = f"tcp://{host}:{port}"
-        joined = rt.get([w.init_distributed.remote(init_method, n, rank,
-                                                   self.backend, idx, timeout)
-                         for rank, (w, idx) in
-                         enumerate(zip(self._workers, indices))],
-                        timeout=timeout + 30)
+        if elastic_group:
+            from ray_lightning_tpu_torch.runtime import elastic
+            from ray_lightning_tpu_torch.utils.ports import node_ip_address
+
+            # the main process hosts the rendezvous, so that it outlives
+            # any worker: a store per membership epoch
+            self._store_host = elastic.StoreHost(
+                node_ip_address() if self._any_remote else "127.0.0.1")
+            coordinator = self._store_host.new_address(n)
+            joined = rt.get([w.init_elastic_distributed.remote(
+                coordinator, n, rank, self.backend, idx, timeout)
+                for rank, (w, idx) in enumerate(zip(self._workers, indices))],
+                timeout=timeout + 30)
+        else:
+            host = ips[0]
+            port = rt.get(self._workers[0].find_free_port.remote(),
+                          timeout=timeout)
+            init_method = f"tcp://{host}:{port}"
+            joined = rt.get([w.init_distributed.remote(init_method, n, rank,
+                                                       self.backend, idx,
+                                                       timeout)
+                             for rank, (w, idx) in
+                             enumerate(zip(self._workers, indices))],
+                            timeout=timeout + 30)
         if sorted(j["rank"] for j in joined) != list(range(n)):
             raise RuntimeError(f"the workers joined as {joined}")
         if strategy.debug_collectives:
@@ -470,6 +556,21 @@ class RayLauncher:
         if strategy.hang_timeout:
             self._hb_queue = rt.make_queue(cross_host=self._any_remote,
                                            timeout=timeout)
+        self.transport = {
+            "tune_queue": getattr(self._tune_queue, "kind", None),
+            "heartbeat_queue": getattr(self._hb_queue, "kind", None)}
+
+    def _worker_env(self, boot_id: int, demand: Dict[str, float]
+                    ) -> Dict[str, str]:
+        """A worker's own variables: its rank from its first instruction (a
+        fault scripted @boot fires before its ready line) and, as Ray does
+        for an actor, ``OMP_NUM_THREADS`` = the CPUs it demands unless the
+        caller set it: a host shared by several workers is not
+        oversubscribed."""
+        env = {faults.RANK_ENV: str(boot_id)}
+        if "OMP_NUM_THREADS" not in os.environ:
+            env["OMP_NUM_THREADS"] = str(max(1, math.ceil(demand["CPU"])))
+        return env
 
     # ------------------------------------------------------------------ #
     def run_function_on_workers(self, payload: bytes) -> WorkerOutput:
@@ -477,31 +578,40 @@ class RayLauncher:
         output, with the launch counts summed over the ranks."""
         t0 = time.perf_counter()
         payload_ref: Any = payload if self._any_remote else rt.put(payload)
+        self.transport["payload"] = getattr(payload_ref, "backend", "inline")
         n = len(self._workers)
         queue = self._tune_queue
         queue_handle = queue.handle() if queue is not None else None
         hb = self._hb_queue
         interval = self._strategy.heartbeat_interval
         supervisor = None
+        hb_handle = hb.handle() if hb is not None else None
+        controller = self._controller = self._make_elastic_controller()
         if hb is not None:
             supervisor = self._supervisor = Supervisor(
                 n, drain=lambda: hb.get_all(timeout=5.0),
                 hang_timeout=self._strategy.hang_timeout,
                 heartbeat_interval=interval,
                 kill_group=self._kill_worker_group, is_alive=self._worker_alive,
-                label=f"worker group ({n} ranks)")
+                label=f"worker group ({n} ranks)",
+                on_hung=controller.on_hung if controller is not None else None)
+            if controller is not None:
+                controller.supervisor = supervisor
             supervisor.start()
+        self._spare_ctx = (payload_ref, queue_handle, hb_handle, interval)
         try:
             futures = [
                 w.execute.remote(_wrapping_function, rank, n, payload_ref,
                                  self._worker_ranks[rank][1],
                                  self._worker_ranks[rank][0],
                                  self._devices[rank], queue_handle,
-                                 hb.handle() if hb is not None else None,
-                                 interval)
+                                 hb_handle, interval, self.backend)
                 for rank, w in enumerate(self._workers)
             ]
-            results = process_results(futures, queue, supervisor)
+            if controller is not None:
+                for rank, fut in enumerate(futures):
+                    controller.register_future(fut, rank)
+            results = process_results(futures, queue, supervisor, controller)
             received = time.time()
             if supervisor is not None:
                 gaps = [h.max_gap for h in [*supervisor.health.values(),
@@ -509,12 +619,18 @@ class RayLauncher:
                         if h is not None]
                 self.timings["max_beat_gap_s"] = max(gaps, default=0.0)
         finally:
+            self._spare_ctx = None
             if supervisor is not None:
                 # the thread ends at once, or after its kill of the group
                 supervisor.stop(timeout=_KILL_WAIT_S + 10)
             if not isinstance(payload_ref, bytes):
                 rt.delete(payload_ref)
         self.timings["run_s"] = time.perf_counter() - t0
+        if controller is not None:
+            self.elastic = {"resizes": dict(controller.resizes),
+                            "members": list(controller.members),
+                            "events": list(controller.events),
+                            "worker_logs": [r.elastic_log for r in results]}
         counts: Dict[str, int] = {}
         for r in results:
             for k, v in r.launch_counts.items():
@@ -548,6 +664,67 @@ class RayLauncher:
         restore_callback_states(trainer.callbacks, output.callback_states)
         trainer.worker_launch_counts = dict(output.launch_counts)
 
+    def _make_elastic_controller(self):
+        """The stage's membership controller, in an elastic group only."""
+        if self._store_host is None:
+            return None
+        from ray_lightning_tpu_torch.runtime import elastic
+
+        trainer, launch_t0 = self._launch_ctx
+        strategy = self._strategy
+        return elastic.ElasticController(
+            ledger=elastic.MembershipLedger(self._elastic_dir),
+            host=self._store_host, num_workers=len(self._workers),
+            min_workers=strategy.min_workers, kill_worker=self._kill_worker,
+            spawn_worker=self._spawn_spare,
+            find_restore=lambda: self._find_relaunch_checkpoint(trainer,
+                                                                launch_t0))
+
+    def _kill_worker(self, boot_id: int) -> None:
+        """Evict one worker (an elastic shrink): kill it now and keep its
+        device for the spare that replaces it."""
+        if boot_id >= len(self._workers):
+            return
+        w = self._workers[boot_id]
+        if boot_id not in self._evicted:
+            self._evicted.add(boot_id)
+            self._freed.append((self._devices[boot_id],
+                                self._worker_ranks[boot_id][1]))
+        try:
+            rt.kill(w, force=True, timeout=_KILL_WAIT_S)
+        except Exception as e:
+            print(f"RayLauncher: killing {w.name}: {e}", file=sys.stderr)
+
+    def _spawn_spare(self, boot_id: int, world_hint: int):
+        """A warm spare for an elastic grow, forked from the zygote, on the
+        device of a worker it replaces: it waits in its Trainer's join until
+        a grow names ``boot_id``. Returns its stage's future."""
+        from ray_lightning_tpu_torch.runtime import elastic
+
+        payload_ref, queue_handle, hb_handle, interval = self._spare_ctx
+        strategy = self._strategy
+        device, local = (self._freed.pop(0) if self._freed
+                         else (self._devices[0], self._worker_ranks[0][1]))
+        demand = self._worker_demand()
+        env = self._worker_env(boot_id, demand)
+        env.update({elastic.ELASTIC_DIR_ENV: self._elastic_dir,
+                    elastic.ELASTIC_JOINER_ENV: "1"})
+        t = time.perf_counter()
+        [w] = rt.create_actors(
+            [(RayExecutor, (), {})],
+            names=[f"torchrt-worker-{boot_id}-{os.getpid()}-"
+                   f"{secrets.token_hex(3)}"],
+            per_actor_env=[env], demands=[demand],
+            timeout=strategy.timeout_s, zygote=True)
+        self.timings["spare_spawn_s"] = time.perf_counter() - t
+        # workers are indexed by boot id: a spare's id is the next one
+        self._workers.append(w)
+        self._worker_ranks.append((0, local))
+        self._devices.append(device)
+        return w.execute.remote(_wrapping_function, boot_id, world_hint,
+                                payload_ref, local, 0, device, queue_handle,
+                                hb_handle, interval, self.backend)
+
     def _worker_alive(self, rank: int) -> bool:
         """The supervisor's probe: whether rank's process still runs. Only a
         local worker can be probed; a remote one counts as alive, so that
@@ -573,9 +750,11 @@ class RayLauncher:
         survivor may be blocked in a collective with a dead rank. Either
         way every local worker has exited when this returns, so that a
         relaunched group finds its card free."""
-        if self._workers and not force:
+        live = [w for w in self._workers
+                if rt.actor_node_id(w) != 0 or not _exited(w._pid)]
+        if live and not force:
             try:
-                rt.get([w.shutdown_distributed.remote() for w in self._workers],
+                rt.get([w.shutdown_distributed.remote() for w in live],
                        timeout=30)
             except Exception as e:  # the kill below still reaps them
                 print(f"RayLauncher: shutdown_distributed: {e}", file=sys.stderr)
@@ -598,3 +777,11 @@ class RayLauncher:
                 queue.shutdown()
                 setattr(self, name, None)
         self._supervisor = None
+        self._controller = None
+        self._freed, self._evicted = [], set()
+        if self._store_host is not None:
+            self._store_host.shutdown()
+            self._store_host = None
+        if self._elastic_dir is not None:
+            shutil.rmtree(self._elastic_dir, ignore_errors=True)
+            self._elastic_dir = None

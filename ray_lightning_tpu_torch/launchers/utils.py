@@ -1,11 +1,15 @@
 """The worker actor and its result (``ray_lightning_tpu/launchers/
 utils.py``): the reference's ``RayExecutor`` and ``_RayOutput``. The worker
 is where ``torch.distributed.init_process_group`` runs, with the rank, the
-world size and the rendezvous address passed as arguments."""
+world size and the rendezvous address passed as arguments: a ``tcp://``
+address of worker 0's host, or, in an elastic group, the TCPStore that the
+main process hosts for the membership epoch (``init_elastic_distributed``).
+A group that failed is left with ``destroy_process_group``, which returns
+at once for a gloo group whose peer died."""
 from __future__ import annotations
 
 import datetime
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 from ray_lightning_tpu_torch.utils.ports import find_free_port, node_ip_address
 
@@ -29,12 +33,15 @@ class WorkerOutput(NamedTuple):
     collect_s: float  # rank 0 serialising its weights
     sent_at: float  # rank 0's wall clock as it returns
     gather_s: float = 0.0  # the ranks' all-gather of the expert slices
+    elastic_log: Optional[List[Dict[str, Any]]] = None  # the worker's resizes
 
 
 class RankReport(NamedTuple):
-    """What a rank other than 0 sends back: its kernel launches."""
+    """What a rank other than 0 sends back: its kernel launches (and, in an
+    elastic group, its resizes)."""
 
     launch_counts: Dict[str, int]
+    elastic_log: Optional[List[Dict[str, Any]]] = None
 
 
 class RayExecutor:
@@ -72,6 +79,28 @@ class RayExecutor:
             dist.init_process_group(
                 backend, init_method=init_method, world_size=world_size,
                 rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+            self._distributed = True
+        return {"rank": dist.get_rank(), "world_size": dist.get_world_size(),
+                "backend": dist.get_backend(), "device_index": device_index}
+
+    def init_elastic_distributed(self, coordinator: str, world_size: int,
+                                 rank: int, backend: str,
+                                 device_index: Optional[int] = None,
+                                 timeout_s: float = 1800.0) -> Dict[str, Any]:
+        """The elastic variant of :meth:`init_distributed`: join through
+        the TCPStore the main process hosts for this membership epoch
+        (``runtime/elastic.py``), so that the worker can later leave and
+        join another group, at another world size, without a restart."""
+        import torch
+        import torch.distributed as dist
+
+        from ray_lightning_tpu_torch.runtime import elastic
+
+        if device_index is not None:
+            torch.cuda.set_device(device_index)
+        if not self._distributed:
+            elastic.elastic_connect(coordinator, world_size, rank, backend,
+                                    timeout_s=timeout_s)
             self._distributed = True
         return {"rank": dist.get_rank(), "world_size": dist.get_world_size(),
                 "backend": dist.get_backend(), "device_index": device_index}

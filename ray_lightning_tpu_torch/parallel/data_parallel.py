@@ -55,7 +55,8 @@ through ``gather_experts`` (an all-gather over the ep group).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -72,16 +73,42 @@ _REDUCE_SCATTER = (getattr(dist, "reduce_scatter_single", None)
 
 
 
+# called while a gloo collective waits (the Trainer sets it when its worker
+# beats to a hang supervisor): a rank waiting for a peer stays alive to the
+# supervisor, so that only the rank that hung goes silent
+_beat: Optional[Callable[[], None]] = None
+
+
+def set_collective_beat(beat: Optional[Callable[[], None]]) -> None:
+    global _beat
+    _beat = beat
+
+
+def _gloo_call(fn, *args, **kwargs) -> None:
+    """Run a gloo collective, beating while it waits when a beat is set (a
+    gloo collective blocks the host anyway: polling its work adds nothing
+    to the device's timeline)."""
+    if _beat is None:
+        fn(*args, **kwargs)
+        return
+    work = fn(*args, async_op=True, **kwargs)
+    while not work.is_completed():
+        _beat()
+        time.sleep(0.0005)
+    work.wait()
+
+
 def all_reduce_(t: torch.Tensor, group=None,
                 op=dist.ReduceOp.SUM) -> torch.Tensor:
     """Reduce ``t`` in place over ``group`` (the default group when None).
     A gloo group reduces host buffers, so a tensor on the card goes through
     a host copy (the copy out, the reduction, the copy back); NCCL reduces
     it where it lies."""
-    if t.device.type != "cpu" and dist.get_backend(group) == "gloo":
-        host = t.cpu()
-        dist.all_reduce(host, op=op, group=group)
-        t.copy_(host)
+    if dist.get_backend(group) == "gloo":
+        host = t.cpu() if t.device.type != "cpu" else t
+        _gloo_call(dist.all_reduce, host, op=op, group=group)
+        if host is not t:
+            t.copy_(host)
     else:
         dist.all_reduce(t, op=op, group=group)
     return t
@@ -195,12 +222,18 @@ class DataParallel:
             return
         all_reduce_(t, self.ep_group if over_ep else self.group, op)
 
+    def _call(self, fn, *args, **kwargs) -> None:
+        if self.comm_device.type == "cpu":
+            _gloo_call(fn, *args, **kwargs)
+        else:
+            fn(*args, **kwargs)
+
     def _reduce_scatter(self, out: torch.Tensor, inp: torch.Tensor) -> None:
         if self._solo:
             out.copy_(inp)
             return
         c_out, c_in = self._on_comm(out), self._on_comm(inp)
-        _REDUCE_SCATTER(c_out, c_in, group=self.group)
+        self._call(_REDUCE_SCATTER, c_out, c_in, group=self.group)
         if c_out is not out:
             out.copy_(c_out)
 
@@ -209,7 +242,7 @@ class DataParallel:
             out.copy_(inp)
             return
         c_out, c_in = self._on_comm(out), self._on_comm(inp)
-        _ALL_GATHER(c_out, c_in, group=self.group)
+        self._call(_ALL_GATHER, c_out, c_in, group=self.group)
         if c_out is not out:
             out.copy_(c_out)
 

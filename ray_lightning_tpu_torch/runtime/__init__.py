@@ -1,12 +1,13 @@
 """The port's worker runtime (``ray_lightning_tpu/runtime/``): actor
-processes, the object store, the queue and the node agent; fault injection
-(``faults.py``, the rank family) and the hang supervisor
-(``supervisor.py``). Importing it starts nothing; :func:`init` (or the
-first actor) brings it up.
+processes, the object store and the queues (the native shared-memory ring
+and store of ``native/``, with Python fallbacks), the zygote fork server
+(``zygote.py``), the node agent; fault injection (``faults.py``, the rank
+family), the hang supervisor (``supervisor.py``) and elastic membership
+(``elastic.py``). Importing it starts, builds and loads nothing; :func:`init`
+(or the first actor) brings it up, and the native library is built at its
+first use.
 
-Not ported (each refuses, see ROADMAP.md): the native shared-memory queue
-and store (``runtime/native/``), the zygote fork server, elastic membership
-and telemetry publishing."""
+Not ported (ROADMAP.md): the telemetry publishing of heartbeats."""
 from ray_lightning_tpu_torch.runtime.actor import (
     ActorError,
     ActorHandle,
@@ -29,12 +30,14 @@ from ray_lightning_tpu_torch.runtime.api import (
     put,
     shutdown,
     wait,
+    warm_zygote,
 )
 from ray_lightning_tpu_torch.runtime.object_store import ObjectRef
 from ray_lightning_tpu_torch.runtime.queue import (
     Queue,
     QueueClient,
     ShmQueue,
+    ShmQueueHandle,
     make_queue,
 )
 
@@ -43,5 +46,5 @@ __all__ = [
     "plan_placement", "create_actor", "create_actors", "kill", "put", "get",
     "delete", "wait", "cluster_resources", "actor_node_id", "ActorError",
     "ActorHandle", "ActorTimeout", "CallFuture", "ObjectRef", "Queue",
-    "QueueClient", "ShmQueue", "make_queue",
+    "QueueClient", "ShmQueue", "ShmQueueHandle", "make_queue", "warm_zygote",
 ]

@@ -13,10 +13,14 @@ there, and the main process dials them directly. Every node advertises
 ("pack"), round-robin ("spread") or pinned, and a demand that fits nowhere
 raises at once.
 
-Unlike the JAX runtime this module reads no environment variable (the
-logical CPU count is an argument of :func:`init`), pickles with the standard
-library, and has no zygote (preloaded fork server): ``create_actors(...,
-zygote=True)`` raises (ROADMAP.md).
+Local actors boot as fresh interpreters by default. ``create_actors(...,
+zygote=True)``, or ``TORCHRT_ZYGOTE=1`` in this process's environment (the
+JAX runtime's ``RLT_ZYGOTE``, the one variable this module reads), forks them
+from a zygote instead (``runtime/zygote.py``): one preloaded process per
+creator, started at the first such spawn (or ahead, :func:`warm_zygote`),
+replaced if it dies, shut down with the runtime. Unlike the JAX runtime the
+logical CPU count is an argument of :func:`init`, and everything is pickled
+with the standard library.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import atexit
 import json
 import os
 import select
+import signal
 import struct
 import subprocess
 import sys
@@ -46,6 +51,7 @@ from ray_lightning_tpu_torch.runtime.object_store import (
 )
 
 _LEN = struct.Struct("!Q")
+ZYGOTE_ENV = "TORCHRT_ZYGOTE"
 # the directory that holds the package: a child interpreter must import the
 # port before it reads the main process's sys.path from its bootstrap
 _PACKAGE_ROOT = str(Path(__file__).resolve().parent.parent.parent)
@@ -91,6 +97,7 @@ class _RuntimeState:
         self.nodes: List[_Node] = []
         self.next_node_id = 1
         self.atexit_registered = False
+        self.zygote = None  # runtime/zygote.py's ZygoteClient
 
 
 _state = _RuntimeState()
@@ -169,6 +176,9 @@ def shutdown() -> None:
         return
     for name in list(_state.actors):
         kill(_state.actors[name][0])
+    if _state.zygote is not None:
+        _state.zygote.shutdown()
+        _state.zygote = None
     if _state.store is not None:
         _state.store.shutdown()
         _state.store = None
@@ -300,6 +310,76 @@ def _spawn_local_proc(spec: Tuple[bytes, bytes], authkey: bytes,
     return proc
 
 
+def pid_exited(pid: int) -> bool:
+    """Whether process ``pid`` has exited (gone, or a zombie)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except (FileNotFoundError, ProcessLookupError, IndexError):
+        return True
+
+
+class ForkedProcess:
+    """A zygote's child, driven like the ``Popen`` of a classic actor (it is
+    not this process's child: the zygote reaps it, so exit is read from
+    ``/proc``)."""
+
+    def __init__(self, pid: int):
+        self.pid = pid
+
+    def poll(self) -> Optional[int]:
+        return 0 if pid_exited(self.pid) else None
+
+    def _signal(self, sig: int) -> None:
+        try:
+            os.kill(self.pid, sig)
+        except ProcessLookupError:
+            pass
+
+    def kill(self) -> None:
+        self._signal(signal.SIGKILL)
+
+    def terminate(self) -> None:
+        self._signal(signal.SIGTERM)
+
+    def wait(self, timeout: Optional[float] = None) -> int:
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not pid_exited(self.pid):
+            if deadline is not None and time.monotonic() > deadline:
+                raise subprocess.TimeoutExpired(f"pid {self.pid}", timeout)
+            time.sleep(0.01)
+        return 0
+
+
+def _use_zygote() -> bool:
+    return os.environ.get(ZYGOTE_ENV) == "1"
+
+
+def _get_zygote():
+    """This process's zygote, started at the first call; one that died or
+    lost step is replaced."""
+    from ray_lightning_tpu_torch.runtime.zygote import ZygoteClient
+
+    if _state.zygote is not None and not _state.zygote.alive():
+        try:
+            _state.zygote.shutdown()
+        except Exception:
+            pass
+        _state.zygote = None
+    if _state.zygote is None:
+        _state.zygote = ZygoteClient(_child_env(None))
+    return _state.zygote
+
+
+def warm_zygote():
+    """Start this process's zygote now, so that its imports overlap other
+    work (an elastic launch warms it for the spare it may need); returns
+    the client."""
+    if not _state.initialized:
+        init()
+    return _get_zygote()
+
+
 def _main_ctx() -> Dict[str, Any]:
     return {"sys_path": list(sys.path), "cwd": os.getcwd()}
 
@@ -318,12 +398,9 @@ def create_actors(specs: Sequence[Tuple[type, Sequence[Any],
     actors are child processes; each remote node gets one ``spawn`` call
     for its share. On any failure every actor of the call is killed and
     :class:`ActorError` (a process failure) names the causes."""
-    if zygote:
-        raise NotImplementedError(
-            "zygote=True: the preloaded fork server (runtime/zygote.py) is "
-            "not ported; see ROADMAP.md. Actors boot as fresh interpreters")
     if not _state.initialized:
         init()
+    zygote = zygote or _use_zygote()
     n = len(specs)
     if names is None:
         names = [f"torchrt-actor-{len(_state.actors) + i}-{os.getpid()}"
@@ -346,6 +423,21 @@ def create_actors(specs: Sequence[Tuple[type, Sequence[Any],
                 merged = dict(env or {})
                 merged.update(per_actor_env[i] if per_actor_env else {})
                 authkey = make_authkey()
+                if zygote:
+                    # forked from the preloaded zygote: no interpreter boot
+                    try:
+                        port, pid = _get_zygote().spawn(
+                            cls, args, kwargs, authkey, _child_env(merged),
+                            timeout, _main_ctx())
+                    except Exception as e:
+                        _get_node(node_id).release(name)
+                        errors.append(f"{name}: {e}")
+                        continue
+                    handle = ActorHandle(name, ("127.0.0.1", port), authkey,
+                                         pid)
+                    _state.actors[name] = (handle, ForkedProcess(pid), node_id)
+                    handles.append(handle)
+                    continue
                 proc = _spawn_local_proc(_spec_blobs(cls, args, kwargs),
                                          authkey, _child_env(merged),
                                          _main_ctx())

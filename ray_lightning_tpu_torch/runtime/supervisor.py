@@ -28,8 +28,15 @@ step -1 (``DONE``) says
 that the rank's stage has returned: the supervisor stops watching it, since
 gathering and sending back its results beat no more.
 
+Elastic groups (``runtime/elastic.py``): ``on_hung(ranks)``, when set,
+is offered the hung ranks first; returning True means the group shrank
+around them (or they are mid-transition), and the supervisor forgets them
+(``forget_rank``) and keeps watching the others instead of tripping. A
+forgotten rank's next beat re-arms it; ``track_rank`` watches a spare that
+was admitted. A hook that returns False or raises trips the group as before.
+
 The JAX supervisor's telemetry tap (the driver-side aggregator, the SLO
-monitor) and its elastic ``on_hung`` hook are not ported (ROADMAP.md).
+monitor) is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -103,7 +110,8 @@ class Supervisor:
                  heartbeat_interval: float = 1.0,
                  kill_group: Optional[Callable[[], None]] = None,
                  is_alive: Optional[Callable[[int], bool]] = None,
-                 label: str = "workers"):
+                 label: str = "workers",
+                 on_hung: Optional[Callable[[List[int]], bool]] = None):
         # a timeout below two heartbeat periods would flag healthy workers:
         # clamp it, so the two arguments stay independent. None or 0 only
         # watches
@@ -114,6 +122,7 @@ class Supervisor:
         self._kill_group = kill_group
         self._is_alive = is_alive
         self._label = label
+        self.on_hung = on_hung
         self.health: Dict[int, WorkerHealth] = {
             r: WorkerHealth(rank=r) for r in range(num_workers)}
         # the ranks whose stage returned, with their last health
@@ -183,6 +192,17 @@ class Supervisor:
             out[rank] = verdict
         return out
 
+    def forget_rank(self, rank: int, drop_telemetry: bool = False) -> None:
+        """Stop watching ``rank`` (evicted by a shrink, or mid-transition: a
+        later beat re-arms it). ``drop_telemetry`` is the JAX signature's
+        (the port has no aggregator to drop the rank from)."""
+        self.health.pop(rank, None)
+
+    def track_rank(self, rank: int) -> None:
+        """Watch a newly admitted rank (an elastic grow), armed at its first
+        beat."""
+        self.health[rank] = WorkerHealth(rank=rank)
+
     # ------------------------------------------------------------------ #
     def poll(self) -> None:
         """Raise the hang verdict if there is one; else return at once (the
@@ -213,6 +233,17 @@ class Supervisor:
                     hung = [r for r in hung if self._is_alive(r)]
                 except Exception:
                     logger.debug("supervisor: is_alive failed", exc_info=True)
+            if hung and self.on_hung is not None:
+                try:
+                    absorbed = bool(self.on_hung(list(hung)))
+                except Exception:
+                    logger.exception("supervisor: on_hung hook failed")
+                    absorbed = False
+                if absorbed:
+                    # the group shrank around them, or they are deferred
+                    for r in hung:
+                        self.forget_rank(r)
+                    continue
             if hung:
                 self._trip(hung)
                 return

@@ -33,15 +33,19 @@ Failures: ``max_failures`` relaunches a worker group whose process died (or
 that the hang supervisor killed) up to that many times, resuming from the
 newest checkpoint the run wrote (``launchers/ray_launcher.py``);
 ``hang_timeout`` (seconds of heartbeat silence, None or 0 for none) and
-``heartbeat_interval`` drive the supervisor (``runtime/supervisor.py``). As
-in JAX they are constructor arguments; the port reads no environment
-variable for them.
+``heartbeat_interval`` drive the supervisor (``runtime/supervisor.py``).
+``elastic=True`` (with ``num_workers`` > 1) shrinks the group around a
+dead or hung worker instead, without a relaunch, and grows it back with a
+spare forked from the zygote at the next epoch boundary
+(``runtime/elastic.py``), while at least ``min_workers`` (default 1,
+clamped to 1) survive; below that the relaunch runs. These are constructor
+arguments only: the port reads no environment variable for them (the JAX
+strategies also read ``RLT_ELASTIC`` and ``RLT_MIN_WORKERS``).
 
 The constructors take the JAX strategies' arguments. Those that steer what
 the port does not have (other mesh axes, partition rules, gradient
-compression, several devices per worker, elastic membership, telemetry, the
-XLA cache) refuse any value but their default with a message that names
-ROADMAP.md.
+compression, several devices per worker, telemetry, the XLA cache) refuse
+any value but their default with a message that names ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -74,7 +78,8 @@ class RayStrategy(Strategy):
     start-up, the rendezvous and every collective. ``mesh_spec``: a
     ``MeshSpec`` over 'dp' and 'ep' whose resolved sizes multiply to
     ``num_workers`` (see the module's note). ``max_failures``,
-    ``hang_timeout`` and ``heartbeat_interval``: see the module's note.
+    ``hang_timeout``, ``heartbeat_interval``, ``elastic`` and
+    ``min_workers``: see the module's note.
     """
 
     strategy_name = "ddp_ray"
@@ -126,8 +131,6 @@ class RayStrategy(Strategy):
             ("chips_per_host", chips_per_host, "TPU chip partitioning"),
             ("dcn_grad_compression", dcn_grad_compression,
              "gradient compression (parallel/compression.py)"),
-            ("elastic", elastic or None, "elastic membership"),
-            ("min_workers", min_workers, "elastic membership"),
             ("telemetry", telemetry or None, "telemetry publishing"),
             ("xla_cache_dir", xla_cache_dir, "XLA's compilation cache"),
             ("partition_rules", partition_rules, "partition rules"),
@@ -162,6 +165,9 @@ class RayStrategy(Strategy):
         self.hang_timeout = float(hang_timeout) if hang_timeout else None
         self.heartbeat_interval = (1.0 if heartbeat_interval is None
                                    else float(heartbeat_interval))
+        # elastic membership (runtime/elastic.py), off unless asked for
+        self._elastic = elastic
+        self._min_workers = min_workers
         if kwargs:
             rank_zero_warn("ignoring unsupported strategy kwargs: %s",
                            sorted(kwargs))
@@ -174,6 +180,18 @@ class RayStrategy(Strategy):
     @property
     def zero_stage(self) -> int:
         return self.sharding_policy.zero_stage
+
+    @property
+    def elastic(self) -> bool:
+        """Shrink and grow the group around a failed worker instead of
+        relaunching it (False unless the constructor says so)."""
+        return bool(self._elastic)
+
+    @property
+    def min_workers(self) -> int:
+        """The smallest world an elastic group shrinks to before it falls
+        back to the ``max_failures`` relaunch (at least 1; default 1)."""
+        return 1 if self._min_workers is None else max(1, int(self._min_workers))
 
     # the launcher (main-process actor handles) and the mesh's process
     # groups never ship to a worker

@@ -211,6 +211,8 @@ class ExperimentAnalysis:
         self.trials = trials
         self.default_metric = metric
         self.default_mode = mode
+        # the kind of queue the trials reported through
+        self.queue_kind: Optional[str] = None
 
     def _resolve(self, metric, mode):
         return metric or self.default_metric, mode or self.default_mode
@@ -572,6 +574,7 @@ def run(
             print(f"[tune] {t.trial_id} ERROR:\n{t.error}")
 
     analysis = ExperimentAnalysis(trials, metric, mode)
+    analysis.queue_kind = queue.kind  # "shm" (the native ring) or "actor"
     with open(os.path.join(exp_dir, "experiment_state.json"), "w") as f:
         json.dump(
             [

@@ -1294,3 +1294,89 @@ def test_supervisor_kills_a_hung_worker_holding_the_card(cuda, tmp_path,
     after_apps, after_used = _card_apps_and_used()
     assert pid not in after_apps and after_apps <= apps
     assert after_used <= used + 1024
+
+
+def test_zygote_child_launches_the_kernels_on_the_card(cuda):
+    """An actor forked from the zygote opens its own CUDA context (the
+    zygote never initialized one) and launches a kernel there; the zygote
+    still has none."""
+    from ray_lightning_tpu_torch import runtime as rt
+
+    from torch_ray_helpers import KernelProbe
+
+    try:
+        rt.init(num_cpus=2)
+        status = rt.warm_zygote().status()
+        (probe,) = rt.create_actors([(KernelProbe, (), {})], zygote=True,
+                                    timeout=300)
+        got = probe.rmsnorm_on_card.remote().result(timeout=600)
+        after = rt.api._state.zygote.status()
+    finally:
+        rt.shutdown()
+    assert not status["cuda_initialized"] and not after["cuda_initialized"]
+    assert got["launches"]["rmsnorm"] == 1
+    assert got["max_abs_err"] <= 2e-2
+
+
+def test_elastic_hang_is_absorbed_on_the_card(cuda, tmp_path, monkeypatch):
+    """Two workers sharing the card over gloo, a narrow fp32 model, rank 1
+    hung at step 3 with elastic=True and max_failures=0: the supervisor's
+    verdict shrinks the group around it, a spare forked from the zygote
+    joins at the next epoch boundary, and the members end bitwise equal,
+    with no process of the fit left on the card."""
+    import time
+
+    import torch_elastic_helpers as eh
+    from ray_lightning_tpu_torch import runtime as rt
+    from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.launchers.ray_launcher import _exited
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaModule,
+        SyntheticLMDataModule,
+    )
+    from ray_lightning_tpu_torch.runtime import faults
+    from ray_lightning_tpu_torch.strategies import RayStrategy
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    apps, used = _card_apps_and_used()
+    probe = tmp_path / "probes"
+    probe.mkdir()
+    monkeypatch.setenv(faults.FAULT_ENV, "rank1:hang@step3")
+    monkeypatch.setenv(faults.FUSE_ENV, str(tmp_path / "fuses"))
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32,
+                              max_seq=64)
+    strategy = RayStrategy(num_workers=2, use_gpu=True, elastic=True,
+                           min_workers=1, max_failures=0, hang_timeout=5.0,
+                           heartbeat_interval=0.5, timeout_s=300,
+                           resources_per_worker={"GPU": 0.5})
+    try:
+        trainer = Trainer(device="cuda", strategy=strategy, max_epochs=3,
+                          seed=0, logger=False, limit_train_batches=2,
+                          enable_checkpointing=False,
+                          callbacks=[eh.WorldProbe(str(probe))])
+        trainer.fit(LlamaModule(cfg, lr=3e-3, warmup_steps=0, total_steps=12),
+                    datamodule=SyntheticLMDataModule(cfg, batch_size=4,
+                                                     n_train=16, n_val=4))
+        zygote_pid = rt.api._state.zygote.pid
+    finally:
+        rt.shutdown()
+    launcher = strategy.launcher
+    assert launcher.backend == "gloo" and launcher.failures == []
+    assert launcher.elastic["resizes"] == {"shrink": 1, "grow": 1}
+    assert launcher.elastic["events"][0]["reason"] == "hang verdict"
+    assert launcher.transport["heartbeat_queue"] == "shm"
+    records = eh.read_probes(str(probe))
+    assert {r["world"] for r in records} == {1, 2}
+    assert len({r["pid"] for r in records}) == 3
+    hashes = eh.read_hashes(str(probe))
+    assert len(hashes) == 2 and len(set(hashes.values())) == 1
+    pids = {r["pid"] for r in records} | {zygote_pid}
+    deadline = time.monotonic() + 60
+    while not all(_exited(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert all(_exited(p) for p in pids)
+    after_apps, after_used = _card_apps_and_used()
+    assert not (pids & after_apps) and after_apps <= apps
+    assert after_used <= used + 1024

@@ -35,9 +35,11 @@ def test_port_file_imports_no_jax(path):
 
 def test_port_imports_without_jax_or_a_build():
     """A fresh interpreter imports every module of the port with JAX made
-    unimportable, and no kernel library is loaded or built by the import."""
+    unimportable, and no kernel library is loaded or built by the import;
+    nor is the native runtime library (``runtime/native/``), and no zygote
+    or other process is started."""
     code = (
-        "import sys, importlib, pkgutil\n"
+        "import sys, importlib, pkgutil, os\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['ray_lightning_tpu'] = None\n"
         "import ray_lightning_tpu_torch as pkg\n"
@@ -46,6 +48,12 @@ def test_port_imports_without_jax_or_a_build():
         "from ray_lightning_tpu_torch import kernels\n"
         "assert not kernels._LIBS, kernels._LIBS\n"
         "assert len(kernels.KERNELS) == 6, kernels.KERNELS\n"
+        "from ray_lightning_tpu_torch.runtime import api, native\n"
+        "assert native._lib is None and not native._build_failed\n"
+        "assert not any('librlt_shm' in l for l in open('/proc/self/maps'))\n"
+        "assert api._state.zygote is None and not api._state.initialized\n"
+        "kids = f'/proc/self/task/{os.getpid()}/children'\n"
+        "assert not os.path.exists(kids) or not open(kids).read().split()\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -121,23 +121,36 @@ def test_horovod_parity_props():
     dict(devices_per_worker=4), dict(xla_cache_dir="/nonexistent"),
     dict(zero_quantized_allgather=True), dict(use_tpu=True),
 ], ids=lambda kw: next(iter(kw)))
-def test_unported_strategy_arguments_are_refused(kw):
+def test_unported_strategy_arguments_are_refused(kw, monkeypatch):
     """Each argument that steers what the port does not have refuses with a
     message that names ROADMAP.md; the JAX strategy accepts it. A mesh
     takes 'dp' and 'ep' (tests/test_torch_expert_parallel.py): a 'tp' axis
     refuses. ``max_failures``, ``hang_timeout`` and ``heartbeat_interval``
-    are ported (tests/test_torch_faults.py): each takes the JAX strategy's
-    value, and what stays refused is elastic membership beside it; a
-    negative ``hang_timeout`` or ``heartbeat_interval`` raises ValueError
-    naming it, as the JAX strategy's does."""
+    are ported (tests/test_torch_faults.py), and so are ``elastic`` and
+    ``min_workers`` (tests/test_torch_elastic.py): each takes the JAX
+    strategy's value (``min_workers`` clamped to 1 as there; the JAX
+    strategy also reads ``RLT_ELASTIC`` and ``RLT_MIN_WORKERS``, cleared
+    here), and what stays refused beside the failure arguments is
+    telemetry; a negative ``hang_timeout`` or ``heartbeat_interval`` raises
+    ValueError naming it, as the JAX strategy's does."""
+    monkeypatch.delenv("RLT_ELASTIC", raising=False)
+    monkeypatch.delenv("RLT_MIN_WORKERS", raising=False)
     name, value = next(iter(kw.items()))
+    if name in ("elastic", "min_workers"):
+        for v in (value, None, 0, 3) if name == "min_workers" else (
+                value, None, False):
+            ours = getattr(RayStrategy(num_workers=2, **{name: v}), name)
+            theirs = getattr(JRayStrategy(num_workers=2, **{name: v}), name)
+            assert ours == theirs, (name, v, ours, theirs)
+        assert RayStrategy(num_workers=2, **kw).elastic == (name == "elastic")
+        return
     if name in ("max_failures", "hang_timeout", "heartbeat_interval"):
         assert getattr(RayStrategy(num_workers=2, **kw), name) == getattr(
             JRayStrategy(num_workers=2, **kw), name) == value
-        for companion in (dict(elastic=True), dict(min_workers=1),
-                          dict(telemetry=True)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                RayStrategy(num_workers=2, **kw, **companion)
+        for companion in (dict(elastic=True), dict(min_workers=1)):
+            RayStrategy(num_workers=2, **kw, **companion)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            RayStrategy(num_workers=2, **kw, telemetry=True)
         if name != "max_failures":
             for cls in (RayStrategy, JRayStrategy):
                 with pytest.raises(ValueError, match=name):
@@ -261,10 +274,19 @@ def test_actor_calls_errors_store_and_session_queue():
             item()
         assert RECEIVED == [(3, 42)]
         assert queue.empty()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rt.ShmQueue()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rt.create_actors([(Echo, ("x",), {})], zygote=True)
+        # the native ring: the actor puts through a handle, the main
+        # process takes the callable back and runs it
+        shm = rt.ShmQueue()
+        assert shm.kind == "shm"
+        assert actor.put_through_session.remote(
+            shm.handle(), 43).result(timeout=TIMEOUT) == 3
+        for item in shm.get_all():
+            item()
+        assert RECEIVED == [(3, 42), (3, 43)] and shm.empty()
+        shm.shutdown()
+        (forked,) = rt.create_actors([(Echo, ("x",), {})], zygote=True)
+        assert forked.echo.remote(7).result(timeout=TIMEOUT) == ("x", 7)
+        assert forked._pid not in (0, actor._pid)
     finally:
         if queue is not None:
             queue.shutdown()

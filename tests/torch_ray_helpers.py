@@ -157,3 +157,46 @@ def ep_moe_worker(rank, world, init_method, inputs_path, out_path):
         torch.save(results, out_path.format(rank))
     finally:
         dist.destroy_process_group()
+
+
+class Probe:
+    """An actor that reports on its own process (the zygote tests)."""
+
+    def __init__(self, start=0):
+        self.x = start
+
+    def incr(self, by=1):
+        self.x += by
+        return self.x
+
+    def facts(self, key):
+        import os
+
+        return {"pid": os.getpid(), "ppid": os.getppid(),
+                "env": os.environ.get(key), "threads": torch.get_num_threads(),
+                "cuda_initialized": torch.cuda.is_initialized()}
+
+
+class Boom:
+    """An actor whose constructor raises."""
+
+    def __init__(self):
+        raise RuntimeError("ctor kaboom")
+
+
+class KernelProbe:
+    """An actor that launches the RMSNorm kernel on the card and reports
+    its launches (the zygote's card test)."""
+
+    def rmsnorm_on_card(self):
+        from ray_lightning_tpu_torch import kernels
+        from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
+
+        kernels.reset_launch_counts()
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(8, 4096, generator=g, device="cuda").bfloat16()
+        w = torch.randn(4096, generator=g, device="cuda").bfloat16()
+        err = float((rmsnorm(x, w, 1e-5).float()
+                     - rmsnorm_plain(x, w, 1e-5).float()).abs().max())
+        return {"launches": kernels.launch_counts(), "max_abs_err": err,
+                "device": torch.cuda.get_device_name(0)}
