@@ -61,11 +61,45 @@ final line):
    the same checks (no profiled rerun); then one decode step timed by
    graph replay beside its bytes bound, and the share of it that the
    layers' dense attention takes;
+4c. disaggregated serving, tenancy and serving faults, on the main path's
+   weights: ``serving_disagg`` — a prefill engine (``role="prefill"``,
+   replica 0) and a decode engine (``role="decode"``, replica 1) share the
+   card and one params dict, each on its loop thread (both on the default
+   stream), and the main path's 16 staggered requests move between them
+   through a few lines of pump (``drain_ready_exports``,
+   ``export_shipment``, ``import_shipment``, ``finish_export``): every
+   request ends ``"length"`` on the decode engine and ``"migrated"`` on the
+   prefill engine, every shipment verifies, a corrupt copy of the first is
+   refused with the receiver unchanged and its clean resend decodes, the
+   launches are exact (flash only on the prefill engine, every decode step
+   on the decode engine, paged decode over imported blocks), both pools end
+   empty with no chain pinned; printed: the shipments' bytes, export,
+   verify and import times, TTFT, tokens/s beside the colocated main
+   path's, streams equal to its (bf16, not checked). ``serving_tenants`` —
+   the paged engine with ``gold:guaranteed:4,silver:standard:2,
+   free:best_effort:1:0:4``, 24 requests at once: free admitted 4 times and
+   refused 4 (QuotaExceeded, no shed), gold and silver admitted 4:2 within
+   a quantum while both are backlogged, a gold deadline running out
+   mid-decode (``"expired"``, partial tokens, blocks released), exact
+   launches, TTFT per tenant. ``serving_faults`` — ``TORCHRT_FAULT``
+   ``replica0:drop-stream@req2:4,replica0:slow-decode@every:4:0.05`` with
+   every request a ``RequestJournal`` entry (the dropped stream resumed on
+   the same engine as ``~r1`` to 32 tokens; stalled ticks' times beside the
+   others'), then ``replica0:crash@tick8`` on the loop thread (the loop
+   dies, ``alive`` False, the requests in flight fail with ServeFault, 8
+   more submitted to the dead engine handed back by ``handback_queued``;
+   the dead engine dropped, the card's memory back; a fresh engine serves
+   the journal's resumptions and the handed-back requests). These paths'
+   time, with ``disagg_exactness``, beside a 60 s budget;
 5. serving exactness — the same engine in fp32 at full width, cut to 2
    layers: its greedy tokens must equal iterated full ``forward`` calls
    through the plain versions; then (``slot_exactness``) the slot engine's
    greedy tokens must equal the paged engine's, the port's batched
-   ``generate`` and iterated plain ``forward``; then (``spec_exactness``)
+   ``generate`` and iterated plain ``forward``; (``disagg_exactness``) the
+   migrated streams of a prefill/decode pair must equal the colocated
+   engine's, ``generate``'s and iterated plain ``forward``, a shipment's payload the cache's
+   blocks bitwise, and a journaled drop-stream resumption the unfaulted
+   stream; then (``spec_exactness``)
    on prompts of repeated segments, on both layouts, the ``speculate_k=4``
    engine's greedy streams must equal the ``speculate_k=0`` engine's, with
    more tokens accepted than slot verify ticks;
@@ -154,8 +188,9 @@ final line):
    auxiliary loss and every gradient on the card equal the CPU's;
 12. the Ray strategies on one card (``train_ray_ddp``) — the training main
    path's model (``LlamaConfig.small()``, bf16, batch 8 x 2048, 6 steps)
-   through ``RayStrategy(num_workers=1, use_gpu=True)``: a worker process
-   owns the card in an NCCL group of world size 1; then
+   through ``RayStrategy(num_workers=1, use_gpu=True)``: a worker process,
+   forked from the zygote (booted before the training phases), owns the
+   card in an NCCL group of world size 1; then
    ``RayShardedStrategy(zero_stage=3)`` and ``HorovodRayStrategy`` the same
    way. The weights each run sends back equal a ``SingleDeviceStrategy``
    run of the same seed (bitwise, or within 2^-7 of a leaf's max); the step
@@ -167,8 +202,9 @@ final line):
    one process stepping on the global batch of 4 within 1e-5; for
    ``RayStrategy`` and ``RayShardedStrategy`` at stages 1, 2 and 3; the
    first fit's workers boot as fresh interpreters, then the same fit and
-   the others fork theirs from the zygote (``TORCHRT_ZYGOTE=1``, warmed
-   while the reference trains), and both start-ups are printed. Beside
+   the others fork theirs from the zygote (``TORCHRT_ZYGOTE=1``, warm
+   since before the training phases; warmed here when this phase runs
+   alone), and both start-ups are printed. Beside
    the kernel checks, the kernels are held against their plain versions at
    these paths' shapes (RMSNorm [4096,4096] bf16 and flash q [2,32,2048,128]
    forward and backward, timed; the two-rank fp32 shapes, checked);
@@ -178,8 +214,8 @@ final line):
    4 steps and one validation batch, first in the main process twice (the
    reference, then one process that sums the experts in the ep run's
    order), then through ``RayStrategy(num_workers=2, mesh_spec=
-   MeshSpec(axes={"ep": 2}))``: two workers share the card over gloo, each
-   holding 4 of the 8 experts; losses within 1e-3 relative of the
+   MeshSpec(axes={"ep": 2}))``: two workers, forked from the zygote, share
+   the card over gloo, each holding 4 of the 8 experts; losses within 1e-3 relative of the
    reference's, the returned weights (every expert) against the ep-order
    run's: no element past 2^-7 of its leaf's max and each leaf's update
    within 1e-2 in norm (their gap to the reference printed beside the two
@@ -212,8 +248,8 @@ final line):
    sweep no process of it runs or holds the card and the card's used
    memory is back within 1 GiB; the phases' time beside their 150 s
    budget;
-16. a Ray fit that survives a crash and a hang (``faults``) —
-   ``train_ray_faults``: the training path's model (``LlamaConfig.small()``,
+16. a Ray fit that survives a crash and a hang (``faults``; every worker
+   group and relaunch forked from the zygote) — ``train_ray_faults``: the training path's model (``LlamaConfig.small()``,
    bf16, remat, AdamW, batch 8 x 2048, epochs of 4 steps, 8 steps) through
    ``RayStrategy(num_workers=1, use_gpu=True)``, first without a fault
    (the reference), then with ``max_failures=2, hang_timeout=10.0,
@@ -243,7 +279,8 @@ final line):
    path's model (``LlamaConfig.small()``, bf16, remat, AdamW) through
    ``RayStrategy(num_workers=2, use_gpu=True, elastic=True, min_workers=1,
    max_failures=0, hang_timeout=10.0, heartbeat_interval=1.0)``, two
-   workers sharing the card over gloo at 4 x 2048 rows each, 3 epochs of
+   workers forked from the zygote sharing the card over gloo at 4 x 2048
+   rows each, 3 epochs of
    2 steps, ``TORCHRT_FAULT="rank1:crash@step3"`` fused: the group shrinks
    to the survivor without a relaunch and a spare forked from the zygote
    joins at the next epoch boundary from the survivor's handoff. The fit
@@ -260,7 +297,8 @@ final line):
    or zygote process is left and the card's used memory is back within
    1 GiB; the phase's time beside its 90 s budget;
 18. the ``kernels`` JSON line (launches from the main paths: serving,
-   serving_slot, serving_spec, serving_spec_slot, generate_window,
+   serving_slot, serving_spec, serving_spec_slot, serving_disagg,
+   serving_tenants, serving_faults, generate_window,
    serving_qwen_yarn, generate_longrope, serving_moe, training,
    training_complete, train_moe, train_ray_ddp, train_ray_zero3,
    train_ray_horovod, ray_two_ranks, train_ray_ep, ep_exactness, tune_asha,
@@ -1245,6 +1283,25 @@ def profile_run(torch, engine, reqs, wall_s, label):
         f"{name} {us / 1e3:.1f} ms" for name, us in other.most_common(6)))
 
 
+def main_engine_config(**kw):
+    """The serving main path's engine settings (8 slots, prompts up to 512,
+    1024 positions, paged blocks of 16), with ``kw`` over them."""
+    from ray_lightning_tpu_torch.serving import EngineConfig
+
+    return EngineConfig(**{**dict(num_slots=8, max_prompt_len=512,
+                                  max_len=1024, block_size=16,
+                                  kv_layout="paged"), **kw})
+
+
+def launches_expected(L, prefills, steps):
+    """The serving launches of ``prefills`` prefills and ``steps`` one-token
+    paged decode steps (the main path's formula; the backward kernels
+    belong to the training path)."""
+    return {"rmsnorm": 2 * L * prefills + (2 * L + 1) * steps,
+            "flash_fwd": L * prefills, "paged_decode": L * steps,
+            "argmax": steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
 def serve_path(torch, card, cfg, params, label, layout="paged",
                speculate_k=0, profile=True):
     """The engine at full width (8 slots, prompts up to 512, 1024 positions;
@@ -1259,12 +1316,10 @@ def serve_path(torch, card, cfg, params, label, layout="paged",
     import numpy as np
 
     from ray_lightning_tpu_torch import kernels
-    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+    from ray_lightning_tpu_torch.serving import InferenceEngine
 
     paged = layout == "paged"
-    ecfg = EngineConfig(num_slots=8, max_prompt_len=512, max_len=1024,
-                        block_size=16, kv_layout=layout,
-                        speculate_k=speculate_k)
+    ecfg = main_engine_config(kv_layout=layout, speculate_k=speculate_k)
     engine = InferenceEngine(params, cfg, ecfg)
     kv_gib = sum(v.numel() * v.element_size()
                  for v in engine.pool.cache.values()) / 2**30
@@ -1311,11 +1366,9 @@ def serve_path(torch, card, cfg, params, label, layout="paged",
             ("paged_decode",) if one_token_paged else ()):
         check(counts[name] > 0, f"kernel {name} was not launched on {label}")
     L = cfg.n_layers
-    # the backward kernels belong to the training path
-    expect = {"rmsnorm": 2 * L * prefills + (2 * L + 1) * steps,
-              "flash_fwd": L * prefills,
-              "paged_decode": L * steps if one_token_paged else 0,
-              "argmax": steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    expect = launches_expected(L, prefills, steps)
+    if not one_token_paged:
+        expect["paged_decode"] = 0
     check(counts == expect, f"{label}: launch counts {counts} != {expect}")
     ttfts = sorted(c.ttft_s for c in comps)
     hits = (f"shared-prefix block hits {engine.pool.allocator.prefix_hits_total}; "
@@ -1362,10 +1415,17 @@ def main_path(torch, card):
                "serving_slot": serving_slot(torch, card, cfg, params,
                                             paged_tps, streams)}
     by_path.update(serving_spec(torch, card, cfg, params, streams))
+    t = time.perf_counter()
+    by_path["serving_disagg"] = serving_disagg(torch, card, cfg, params,
+                                               paged_tps, streams)
+    by_path["serving_tenants"] = serving_tenants(torch, card, cfg, params)
+    by_path["serving_faults"] = serving_faults(torch, card, cfg, params,
+                                               streams)
+    new_s = time.perf_counter() - t
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return by_path
+    return by_path, new_s
 
 
 def serving_slot(torch, card, cfg, params, paged_tps, paged_streams):
@@ -1467,6 +1527,673 @@ def repeating_requests(rng, vocab, n, seg_len, repeats, n_new):
         tail = rng.integers(0, vocab, 1 + i % 3).tolist()
         out.append((seg * repeats + tail, n_new))
     return out
+
+
+# --------------------------------------------------------------------- #
+# phase 4c: disaggregated serving, tenancy and serving faults
+# --------------------------------------------------------------------- #
+DISAGG_BUDGET_S = 60.0  # the serving phase's new paths together
+TENANT_SPECS = "gold:guaranteed:4,silver:standard:2,free:best_effort:1:0:4"
+TENANT_DEADLINE_MS = 400.0  # the first gold request: runs out mid-decode
+SERVE_FAULT_DROP = "replica0:drop-stream@req2:4,replica0:slow-decode@every:4:0.05"
+SERVE_FAULT_CRASH = "replica0:crash@tick8"
+
+
+def _median_max(xs):
+    s = sorted(xs)
+    return s[len(s) // 2], s[-1]
+
+
+class _ShipmentPump:
+    """A few lines of the fleet's pump: every ready export of ``src`` is
+    read (``export_shipment``), verified on this thread, imported into
+    ``dst`` once it has a free slot (a MigrationRejected import, the
+    receiver at capacity, waits and is offered again: the slot stays parked
+    on ``src``) and finished at ``src``. Times each step;
+    ``corrupt_first`` first offers ``dst`` a bit-flipped copy of the first
+    shipment, which must be refused with ``dst``'s occupancy and free
+    blocks unchanged."""
+
+    def __init__(self, src, dst, budgets, on_token=None,
+                 corrupt_first=False):
+        self.src, self.dst = src, dst
+        self.budgets, self.on_token = budgets, on_token
+        self.corrupt_first = corrupt_first
+        self.comps, self.ships, self.pending = {}, {}, []
+        self.export_s, self.verify_s, self.import_s = [], [], []
+        self.corrupt = None
+        self.rejected = 0  # imports refused for capacity, offered again
+
+    def _offer_corrupt(self, rid, ship):
+        from ray_lightning_tpu_torch.serving import ShipmentCorrupt
+        from ray_lightning_tpu_torch.serving.migration import corrupt_copy
+
+        occ = self.dst.pool.occupancy
+        free = self.dst.pool.allocator.free_blocks
+        try:
+            self.dst.import_shipment(corrupt_copy(ship),
+                                     max_new_tokens=self.budgets[rid])
+            refused = False
+        except ShipmentCorrupt:
+            refused = True
+        check(refused, f"{rid}: a corrupt copy was admitted")
+        check(self.dst.pool.occupancy == occ
+              and self.dst.pool.allocator.free_blocks == free,
+              f"{rid}: the refused shipment moved the receiver (occupancy "
+              f"{occ} -> {self.dst.pool.occupancy}, free blocks {free} -> "
+              f"{self.dst.pool.allocator.free_blocks})")
+        self.corrupt = (rid, occ, free)
+
+    def run(self, want, timeout=300.0):
+        from ray_lightning_tpu_torch.serving import (
+            MigrationRejected,
+            verify_shipment,
+        )
+
+        deadline = time.perf_counter() + timeout
+        while len(self.comps) < want:
+            check(time.perf_counter() < deadline,
+                  f"pump: {len(self.comps)} of {want} shipments in {timeout}s")
+            moved = False
+            for rid in self.src.drain_ready_exports():
+                t = time.perf_counter()
+                ship = self.src.export_shipment(rid)
+                t1 = time.perf_counter()
+                nbytes = verify_shipment(ship, self.dst.kv_fingerprint())
+                t2 = time.perf_counter()
+                check(nbytes == ship.nbytes(), f"{rid}: verified {nbytes} "
+                      "bytes")
+                self.export_s.append(t1 - t)
+                self.verify_s.append(t2 - t1)
+                self.ships[rid] = ship
+                self.pending.append(rid)
+                moved = True
+            waiting = []
+            for rid in self.pending:
+                if self.dst.pool.free_count == 0:
+                    waiting.append(rid)
+                    continue
+                if self.corrupt_first and self.corrupt is None:
+                    self._offer_corrupt(rid, self.ships[rid])
+                t = time.perf_counter()
+                try:
+                    comp = self.dst.import_shipment(
+                        self.ships[rid], max_new_tokens=self.budgets[rid],
+                        request_id=rid, on_token=self.on_token)
+                except MigrationRejected:
+                    self.rejected += 1
+                    waiting.append(rid)
+                    continue
+                self.import_s.append(time.perf_counter() - t)
+                self.comps[rid] = comp
+                self.src.finish_export(rid)
+                moved = True
+            self.pending = waiting
+            if not moved:
+                time.sleep(0.001)
+        return self.comps
+
+
+def serving_disagg(torch, card, cfg, params, colocated_tps, streams):
+    """A prefill engine and a decode engine share the card and the main
+    path's weights, each on its own loop thread (both on the default
+    stream), with the main path's 16 staggered requests moved between them
+    by a few lines of pump: every request ends ``"length"`` on the decode
+    engine and ``"migrated"`` on the prefill engine, every shipment
+    verifies, a corrupt copy of the first is refused with the receiver
+    unchanged and its clean resend decodes, the launches are exact (every
+    prefill on the prefill engine, every decode step on the decode engine,
+    paged decode over imported blocks), every decode step's logits are
+    finite and both pools end empty with no chain pinned. Printed: the
+    shipments' bytes, export, verify and import times, TTFT, tokens/s
+    beside the colocated main path's and the streams equal to its."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.serving import InferenceEngine
+
+    src = InferenceEngine(params, cfg, main_engine_config(role="prefill"),
+                          replica_index=0)
+    dst = InferenceEngine(params, cfg, main_engine_config(role="decode"),
+                          replica_index=1)
+    finite = []
+    sample = dst._sample
+
+    def checked(logits):  # on the decode engine's loop thread
+        finite.append(torch.isfinite(logits).all())
+        return sample(logits)
+
+    dst._sample = checked
+    src.start()
+    dst.start()
+    try:
+        # warm-up pair (not part of the run)
+        src.submit([1, 2, 3, 4], max_new_tokens=2, request_id="warm")
+        _ShipmentPump(src, dst, {"warm": 2}).run(1)["warm"].result(120)
+        deadline = time.perf_counter() + 60
+        while ((src.pool.occupancy or dst.pool.occupancy)
+               and time.perf_counter() < deadline):
+            time.sleep(0.001)
+        finite.clear()
+        reqs = requests(np.random.default_rng(0), cfg.vocab_size, 16, 512, 32,
+                        256)
+        budgets = {f"d{i}": n for i, (_, n) in enumerate(reqs)}
+        first = {}
+
+        def on_token(rid, tok):
+            first.setdefault(rid, time.perf_counter())
+
+        pump = _ShipmentPump(src, dst, budgets, on_token, corrupt_first=True)
+        before_src, before_dst = dict(src.stats), dict(dst.stats)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        src_comps = [src.submit(p, max_new_tokens=n, request_id=f"d{i}")
+                     for i, (p, n) in enumerate(reqs[:8])]
+        pump.run(4)
+        src_comps += [src.submit(p, max_new_tokens=n, request_id=f"d{i + 8}")
+                      for i, (p, n) in enumerate(reqs[8:])]
+        comps = pump.run(16)
+        got = [comps[f"d{i}"].result(timeout=300) for i in range(16)]
+        elapsed = time.perf_counter() - t
+        for c in src_comps:
+            c.result(timeout=60)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    finally:
+        src.drain(timeout=60)
+        dst.drain(timeout=60)
+    dst._sample = sample
+    for i, ((prompt, n), c) in enumerate(zip(reqs, src_comps)):
+        d = comps[f"d{i}"]
+        check(d.finish_reason == "length" and len(d.tokens) == n
+              and all(0 <= x < cfg.vocab_size for x in d.tokens),
+              f"serving_disagg d{i}: {d.finish_reason}, {len(d.tokens)} tokens")
+        check(c.finish_reason == "migrated",
+              f"serving_disagg d{i}: the prefill side ended {c.finish_reason}")
+    prefills = src.stats["prefills"] - before_src["prefills"]
+    steps = dst.stats["decode_steps"] - before_dst["decode_steps"]
+    check(prefills == 16 and src.stats["decode_steps"] ==
+          before_src["decode_steps"],
+          f"serving_disagg: {prefills} prefills, the prefill engine decoded "
+          f"{src.stats['decode_steps'] - before_src['decode_steps']} steps")
+    check(dst.stats["prefills"] - before_dst["prefills"] == 16,
+          "serving_disagg: the decode engine did not admit 16 shipments")
+    expect = launches_expected(cfg.n_layers, prefills, steps)
+    check(counts == expect, f"serving_disagg: launch counts {counts} != "
+          f"{expect}")
+    check(len(finite) == steps and bool(torch.stack(finite).all()),
+          "serving_disagg: a decode step's logits are not finite")
+    for name, eng in (("prefill", src), ("decode", dst)):
+        st = eng.pool.allocator.stats()
+        check(eng.pool.occupancy == 0 and st["chains_pinned"] == 0
+              and st["blocks_used"] == 0,
+              f"serving_disagg: the {name} pool ends with occupancy "
+              f"{eng.pool.occupancy}, {st['chains_pinned']} chains pinned, "
+              f"{st['blocks_used']} blocks used")
+    sizes = [pump.ships[f"d{i}"].nbytes() for i in range(16)]
+    block_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * 16 * cfg.head_dim
+                   * params["embed"].element_size())
+    check(all(s % block_bytes == 0 for s in sizes),
+          f"serving_disagg: shipment sizes {sizes} not whole blocks of "
+          f"{block_bytes} bytes")
+    e2e = sorted(first[f"d{i}"] - src_comps[i].submitted_at for i in range(16))
+    dttft = sorted(comps[f"d{i}"].ttft_s for i in range(16))
+    same = sum(a == b for a, b in zip(got, streams))
+    tokens = sum(len(g) for g in got)
+    (em, ex), (vm, vx), (im, ix) = (_median_max(pump.export_s),
+                                    _median_max(pump.verify_s),
+                                    _median_max(pump.import_s))
+    log(f"serving_disagg on {card}: prefill engine (role prefill, replica 0) "
+        f"and decode engine (role decode, replica 1) on one card and one "
+        f"params dict, each on its loop thread on the default stream; 16 "
+        f"requests ({prefills} prefills on the prefill engine, {steps} decode "
+        f"steps on the decode engine over imported blocks, {tokens} tokens) "
+        f"in {elapsed:.3f}s -> {tokens / elapsed:.1f} tokens/s beside the "
+        f"colocated main path's {colocated_tps:.1f}; TTFT submit -> first "
+        f"token on the decode engine median {e2e[8] * 1e3:.1f} ms max "
+        f"{e2e[-1] * 1e3:.1f} ms, the decode engine's own (import -> first "
+        f"token) median {dttft[8] * 1e3:.1f} ms max {dttft[-1] * 1e3:.1f} ms; "
+        f"{same} of 16 greedy streams equal the colocated main path's "
+        "(bf16; not checked)")
+    log(f"serving_disagg shipments on {card}: {block_bytes / 2**20:.2f} MiB a "
+        f"block of 16 positions, {min(sizes) / 2**20:.1f}-"
+        f"{max(sizes) / 2**20:.1f} MiB a request, {sum(sizes) / 2**20:.1f} MiB "
+        f"in all, every one verified; export (gather, device to host, "
+        f"checksums) median {em * 1e3:.1f} ms max {ex * 1e3:.1f} ms; verify "
+        f"median {vm * 1e3:.1f} ms max {vx * 1e3:.1f} ms; import (the call: "
+        f"the receiver's own verify and host staging on this thread, then its "
+        f"loop's next tick: reservation, host to device) median "
+        f"{im * 1e3:.1f} ms max {ix * 1e3:.1f} ms; a "
+        f"corrupt copy of {pump.corrupt[0]} refused (ShipmentCorrupt) with the "
+        f"receiver at occupancy {pump.corrupt[1]} and {pump.corrupt[2]} free "
+        f"blocks before and after, its clean resend decoded; "
+        f"{pump.rejected} imports refused for capacity and offered again; "
+        f"launches {counts}")
+    del src, dst, pump, comps, src_comps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serving_tenants(torch, card, cfg, params):
+    """The main path's paged engine with three tenants (``TENANT_SPECS``):
+    24 requests, 8 a tenant, submitted at once over the 8 slots with the
+    main path's prompt mix and 32 new tokens. ``free``'s bucket holds 4
+    admissions: its other 4 raise QuotaExceeded, never RequestShed; while
+    gold and silver are both backlogged their admissions keep to 4:2 within
+    one quantum (|gold - 2 x silver| <= 4 at every prefix); the first gold
+    request, admitted at once, runs out of its deadline mid-decode and ends
+    ``"expired"`` with its partial tokens and its blocks released; the
+    launches are exact. Printed: TTFT median and max per tenant."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.serving import (
+        InferenceEngine,
+        QuotaExceeded,
+        RequestShed,
+        TenantRegistry,
+        parse_tenant_specs,
+    )
+
+    engine = InferenceEngine(params, cfg, main_engine_config())
+    serve(engine, [([1, 2, 3, 4], 2)], 1)  # warm-up, not part of the run
+    registry = TenantRegistry(parse_tenant_specs(TENANT_SPECS))
+    engine.configure_tenants(registry)
+    admitted = []
+    tick = engine.scheduler.tick
+
+    def recorded():
+        plan = tick()
+        admitted.extend(req.tenant for req, _ in plan.prefills)
+        return plan
+
+    engine.scheduler.tick = recorded
+    reqs = requests(np.random.default_rng(0), cfg.vocab_size, 24, 512, 32, 256)
+    tenants = ["gold"] + ["silver", "free", "gold"] * 7 + ["silver", "free"]
+    before = dict(engine.stats)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    comps, refused = [], []
+    for i, ((prompt, n), tenant) in enumerate(zip(reqs, tenants)):
+        try:
+            comps.append(engine.submit(
+                prompt, max_new_tokens=n, request_id=f"{tenant}{i}",
+                tenant=tenant,
+                deadline_ms=TENANT_DEADLINE_MS if i == 0 else None))
+        except QuotaExceeded as e:
+            check(not isinstance(e, RequestShed),
+                  "serving_tenants: a quota refusal counted as a shed")
+            refused.append(f"{tenant}{i}")
+    late = comps[0]
+    expired_at = None
+    while engine.scheduler.has_work():
+        engine.step()
+        if expired_at is None and late.done:
+            expired_at = len(late.tokens)
+            check(late.request_id not in engine.pool.allocator._allocs
+                  and all(s.request_id != late.request_id
+                          for s in engine.pool.slots),
+                  "serving_tenants: the expired request kept its blocks")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(refused == [f"free{i}" for i, t in enumerate(tenants)
+                      if t == "free"][4:],
+          f"serving_tenants: refused {refused}")
+    check(registry.admitted.get("free") == 4
+          and registry.quota_rejected == {"free": 4}
+          and engine.scheduler.admitted_by_tenant.get("free") == 4,
+          f"serving_tenants: free admitted {registry.admitted}, refused "
+          f"{registry.quota_rejected}")
+    check(late.finish_reason == "expired" and 0 < len(late.tokens) < 32,
+          f"serving_tenants: the deadline request ended {late.finish_reason} "
+          f"with {len(late.tokens)} tokens")
+    g = s = 0
+    worst = 0
+    for name in admitted:
+        if g >= 8 or s >= 8:
+            break  # one of the two queues is empty: no longer both backlogged
+        g += name == "gold"
+        s += name == "silver"
+        worst = max(worst, abs(g - 2 * s))
+    check(admitted[0] == "gold" and worst <= 4,
+          f"serving_tenants: admissions {admitted} stray {worst} from 4:2")
+    for c in comps[1:]:
+        check(c.finish_reason == "length" and len(c.tokens) == 32,
+              f"serving_tenants {c.request_id}: {c.finish_reason}")
+    prefills = engine.stats["prefills"] - before["prefills"]
+    steps = engine.stats["decode_steps"] - before["decode_steps"]
+    expect = launches_expected(cfg.n_layers, prefills, steps)
+    check(prefills == 20 and counts == expect,
+          f"serving_tenants: {prefills} prefills, launches {counts} != {expect}")
+    check(engine.pool.allocator.used_blocks == 0 and engine.pool.occupancy == 0,
+          "serving_tenants: the pool does not end empty")
+    per = []
+    for tenant in ("gold", "silver", "free"):
+        ttfts = sorted(c.ttft_s for c in comps
+                       if c.tenant == tenant and c.ttft_s is not None)
+        med, mx = _median_max(ttfts)
+        per.append(f"{tenant} {len(ttfts)} requests: median {med * 1e3:.1f} "
+                   f"ms max {mx * 1e3:.1f} ms")
+    log(f"serving_tenants on {card}: {TENANT_SPECS!r}, 24 requests at once "
+        f"over 8 slots: free admitted 4, refused 4 (QuotaExceeded, no shed); "
+        f"admissions {''.join(t[0] for t in admitted)} (|gold - 2 x silver| "
+        f"<= {worst} while both backlogged); {late.request_id}'s "
+        f"{TENANT_DEADLINE_MS:.0f} ms deadline ran out after "
+        f"{len(late.tokens)} tokens ('expired', blocks released); {prefills} "
+        f"prefills, {steps} decode steps; TTFT " + "; ".join(per)
+        + f"; launches {counts}")
+    del engine, comps, late
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _journaled(journal, engine, entries, replica):
+    """(Re)dispatch each entry to ``engine`` through the journal: prompt +
+    delivered, the remaining budget, the entry's stream guard."""
+    for entry in entries:
+        rid, prompt, budget = journal.begin_attempt(entry, replica=replica)
+        comp = engine.submit(prompt, max_new_tokens=budget, request_id=rid,
+                             on_token=journal.stream_guard(entry, rid))
+        journal.bind(entry, comp)
+
+
+def serving_faults(torch, card, cfg, params, streams):
+    """Serving faults on the main path's engine and requests, each request a
+    RequestJournal entry. (1) ``SERVE_FAULT_DROP``: the 2nd admitted
+    request's stream drops after 4 tokens; the journal resumes it on the
+    same engine (prompt + delivered, the remaining budget, id ``~r1``) and
+    its stream reaches 32 tokens; every 4th tick stalls 50 ms. (2)
+    ``SERVE_FAULT_CRASH`` on a loop thread: the loop dies at tick 8,
+    ``alive`` is False, every request in flight fails with ServeFault; 8
+    more submitted to the dead engine are handed back by
+    ``handback_queued``; the dead engine is dropped and the card's memory
+    comes back; a fresh engine serves the journal's resumptions and the
+    handed-back requests to 32 tokens each. Launches exact in each run."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.runtime.faults import ServeFault
+    from ray_lightning_tpu_torch.serving import InferenceEngine, RequestJournal
+
+    L = cfg.n_layers
+    reqs = requests(np.random.default_rng(0), cfg.vocab_size, 16, 512, 32, 256)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # (1) drop-stream and slow-decode, stepped here
+    restore = _fault_env(SERVE_FAULT_DROP)
+    try:
+        engine = InferenceEngine(params, cfg, main_engine_config(),
+                                 replica_index=0)
+        journal = RequestJournal()
+        entries = [journal.open(p, n, request_id=f"f{i}")
+                   for i, (p, n) in enumerate(reqs)]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        ticks = {}
+
+        def step():
+            t = time.perf_counter()
+            engine.step()
+            ticks[engine._ticks] = time.perf_counter() - t
+
+        _journaled(journal, engine, entries[:8], 0)
+        for _ in range(4):
+            step()
+        _journaled(journal, engine, entries[8:], 0)
+        while engine.scheduler.has_work():
+            step()
+        dropped = [e for e in entries
+                   if e.attempt_completion.finish_reason == "error"]
+        check(len(dropped) == 1,
+              f"serving_faults: dropped streams {[e.request_id for e in dropped]}")
+        cut = dropped[0].attempt_completion
+        check(isinstance(cut.error, ServeFault) and len(cut.tokens) == 4,
+              f"serving_faults: the drop after {len(cut.tokens)} tokens "
+              f"({cut.error!r})")
+        _journaled(journal, engine, dropped, 0)
+        while engine.scheduler.has_work():
+            step()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    finally:
+        restore()
+    entry = dropped[0]
+    check(entry.request_id == "f1" and entry.attempt_rid == "f1~r1"
+          and entry.attempts == 2,
+          f"serving_faults: resumed {entry.request_id} as {entry.attempt_rid}")
+    for e in entries:
+        c = e.attempt_completion
+        check(c.finish_reason == "length" and len(e.delivered) == 32,
+              f"serving_faults {e.request_id}: {c.finish_reason}, "
+              f"{len(e.delivered)} tokens")
+        journal.finish(e, "completed", finish_reason="length")
+    prefills = engine.stats["prefills"]
+    steps = engine.stats["decode_steps"]
+    expect = launches_expected(L, prefills, steps)
+    check(prefills == 17 and counts == expect,
+          f"serving_faults drop: {prefills} prefills, launches {counts} != "
+          f"{expect}")
+    add(counts)
+    stalled = [v for k, v in ticks.items() if k % 4 == 0]
+    others = [v for k, v in ticks.items() if k % 4]
+    check(min(stalled) >= 0.05, f"serving_faults: a stalled tick took "
+          f"{min(stalled) * 1e3:.1f} ms")
+    same = entry.delivered == streams[1]
+    log(f"serving_faults drop on {card}: {SERVE_FAULT_DROP!r}: f1's stream "
+        f"dropped after 4 tokens (ServeFault), the journal resumed it as "
+        f"f1~r1 (prompt + 4 delivered, budget 28) on the same engine and its "
+        f"stream reached 32 tokens, equal to the unfaulted main path's: "
+        f"{same} (bf16; not checked); journal {journal.stats()}; {prefills} "
+        f"prefills, {steps} decode steps; the {len(stalled)} stalled ticks "
+        f"median {_median(stalled) * 1e3:.1f} ms, the {len(others)} others "
+        f"{_median(others) * 1e3:.1f} ms; launches {counts}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) a crash at tick 8 on the loop thread
+    torch.cuda.synchronize()
+    base_alloc, base_mib = torch.cuda.memory_allocated(), _card_used_mib()
+    restore = _fault_env(SERVE_FAULT_CRASH)
+    try:
+        engine = InferenceEngine(params, cfg, main_engine_config(),
+                                 replica_index=0)
+        journal = RequestJournal()
+        entries = [journal.open(p, n, request_id=f"c{i}")
+                   for i, (p, n) in enumerate(reqs)]
+        kernels.reset_launch_counts()
+        _journaled(journal, engine, entries[:8], 0)
+        engine.start()
+        deadline = time.perf_counter() + 120
+        while engine.alive and time.perf_counter() < deadline:
+            time.sleep(0.005)
+    finally:
+        restore()
+    check(not engine.alive and isinstance(engine.failed, ServeFault),
+          f"serving_faults crash: alive {engine.alive}, failed {engine.failed!r}")
+    crash_counts = kernels.launch_counts()
+    crashed_ticks = engine._ticks
+    delivered = [len(e.delivered) for e in entries[:8]]
+    for e in entries[:8]:
+        c = e.attempt_completion
+        check(c.finish_reason == "error" and isinstance(c.error, ServeFault),
+              f"serving_faults crash {e.request_id}: {c.finish_reason}")
+    _journaled(journal, engine, entries[8:], 0)  # a router that missed it
+    back = engine.handback_queued()
+    check([b["request_id"] for b in back] == [f"c{i}" for i in range(8, 16)]
+          and all(e.attempt_completion.finish_reason == "cancelled"
+                  for e in entries[8:]),
+          f"serving_faults crash: handed back {[b['request_id'] for b in back]}")
+    prefilled = engine.stats["prefills"]
+    expect = launches_expected(L, prefilled, engine.stats["decode_steps"])
+    check(crash_counts == expect, f"serving_faults crash: launches "
+          f"{crash_counts} != {expect}")
+    add(crash_counts)
+    # the journal's next attempts drop every reference to the dead engine
+    pending = [(e, journal.begin_attempt(e, replica=1)) for e in entries]
+    del engine, back, e, c
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after_alloc, after_mib = torch.cuda.memory_allocated(), _card_used_mib()
+    check(after_alloc <= base_alloc + 64 * 2**20
+          and after_mib <= base_mib + 1024,
+          f"serving_faults crash: after dropping the dead engine {after_alloc} "
+          f"bytes allocated ({base_alloc} before), {after_mib} MiB used on the "
+          f"card ({base_mib} before)")
+    engine = InferenceEngine(params, cfg, main_engine_config(), replica_index=1)
+    kernels.reset_launch_counts()
+    for e, (rid, prompt, budget) in pending:
+        comp = engine.submit(prompt, max_new_tokens=budget, request_id=rid,
+                             on_token=journal.stream_guard(e, rid))
+        journal.bind(e, comp)
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    fresh_counts = kernels.launch_counts()
+    for e in entries:
+        check(e.attempt_completion.finish_reason == "length"
+              and len(e.delivered) == 32,
+              f"serving_faults relaunch {e.request_id}: "
+              f"{e.attempt_completion.finish_reason}, {len(e.delivered)} tokens")
+        journal.finish(e, "completed", finish_reason="length")
+    expect = launches_expected(L, engine.stats["prefills"],
+                               engine.stats["decode_steps"])
+    check(fresh_counts == expect, f"serving_faults relaunch: launches "
+          f"{fresh_counts} != {expect}")
+    add(fresh_counts)
+    same = sum(e.delivered == s for e, s in zip(entries, streams))
+    log(f"serving_faults crash on {card}: {SERVE_FAULT_CRASH!r} on the loop "
+        f"thread: the loop died at tick {crashed_ticks} after "
+        f"{prefilled} prefills, alive False, the 8 requests in flight or "
+        f"queued failed with ServeFault after {delivered} tokens; 8 more "
+        f"submitted to the dead engine handed back ('cancelled'); the dead "
+        f"engine dropped: {after_alloc / 2**30:.3f} GiB allocated "
+        f"({base_alloc / 2**30:.3f} before), {after_mib} MiB used on the card "
+        f"({base_mib} before); a fresh engine served the 8 resumptions and the "
+        f"8 handed back to 32 tokens each ({same} of 16 equal the unfaulted "
+        f"main path's; bf16, not checked); journal {journal.stats()}; "
+        f"launches {crash_counts} then {fresh_counts}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def disagg_exactness(torch):
+    """fp32 at Llama-3-8B widths, 2 layers: a prefill and a decode engine,
+    each on its loop thread, on 6 staggered requests: every migrated stream
+    equals the colocated engine's, ``generate``'s and iterated plain
+    ``forward``; a
+    shipment's payload is bitwise the prefill engine's cache blocks; and
+    under ``replica0:drop-stream@req2:4`` the journaled stream equals the
+    unfaulted one."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.models.generation import generate
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        forward,
+        init_params,
+    )
+    from ray_lightning_tpu_torch.serving import (
+        EngineConfig,
+        InferenceEngine,
+        RequestJournal,
+    )
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(6))
+    kw = dict(num_slots=4, max_prompt_len=64, max_len=128, block_size=16,
+              kv_layout="paged")
+    reqs = requests(np.random.default_rng(6), cfg.vocab_size, 6, 64, 8, 32)
+    colocated = [c.tokens for c in serve(
+        InferenceEngine(params, cfg, EngineConfig(**kw)), reqs, 3)]
+    plain = []
+    for prompt, n in reqs:
+        toks = list(prompt)
+        for _ in range(n):
+            logits = forward(params, torch.tensor([toks], device="cuda"), cfg,
+                             plain=True)
+            toks.append(int(torch.argmax(logits[0, -1].float())))
+        plain.append(toks[len(prompt):])
+    check(colocated == plain, f"disagg exactness: colocated {colocated} != "
+          f"forward {plain}")
+    generated = [generate(params, torch.tensor([p], device="cuda"), cfg,
+                          n)[0, len(p):].tolist() for p, n in reqs]
+    check(generated == plain, f"disagg exactness: generate {generated} != "
+          f"forward {plain}")
+
+    src = InferenceEngine(params, cfg, EngineConfig(role="prefill", **kw),
+                          replica_index=0)
+    dst = InferenceEngine(params, cfg, EngineConfig(role="decode", **kw),
+                          replica_index=1)
+    src.start()
+    dst.start()
+    try:
+        budgets = {f"e{i}": n for i, (_, n) in enumerate(reqs)}
+        # the first shipment's payload against the cache, before the pump
+        src.submit(reqs[0][0], max_new_tokens=reqs[0][1], request_id="e0")
+        deadline = time.perf_counter() + 60
+        ready = []
+        while not ready and time.perf_counter() < deadline:
+            ready = src.drain_ready_exports()
+            time.sleep(0.001)
+        ship = src.export_shipment("e0")
+        with src._work:
+            blocks = list(src.pool._alloc_of[src._exports["e0"]["slot"]].blocks)
+        for j in range(ship.num_blocks):
+            for name, payload in (("k", ship.block_k), ("v", ship.block_v)):
+                want = src.pool.cache[name][:, blocks[j]].cpu().numpy()
+                check(np.array_equal(payload[j], want),
+                      f"disagg exactness: block {j} {name} is not the cache's")
+        pump = _ShipmentPump(src, dst, budgets)
+        pump.comps["e0"] = dst.import_shipment(ship, max_new_tokens=reqs[0][1],
+                                               request_id="e0")
+        src.finish_export("e0")
+        for i, (p, n) in enumerate(reqs[1:], 1):
+            src.submit(p, max_new_tokens=n, request_id=f"e{i}")
+        comps = pump.run(len(reqs))
+        migrated = [comps[f"e{i}"].result(timeout=120) for i in range(len(reqs))]
+    finally:
+        src.drain(timeout=60)
+        dst.drain(timeout=60)
+    check(migrated == plain, f"disagg exactness: migrated {migrated} != "
+          f"forward {plain}")
+
+    restore = _fault_env("replica0:drop-stream@req2:4")
+    try:
+        engine = InferenceEngine(params, cfg, EngineConfig(**kw),
+                                 replica_index=0)
+        journal = RequestJournal()
+        entries = [journal.open(p, n) for p, n in reqs]
+        _journaled(journal, engine, entries, 0)
+        engine.run_until_idle()
+        dropped = [e for e in entries
+                   if e.attempt_completion.finish_reason == "error"]
+        check(len(dropped) == 1, f"disagg exactness: {len(dropped)} drops")
+        _journaled(journal, engine, dropped, 0)
+        engine.run_until_idle()
+    finally:
+        restore()
+    got = [list(e.delivered) for e in entries]
+    check(got == plain, f"disagg exactness: journaled {got} != {plain}")
+    log(f"disagg exactness: fp32 llama3_8b widths, 2 layers: {len(plain)} "
+        f"migrated greedy streams (prefill engine -> decode engine, each on "
+        f"its loop thread) token-identical to the colocated engine's, "
+        f"generate's and iterated plain forward; a shipment's {ship.num_blocks} blocks "
+        f"bitwise the cache's; under drop-stream@req2:4 the journal's resumed "
+        f"stream ({dropped[0].attempt_rid}) token-identical to the unfaulted")
+    del params, src, dst, engine
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def spec_exactness(torch):
@@ -3163,8 +3890,11 @@ def train_ray_ddp(torch, card):
     RayShardedStrategy(zero_stage=3) and HorovodRayStrategy the same way.
     Each run's weights, back in the main process, against a SingleDeviceStrategy
     run of the same seed; the step median beside the single-device one; the
-    launcher's start-up and the weights' way back."""
+    launcher's start-up and the weights' way back. The three worker
+    processes are forked from the zygote (warmed by ``main`` before the
+    training phases)."""
     from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch import runtime as rt
     from ray_lightning_tpu_torch.models.llama import LlamaConfig
     from ray_lightning_tpu_torch.strategies import (
         HorovodRayStrategy,
@@ -3173,6 +3903,9 @@ def train_ray_ddp(torch, card):
     )
 
     smoke = _smoke_module()
+    if not rt.is_initialized():
+        rt.init(resources={"GPU": float(torch.cuda.device_count())})
+    rt.warm_zygote()
     cfg = LlamaConfig.small()
     n_train = TRAIN_BATCH * RAY_STEPS
     clock = smoke.StepTimes()
@@ -3200,8 +3933,9 @@ def train_ray_ddp(torch, card):
     ):
         clock = smoke.StepTimes()
         kernels.reset_launch_counts()
-        trainer, module, fit_s = _ray_run(torch, strategy, cfg, RAY_STEPS,
-                                          TRAIN_BATCH, n_train, [clock])
+        with _zygote():
+            trainer, module, fit_s = _ray_run(torch, strategy, cfg, RAY_STEPS,
+                                              TRAIN_BATCH, n_train, [clock])
         main_counts = kernels.launch_counts()
         check(set(main_counts.values()) == {0},
               f"{name}: the main process launched kernels: {main_counts}")
@@ -3221,8 +3955,8 @@ def train_ray_ddp(torch, card):
         tm = launcher.timings
         log(f"{name} on {card}: {type(strategy).__name__}(num_workers=1, "
             f"use_gpu=True{', zero_stage=3' if 'zero' in name else ''}), one "
-            f"worker process on the card over {launcher.backend} at world "
-            f"size 1: fit {fit_s:.1f}s (single device {single_s:.1f}s): "
+            f"worker process forked from the zygote on the card over "
+            f"{launcher.backend} at world size 1: fit {fit_s:.1f}s (single device {single_s:.1f}s): "
             f"launcher start-up {tm['setup_s']:.2f}s, the stage in the worker "
             f"{tm['run_s']:.2f}s, weights back {tm['weights_s']:.2f}s "
             f"(rank 0 serialising {tm['collect_s']:.2f}s, the transfer "
@@ -3321,8 +4055,8 @@ def ray_two_ranks(torch, card):
     for name, strategy, forked in (
         ("ddp", RayStrategy(num_workers=2, use_gpu=True,
                             resources_per_worker={"GPU": 0.5}), False),
-        # the same fit again, its workers forked from the zygote (warmed
-        # above, while the reference trained), and the rest so too
+        # the same fit again, its workers forked from the zygote (warm since
+        # main booted it, or warmed above), and the rest so too
         ("ddp_zygote", RayStrategy(num_workers=2, use_gpu=True,
                                    resources_per_worker={"GPU": 0.5}), True),
         ("zero1", RayShardedStrategy(num_workers=2, use_gpu=True, zero_stage=1,
@@ -3373,7 +4107,7 @@ def ray_two_ranks(torch, card):
         f"(spawn, CUDA init, rendezvous) {start_ups['ddp']:.2f}s with fresh "
         f"interpreters, {start_ups['ddp_zygote']:.2f}s forked from the zygote "
         f"(its own boot {zygote.ready_s or float('nan'):.2f}s, overlapped "
-        f"with the reference's fit); zygote fits "
+        f"with earlier phases); zygote fits "
         + ", ".join(f"{k} {v:.2f}s" for k, v in start_ups.items()
                     if k != "ddp"))
     del want, ref_module, ref
@@ -3671,8 +4405,9 @@ def train_ray_ep(torch, card):
     ep_module = module()
     kernels.reset_launch_counts()
     t = time.perf_counter()
-    trainer.fit(ep_module, datamodule=SyntheticLMDataModule(
-        cfg, batch_size=batch, n_train=n_train, n_val=batch))
+    with _zygote():  # both workers forked from the zygote
+        trainer.fit(ep_module, datamodule=SyntheticLMDataModule(
+            cfg, batch_size=batch, n_train=n_train, n_val=batch))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t
     main_counts = kernels.launch_counts()
@@ -4461,13 +5196,15 @@ class TimedCheckpoint(_ModelCheckpoint):
                     "bytes": os.path.getsize(self.best_model_path)}) + "\n")
 
 
-def _fault_env(spec, fuse_dir):
-    """Set the fault spec and its fuse directory for the workers to come;
-    returns a function that takes them away again."""
+def _fault_env(spec, fuse_dir=None):
+    """Set the fault spec and its fuse directory (None: no fuse, a spec
+    fires at every match) for the workers or engines to come; returns a
+    function that takes them away again."""
     import os
 
     os.environ["TORCHRT_FAULT"] = spec
-    os.environ["TORCHRT_FAULT_FUSE"] = fuse_dir
+    if fuse_dir is not None:
+        os.environ["TORCHRT_FAULT_FUSE"] = fuse_dir
 
     def clear():
         os.environ.pop("TORCHRT_FAULT", None)
@@ -4755,8 +5492,10 @@ def faults_phase(torch, card):
     apps, used = _compute_apps(), _card_used_mib()
     t = time.perf_counter()
     try:
-        faults_counts, info = train_ray_faults(torch, card, root)
-        zero_counts, zero_pids = train_ray_zero_resume(torch, card, root)
+        # every group and relaunch of both paths is forked from the zygote
+        with _zygote():
+            faults_counts, info = train_ray_faults(torch, card, root)
+            zero_counts, zero_pids = train_ray_zero_resume(torch, card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_s = time.perf_counter() - t
@@ -5056,7 +5795,8 @@ def train_ray_elastic(torch, card, root):
     clear = _fault_env(ELASTIC_SPEC, fuses)
     t = time.perf_counter()
     try:
-        trainer.fit(module, datamodule=dm)
+        with _zygote():  # the first group forked too, as the spare is
+            trainer.fit(module, datamodule=dm)
         zygote = rt.api._state.zygote
         zygote_pid, zygote_boot = zygote.pid, zygote.ready_s
     finally:
@@ -5258,6 +5998,10 @@ PHASES = ("kernels", "serving", "generation", "moe_serving", "training",
           "elastic")
 
 
+# the phases whose worker groups are forked from the zygote
+RAY_PHASES = {"ray", "ray_two_ranks", "ray_ep", "tune", "faults", "elastic"}
+
+
 def main(argv=None):
     import argparse
 
@@ -5318,8 +6062,15 @@ def main(argv=None):
         check_new_path_shapes(torch, F, results)
     by_path = {}
     if "serving" in phases:
-        by_path.update(main_path(torch, card))
+        paths, new_s = main_path(torch, card)
+        by_path.update(paths)
         exactness(torch)
+        t = time.perf_counter()
+        disagg_exactness(torch)
+        new_s += time.perf_counter() - t
+        log(f"serving phase's new paths (serving_disagg, serving_tenants, "
+            f"serving_faults, disagg_exactness) on {card}: {new_s:.1f}s "
+            f"(budget {DISAGG_BUDGET_S:.0f} s)")
         slot_exactness(torch)
         spec_exactness(torch)
     if "generation" in phases:
@@ -5332,6 +6083,14 @@ def main(argv=None):
     if "moe_serving" in phases:
         by_path["serving_moe"] = serving_moe(torch, card)
         moe_exactness(torch)
+    if RAY_PHASES & set(phases):
+        # the Ray phases fork their worker groups from the zygote: boot it
+        # now, so that its imports overlap the training phases
+        from ray_lightning_tpu_torch import runtime as rt
+
+        if not rt.is_initialized():
+            rt.init(resources={"GPU": float(torch.cuda.device_count())})
+        rt.warm_zygote()
     if "training" in phases:
         by_path["training"] = train_main_path(torch, card)
         train_exactness(torch)

@@ -54,7 +54,8 @@ def _to_tensor(name: str, arr, shape, dtype: torch.dtype, dev) -> torch.Tensor:
     arr = np.asarray(arr)
     if tuple(arr.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {arr.shape}, expected {tuple(shape)}")
-    if arr.dtype.name == "bfloat16":
+    if arr.dtype.name == "bfloat16" or (dtype == torch.bfloat16
+                                        and arr.dtype == np.uint16):
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
         t = t.view(torch.bfloat16)
     else:
@@ -107,12 +108,17 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes  # numpy's bfloat16 type (the one JAX uses)
-
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        words = t.view(torch.int16).numpy().view(np.uint16)
+        try:  # numpy's bfloat16, once a library (JAX's ml_dtypes) has it
+            return words.view(np.dtype("bfloat16"))
+        except TypeError:  # none has: the raw 16-bit words
+            return words
     return t.numpy()
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Inverse of :func:`params_from_jax`: the same tree of numpy arrays."""
+    """Inverse of :func:`params_from_jax`: the same tree of numpy arrays.
+    bf16 leaves take numpy's ``bfloat16`` (JAX's) where a loaded library
+    has registered it, else stay their raw 16-bit words (``uint16``), which
+    :func:`params_from_jax` takes back for a bf16 config too."""
     return tree_map(_to_numpy, params)

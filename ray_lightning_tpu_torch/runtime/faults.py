@@ -36,10 +36,40 @@ Step faults default to rank 0 when it is unset, so that a Trainer in the
 main process can be tested too; boot faults require it, so that a queue
 actor or a trial runner never matches a rank-0 spec.
 
-The JAX package's ``replica`` (serving and migration) and ``arbiter``
-families share the variable there; the port parses no such family yet
-(ROADMAP.md, queue 1 items 7-9) and skips their specs, as the JAX rank
-parser does.
+Serving fault points share the variable under a ``replica`` prefix
+(``serving/engine.py`` hooks them per scheduler tick and per admitted
+request of an engine built with ``replica_index=R``)::
+
+    replica<R>:<kind>@<where>[:<arg>]
+
+    replica0:crash@tick8           # the engine loop dies at tick 8
+    replica0:crash@every:8         # at every 8th tick
+    replica1:hang@tick5            # the loop blocks forever at tick 5
+    replica0:slow-decode@every:4:0.05  # a 50 ms stall every 4th tick
+    replica1:crash@req3            # die while admitting the 3rd request
+    replica0:drop-stream@req2:4    # the 2nd admitted request loses its
+                                   # stream after 4 generated tokens
+
+A serving ``crash`` raises :class:`ServeFault` in the engine loop instead
+of ``os._exit``: engines are threads of one process, and the death under
+test is one engine's. The migration kinds share the ``replica`` prefix and
+are told apart by their names::
+
+    replica<R>:<kind>@<req<N>|every:<N>>[:<arg>]
+
+    replica0:drop-shipment@req1        # the 1st shipment leaving replica
+                                       # 0 vanishes
+    replica0:corrupt-shipment@every:2  # every 2nd one has a bit flipped
+    replica0:stall-shipment@req2:0.5   # the 2nd stalls 0.5 s at the send
+    replica1:crash-mid-admit@req1      # decode replica 1 dies admitting
+                                       # its 1st shipment, after verify
+
+Send-point kinds key on the source replica and its 1-based shipment
+count (``migration_send_fault``, the caller's pump simulates the loss or
+the flip); ``crash-mid-admit`` keys on the destination and its 1-based
+import count. The rank, serving and migration parsers each skip the
+others' specs; ``arbiter`` specs (the JAX package's chip arbiter) are
+skipped by all of them, as no module of the port reads them yet.
 """
 from __future__ import annotations
 
@@ -258,3 +288,317 @@ def heartbeats_dropped(step: int) -> bool:
     return any(spec.rank == rank and spec.kind == "drop-heartbeats"
                and isinstance(spec.at, int) and step >= spec.at
                and not _fuse_blown(spec) for spec in specs)
+
+
+# --------------------------------------------------------------------------
+# serving fault points
+# --------------------------------------------------------------------------
+
+SERVE_KINDS = ("crash", "hang", "slow-decode", "drop-stream")
+
+_SERVE_SPEC_RE = re.compile(
+    r"^replica(?P<replica>\d+):"
+    r"(?P<kind>crash|hang|slow-decode|drop-stream)"
+    r"@(?:tick(?P<tick>\d+)|req(?P<req>\d+)|every:(?P<every>\d+))"
+    r"(?::(?P<arg>[0-9.]+))?$"
+)
+
+# the migration kinds share the replica<R> prefix: each of the two parsers
+# skips what the other's regex matches
+MIGRATION_KINDS = (
+    "drop-shipment",
+    "corrupt-shipment",
+    "stall-shipment",
+    "crash-mid-admit",
+)
+
+_MIGRATION_SPEC_RE = re.compile(
+    r"^replica(?P<replica>\d+):"
+    r"(?P<kind>drop-shipment|corrupt-shipment|stall-shipment|crash-mid-admit)"
+    r"@(?:req(?P<req>\d+)|every:(?P<every>\d+))"
+    r"(?::(?P<arg>[0-9.]+))?$"
+)
+
+
+class ServeFault(RuntimeError):
+    """Raised by a serving ``crash`` fault inside the engine loop: an
+    exception, not ``os._exit``, so that one engine dies and the process
+    (and the journal that recovers its requests) lives on."""
+
+
+@dataclass(frozen=True)
+class ServeFaultSpec:
+    """One scripted serving fault for ``replica``. Tick faults (``tick``,
+    ``every``) fire at the start of the matching scheduler tick; request
+    faults (``req``) fire while admitting the Nth request (1-based, over the
+    engine's life). ``arg`` is the slow-decode stall in seconds, or the
+    drop-stream budget in generated tokens."""
+
+    replica: int
+    kind: str
+    tick: Optional[int] = None
+    req: Optional[int] = None
+    every: Optional[int] = None
+    arg: float = 0.0
+
+    @property
+    def fuse_id(self) -> str:
+        if self.every is not None:
+            where = f"every{self.every}"
+        elif self.tick is not None:
+            where = f"tick{self.tick}"
+        else:
+            where = f"req{self.req}"
+        return f"replica{self.replica}-{self.kind}-{where}"
+
+    def fuse_id_at(self, step: int) -> str:
+        if self.every is not None:
+            return f"{self.fuse_id}-s{step}"
+        return self.fuse_id
+
+    def matches_tick(self, tick: int) -> bool:
+        if self.every is not None:
+            return tick > 0 and tick % self.every == 0
+        return self.tick is not None and self.tick == tick
+
+
+def parse_serve_faults(text: Optional[str]) -> List[ServeFaultSpec]:
+    """Parse the serving specs of a ``TORCHRT_FAULT`` value; rank, arbiter
+    and migration specs are skipped. Raises ValueError naming a bad
+    ``replica...`` spec."""
+    if not text:
+        return []
+    specs: List[ServeFaultSpec] = []
+    for raw in text.split(","):
+        raw = raw.strip()
+        if not raw:
+            continue
+        if _spec_family(raw) not in (None, "replica"):
+            continue
+        if _MIGRATION_SPEC_RE.match(raw):
+            continue
+        m = _SERVE_SPEC_RE.match(raw)
+        if m is None:
+            raise ValueError(
+                f"bad {FAULT_ENV} serving spec {raw!r}: expected "
+                "replica<R>:<crash|hang|slow-decode|drop-stream>"
+                "@<tick<N>|req<N>|every:<N>>[:<arg>] (or a migration kind, "
+                "see parse_migration_faults)")
+        kind = m.group("kind")
+        tick = int(m.group("tick")) if m.group("tick") is not None else None
+        req = int(m.group("req")) if m.group("req") is not None else None
+        every = int(m.group("every")) if m.group("every") is not None else None
+        if every is not None and every < 1:
+            raise ValueError(
+                f"bad {FAULT_ENV} serving spec {raw!r}: @every needs N >= 1")
+        if kind == "drop-stream" and req is None:
+            raise ValueError(
+                f"bad {FAULT_ENV} serving spec {raw!r}: drop-stream targets "
+                "a request, e.g. replica0:drop-stream@req2:4")
+        if kind in ("hang", "slow-decode") and req is not None:
+            raise ValueError(
+                f"bad {FAULT_ENV} serving spec {raw!r}: {kind} is a tick "
+                "fault; use @tick<N> or @every:<N>")
+        if kind == "slow-decode" and m.group("arg") is None:
+            raise ValueError(
+                f"bad {FAULT_ENV} serving spec {raw!r}: slow-decode needs a "
+                "stall length, e.g. replica0:slow-decode@every:4:0.05")
+        specs.append(ServeFaultSpec(
+            replica=int(m.group("replica")), kind=kind, tick=tick, req=req,
+            every=every, arg=float(m.group("arg") or 0.0)))
+    return specs
+
+
+# the parse of the last value seen, as _cache for the rank family: the
+# engine asks once a tick and once an admission
+_serve_cache: Tuple[Optional[str], List[ServeFaultSpec]] = (None, [])
+
+
+def _serve_env_specs() -> List[ServeFaultSpec]:
+    global _serve_cache
+    text = os.environ.get(FAULT_ENV)
+    if text != _serve_cache[0]:
+        _serve_cache = (text, parse_serve_faults(text))
+    return _serve_cache[1]
+
+
+def fire_serve_tick_faults(replica: Optional[int], tick: int) -> None:
+    """The engine loop's hook at the start of every scheduler tick: crash
+    raises :class:`ServeFault` (the loop dies, its completions fail); hang
+    blocks the loop thread forever; slow-decode sleeps ``arg`` seconds. A
+    no-op when ``replica`` is None or no serving spec is scripted."""
+    if replica is None:
+        return
+    specs = _serve_env_specs()
+    if not specs:
+        return
+    for spec in specs:
+        if (spec.replica == replica
+                and spec.kind in ("crash", "hang", "slow-decode")
+                and spec.req is None and spec.matches_tick(tick)
+                and not _fuse_blown(spec, tick)):
+            _blow_fuse(spec, tick)
+            if spec.kind == "crash":
+                raise ServeFault(
+                    f"scripted serving fault: replica{replica} crash at "
+                    f"tick {tick}")
+            if spec.kind == "hang":
+                while True:
+                    time.sleep(60)
+            time.sleep(spec.arg)
+
+
+def serve_request_fault(replica: Optional[int],
+                        req_seq: int) -> Optional[ServeFaultSpec]:
+    """The engine's admission hook: ``req_seq`` is the 1-based count of
+    requests this engine has admitted. A matching ``crash`` raises
+    :class:`ServeFault`; a matching ``drop-stream`` is returned (the engine
+    cuts the request's stream after ``spec.arg`` generated tokens)."""
+    if replica is None:
+        return None
+    specs = _serve_env_specs()
+    if not specs:
+        return None
+    for spec in specs:
+        if (spec.replica == replica and spec.req is not None
+                and spec.req == req_seq and not _fuse_blown(spec)):
+            _blow_fuse(spec)
+            if spec.kind == "crash":
+                raise ServeFault(
+                    f"scripted serving fault: replica{replica} crash while "
+                    f"admitting request #{req_seq}")
+            return spec
+    return None
+
+
+# --------------------------------------------------------------------------
+# KV-migration fault points (disaggregated prefill/decode serving)
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MigrationFaultSpec:
+    """One scripted migration fault for ``replica``. The send-point kinds
+    target the Nth shipment leaving the source (1-based);
+    ``crash-mid-admit`` the Nth shipment arriving at the destination.
+    ``every`` matches every positive multiple of N; ``arg`` is
+    ``stall-shipment``'s stall in seconds."""
+
+    replica: int
+    kind: str
+    req: Optional[int] = None
+    every: Optional[int] = None
+    arg: float = 0.0
+
+    @property
+    def fuse_id(self) -> str:
+        where = (f"every{self.every}" if self.every is not None
+                 else f"req{self.req}")
+        return f"replica{self.replica}-{self.kind}-{where}"
+
+    def fuse_id_at(self, seq: int) -> str:
+        if self.every is not None:
+            return f"{self.fuse_id}-s{seq}"
+        return self.fuse_id
+
+    def matches_seq(self, seq: int) -> bool:
+        if self.every is not None:
+            return seq > 0 and seq % self.every == 0
+        return self.req is not None and self.req == seq
+
+
+def parse_migration_faults(text: Optional[str]) -> List[MigrationFaultSpec]:
+    """Parse the migration specs of a ``TORCHRT_FAULT`` value; rank and
+    arbiter specs are skipped by prefix, the engine's serving specs by
+    regex. Raises ValueError naming a ``replica...`` spec of neither
+    sub-family, as :func:`parse_serve_faults` does."""
+    if not text:
+        return []
+    specs: List[MigrationFaultSpec] = []
+    for raw in text.split(","):
+        raw = raw.strip()
+        if not raw:
+            continue
+        if _spec_family(raw) not in (None, "replica"):
+            continue
+        if _SERVE_SPEC_RE.match(raw):
+            continue
+        m = _MIGRATION_SPEC_RE.match(raw)
+        if m is None:
+            raise ValueError(
+                f"bad {FAULT_ENV} migration spec {raw!r}: expected "
+                "replica<R>:<drop-shipment|corrupt-shipment|stall-shipment|"
+                "crash-mid-admit>@<req<N>|every:<N>>[:<seconds>] (or an "
+                "engine serving kind, see parse_serve_faults)")
+        kind = m.group("kind")
+        req = int(m.group("req")) if m.group("req") is not None else None
+        every = int(m.group("every")) if m.group("every") is not None else None
+        if every is not None and every < 1:
+            raise ValueError(
+                f"bad {FAULT_ENV} migration spec {raw!r}: @every needs N >= 1")
+        if req is not None and req < 1:
+            raise ValueError(
+                f"bad {FAULT_ENV} migration spec {raw!r}: shipments are "
+                "1-based; @req needs N >= 1")
+        if kind == "stall-shipment" and m.group("arg") is None:
+            raise ValueError(
+                f"bad {FAULT_ENV} migration spec {raw!r}: stall-shipment "
+                "needs a length, e.g. replica0:stall-shipment@req2:0.5")
+        specs.append(MigrationFaultSpec(
+            replica=int(m.group("replica")), kind=kind, req=req, every=every,
+            arg=float(m.group("arg") or 0.0)))
+    return specs
+
+
+_migration_cache: Tuple[Optional[str], List[MigrationFaultSpec]] = (None, [])
+
+
+def _migration_env_specs() -> List[MigrationFaultSpec]:
+    global _migration_cache
+    text = os.environ.get(FAULT_ENV)
+    if text != _migration_cache[0]:
+        _migration_cache = (text, parse_migration_faults(text))
+    return _migration_cache[1]
+
+
+def migration_send_fault(replica: Optional[int],
+                         seq: int) -> Optional[MigrationFaultSpec]:
+    """A pump's send-point hook: ``seq`` is the 1-based count of shipments
+    that have left source ``replica``. ``stall-shipment`` sleeps ``arg``
+    seconds here; ``drop-shipment`` and ``corrupt-shipment`` are returned
+    for the caller to simulate where a transport would fail. Returns the
+    matching spec (its fuse blown) or None."""
+    if replica is None:
+        return None
+    specs = _migration_env_specs()
+    if not specs:
+        return None
+    for spec in specs:
+        if (spec.replica == replica
+                and spec.kind in ("drop-shipment", "corrupt-shipment",
+                                  "stall-shipment")
+                and spec.matches_seq(seq) and not _fuse_blown(spec, seq)):
+            _blow_fuse(spec, seq)
+            if spec.kind == "stall-shipment":
+                time.sleep(spec.arg)
+            return spec
+    return None
+
+
+def migration_admit_fault(replica: Optional[int], seq: int) -> None:
+    """The receiver's admit-point hook, inside ``import_shipment`` after the
+    checksums and before the reservation: ``seq`` is the 1-based count of
+    shipments this engine was offered. A matching ``crash-mid-admit``
+    raises :class:`ServeFault`: the decode engine dies there."""
+    if replica is None:
+        return
+    specs = _migration_env_specs()
+    if not specs:
+        return
+    for spec in specs:
+        if (spec.replica == replica and spec.kind == "crash-mid-admit"
+                and spec.matches_seq(seq) and not _fuse_blown(spec, seq)):
+            _blow_fuse(spec, seq)
+            raise ServeFault(
+                f"scripted migration fault: replica{replica} crash while "
+                f"admitting shipment #{seq}")

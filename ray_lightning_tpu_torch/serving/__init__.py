@@ -1,4 +1,8 @@
-"""Continuous-batching serving on the slot and paged KV layouts."""
+"""Continuous-batching serving on the slot and paged KV layouts: the
+engine, its pools and scheduler, tenancy (per-tenant DRR, quotas, shed
+classes), KV shipments between a prefill and a decode engine, and the
+resilience pieces (request journal, circuit breaker, shed policy,
+preemption drain)."""
 from ray_lightning_tpu_torch.serving.engine import (
     Completion,
     EngineClosed,
@@ -6,37 +10,84 @@ from ray_lightning_tpu_torch.serving.engine import (
     InferenceEngine,
 )
 from ray_lightning_tpu_torch.serving.kv_pool import KVSlotPool, Slot
+from ray_lightning_tpu_torch.serving.migration import (
+    KVShipment,
+    MigrationPolicy,
+    MigrationRejected,
+    MigrationStats,
+    ShipmentCorrupt,
+    ShipmentError,
+    ShipmentMismatch,
+    build_shipment,
+    kv_fingerprint,
+    verify_shipment,
+)
 from ray_lightning_tpu_torch.serving.paged_kv import (
     TRASH_BLOCK,
+    BlockAllocation,
     BlockAllocator,
     OutOfBlocks,
     PagedKVPool,
     blocks_for,
 )
-from ray_lightning_tpu_torch.serving.resilience import RequestShed, ShedPolicy
+from ray_lightning_tpu_torch.serving.resilience import (
+    CircuitBreaker,
+    JournalEntry,
+    RequestJournal,
+    RequestShed,
+    ShedPolicy,
+    install_sigterm_drain,
+)
 from ray_lightning_tpu_torch.serving.scheduler import (
     ContinuousBatchScheduler,
     Plan,
     Request,
     RequestQueueFull,
 )
+from ray_lightning_tpu_torch.serving.tenancy import (
+    QuotaExceeded,
+    TenantRegistry,
+    TenantSpec,
+    TokenBucket,
+    parse_tenant_specs,
+)
 
 __all__ = [
     "TRASH_BLOCK",
+    "BlockAllocation",
     "BlockAllocator",
+    "CircuitBreaker",
     "Completion",
     "ContinuousBatchScheduler",
     "EngineClosed",
     "EngineConfig",
     "InferenceEngine",
+    "JournalEntry",
+    "KVShipment",
     "KVSlotPool",
+    "MigrationPolicy",
+    "MigrationRejected",
+    "MigrationStats",
     "OutOfBlocks",
     "PagedKVPool",
     "Plan",
+    "QuotaExceeded",
     "Request",
+    "RequestJournal",
     "RequestQueueFull",
     "RequestShed",
     "ShedPolicy",
+    "ShipmentCorrupt",
+    "ShipmentError",
+    "ShipmentMismatch",
     "Slot",
+    "TenantRegistry",
+    "TenantSpec",
+    "TokenBucket",
     "blocks_for",
+    "build_shipment",
+    "install_sigterm_drain",
+    "kv_fingerprint",
+    "parse_tenant_specs",
+    "verify_shipment",
 ]

@@ -44,6 +44,12 @@ class Slot:
     eos_id: Optional[int] = None
     # absolute deadline (time.perf_counter domain)
     deadline: Optional[float] = None
+    # when the request's latest token was delivered (inter-token latency)
+    last_token_at: Optional[float] = None
+    # a prefill-role engine parks a prefilled slot here while its KV is in
+    # flight to a decode engine: the decode tick skips it, and a cancelled
+    # migration clears the flag so the request decodes in place
+    export_pending: bool = False
 
     @property
     def occupied(self) -> bool:
@@ -58,6 +64,8 @@ class Slot:
         self.max_new_tokens = 0
         self.eos_id = None
         self.deadline = None
+        self.last_token_at = None
+        self.export_pending = False
 
 
 class KVSlotPool:

@@ -24,6 +24,12 @@ blocks and the dummy decode writes of free slots land there, so the
 fixed-shape prefill and decode never need a "skip this write" branch.
 Trash is never attended: block tables reference it only past a row's
 position.
+
+Shipment pins: a prefill engine pins the chain blocks of a request whose
+KV is in flight to a decode engine (:meth:`BlockAllocator.pin_request`).
+A pinned chain whose refcount drops to 0 is neither claimable supply nor
+an eviction victim until it is unpinned, so its bytes stay put while the
+shipment (or a resend) still reads them.
 """
 from __future__ import annotations
 
@@ -67,6 +73,7 @@ class _ChainNode:
     refcount: int = 0  # active requests referencing this block
     children: int = 0  # cached chain nodes extending this one
     last_used: int = 0  # allocator LRU clock
+    pinned: int = 0  # in-flight KV shipments referencing this block
 
 
 @dataclass
@@ -126,6 +133,7 @@ class BlockAllocator:
         self._allocs: Dict[str, BlockAllocation] = {}
         self._chains: Dict[bytes, _ChainNode] = {}
         self._idle_cached = 0  # chain nodes with refcount == 0 (evictable)
+        self._pinned_idle = 0  # of those, pinned by an in-flight shipment
         self._reserved_total = 0
         self._clock = 0
         # lifetime counters (stats() + the serving gauges)
@@ -161,9 +169,11 @@ class BlockAllocator:
         return len(self._free)
 
     def available(self) -> int:
-        """Blocks an admission may claim: free + evictable cached,
-        minus everything already promised to active requests."""
-        return len(self._free) + self._idle_cached - self._reserved_total
+        """Blocks an admission may claim: free + evictable cached, minus
+        everything already promised to active requests. Idle chains pinned
+        by an in-flight shipment are not evictable, so not supply."""
+        evictable = self._idle_cached - self._pinned_idle
+        return len(self._free) + evictable - self._reserved_total
 
     # ------------------------------------------------------------------ #
     # admission / growth / release
@@ -234,6 +244,8 @@ class BlockAllocator:
         for node in matched:
             if node.refcount == 0:
                 self._idle_cached -= 1
+                if node.pinned > 0:
+                    self._pinned_idle -= 1
             node.refcount += 1
             node.last_used = self._clock
         self.prefix_hits_total += shared
@@ -303,9 +315,45 @@ class BlockAllocator:
             node.last_used = self._clock
             if node.refcount == 0:
                 self._idle_cached += 1
+                if node.pinned > 0:
+                    self._pinned_idle += 1
         self._free.extend(alloc.blocks[alloc.cached:])
         self._reserved_total -= alloc.reserved
         self.released_total += 1
+
+    # ------------------------------------------------------------------ #
+    # shipment pinning
+    # ------------------------------------------------------------------ #
+    def pin_request(self, request_id: str) -> List[bytes]:
+        """Pin the chain blocks of an active request for the life of an
+        in-flight KV shipment; returns the pinned chain keys, which the
+        caller hands back to :meth:`unpin` when the shipment lands or is
+        given up. Without the pin, a sibling's release could drop the
+        chain to refcount 0 and allocation pressure evict and rewrite its
+        blocks while the shipment still needs their bytes."""
+        alloc = self._allocs.get(request_id)
+        if alloc is None:
+            raise KeyError(f"request {request_id!r} is not admitted")
+        self.pin(alloc.chain_keys)
+        return list(alloc.chain_keys)
+
+    def pin(self, chain_keys: Sequence[bytes]) -> None:
+        for key in chain_keys:
+            node = self._chains.get(key)
+            if node is None:
+                continue
+            node.pinned += 1
+            if node.refcount == 0 and node.pinned == 1:
+                self._pinned_idle += 1
+
+    def unpin(self, chain_keys: Sequence[bytes]) -> None:
+        for key in chain_keys:
+            node = self._chains.get(key)
+            if node is None:
+                continue
+            node.pinned = max(0, node.pinned - 1)
+            if node.refcount == 0 and node.pinned == 0:
+                self._pinned_idle -= 1
 
     # ------------------------------------------------------------------ #
     # internals
@@ -338,11 +386,13 @@ class BlockAllocator:
 
     def _evict_lru(self) -> Optional[int]:
         """Evict the least-recently-used refcount-0 LEAF chain node
-        (leaf-first keeps every cached chain reachable from its root)."""
+        (leaf-first keeps every cached chain reachable from its root).
+        Pinned nodes are untouchable: an in-flight KV shipment still reads
+        their bytes."""
         victim_key = None
         victim = None
         for key, node in self._chains.items():
-            if node.refcount == 0 and node.children == 0:
+            if node.refcount == 0 and node.children == 0 and node.pinned == 0:
                 if victim is None or node.last_used < victim.last_used:
                     victim_key, victim = key, node
         if victim is None:
@@ -364,6 +414,9 @@ class BlockAllocator:
             "blocks_reserved": self._reserved_total,
             "blocks_highwater": self.blocks_highwater,
             "chains_cached": len(self._chains),
+            "chains_pinned": sum(
+                1 for n in self._chains.values() if n.pinned > 0
+            ),
             "admitted_total": self.admitted_total,
             "released_total": self.released_total,
             "grown_total": self.grown_total,
@@ -428,6 +481,15 @@ class PagedKVPool:
         self.slots: List[Slot] = [Slot(i) for i in range(self.num_slots)]
         self._free: List[int] = list(range(self.num_slots - 1, -1, -1))
         self._alloc_of: Dict[int, BlockAllocation] = {}
+        self.admitted_total = 0
+        self.recycled_total = 0
+        self.highwater = 0
+        # slot -> the request ids it served, in order
+        self.tenancies: Dict[int, List[str]] = {
+            i: [] for i in range(self.num_slots)
+        }
+
+    layout = "paged"
 
     def acquire(self, request_id: str, prompt_len: int, max_new_tokens: int,
                 eos_id: Optional[int] = None,
@@ -466,6 +528,9 @@ class PagedKVPool:
         row[:] = TRASH_BLOCK
         row[: len(alloc.blocks)] = alloc.blocks
         self._alloc_of[slot.index] = alloc
+        self.admitted_total += 1
+        self.tenancies[slot.index].append(request_id)
+        self.highwater = max(self.highwater, self.occupancy)
         return slot
 
     def release(self, index: int) -> Slot:
@@ -477,6 +542,7 @@ class PagedKVPool:
         self._alloc_of.pop(index, None)
         slot.reset()
         self._free.append(index)
+        self.recycled_total += 1
         return slot
 
     def prompt_write_table(self, slot_index: int,
@@ -509,9 +575,38 @@ class PagedKVPool:
             block = self.allocator.grow(slot.request_id)
             self.block_tables[slot.index, len(alloc.blocks) - 1] = block
 
+    def shared_blocks(self, slot_index: int) -> int:
+        return self._alloc_of[slot_index].shared
+
+    def block_utilization(self) -> float:
+        return self.allocator.used_blocks / max(self.allocator.capacity, 1)
+
     @property
     def occupancy(self) -> int:
         return self.num_slots - len(self._free)
 
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
     def active_slots(self) -> List[Slot]:
         return [s for s in self.slots if s.occupied]
+
+    def utilization(self) -> float:
+        return self.occupancy / self.num_slots
+
+    def stats(self) -> Dict[str, object]:
+        out = {
+            "layout": self.layout,
+            "num_slots": self.num_slots,
+            "max_len": self.max_len,
+            "occupancy": self.occupancy,
+            "highwater": self.highwater,
+            "admitted_total": self.admitted_total,
+            "recycled_total": self.recycled_total,
+            "tenants_per_slot": {
+                i: len(v) for i, v in self.tenancies.items()
+            },
+        }
+        out.update(self.allocator.stats())
+        return out

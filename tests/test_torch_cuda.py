@@ -1380,3 +1380,158 @@ def test_elastic_hang_is_absorbed_on_the_card(cuda, tmp_path, monkeypatch):
     after_apps, after_used = _card_apps_and_used()
     assert not (pids & after_apps) and after_apps <= apps
     assert after_used <= used + 1024
+
+
+def _params_to(params, device):
+    return {k: (v.to(device) if torch.is_tensor(v) else
+                {n: t.to(device) for n, t in v.items()})
+            for k, v in params.items()}
+
+
+def _pump(src, dst, n_new, timeout=120):
+    """Move every ready export of ``src`` into ``dst`` (a few lines of the
+    fleet's pump): returns the decode engine's completions by request."""
+    import time
+
+    from ray_lightning_tpu_torch.serving import MigrationRejected
+
+    out, pending = {}, []
+    deadline = time.time() + timeout
+    while len(out) < len(n_new) and time.time() < deadline:
+        pending += [(rid, src.export_shipment(rid))
+                    for rid in src.drain_ready_exports()]
+        waiting = []
+        for rid, ship in pending:
+            try:
+                out[rid] = dst.import_shipment(
+                    ship, max_new_tokens=n_new[rid], request_id=rid)
+            except MigrationRejected:  # the receiver is full: offer later
+                waiting.append((rid, ship))
+                continue
+            src.finish_export(rid)
+        pending = waiting
+        time.sleep(0.002)
+    return out
+
+
+def test_two_engines_on_two_threads_migrate_on_card(cuda):
+    """A prefill and a decode engine share the card and one params dict,
+    each on its own loop thread: every migrated stream equals the
+    colocated engine's on the card and on the CPU (fp32), the prefills
+    launch flash on the prefill engine only, and both pools end empty."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = _params_to(cpu_params, cuda)
+    kw = dict(num_slots=3, max_prompt_len=12, max_len=32, block_size=4,
+              kv_layout="paged")
+    rng = np.random.default_rng(2)
+    shared = [3, 1, 4, 1, 5, 9, 2, 6]
+    prompts = [(shared if i % 3 == 0 else []) +
+               rng.integers(1, cfg.vocab_size, int(rng.integers(2, 5))).tolist()
+               for i in range(7)]
+    n_new = {f"r{i}": 4 + i % 3 for i in range(len(prompts))}
+    colocated = {}
+    for device, p in (("cpu", cpu_params), (cuda, params)):
+        eng = InferenceEngine(p, cfg, EngineConfig(**kw), device=device)
+        comps = [eng.submit(pr, max_new_tokens=n_new[f"r{i}"])
+                 for i, pr in enumerate(prompts)]
+        eng.run_until_idle()
+        colocated[str(device)] = [c.tokens for c in comps]
+    assert colocated["cpu"] == colocated["cuda"]
+
+    src = InferenceEngine(params, cfg, EngineConfig(role="prefill", **kw),
+                          device=cuda, replica_index=0)
+    dst = InferenceEngine(params, cfg, EngineConfig(role="decode", **kw),
+                          device=cuda, replica_index=1)
+    src.start()
+    dst.start()
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        src_comps = [src.submit(pr, max_new_tokens=n_new[f"r{i}"],
+                                request_id=f"r{i}")
+                     for i, pr in enumerate(prompts)]
+        got = _pump(src, dst, n_new)
+        streams = [got[f"r{i}"].result(timeout=120)
+                   for i in range(len(prompts))]
+        for c in src_comps:
+            c.result(timeout=60)
+            assert c.finish_reason == "migrated"
+    finally:
+        src.drain(timeout=60)
+        dst.drain(timeout=60)
+    assert streams == colocated["cuda"]
+    counts = kernels.launch_counts()
+    assert counts["flash_fwd"] == cfg.n_layers * len(prompts)
+    assert counts["paged_decode"] == cfg.n_layers * dst.stats["decode_steps"]
+    assert src.stats["decode_steps"] == 0
+    for eng in (src, dst):
+        assert eng.pool.occupancy == 0
+        assert eng.pool.allocator.stats()["chains_pinned"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shipment_payload_is_the_cache_blocks_on_card(cuda, dtype):
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=dtype)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
+    src = InferenceEngine(params, cfg, EngineConfig(
+        role="prefill", num_slots=2, max_prompt_len=12, max_len=32,
+        block_size=4, kv_layout="paged"))
+    src.submit(list(range(5, 16)), max_new_tokens=3, request_id="a")
+    src.step()
+    [rid] = src.drain_ready_exports()
+    ship = src.export_shipment(rid)
+    blocks = src.pool._alloc_of[src._exports[rid]["slot"]].blocks
+    assert ship.num_blocks == 3
+    for j in range(ship.num_blocks):
+        for name, payload in (("k", ship.block_k), ("v", ship.block_v)):
+            want = src.pool.cache[name][:, blocks[j]].cpu()
+            if dtype == torch.bfloat16:
+                assert payload[j].dtype == np.uint16
+                want = want.view(torch.int16).numpy().view(np.uint16)
+            else:
+                want = want.numpy()
+            np.testing.assert_array_equal(payload[j], want)
+
+
+def test_refused_shipment_leaves_receiver_cache_bitwise_on_card(cuda):
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_lightning_tpu_torch.serving import (
+        EngineConfig,
+        InferenceEngine,
+        ShipmentCorrupt,
+    )
+    from ray_lightning_tpu_torch.serving.migration import corrupt_copy
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2))
+    kw = dict(num_slots=2, max_prompt_len=12, max_len=32, block_size=4,
+              kv_layout="paged")
+    src = InferenceEngine(params, cfg, EngineConfig(role="prefill", **kw))
+    dst = InferenceEngine(params, cfg, EngineConfig(role="decode", **kw))
+    src.submit([7, 1, 8, 2, 8, 1], max_new_tokens=4, request_id="a")
+    src.step()
+    ship = src.export_shipment("a")
+    dst.submit([2, 2, 3], max_new_tokens=2)
+    dst.run_until_idle()  # the receiver's cache holds something
+    before = {k: v.clone() for k, v in dst.pool.cache.items()}
+    free = dst.pool.allocator.free_blocks
+    dst.start()
+    try:
+        with pytest.raises(ShipmentCorrupt):
+            dst.import_shipment(corrupt_copy(ship), max_new_tokens=4)
+        torch.cuda.synchronize()
+        assert dst.pool.occupancy == 0
+        assert dst.pool.allocator.free_blocks == free
+        assert all(torch.equal(before[k], dst.pool.cache[k]) for k in before)
+        comp = dst.import_shipment(ship, max_new_tokens=4, request_id="a")
+        assert len(comp.result(timeout=60)) == 4
+    finally:
+        dst.drain(timeout=60)

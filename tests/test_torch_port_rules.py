@@ -12,7 +12,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ray_lightning_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
 ]
-BANNED = ("jax", "jaxlib", "flax", "optax", "ray_lightning_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "ray_lightning_tpu", "ml_dtypes")
 
 
 def _imported_roots(path: Path):

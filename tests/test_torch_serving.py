@@ -134,6 +134,24 @@ def test_threaded_loop_and_drain(model):
         engine.submit([1], max_new_tokens=1)
 
 
+@pytest.mark.parametrize("layout", ["paged", "slot"])
+def test_decode_step_counted_before_its_tokens_are_delivered(model, layout):
+    """A thread that sees a token (or the completion it ends) sees the step
+    that made it counted: the k-th token of a lone request arrives with
+    ``decode_steps == k``, so a snapshot of ``stats`` taken once a loop
+    thread's request has finished leaves none of its steps to come."""
+    _, _, tparams, tcfg = model
+    engine = _engine(tparams, tcfg, num_slots=1, kv_layout=layout)
+    seen = []
+    comp = engine.submit([5, 6, 7], max_new_tokens=4, on_token=lambda rid, t:
+                         seen.append(engine.stats["decode_steps"]))
+    engine.run_until_idle()
+    assert comp.finish_reason == "length"
+    assert seen == [1, 2, 3, 4]
+    assert engine.stats["decode_steps"] == 4
+    assert engine.stats["busy_slot_steps"] == 4
+
+
 def test_shutdown_without_drain_fails_in_flight(model):
     _, _, tparams, tcfg = model
     engine = _engine(tparams, tcfg, num_slots=1)
@@ -191,25 +209,59 @@ def test_sampling_is_seeded(model, sampling):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(role="decode"), NotImplementedError),
-    (dict(kv_layout="ragged"), ValueError),
-    (dict(kv_layout="paged", role="decode"), NotImplementedError),
-    (dict(speculate_k=1), ValueError),
-    (dict(role="prefill"), NotImplementedError),
-    (dict(max_len=30), ValueError),
-    (dict(max_prompt_len=32), ValueError),
+    # kw0, kw2 and kw4 were refused (NotImplementedError) until the
+    # disaggregated roles were ported; their ids stay, their outcome is
+    # now the JAX package's
+    pytest.param(dict(role="decode"), None, id="kw0-NotImplementedError"),
+    pytest.param(dict(kv_layout="ragged"), ValueError, id="kw1-ValueError"),
+    pytest.param(dict(kv_layout="paged", role="decode"), None,
+                 id="kw2-NotImplementedError"),
+    pytest.param(dict(speculate_k=1), ValueError, id="kw3-ValueError"),
+    pytest.param(dict(role="prefill"), None, id="kw4-NotImplementedError"),
+    pytest.param(dict(max_len=30), ValueError, id="kw5-ValueError"),
+    pytest.param(dict(max_prompt_len=32), ValueError, id="kw6-ValueError"),
 ])
 def test_unported_or_invalid_configs_refused(model, kw, err):
+    """Each config gets the outcome the JAX package's
+    ``EngineConfig.validate`` gives it: refused with ValueError, or an
+    engine of that role."""
+    from ray_lightning_tpu.serving import EngineConfig as JaxEngineConfig
+
     _, _, tparams, tcfg = model
-    with pytest.raises(err):
-        _engine(tparams, tcfg, **kw)
+    full = dict(num_slots=3, max_prompt_len=12, max_len=32, block_size=4,
+                kv_layout="paged")
+    full.update(kw)
+    try:
+        JaxEngineConfig(**full).validate()
+        jax_err = None
+    except ValueError:
+        jax_err = ValueError
+    assert jax_err is err
+    if err is None:
+        engine = _engine(tparams, tcfg, **kw)
+        assert engine.engine_config.role == kw["role"]
+        assert engine.load()["role"] == kw["role"]
+    else:
+        with pytest.raises(err):
+            _engine(tparams, tcfg, **kw)
 
 
 def test_tenancy_refused_and_device_checked(model, monkeypatch):
+    """``configure_tenants`` (refused until tenancy was ported) installs
+    the registry in the engine and its scheduler; the device checks stay."""
+    from ray_lightning_tpu_torch.serving import TenantRegistry, TenantSpec
+
     _, _, tparams, tcfg = model
     engine = _engine(tparams, tcfg)
-    with pytest.raises(NotImplementedError):
-        engine.configure_tenants(object())
+    registry = TenantRegistry([TenantSpec("gold", weight=2.0)])
+    engine.configure_tenants(registry)
+    assert engine._tenancy is registry and engine._tenancy_admission
+    assert engine.scheduler._tenancy is registry
+    comp = engine.submit([1, 2, 3], max_new_tokens=2, tenant="gold")
+    assert engine.scheduler.tenant_depths() == {"gold": 1}
+    engine.run_until_idle()
+    assert comp.tenant == "gold" and comp.finish_reason == "length"
+    assert engine.scheduler.admitted_by_tenant == {"gold": 1}
     with pytest.raises(ValueError):
         InferenceEngine(tparams, tcfg, device="meta")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
