@@ -44,7 +44,8 @@ final line):
    sharing a prefix, 32 new tokens each. Every request must complete, every
    decode step's logits must be finite, every serving kernel must have
    launched, and the launch counts must match the layer count. The same
-   requests are then served again under torch.profiler, which gives the
+   requests are then served again (the first 8, unprofiled and then under
+   torch.profiler), which gives the
    device time by class (the port's kernels, matmuls, the rest) and the
    device's busy share;
 4b. speculative serving (``serving_spec``) — the same weights and requests
@@ -91,6 +92,24 @@ final line):
    the dead engine dropped, the card's memory back; a fresh engine serves
    the journal's resumptions and the handed-back requests). These paths'
    time, with ``disagg_exactness``, beside a 60 s budget;
+4d. the replica fleet on the main path's weights (``serving_fleet``): a
+   ``LocalReplicaFleet`` of a prefill and two decode replicas sharing one
+   params dict serves the 16 staggered requests (each ends ``"length"``
+   with 32 tokens, 16 migrated by the fleet's pump with no fallback, both
+   decode replicas routed to, the launches exact summed per engine, the
+   logits finite, every pool empty with no chain pinned; tokens/s and TTFT
+   beside the colocated main path's and ``serving_disagg``'s hand pump);
+   then two homogeneous replicas under ``replica0:crash@every:24`` with
+   retries and a breaker (every request to its length, none failed,
+   retries and a relaunch, the allocated memory back to its level before
+   the fleet after the shutdown); then the ``Autoscaler`` over a
+   one-replica fleet and a burst of 24 (a scale-up, every request done,
+   idle ticks back to one replica and the memory to the one-replica level;
+   each ``add_replica``'s time). Then (``fleet_exactness``) fp32 at those
+   widths, 2 layers: a disaggregated fleet under a kill loop, a corrupt
+   shipment and a crash mid-admit gives every stream equal to
+   ``generate``'s and iterated plain ``forward``'s. Both beside a 45 s
+   budget;
 5. serving exactness — the same engine in fp32 at full width, cut to 2
    layers: its greedy tokens must equal iterated full ``forward`` calls
    through the plain versions; then (``slot_exactness``) the slot engine's
@@ -296,9 +315,23 @@ final line):
    at world 2, the step median at each world. After the phase no worker
    or zygote process is left and the card's used memory is back within
    1 GiB; the phase's time beside its 90 s budget;
-18. the ``kernels`` JSON line (launches from the main paths: serving,
+18. the replica group (``fleet``, run before ``elastic``, whose clean-up
+   ends the zygote) — a ``ReplicaGroup`` of two
+   ``ServeReplicaActor`` processes forked from the zygote, each building
+   Llama-3-8B widths cut to 8 layers (bf16, a seeded generator, ~5.6 GB)
+   with the main path's engine settings: 16 requests reach both replicas
+   and ``check()`` finds them ok; replica 1 is SIGKILLed mid-decode,
+   ``check()`` relaunches it, its requests resume to full length
+   (``relaunches_total == 1``); each live actor's own launch counts exact
+   for its prefills and decode steps; 8 more requests and a
+   ``remove_replica()`` drop nothing; after the shutdown no process of the
+   group is left and the card's used memory is back. Printed: the forked
+   start-up, the kill to the relaunched replica's first beat, tokens/s,
+   the phase's time beside a 45 s budget;
+19. the ``kernels`` JSON line (launches from the main paths: serving,
    serving_slot, serving_spec, serving_spec_slot, serving_disagg,
-   serving_tenants, serving_faults, generate_window,
+   serving_tenants, serving_faults, serving_fleet, fleet_exactness,
+   fleet, generate_window,
    serving_qwen_yarn, generate_longrope, serving_moe, training,
    training_complete, train_moe, train_ray_ddp, train_ray_zero3,
    train_ray_horovod, ray_two_ranks, train_ray_ep, ep_exactness, tune_asha,
@@ -1243,19 +1276,29 @@ PORT_KERNEL_NAMES = {"rmsnorm_vec_kernel": "rmsnorm",
 MATMUL_NAMES = ("gemm", "gemv", "xmma", "cutlass", "splitk", "nvjet")
 
 
-def profile_run(torch, engine, reqs, wall_s, label):
-    """Where the main path's device time goes: the same requests served
-    again under torch.profiler, each device event put in one class (each of
-    the port's kernels, cuBLAS matmuls, everything else). The prefix cache is
-    warm on this pass, which changes which blocks prefill writes, not what
-    it computes. The busy share is that device time over the wall time of
-    the unprofiled run."""
+PROFILED_REQUESTS = 8  # of the 16: the profiler's cost grows with its events
+
+
+def profile_run(torch, engine, reqs, label):
+    """Where the main path's device time goes: the first
+    ``PROFILED_REQUESTS`` of the requests served again, first unprofiled
+    (timed), then under torch.profiler, each device event put in one class
+    (each of the port's kernels, cuBLAS matmuls, everything else). The
+    prefix cache is warm on these passes, which changes which blocks prefill
+    writes, not what it computes. The busy share is that device time over
+    the wall time of the unprofiled pass of the same requests."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
 
+    reqs = reqs[:PROFILED_REQUESTS]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    serve(engine, reqs, len(reqs) // 2)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        serve(engine, reqs, 8)
+        serve(engine, reqs, len(reqs) // 2)
         torch.cuda.synchronize()
     classes = collections.Counter()
     other = collections.Counter()
@@ -1276,7 +1319,8 @@ def profile_run(torch, engine, reqs, wall_s, label):
     if busy_ms == 0:
         log("profile: the profiler saw no device events; breakdown not measured")
         return
-    log(f"profile of {label}'s requests: device busy {busy_ms:.1f} ms of "
+    log(f"profile of {len(reqs)} of {label}'s requests: device busy "
+        f"{busy_ms:.1f} ms of "
         f"{wall_s * 1e3:.1f} ms wall ({busy_ms / (wall_s * 1e3):.1%} busy); "
         + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in classes.most_common()))
     log("profile, largest 'other' device events: " + "; ".join(
@@ -1390,7 +1434,7 @@ def serve_path(torch, card, cfg, params, label, layout="paged",
         f"{f'paged_decode {L}, ' if one_token_paged else ''}argmax 1"
         f"{f' at [{rows},{cfg.vocab_size}]' if speculate_k else ''})")
     if profile:
-        profile_run(torch, engine, reqs, elapsed, label)
+        profile_run(torch, engine, reqs, label)
     return counts, engine, tokens / elapsed, [c.tokens for c in comps]
 
 
@@ -1416,16 +1460,20 @@ def main_path(torch, card):
                                             paged_tps, streams)}
     by_path.update(serving_spec(torch, card, cfg, params, streams))
     t = time.perf_counter()
-    by_path["serving_disagg"] = serving_disagg(torch, card, cfg, params,
-                                               paged_tps, streams)
+    by_path["serving_disagg"], pair_tps = serving_disagg(
+        torch, card, cfg, params, paged_tps, streams)
     by_path["serving_tenants"] = serving_tenants(torch, card, cfg, params)
     by_path["serving_faults"] = serving_faults(torch, card, cfg, params,
                                                streams)
-    new_s = time.perf_counter() - t
+    disagg_s = time.perf_counter() - t
+    t = time.perf_counter()
+    by_path["serving_fleet"] = serving_fleet(torch, card, cfg, params,
+                                             paged_tps, pair_tps, streams)
+    fleet_s = time.perf_counter() - t
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return by_path, new_s
+    return by_path, disagg_s, fleet_s
 
 
 def serving_slot(torch, card, cfg, params, paged_tps, paged_streams):
@@ -1537,6 +1585,12 @@ TENANT_SPECS = "gold:guaranteed:4,silver:standard:2,free:best_effort:1:0:4"
 TENANT_DEADLINE_MS = 400.0  # the first gold request: runs out mid-decode
 SERVE_FAULT_DROP = "replica0:drop-stream@req2:4,replica0:slow-decode@every:4:0.05"
 SERVE_FAULT_CRASH = "replica0:crash@tick8"
+
+
+def _add(total, counts):
+    """Add one run's launch counts into a path's ``total``."""
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
 
 
 def _median_max(xs):
@@ -1773,7 +1827,7 @@ def serving_disagg(torch, card, cfg, params, colocated_tps, streams):
     del src, dst, pump, comps, src_comps
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, tokens / elapsed
 
 
 def serving_tenants(torch, card, cfg, params):
@@ -1922,10 +1976,6 @@ def serving_faults(torch, card, cfg, params, streams):
     reqs = requests(np.random.default_rng(0), cfg.vocab_size, 16, 512, 32, 256)
     total = {}
 
-    def add(counts):
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
-
     # (1) drop-stream and slow-decode, stepped here
     restore = _fault_env(SERVE_FAULT_DROP)
     try:
@@ -1980,7 +2030,7 @@ def serving_faults(torch, card, cfg, params, streams):
     check(prefills == 17 and counts == expect,
           f"serving_faults drop: {prefills} prefills, launches {counts} != "
           f"{expect}")
-    add(counts)
+    _add(total, counts)
     stalled = [v for k, v in ticks.items() if k % 4 == 0]
     others = [v for k, v in ticks.items() if k % 4]
     check(min(stalled) >= 0.05, f"serving_faults: a stalled tick took "
@@ -2035,7 +2085,7 @@ def serving_faults(torch, card, cfg, params, streams):
     expect = launches_expected(L, prefilled, engine.stats["decode_steps"])
     check(crash_counts == expect, f"serving_faults crash: launches "
           f"{crash_counts} != {expect}")
-    add(crash_counts)
+    _add(total, crash_counts)
     # the journal's next attempts drop every reference to the dead engine
     pending = [(e, journal.begin_attempt(e, replica=1)) for e in entries]
     del engine, back, e, c
@@ -2067,7 +2117,7 @@ def serving_faults(torch, card, cfg, params, streams):
                                engine.stats["decode_steps"])
     check(fresh_counts == expect, f"serving_faults relaunch: launches "
           f"{fresh_counts} != {expect}")
-    add(fresh_counts)
+    _add(total, fresh_counts)
     same = sum(e.delivered == s for e, s in zip(entries, streams))
     log(f"serving_faults crash on {card}: {SERVE_FAULT_CRASH!r} on the loop "
         f"thread: the loop died at tick {crashed_ticks} after "
@@ -2194,6 +2244,385 @@ def disagg_exactness(torch):
     del params, src, dst, engine
     gc.collect()
     torch.cuda.empty_cache()
+
+
+FLEET_BUDGET_S = 45.0  # serving_fleet and fleet_exactness together
+# every incarnation of replica 0 dies at its 24th tick (no fuse)
+FLEET_KILL_SPEC = "replica0:crash@every:24"
+# fleet_exactness: the decode replica 1 dies every 6th tick (no fuse), the
+# first shipment from the prefill replica is corrupted, and an incarnation
+# of the decode replica 2 crashes while admitting its second
+FLEET_EXACT_SPEC = ("replica1:crash@every:6,replica0:corrupt-shipment@req1,"
+                    "replica2:crash-mid-admit@req2")
+FLEET_SLACK = 128 * 2**20  # bytes; a KV pool of the main path is 1 GiB
+
+
+def launches_consistent(L, counts):
+    """Launch counts that some number of prefills and one-token paged decode
+    steps explain exactly (``launches_expected`` of the prefills that
+    flash's count gives and the steps that argmax's gives)."""
+    prefills, rem = divmod(counts["flash_fwd"], L)
+    return rem == 0 and counts == launches_expected(L, prefills,
+                                                     counts["argmax"])
+
+
+def _staggered(fleet, reqs, prefix, first_wave=8, started=4, timeout=300.0):
+    """Submit ``reqs`` to the fleet in two waves, the second once
+    ``started`` requests of the first have their first token; returns the
+    journal entries."""
+    entries = [fleet.submit(p, max_new_tokens=n, request_id=f"{prefix}{i}")
+               for i, (p, n) in enumerate(reqs[:first_wave])]
+    deadline = time.perf_counter() + timeout
+    while sum(e.first_token_at is not None for e in entries) < started:
+        check(time.perf_counter() < deadline,
+              f"{prefix}: no first tokens in {timeout}s")
+        time.sleep(0.002)
+    entries += [fleet.submit(p, max_new_tokens=n,
+                             request_id=f"{prefix}{i + first_wave}")
+                for i, (p, n) in enumerate(reqs[first_wave:])]
+    return entries
+
+
+def _check_full(label, entries, reqs, vocab):
+    for e, (_, n) in zip(entries, reqs):
+        check(e.done and e.disposition == "completed"
+              and e.finish_reason == "length" and len(e.tokens) == n
+              and all(0 <= t < vocab for t in e.tokens),
+              f"{label} {e.request_id}: {e.disposition}/{e.finish_reason}, "
+              f"{len(e.tokens)} tokens")
+
+
+def _allocated_after_gc(torch):
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def serving_fleet(torch, card, cfg, params, colocated_tps, pair_tps, streams):
+    """The fleet (``LocalReplicaFleet``) on the main path's weights and
+    engine settings, every replica sharing the one params dict. (1)
+    Disaggregated, one prefill and two decode replicas: the main path's 16
+    staggered requests each end ``"length"`` with 32 tokens, 16 migrate with
+    no fallback, both decode replicas are routed to, the launches are exact
+    summed per engine (prefills only on the prefill replica, every decode
+    step on a decode replica), the logits are finite, and every pool ends
+    empty with no chain pinned. (2) A kill loop: two homogeneous replicas
+    under ``FLEET_KILL_SPEC`` with retries and a breaker: every request
+    completes to its length, none fails, some retried and some replica
+    relaunched, and after the shutdown the allocated memory is back to its
+    level before the fleet. (3) The Autoscaler over a one-replica fleet and
+    a burst of 24 requests of 16 tokens: at least one scale-up, every
+    request completes, idle ticks drain the fleet back to one replica and
+    the memory to the one-replica level. Printed: tokens/s and TTFT beside
+    the colocated main path's and the hand pump's (``serving_disagg``), each
+    ``add_replica``'s time, and how many disaggregated bf16 streams equal
+    the colocated ones (not checked). The kill loop's streams are not
+    compared: its prompts are cut to 480 tokens, and no unfaulted run of
+    them is made (fp32 streams are held under faults in
+    ``fleet_exactness``)."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.serving import Autoscaler, LocalReplicaFleet
+
+    L, V = cfg.n_layers, cfg.vocab_size
+    ekw = dataclasses.asdict(main_engine_config())
+    reqs = requests(np.random.default_rng(0), V, 16, 512, 32, 256)
+    total = {}
+
+    # (1) disaggregated
+    fleet = LocalReplicaFleet(lambda: (params, cfg), engine_kwargs=ekw,
+                              initial_replicas=3, prefill_replicas=1,
+                              device="cuda")
+    try:
+        check(fleet.roles == {0: "prefill", 1: "decode", 2: "decode"},
+              f"serving_fleet: roles {fleet.roles}")
+        finite = []
+        for eng in fleet._replicas.values():
+            def checked(logits, sample=eng._sample):
+                finite.append(torch.isfinite(logits).all())
+                return sample(logits)
+
+            eng._sample = checked
+        fleet.submit([1, 2, 3, 4], max_new_tokens=2).result(timeout=120)
+        deadline = time.perf_counter() + 60
+        while any(e.pool.occupancy for e in fleet._replicas.values()):
+            check(time.perf_counter() < deadline, "serving_fleet: warm-up")
+            time.sleep(0.001)
+        engines = dict(fleet._replicas)
+        before = {i: dict(e.stats) for i, e in engines.items()}
+        m0, routed0 = fleet.migration_stats.as_dict(), dict(fleet.routed_total)
+        finite.clear()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        entries = _staggered(fleet, reqs, "f")
+        for e in entries:
+            e.result(timeout=300)
+        elapsed = time.perf_counter() - t
+        deadline = time.perf_counter() + 60
+        while any(e.pool.occupancy for e in engines.values()):
+            check(time.perf_counter() < deadline,
+                  "serving_fleet: a pool did not empty")
+            time.sleep(0.001)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        m = {k: v - m0[k] for k, v in fleet.migration_stats.as_dict().items()}
+        routed = {i: fleet.routed_total[i] - routed0.get(i, 0)
+                  for i in engines}
+        transfer = sorted(fleet.migration_stats.transfer_ms[-16:])
+        delta = {i: {k: engines[i].stats[k] - before[i][k]
+                     for k in ("prefills", "decode_steps")} for i in engines}
+        pools = {i: (e.pool.occupancy,
+                     e.pool.allocator.stats()["chains_pinned"],
+                     e.pool.allocator.stats()["blocks_used"])
+                 for i, e in engines.items()}
+    finally:
+        fleet.shutdown()
+    _check_full("serving_fleet", entries, reqs, V)
+    check(m["migrated"] == 16 and m["fallbacks"] == 0 and m["corrupt"] == 0,
+          f"serving_fleet: migration {m}")
+    check(routed[1] >= 1 and routed[2] >= 1,
+          f"serving_fleet: decode replicas routed {routed}")
+    steps = delta[1]["decode_steps"] + delta[2]["decode_steps"]
+    check(delta[0] == {"prefills": 16, "decode_steps": 0}
+          and delta[1]["prefills"] + delta[2]["prefills"] == 16,
+          f"serving_fleet: per-engine prefills and steps {delta}")
+    expect = launches_expected(L, 16, steps)
+    check(counts == expect, f"serving_fleet: launch counts {counts} != "
+          f"{expect}")
+    check(len(finite) == steps and bool(torch.stack(finite).all()),
+          f"serving_fleet: {len(finite)} sampled steps of {steps}, or a "
+          "decode step's logits are not finite")
+    check(all(v == (0, 0, 0) for v in pools.values()),
+          f"serving_fleet: pools (occupancy, chains pinned, blocks used) "
+          f"{pools}")
+    _add(total, counts)
+    tokens = sum(len(e.tokens) for e in entries)
+    ttfts = sorted(e.ttft_s for e in entries)
+    same = sum(e.tokens == s for e, s in zip(entries, streams))
+    log(f"serving_fleet disaggregated on {card}: LocalReplicaFleet(3 "
+        f"replicas, prefill_replicas=1) on one params dict, each replica on "
+        f"its loop thread, the pump serial; 16 requests (16 prefills on the "
+        f"prefill replica, {steps} decode steps on the decode replicas: "
+        f"{delta[1]['decode_steps']} and {delta[2]['decode_steps']}, routed "
+        f"{routed}) in {elapsed:.3f}s -> {tokens / elapsed:.1f} tokens/s "
+        f"beside the colocated main path's {colocated_tps:.1f} and the hand "
+        f"pump's (serving_disagg) {pair_tps:.1f}; TTFT submit -> first token "
+        f"median {ttfts[8] * 1e3:.1f} ms max {ttfts[-1] * 1e3:.1f} ms; "
+        f"migration {m}, a shipment's send-verify-admit median "
+        f"{transfer[len(transfer) // 2]:.1f} ms max {transfer[-1]:.1f} ms; "
+        f"{same} of 16 greedy streams equal the colocated main path's (bf16; "
+        f"not checked); launches {counts}")
+    del fleet, entries, engines
+
+    # (2) the kill loop
+    kill_reqs = requests(np.random.default_rng(0), V, 16, 480, 32, 256)
+    base = _allocated_after_gc(torch)
+    restore = _fault_env(FLEET_KILL_SPEC)
+    try:
+        fleet = LocalReplicaFleet(lambda: (params, cfg), engine_kwargs=ekw,
+                                  initial_replicas=2, max_retries=4,
+                                  breaker_threshold=3, breaker_cooldown_s=1.0,
+                                  device="cuda")
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            entries = _staggered(fleet, kill_reqs, "k")
+            for e in entries:
+                e.result(timeout=300)
+            elapsed = time.perf_counter() - t
+            stats = fleet.stats()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        finally:
+            fleet.shutdown()
+    finally:
+        restore()
+    _check_full("serving_fleet kill loop", entries, kill_reqs, V)
+    check(stats["failed"] == 0 and stats["retries"] >= 1
+          and stats["relaunches"] >= 1,
+          f"serving_fleet kill loop: {stats}")
+    check(launches_consistent(L, counts),
+          f"serving_fleet kill loop: launch counts {counts}")
+    _add(total, counts)
+    tokens = sum(len(e.tokens) for e in entries)
+    transitions = [(a, b) for _, a, b in fleet.breakers[0].transitions]
+    del fleet, entries
+    after = _allocated_after_gc(torch)
+    check(after <= base + FLEET_SLACK,
+          f"serving_fleet kill loop: {after} bytes allocated after the "
+          f"shutdown, {base} before the fleet")
+    log(f"serving_fleet kill loop on {card}: {FLEET_KILL_SPEC!r}, 2 "
+        f"replicas, max_retries 4, breaker 3 / 1.0 s: 16 requests (prompts "
+        f"up to 480 tokens, so that a resume fits the 512 prefill) "
+        f"completed to 32 tokens in {elapsed:.3f}s -> {tokens / elapsed:.1f} "
+        f"tokens/s; journal {stats['completed']} completed, "
+        f"{stats['failed']} failed, {stats['retries']} retries, "
+        f"{stats['relaunches']} relaunches, routed {stats['routed']}; "
+        f"replica 0's breaker {transitions}; {after} bytes allocated after "
+        f"the shutdown, {base} before the fleet; launches {counts}")
+
+    # (3) the autoscaler
+    # 16 new tokens a request: the burst is about scaling, not decoding
+    burst = requests(np.random.default_rng(1), V, 24, 512, 16, 256)
+    fleet = LocalReplicaFleet(lambda: (params, cfg), engine_kwargs=ekw,
+                              initial_replicas=1, device="cuda")
+    adds = []
+    add_replica = fleet.add_replica
+
+    def timed_add(*args, **kwargs):
+        t = time.perf_counter()
+        index = add_replica(*args, **kwargs)
+        adds.append((index, time.perf_counter() - t))
+        return index
+
+    fleet.add_replica = timed_add
+    scaler = Autoscaler(fleet, min_replicas=1, max_replicas=3, queue_high=2)
+    try:
+        fleet.submit([1, 2, 3, 4], max_new_tokens=2).result(timeout=120)
+        one = _allocated_after_gc(torch)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        entries = [fleet.submit(p, max_new_tokens=n, request_id=f"a{i}")
+                   for i, (p, n) in enumerate(burst[:12])]
+        deadline = time.perf_counter() + 300
+        peak = 1
+        while not all(e.done for e in entries) or len(entries) < 24:
+            check(time.perf_counter() < deadline,
+                  "serving_fleet autoscaler: the burst did not finish")
+            scaler.tick()
+            peak = max(peak, fleet.num_replicas)
+            if scaler.scale_ups and len(entries) < 24:
+                entries += [fleet.submit(p, max_new_tokens=n,
+                                         request_id=f"a{i + 12}")
+                            for i, (p, n) in enumerate(burst[12:])]
+            time.sleep(0.05)
+        elapsed = time.perf_counter() - t
+        while fleet.num_replicas > 1:
+            check(time.perf_counter() < deadline,
+                  f"serving_fleet autoscaler: {fleet.num_replicas} replicas "
+                  "left after the burst")
+            scaler.tick()
+            time.sleep(0.05)
+        for th in fleet._drain_threads:
+            th.join(timeout=60)
+        check(not fleet._draining, "serving_fleet autoscaler: a drain hung")
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        stats = fleet.stats()
+        back = _allocated_after_gc(torch)
+    finally:
+        fleet.shutdown()
+    _check_full("serving_fleet autoscaler", entries, burst, V)
+    check(scaler.scale_ups >= 1 and scaler.scale_downs == scaler.scale_ups,
+          f"serving_fleet autoscaler: {scaler.scale_ups} up, "
+          f"{scaler.scale_downs} down")
+    check(back <= one + FLEET_SLACK,
+          f"serving_fleet autoscaler: {back} bytes allocated back at one "
+          f"replica, {one} at one replica before")
+    check(launches_consistent(L, counts),
+          f"serving_fleet autoscaler: launch counts {counts}")
+    _add(total, counts)
+    tokens = sum(len(e.tokens) for e in entries)
+    log(f"serving_fleet autoscaler on {card}: Autoscaler(min 1, max 3, "
+        f"queue_high 2) over a one-replica fleet, 24 requests of 16 tokens "
+        f"(12, then 12 after the first scale-up) in {elapsed:.3f}s -> "
+        f"{tokens / elapsed:.1f} tokens/s, peak {peak} replicas, history "
+        f"{[(round(h[0] - scaler.history[0][0], 3), h[1], h[2]) for h in scaler.history]}, "
+        f"routed {stats['routed']}; each add_replica (a 1 GiB KV pool and "
+        f"warmup) {[(i, round(s, 3)) for i, s in adds]} s; {back} bytes "
+        f"allocated back at one replica ({one} before the burst); launches "
+        f"{counts}")
+    del fleet, entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def fleet_exactness(torch):
+    """fp32 at Llama-3-8B widths, 2 layers: a disaggregated fleet (a prefill
+    and two decode replicas) under ``FLEET_EXACT_SPEC`` (a kill loop on one
+    decode replica, a corrupt shipment, crashes mid-admit on the other):
+    every stream equals ``generate``'s and iterated plain ``forward``'s,
+    none fails, the corrupt shipment is caught and replicas are relaunched.
+    Returns the launch counts."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.models.generation import generate
+    from ray_lightning_tpu_torch.models.llama import (
+        LlamaConfig,
+        forward,
+        init_params,
+    )
+    from ray_lightning_tpu_torch.serving import LocalReplicaFleet
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7))
+    kw = dict(num_slots=4, max_prompt_len=64, max_len=128, block_size=16,
+              kv_layout="paged")
+    # prompts up to 56 tokens: a resumed prompt (+ 7 delivered) fits 64
+    reqs = requests(np.random.default_rng(7), cfg.vocab_size, 6, 56, 8, 32)
+    t = time.perf_counter()
+    plain = []
+    for prompt, n in reqs:
+        toks = list(prompt)
+        for _ in range(n):
+            logits = forward(params, torch.tensor([toks], device="cuda"), cfg,
+                             plain=True)
+            toks.append(int(torch.argmax(logits[0, -1].float())))
+        plain.append(toks[len(prompt):])
+    generated = [generate(params, torch.tensor([p], device="cuda"), cfg,
+                          n)[0, len(p):].tolist() for p, n in reqs]
+    check(generated == plain, f"fleet exactness: generate {generated} != "
+          f"forward {plain}")
+    refs_s = time.perf_counter() - t
+    t = time.perf_counter()
+    restore = _fault_env(FLEET_EXACT_SPEC)
+    try:
+        fleet = LocalReplicaFleet(lambda: (params, cfg), engine_kwargs=kw,
+                                  initial_replicas=3, prefill_replicas=1,
+                                  max_retries=8, breaker_threshold=3,
+                                  breaker_cooldown_s=0.5, device="cuda")
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            entries = [fleet.submit(p, max_new_tokens=n)
+                       for p, n in reqs]
+            got = [e.result(timeout=300) for e in entries]
+            stats = fleet.stats()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        finally:
+            fleet.shutdown()
+    finally:
+        restore()
+    fleet_s = time.perf_counter() - t
+    check(got == plain, f"fleet exactness: streams {got} != forward {plain}")
+    m = stats["migration"]
+    check(stats["completed"] == len(reqs) and stats["failed"] == 0
+          and m["corrupt"] >= 1 and stats["relaunches"] >= 1,
+          f"fleet exactness: {stats}")
+    check(launches_consistent(cfg.n_layers, counts),
+          f"fleet exactness: launch counts {counts}")
+    log(f"fleet exactness: fp32 llama3_8b widths, 2 layers, a prefill and "
+        f"two decode replicas under {FLEET_EXACT_SPEC!r}: {len(reqs)} greedy "
+        f"streams token-identical to generate's and iterated plain forward; "
+        f"journal {stats['completed']} completed, {stats['failed']} failed, "
+        f"{stats['retries']} retries, {stats['relaunches']} relaunches; "
+        f"migration {m}; breakers' failures "
+        f"{ {i: b.failures_total for i, b in fleet.breakers.items()} }; "
+        f"the references {refs_s:.1f}s, the fleet's run {fleet_s:.1f}s; "
+        f"launches {counts}")
+    del params, fleet, entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def spec_exactness(torch):
@@ -5989,17 +6418,160 @@ def elastic_phase(torch, card):
     return {"train_ray_elastic": counts}
 
 
+FLEET_LAYERS = 8  # Llama-3-8B widths cut to 8 layers: ~5.6 GB a replica
+FLEET_PHASE_BUDGET_S = 45.0
+
+
+def fleet_builder(n_layers, seed):
+    """A replica actor's ``(params, cfg)``: Llama-3-8B widths cut to
+    ``n_layers``, bf16 weights from a seeded generator on the card (built in
+    the actor, never shipped from this process)."""
+    import torch
+
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=n_layers)
+    return init_params(cfg, torch.Generator(device="cuda").manual_seed(seed)), \
+        cfg
+
+
+def fleet_phase(torch, card):
+    """A ``ReplicaGroup`` of two ``ServeReplicaActor`` processes, forked from
+    the zygote, each building Llama-3-8B widths at ``FLEET_LAYERS`` layers
+    from a seeded generator, on the main path's engine settings: 16 requests
+    reach both replicas and ``check()`` finds both ok; one actor is
+    SIGKILLed mid-decode, ``check()`` relaunches it, its requests resume to
+    full length, ``relaunches_total == 1``; 8 more requests and a
+    ``remove_replica()`` drop nothing; after the shutdown no process of the
+    group is left and the card's used memory is back. Launches: the two
+    live actors' own counts after the 16 requests, each exact for its
+    prefills and decode steps. Printed: the forked start-up, the kill to
+    the relaunched replica's first beat, tokens/s, the phase's time beside
+    ``FLEET_PHASE_BUDGET_S``."""
+    import functools
+    import os
+    import signal
+
+    import numpy as np
+
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig
+    from ray_lightning_tpu_torch.runtime.api import pid_exited
+    from ray_lightning_tpu_torch.serving import ReplicaGroup
+
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    apps, used = _compute_apps(), _card_used_mib()
+    t_phase = time.perf_counter()
+    builder = functools.partial(_smoke_module().fleet_builder, FLEET_LAYERS, 0)
+    vocab = LlamaConfig.llama3_8b().vocab_size
+    reqs = requests(np.random.default_rng(0), vocab, 16, 512, 32, 256)
+    pids = []
+    with _zygote():  # the actors, and the relaunch, forked from the zygote
+        t = time.perf_counter()
+        group = ReplicaGroup(builder,
+                             engine_kwargs=dataclasses.asdict(
+                                 main_engine_config()),
+                             num_replicas=2, device="cuda",
+                             heartbeat_interval=0.2, max_retries=3).start()
+        start_s = time.perf_counter() - t
+        pids += [h._pid for h in group.handles.values()]
+        try:
+            t = time.perf_counter()
+            futures = [group.submit(p, max_new_tokens=n) for p, n in reqs]
+            check({f.replica for f in futures} == {0, 1},
+                  f"fleet: routed to {[f.replica for f in futures]}")
+            victims = [f for f in futures if f.replica == 1]
+            deadline = time.perf_counter() + 300
+            while len(group._poll(1, victims[0].request_id)["tokens"]) < 2:
+                check(time.perf_counter() < deadline,
+                      "fleet: replica 1 produced no tokens")
+                time.sleep(0.01)
+            pid = group.handles[1]._pid
+            t_kill = time.perf_counter()
+            os.kill(pid, signal.SIGKILL)
+            while not pid_exited(pid):
+                check(time.perf_counter() - t_kill < 30,
+                      f"fleet: pid {pid} outlived SIGKILL")
+                time.sleep(0.01)
+            verdict = group.check()
+            relaunch_s = time.perf_counter() - t_kill
+            check(verdict == {0: "ok", 1: "relaunched"},
+                  f"fleet: check() after the kill {verdict}")
+            pids.append(group.handles[1]._pid)
+            health = group._supervisor.health
+            while health.get(1) is None or health[1].last_beat is None:
+                check(time.perf_counter() - t_kill < 120,
+                      "fleet: the relaunched replica never beat")
+                time.sleep(0.005)
+            beat_s = time.perf_counter() - t_kill
+            got = [f.result(timeout=300) for f in futures]
+            elapsed = time.perf_counter() - t
+            for (_, n), toks, f in zip(reqs, got, futures):
+                check(len(toks) == n and all(0 <= x < vocab for x in toks),
+                      f"fleet {f.request_id}: {len(toks)} tokens")
+            check(group.relaunches_total == 1 and group.retries_total >= 1,
+                  f"fleet: {group.relaunches_total} relaunches, "
+                  f"{group.retries_total} retries")
+            verdict2 = group.check()
+            check(verdict2 == {0: "ok", 1: "ok"}, f"fleet: check() {verdict2}")
+            counts, per_actor = {}, {}
+            for i, h in group.handles.items():
+                c = h.kernel_launches.remote().result(timeout=60)
+                d = h.describe.remote().result(timeout=60)
+                expect = launches_expected(FLEET_LAYERS, d["prefills"],
+                                           d["decode_steps"])
+                check(c == expect, f"fleet replica {i}: launches {c} != "
+                      f"{expect}")
+                per_actor[i] = (d["prefills"], d["decode_steps"])
+                _add(counts, c)
+            more = [group.submit(p, max_new_tokens=n) for p, n in reqs[:8]]
+            removed = group.remove_replica()
+            check(removed == 1 and group.num_replicas == 1,
+                  f"fleet: remove_replica() -> {removed}")
+            more_got = [f.result(timeout=300) for f in more]
+            check(all(len(x) == n for x, (_, n) in zip(more_got, reqs)),
+                  "fleet: a request of the removed replica was dropped")
+            for th in group._drain_threads:
+                th.join(timeout=120)
+            check(list(group.handles) == [0],
+                  f"fleet: replicas {list(group.handles)} after the removal")
+        finally:
+            group.shutdown()
+    _card_clean(apps, used, pids, "fleet")
+    tokens = sum(len(x) for x in got)
+    phase_s = time.perf_counter() - t_phase
+    log(f"fleet on {card}: ReplicaGroup of 2 ServeReplicaActors forked from "
+        f"the zygote, llama3_8b widths at {FLEET_LAYERS} layers bf16 built in "
+        f"each actor from a seeded generator, main path engine settings: "
+        f"start-up {start_s:.2f}s (both actors: fork, weights, KV pool, "
+        f"kernel libraries); 16 requests on both replicas, replica 1 "
+        f"SIGKILLed mid-decode: check() relaunched it {relaunch_s:.2f}s after "
+        f"the kill, its first beat {beat_s:.2f}s after; its requests resumed "
+        f"({group.retries_total} retries), all 16 to 32 tokens in "
+        f"{elapsed:.2f}s -> {tokens / elapsed:.1f} tokens/s across the kill; "
+        f"remove_replica() drained replica 1 with 8 more requests, none "
+        f"dropped; (prefills, decode steps) of the live actors {per_actor}, "
+        f"their launches {counts}")
+    log(f"fleet phase on {card}: {phase_s:.1f}s (budget "
+        f"{FLEET_PHASE_BUDGET_S:.0f} s)")
+    return counts
+
+
 SMOKE_LIMIT_S = 1140.0  # by the script's own clock
 
 # the phases of a run; ``--phases a,b`` runs those alone and prints no
 # result (a rehearsal of new phases)
 PHASES = ("kernels", "serving", "generation", "moe_serving", "training",
           "train_moe", "ray", "ray_two_ranks", "ray_ep", "tune", "faults",
-          "elastic")
+          "fleet", "elastic")
 
 
-# the phases whose worker groups are forked from the zygote
-RAY_PHASES = {"ray", "ray_two_ranks", "ray_ep", "tune", "faults", "elastic"}
+# the phases whose worker groups (or replica actors) are forked from the
+# zygote
+RAY_PHASES = {"ray", "ray_two_ranks", "ray_ep", "tune", "faults", "elastic",
+              "fleet"}
 
 
 def main(argv=None):
@@ -6062,15 +6634,20 @@ def main(argv=None):
         check_new_path_shapes(torch, F, results)
     by_path = {}
     if "serving" in phases:
-        paths, new_s = main_path(torch, card)
+        paths, new_s, fleet_s = main_path(torch, card)
         by_path.update(paths)
         exactness(torch)
         t = time.perf_counter()
         disagg_exactness(torch)
         new_s += time.perf_counter() - t
-        log(f"serving phase's new paths (serving_disagg, serving_tenants, "
-            f"serving_faults, disagg_exactness) on {card}: {new_s:.1f}s "
-            f"(budget {DISAGG_BUDGET_S:.0f} s)")
+        log(f"serving phase's disaggregation paths (serving_disagg, "
+            f"serving_tenants, serving_faults, disagg_exactness) on {card}: "
+            f"{new_s:.1f}s (budget {DISAGG_BUDGET_S:.0f} s)")
+        t = time.perf_counter()
+        by_path["fleet_exactness"] = fleet_exactness(torch)
+        fleet_s += time.perf_counter() - t
+        log(f"serving phase's fleet paths (serving_fleet, fleet_exactness) "
+            f"on {card}: {fleet_s:.1f}s (budget {FLEET_BUDGET_S:.0f} s)")
         slot_exactness(torch)
         spec_exactness(torch)
     if "generation" in phases:
@@ -6113,6 +6690,9 @@ def main(argv=None):
         by_path.update(tune_phase(torch, card))
     if "faults" in phases:
         by_path.update(faults_phase(torch, card))
+    if "fleet" in phases:
+        # before elastic, whose clean-up ends the zygote
+        by_path["fleet"] = fleet_phase(torch, card)
     if "elastic" in phases:
         by_path.update(elastic_phase(torch, card))
     if only is not None:

@@ -171,6 +171,14 @@ class CudaKernel:
         self._fn = None
         KERNELS.append(self)
 
+    def load(self) -> None:
+        """Build (when stale) and load the kernel's library now, launching
+        nothing: a caller that must not pay the build or the ``dlopen`` at
+        its first launch calls this ahead. Thread-safe (``load_library``'s
+        lock)."""
+        if self._fn is None:
+            self._load()
+
     def _load(self):
         fn = getattr(load_library(self.source), self.symbol)
         fn.argtypes = self.argtypes

@@ -35,8 +35,15 @@ around them (or they are mid-transition), and the supervisor forgets them
 forgotten rank's next beat re-arms it; ``track_rank`` watches a spare that
 was admitted. A hook that returns False or raises trips the group as before.
 
-The JAX supervisor's telemetry tap (the driver-side aggregator, the SLO
-monitor) is not ported (ROADMAP.md).
+The aggregator tap: an ``aggregator`` (any object with ``on_beat(rank,
+step, wall_time, payload)``, ``heartbeat_age(rank, age)`` and
+``record_event(kind, **fields)``) receives every beat, the serving
+replicas' ``(rank, step, wall_time, payload)`` beats' payloads included,
+each rank's beat age at every check, and the straggler and hang events.
+The serving fleet's load tap is one (``serving/replica.py``); the training
+paths pass none. The JAX supervisor's SLO monitor and its publishing of
+the beats to the main process's telemetry aggregator are not ported (ROADMAP.md,
+queue 1 item 9: observability).
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ import logging
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ray_lightning_tpu_torch.runtime.actor import ActorError
 
@@ -111,7 +118,8 @@ class Supervisor:
                  kill_group: Optional[Callable[[], None]] = None,
                  is_alive: Optional[Callable[[int], bool]] = None,
                  label: str = "workers",
-                 on_hung: Optional[Callable[[List[int]], bool]] = None):
+                 on_hung: Optional[Callable[[List[int]], bool]] = None,
+                 aggregator: Optional[Any] = None):
         # a timeout below two heartbeat periods would flag healthy workers:
         # clamp it, so the two arguments stay independent. None or 0 only
         # watches
@@ -123,6 +131,7 @@ class Supervisor:
         self._is_alive = is_alive
         self._label = label
         self.on_hung = on_hung
+        self._aggregator = aggregator
         self.health: Dict[int, WorkerHealth] = {
             r: WorkerHealth(rank=r) for r in range(num_workers)}
         # the ranks whose stage returned, with their last health
@@ -148,17 +157,23 @@ class Supervisor:
 
     # ------------------------------------------------------------------ #
     def ingest(self, beat) -> None:
-        """One drained beat, ``(rank, step, wall_time)``; malformed beats are
-        dropped."""
+        """One drained beat, ``(rank, step, wall_time)`` or ``(rank, step,
+        wall_time, payload)``; malformed beats are dropped."""
+        payload = None
         try:
-            rank, step, wall = beat
+            if len(beat) == 4:
+                rank, step, wall, payload = beat
+            else:
+                rank, step, wall = beat
         except (TypeError, ValueError):
             return
-        self.observe(rank, step, wall)
+        self.observe(rank, step, wall, payload=payload)
 
-    def observe(self, rank: int, step: int, wall_time: float) -> None:
-        """Take one beat (the thread calls it for each drained beat); a
-        ``DONE`` beat ends the watch of its rank."""
+    def observe(self, rank: int, step: int, wall_time: float,
+                payload: Optional[dict] = None) -> None:
+        """Take one beat (the thread calls it for each drained beat) and
+        hand it to the aggregator; a ``DONE`` beat ends the watch of its
+        rank."""
         if int(step) == DONE:
             self.finished[rank] = self.health.pop(rank, None)
             return
@@ -171,37 +186,68 @@ class Supervisor:
         h.last_beat = now
         h.last_step = max(h.last_step, int(step))
         h.warned_slow = False  # a fresh beat ends the incident
+        agg = self._aggregator
+        if agg is not None:
+            try:
+                agg.on_beat(rank, step, wall_time, payload)
+            except Exception:  # the tap must never break supervision
+                logger.debug("aggregator.on_beat failed", exc_info=True)
 
     def check(self, now: Optional[float] = None) -> Dict[int, str]:
         """Every rank's verdict; warns once of a straggler. A supervisor
         without ``hang_timeout`` reports every rank ok."""
         now = time.monotonic() if now is None else now
         out: Dict[int, str] = {}
+        agg = self._aggregator
         for rank, h in list(self.health.items()):
+            if agg is not None and h.last_beat is not None:
+                try:
+                    agg.heartbeat_age(rank, now - h.last_beat)
+                except Exception:
+                    logger.debug("aggregator.heartbeat_age failed",
+                                 exc_info=True)
             if self.hang_timeout is None:
                 out[rank] = OK
                 continue
             verdict = classify(h, now, self.hang_timeout)
             if verdict == SLOW and not h.warned_slow:
                 h.warned_slow = True
+                silent = now - (h.last_beat or h.started)
                 logger.warning(
                     "rank %d is straggling: no heartbeat for %.1fs (last step "
-                    "%d, hang_timeout %.1fs)", rank,
-                    now - (h.last_beat or h.started), h.last_step,
+                    "%d, hang_timeout %.1fs)", rank, silent, h.last_step,
                     self.hang_timeout)
+                self._record_event("straggler", rank=rank,
+                                   silent_s=round(silent, 3),
+                                   last_step=h.last_step,
+                                   hang_timeout=self.hang_timeout)
             out[rank] = verdict
         return out
 
     def forget_rank(self, rank: int, drop_telemetry: bool = False) -> None:
         """Stop watching ``rank`` (evicted by a shrink, or mid-transition: a
-        later beat re-arms it). ``drop_telemetry`` is the JAX signature's
-        (the port has no aggregator to drop the rank from)."""
+        later beat re-arms it). ``drop_telemetry`` also asks the aggregator,
+        where it has a ``drop_rank``, to forget the rank (a permanent
+        eviction only)."""
         self.health.pop(rank, None)
+        if drop_telemetry and self._aggregator is not None:
+            try:
+                self._aggregator.drop_rank(rank)
+            except Exception:
+                logger.debug("aggregator.drop_rank failed", exc_info=True)
 
     def track_rank(self, rank: int) -> None:
         """Watch a newly admitted rank (an elastic grow), armed at its first
         beat."""
         self.health[rank] = WorkerHealth(rank=rank)
+
+    def _record_event(self, kind: str, **fields) -> None:
+        agg = self._aggregator
+        if agg is not None:
+            try:
+                agg.record_event(kind, label=self._label, **fields)
+            except Exception:
+                logger.debug("aggregator.record_event failed", exc_info=True)
 
     # ------------------------------------------------------------------ #
     def poll(self) -> None:
@@ -258,6 +304,10 @@ class Supervisor:
                f"hang_timeout={self.hang_timeout:.1f}s from {detail}; killing "
                "the worker group")
         logger.error(msg)
+        self._record_event("hang", ranks=hung,
+                           last_steps={r: self.health[r].last_step
+                                       for r in hung},
+                           hang_timeout=self.hang_timeout)
         # the verdict before the kill: once the workers die their futures
         # settle as lost connections, and the poller must see the hang first
         with self._verdict_lock:

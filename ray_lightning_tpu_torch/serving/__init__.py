@@ -1,8 +1,9 @@
 """Continuous-batching serving on the slot and paged KV layouts: the
 engine, its pools and scheduler, tenancy (per-tenant DRR, quotas, shed
-classes), KV shipments between a prefill and a decode engine, and the
+classes), KV shipments between a prefill and a decode engine, the
 resilience pieces (request journal, circuit breaker, shed policy,
-preemption drain)."""
+preemption drain), and the fleet of replicas over them (in-process or as
+actors, with routing, recovery, migration and autoscaling)."""
 from ray_lightning_tpu_torch.serving.engine import (
     Completion,
     EngineClosed,
@@ -30,6 +31,17 @@ from ray_lightning_tpu_torch.serving.paged_kv import (
     PagedKVPool,
     blocks_for,
 )
+from ray_lightning_tpu_torch.serving.replica import (
+    Autoscaler,
+    CapacityBlocked,
+    LocalReplicaFleet,
+    ReplicaGroup,
+    ServeFuture,
+    ServeReplicaActor,
+    autoscale_decision,
+    needs_relaunch,
+    pick_least_loaded,
+)
 from ray_lightning_tpu_torch.serving.resilience import (
     CircuitBreaker,
     JournalEntry,
@@ -54,8 +66,10 @@ from ray_lightning_tpu_torch.serving.tenancy import (
 
 __all__ = [
     "TRASH_BLOCK",
+    "Autoscaler",
     "BlockAllocation",
     "BlockAllocator",
+    "CapacityBlocked",
     "CircuitBreaker",
     "Completion",
     "ContinuousBatchScheduler",
@@ -65,6 +79,7 @@ __all__ = [
     "JournalEntry",
     "KVShipment",
     "KVSlotPool",
+    "LocalReplicaFleet",
     "MigrationPolicy",
     "MigrationRejected",
     "MigrationStats",
@@ -75,7 +90,10 @@ __all__ = [
     "Request",
     "RequestJournal",
     "RequestQueueFull",
+    "ReplicaGroup",
     "RequestShed",
+    "ServeFuture",
+    "ServeReplicaActor",
     "ShedPolicy",
     "ShipmentCorrupt",
     "ShipmentError",
@@ -84,10 +102,13 @@ __all__ = [
     "TenantRegistry",
     "TenantSpec",
     "TokenBucket",
+    "autoscale_decision",
     "blocks_for",
     "build_shipment",
     "install_sigterm_drain",
     "kv_fingerprint",
+    "needs_relaunch",
     "parse_tenant_specs",
+    "pick_least_loaded",
     "verify_shipment",
 ]

@@ -66,7 +66,10 @@ DRR queues, tenant classes in the shed policy, token-bucket quotas at
 submit (:class:`~.tenancy.QuotaExceeded`). Scripted serving faults
 (``TORCHRT_FAULT`` ``replica<R>:`` specs, ``runtime/faults.py``) fire in an
 engine built with ``replica_index=R``. Request tracing and the engine's
-metrics are not ported yet.
+metrics are not ported yet (ROADMAP.md, queue 1 item 9: observability):
+:meth:`InferenceEngine.drain_request_records` returns no records, as the JAX
+engine's does with telemetry off, and the JAX engine's ``compile_stats``
+(its jit caches) has no counterpart.
 
 Threading: ``submit`` and ``import_shipment`` may be called from any
 thread; ``start()`` spawns the loop thread (a daemon, joined by
@@ -99,10 +102,14 @@ from ray_lightning_tpu_torch.models.generation import (
     prefill_hidden,
     require_every_expert,
 )
+from ray_lightning_tpu_torch.ops.attention import FLASH_FWD_KERNEL
 from ray_lightning_tpu_torch.ops.paged_attention import (
+    ARGMAX_KERNEL,
+    PAGED_DECODE_KERNEL,
     fused_sample,
     fused_sample_supported,
 )
+from ray_lightning_tpu_torch.ops.rmsnorm import RMSNORM_KERNEL
 from ray_lightning_tpu_torch.ops.rope import rope_angles
 from ray_lightning_tpu_torch.serving.kv_pool import KVSlotPool
 from ray_lightning_tpu_torch.serving.paged_kv import TRASH_BLOCK, PagedKVPool
@@ -482,6 +489,37 @@ class InferenceEngine:
     def kernel_launches() -> Dict[str, int]:
         """Launch count of each CUDA kernel of the port, process-wide."""
         return kernels.launch_counts()
+
+    def _kernels(self) -> List[Any]:
+        """The CUDA kernels this engine's paths launch: RMSNorm and flash
+        forward (prefill), paged decode (the paged one-token decode step)
+        and argmax (the fused sampler)."""
+        out = [RMSNORM_KERNEL, FLASH_FWD_KERNEL]
+        if self._paged and self.engine_config.speculate_k == 0:
+            out.append(PAGED_DECODE_KERNEL)
+        if self._use_fused:
+            out.append(ARGMAX_KERNEL)
+        return out
+
+    def warmup(self) -> List[str]:
+        """Load, on a CUDA device, the libraries of the kernels the engine's
+        paths launch (built first when stale), so that the first request
+        pays no nvcc build and no ``dlopen``; a replica calls this before
+        it becomes routable. Executes nothing, launches nothing, and leaves
+        ``stats`` and the launch counts as they were. Returns the names of
+        the kernels loaded (none on the CPU, whose paths are plain torch)."""
+        if self.device.type != "cuda":
+            return []
+        names = []
+        for kernel in self._kernels():
+            kernel.load()
+            names.append(kernel.name)
+        return names
+
+    def drain_request_records(self) -> List[Dict[str, Any]]:
+        """Finished requests' trace records: none, since request tracing is
+        not ported (the JAX engine's returns none with telemetry off)."""
+        return []
 
     # ------------------------------------------------------------------ #
     # submission
@@ -1166,9 +1204,10 @@ class InferenceEngine:
         else:
             self.run_until_idle()
 
-    def shutdown(self, drain: bool = True) -> None:
+    def shutdown(self, drain: bool = True, timeout: float = 60.0) -> None:
         """``drain=False`` fails queued and in-flight requests instead of
-        finishing them."""
+        finishing them, once the loop has left its step in flight or
+        ``timeout`` seconds have passed (a wedged loop)."""
         if drain:
             self.drain()
             return
@@ -1178,7 +1217,7 @@ class InferenceEngine:
             thread = self._thread
             self._notify()
         if thread is not None:
-            thread.join(60.0)  # at most the step in flight
+            thread.join(timeout)  # at most the step in flight
         self._fail_all(EngineClosed("engine shut down without drain"))
 
     # ------------------------------------------------------------------ #

@@ -1535,3 +1535,143 @@ def test_refused_shipment_leaves_receiver_cache_bitwise_on_card(cuda):
         assert len(comp.result(timeout=60)) == 4
     finally:
         dst.drain(timeout=60)
+
+
+# --------------------------------------------------------------------- #
+# the fleet on the card
+# --------------------------------------------------------------------- #
+def _fleet_model(cuda):
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    return params, cfg
+
+
+def test_engine_warmup_loads_the_kernels_and_launches_nothing(cuda):
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    params, cfg = _fleet_model(cuda)
+    engine = InferenceEngine(params, cfg, EngineConfig(
+        num_slots=2, max_prompt_len=8, max_len=32, kv_layout="paged",
+        block_size=4), device=cuda)
+    kernels.reset_launch_counts()
+    stats = dict(engine.stats)
+    assert engine.warmup() == ["rmsnorm", "flash_fwd", "paged_decode",
+                               "argmax"]
+    assert set(kernels.launch_counts().values()) == {0}
+    assert dict(engine.stats) == stats
+    for k in engine._kernels():
+        assert k._fn is not None
+    slot = InferenceEngine(params, cfg, EngineConfig(
+        num_slots=2, max_prompt_len=8, max_len=32), device=cuda)
+    assert slot.warmup() == ["rmsnorm", "flash_fwd", "argmax"]
+
+
+def test_fleet_kill_loop_gives_the_card_memory_back(cuda, monkeypatch):
+    """``replica0:crash@every:6`` on a fleet of two engines on the card:
+    every request completes with the colocated engine's stream (fp32), and
+    after the shutdown no engine the fleet started (the crashed and the
+    relaunched included) is alive, and the allocated memory is back to its
+    level before the fleet but for the cuBLAS workspaces of the new loop
+    threads' handles (32 MiB a handle, cached by torch for the process)."""
+    import gc
+    import weakref
+
+    from ray_lightning_tpu_torch.serving import (
+        EngineConfig,
+        InferenceEngine,
+        LocalReplicaFleet,
+    )
+
+    started = []
+    start = InferenceEngine.start
+
+    def tracked_start(engine):
+        started.append(weakref.ref(engine))
+        start(engine)
+
+    monkeypatch.setattr(InferenceEngine, "start", tracked_start)
+
+    params, cfg = _fleet_model(cuda)
+    kw = dict(num_slots=4, max_prompt_len=16, max_len=64, kv_layout="paged",
+              block_size=4)
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(1, cfg.vocab_size, 5).tolist(), 8 + i % 4)
+            for i in range(12)]
+    eng = InferenceEngine(params, cfg, EngineConfig(**kw), device=cuda)
+    comps = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
+    eng.run_until_idle()
+    want = [c.tokens for c in comps]
+    del eng, comps
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    monkeypatch.setenv("TORCHRT_FAULT", "replica0:crash@every:6")
+    monkeypatch.delenv("TORCHRT_FAULT_FUSE", raising=False)
+    fleet = LocalReplicaFleet(lambda: (params, cfg), engine_kwargs=kw,
+                              initial_replicas=2, max_retries=8,
+                              breaker_threshold=2, breaker_cooldown_s=0.2,
+                              device=cuda)
+    try:
+        entries = [fleet.submit(p, max_new_tokens=n) for p, n in reqs]
+        assert [e.result(timeout=120) for e in entries] == want
+        stats = fleet.stats()
+        assert stats["completed"] == 12 and stats["failed"] == 0
+        assert fleet.relaunches_total >= 1 and stats["retries"] >= 1
+    finally:
+        fleet.shutdown()
+    assert len(started) == 2 + fleet.relaunches_total
+    del fleet, entries
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert all(ref() is None for ref in started)
+    assert torch.cuda.memory_allocated() <= before + 3 * 32 * 2**20
+
+
+def test_replica_group_of_two_actors_on_the_card(cuda):
+    """Two ServeReplicaActor processes on the card, each building the same
+    seeded weights: the streams equal one engine's in this process (fp32),
+    both replicas serve, and after the shutdown no actor is left."""
+    import functools
+    import time
+
+    from ray_lightning_tpu_torch import runtime as rt
+    from ray_lightning_tpu_torch.runtime.api import pid_exited
+    from ray_lightning_tpu_torch.serving import (
+        EngineConfig,
+        InferenceEngine,
+        ReplicaGroup,
+    )
+
+    import torch_fleet_helpers
+
+    params, cfg = _fleet_model(cuda)
+    kw = dict(num_slots=2, max_prompt_len=8, max_len=32, kv_layout="paged",
+              block_size=4)
+    reqs = [([3 + i, 1, 4], 6) for i in range(6)]
+    eng = InferenceEngine(params, cfg, EngineConfig(**kw), device=cuda)
+    comps = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
+    eng.run_until_idle()
+    want = [c.tokens for c in comps]
+    builder = functools.partial(torch_fleet_helpers.seeded_builder,
+                                cfg.to_dict(), 0, "cuda")
+    group = ReplicaGroup(builder, engine_kwargs=kw, num_replicas=2,
+                         device="cuda", heartbeat_interval=0.2).start()
+    pids = [h._pid for h in group.handles.values()]
+    try:
+        futures = [group.submit(p, max_new_tokens=n) for p, n in reqs]
+        assert [f.result(timeout=120) for f in futures] == want
+        assert {f.replica for f in futures} == {0, 1}
+        assert group.check() == {0: "ok", 1: "ok"}
+    finally:
+        group.shutdown()
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while not all(pid_exited(p) for p in pids):
+        assert time.monotonic() < deadline, pids
+        time.sleep(0.1)

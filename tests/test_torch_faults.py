@@ -333,6 +333,92 @@ def test_done_beat_ends_the_watch():
     assert sup.check(now=now) == {0: HUNG}
 
 
+class _Tap:
+    """An aggregator that records what the supervisor hands it."""
+
+    def __init__(self, fail=False):
+        self.beats, self.ages, self.events = [], [], []
+        self.fail = fail
+
+    def on_beat(self, rank, step, wall_time, payload):
+        self.beats.append((rank, step, wall_time, payload))
+        if self.fail:
+            raise RuntimeError("a broken tap")
+
+    def heartbeat_age(self, rank, age):
+        self.ages.append((rank, round(age, 6)))
+        if self.fail:
+            raise RuntimeError("a broken tap")
+
+    def record_event(self, kind, **fields):
+        self.events.append((kind, fields))
+        if self.fail:
+            raise RuntimeError("a broken tap")
+
+
+@pytest.mark.parametrize("fail", [False, True], ids=["tap", "broken_tap"])
+def test_supervisor_aggregator_tap_matches_jax(fail):
+    """Beats of three and of four fields reach ``on_beat`` (the payload, or
+    None), every armed rank's beat age reaches ``heartbeat_age`` at a
+    check, and a straggler reaches ``record_event``; in both packages
+    alike, and a tap that raises never breaks supervision."""
+    got = {}
+    for mod in (supervisor, jsupervisor):
+        tap = _Tap(fail)
+        sup = mod.Supervisor(num_workers=2, drain=list, hang_timeout=10.0,
+                             label="serve-replicas", aggregator=tap)
+        sup.ingest((0, 3, 100.0))
+        sup.ingest((1, 5, 101.0, {"load": {"queue_depth": 2}}))
+        sup.ingest(("malformed",))
+        beat0, beat1 = sup.health[0].last_beat, sup.health[1].last_beat
+        verdicts = sup.check(now=beat0 + 6.0)
+        assert verdicts[0] == mod.SLOW
+        ages = {r: a for r, a in tap.ages}
+        assert ages[0] == round(6.0, 6)
+        assert ages[1] == round(beat0 + 6.0 - beat1, 6)
+        assert sup.health[1].last_step == 5
+        events = [(k, f["rank"], f["label"], f["last_step"])
+                  for k, f in tap.events]
+        got[mod] = (tap.beats, events)
+    assert got[supervisor] == got[jsupervisor]
+    beats, events = got[supervisor]
+    assert beats == [(0, 3, 100.0, None),
+                     (1, 5, 101.0, {"load": {"queue_depth": 2}})]
+    assert events == [("straggler", 0, "serve-replicas", 3),
+                      ("straggler", 1, "serve-replicas", 5)]
+
+
+def test_supervisor_records_the_hang_with_the_tap():
+    tap = _Tap()
+    sup = Supervisor(num_workers=1, drain=list, hang_timeout=0.1,
+                     heartbeat_interval=0.05, aggregator=tap)
+    sup.observe(0, step=7, wall_time=time.time())
+    sup._trip([0])
+    assert sup.tripped
+    assert tap.events[-1][0] == "hang"
+    assert tap.events[-1][1]["ranks"] == [0]
+    assert tap.events[-1][1]["last_steps"] == {0: 7}
+    sup.forget_rank(0, drop_telemetry=True)  # no drop_rank: ignored
+    assert 0 not in sup.health
+
+
+def test_training_supervisor_without_a_tap_is_unchanged():
+    """No aggregator (the training paths): a four-field beat is taken as a
+    beat, DONE keeps its meaning, and the verdicts are as before."""
+    sup = Supervisor(num_workers=2, drain=list, hang_timeout=1.0,
+                     heartbeat_interval=0.1)
+    assert sup._aggregator is None
+    sup.ingest((0, 4, time.time(), {"load": {}}))
+    sup.ingest((1, 2, time.time()))
+    sup.ingest((1, supervisor.DONE, time.time(), None))
+    assert set(sup.health) == {0} and set(sup.finished) == {1}
+    assert sup.health[0].last_step == 4
+    assert sup.check(now=sup.health[0].last_beat + 0.2) == {0: OK}
+    assert sup.check(now=sup.health[0].last_beat + 5.0) == {0: HUNG}
+    sup.forget_rank(0, drop_telemetry=True)
+    assert sup.health == {}
+
+
 # --------------------------------------------------------------------- #
 # the session's heartbeats and the strategies' knobs
 # --------------------------------------------------------------------- #

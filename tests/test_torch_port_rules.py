@@ -60,3 +60,29 @@ def test_port_imports_without_jax_or_a_build():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("module", ["ray_lightning_tpu_torch.serving.replica",
+                                    "ray_lightning_tpu_torch.cli"])
+def test_fleet_and_cli_import_without_a_thread_or_process(module):
+    """The fleet's module and the command line import with JAX blocked and
+    build, load, start and parse nothing: one thread, no child process, no
+    kernel library, no runtime, no zygote."""
+    code = (
+        "import sys, os, threading, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ray_lightning_tpu'] = None\n"
+        f"mod = importlib.import_module({module!r})\n"
+        "from ray_lightning_tpu_torch import kernels\n"
+        "from ray_lightning_tpu_torch.runtime import api, native\n"
+        "assert not kernels._LIBS and native._lib is None\n"
+        "assert api._state.zygote is None and not api._state.initialized\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "kids = f'/proc/self/task/{os.getpid()}/children'\n"
+        "assert not os.path.exists(kids) or not open(kids).read().split()\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code, "--not-an-argument"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

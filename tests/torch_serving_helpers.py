@@ -101,3 +101,30 @@ def two_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
     return prev
+
+
+def references(jparams, jcfg, reqs):
+    """JAX ``generate``'s greedy stream of each ``(prompt, n_new)``: one
+    batched call a prompt length at the group's largest ``n_new``, each row
+    cut to its own (greedy decoding without EOS: the first n tokens of a
+    longer stream are the n-token stream)."""
+    by_len = {}
+    for i, (prompt, n) in enumerate(reqs):
+        by_len.setdefault(len(prompt), []).append(i)
+    out = [None] * len(reqs)
+    for plen, idx in by_len.items():
+        n_max = max(reqs[i][1] for i in idx)
+        batch = jnp.asarray([reqs[i][0] for i in idx], jnp.int32)
+        toks = np.asarray(generate(jparams, batch, jcfg,
+                                   max_new_tokens=n_max, temperature=0.0))
+        for row, i in enumerate(idx):
+            out[i] = [int(t) for t in toks[row, plen:plen + reqs[i][1]]]
+    return out
+
+
+def random_requests(vocab, n, seed, lo=4, hi=8, plen=5):
+    """``n`` seeded ``(prompt, n_new)`` pairs: prompts of ``plen`` tokens in
+    [1, vocab), budgets in [lo, hi)."""
+    rng = np.random.default_rng(seed)
+    return [([int(t) for t in rng.integers(1, vocab, plen)],
+             int(rng.integers(lo, hi))) for _ in range(n)]
