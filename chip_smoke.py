@@ -175,7 +175,11 @@ final line):
 7. training exactness — fp32, the small widths cut to 2 layers, batch 2 x
    2048: the loss and every gradient through the kernels must match
    ``plain=True`` on the card, and three Trainer steps must give the same
-   losses;
+   losses; the kernels' fit runs with ``telemetry=True`` on a
+   ``SingleDeviceStrategy``, and the run directory that the trainer writes
+   itself (``trace.json`` with ``fit/setup``, ``compile`` and ``step``,
+   ``metrics.json`` counting 2 step times, ``metrics.prom``,
+   ``summary.json``) is checked;
 8. remat variants — the training main path's configuration under
    ``remat_policy="dots"`` and with remat off, 6 steps each: step time,
    peak memory and launch counts;
@@ -214,7 +218,15 @@ final line):
    way. The weights each run sends back equal a ``SingleDeviceStrategy``
    run of the same seed (bitwise, or within 2^-7 of a leaf's max); the step
    median beside the single-device one, the launcher's start-up and the
-   weights' way back; the workers' launch counts;
+   weights' way back; the workers' launch counts. The ``RayStrategy`` run
+   has ``telemetry=True``: its run directory holds ``trace.json`` (the
+   worker's ``boot/payload_load``, ``fit/setup``, ``compile`` and ``step``
+   spans), ``metrics.json`` (5 step times), ``metrics.prom`` (with
+   ``rlt_hbm_bytes_in_use`` of ``cuda:0``, non-zero and at most its peak),
+   ``summary.json`` and ``events.jsonl`` (``run_started`` to
+   ``run_finished``); its step median beside the other two runs'
+   (telemetry off), and its beats' pickled sizes on the heartbeat ring with
+   the share that spilled past a slot;
 13. two ranks on one card (``ray_two_ranks``) — two worker processes over
    gloo (NCCL refuses two ranks on one device), a narrow fp32 config, one
    AdamW step of 2 rows each: both ranks hold the same parameters, equal to
@@ -223,7 +235,9 @@ final line):
    first fit's workers boot as fresh interpreters, then the same fit and
    the others fork theirs from the zygote (``TORCHRT_ZYGOTE=1``, warm
    since before the training phases; warmed here when this phase runs
-   alone), and both start-ups are printed. Beside
+   alone), and both start-ups are printed. The zygote ``RayStrategy`` fit
+   has ``telemetry=True``: both ranks' tracks in its merged trace, and
+   ``step_time_stats`` over the two ranks' (one, compile) steps. Beside
    the kernel checks, the kernels are held against their plain versions at
    these paths' shapes (RMSNorm [4096,4096] bf16 and flash q [2,32,2048,128]
    forward and backward, timed; the two-rank fp32 shapes, checked);
@@ -281,7 +295,9 @@ final line):
    bitwise the reference's, the last group's exact launches; each fault's
    time to the next group's first step, the detection time beside
    ``hang_timeout``, the checkpoint's bytes and write time, the step median
-   with heartbeats against the reference's. ``train_ray_zero_resume``:
+   with heartbeats against the reference's. Its flight record (telemetry
+   off): ``events.jsonl`` names the crashes and the hang, with an incident
+   bundle of each kind. ``train_ray_zero_resume``:
    ``ray_two_ranks``' narrow fp32 config through
    ``RayShardedStrategy(num_workers=2, zero_stage=3, max_failures=1)`` over
    gloo on the card, ``rank1:crash@step3`` fused, a checkpoint at each
@@ -328,7 +344,11 @@ final line):
    group is left and the card's used memory is back. Printed: the forked
    start-up, the kill to the relaunched replica's first beat, tokens/s,
    the phase's time beside a 45 s budget;
-19. the ``kernels`` JSON line (launches from the main paths: serving,
+19. the ``telemetry ...`` line — what the telemetry checks above found:
+   the files, the step median with telemetry on beside off, the beats'
+   payload bytes and spilled share, the two ranks' step statistics, the
+   flight record's events and bundles;
+20. the ``kernels`` JSON line (launches from the main paths: serving,
    serving_slot, serving_spec, serving_spec_slot, serving_disagg,
    serving_tenants, serving_faults, serving_fleet, fleet_exactness,
    fleet, generate_window,
@@ -3749,9 +3769,17 @@ def train_complete_path(torch, card):
 def train_exactness(torch):
     """fp32, the small widths cut to 2 layers, batch 2 x 2048, remat and the
     chunked loss: the loss and every gradient through the kernels against
-    plain=True on the card, then three Trainer steps each way."""
+    plain=True on the card, then three Trainer steps each way; the kernels'
+    fit has telemetry on, and its run directory (the trainer's local dump)
+    is checked."""
+    import os
+    import shutil
+    import tempfile
+
+    from ray_lightning_tpu_torch import observability as obs
     from ray_lightning_tpu_torch.callbacks import Callback
     from ray_lightning_tpu_torch.core import Trainer
+    from ray_lightning_tpu_torch.strategies import SingleDeviceStrategy
     from ray_lightning_tpu_torch.models.llama import (
         LlamaConfig,
         LlamaModule,
@@ -3801,6 +3829,7 @@ def train_exactness(torch):
     dm = SyntheticLMDataModule(cfg, batch_size=2, n_train=8)
     dm.setup("fit")
     traj = []
+    root = tempfile.mkdtemp(prefix="chip_smoke_local_dump_")
     for cls in (LlamaModule, PlainLlama):
         losses = []
 
@@ -3808,14 +3837,26 @@ def train_exactness(torch):
             def on_train_batch_end(self, trainer, module, outputs, batch, i):
                 losses.append(float(outputs["loss"]))
 
+        # the kernels' fit with telemetry on: no launcher, so the trainer
+        # writes its own run directory when the fit ends
         trainer = Trainer(device="cuda", max_steps=3, logger=False,
                           enable_checkpointing=False, seed=0,
-                          callbacks=[Collect()])
+                          callbacks=[Collect()], default_root_dir=root,
+                          strategy=SingleDeviceStrategy(
+                              telemetry=cls is LlamaModule))
         trainer.fit(cls(cfg, lr=1e-4, warmup_steps=0, total_steps=3),
                     train_dataloaders=dm.train_dataloader())
+        obs.reset()
         traj.append(losses)
         del trainer
         gc.collect()
+    files = [f for f in TELEMETRY_FILES if f != "events.jsonl"]
+    check_telemetry_dir(os.path.join(root, "telemetry"), "local dump", [0], 3,
+                        ["fit/setup", "compile", "step"], hbm=False,
+                        files=files)
+    TELEMETRY["local_dump"] = sorted(os.listdir(os.path.join(root,
+                                                             "telemetry")))
+    shutil.rmtree(root, ignore_errors=True)
     check(len(traj[0]) == 3 and all(
         abs(a - b) <= 1e-4 * abs(b) for a, b in zip(*traj)),
         f"3-step trainer losses: kernels {traj[0]} vs plain {traj[1]}")
@@ -4261,8 +4302,9 @@ def moe_train_exactness(torch):
 
 
 def _ray_run(torch, strategy, cfg, steps, batch, n_train, callbacks,
-             module_params=None, lr=3e-4):
-    """One Trainer.fit of LlamaModule on the card through ``strategy``:
+             module_params=None, lr=3e-4, root=None):
+    """One Trainer.fit of LlamaModule on the card through ``strategy``
+    (``root``: the Trainer's ``default_root_dir``, where telemetry lands):
     returns the trainer, the module, the wall time of fit."""
     from ray_lightning_tpu_torch.core import Trainer
     from ray_lightning_tpu_torch.models.llama import (
@@ -4277,12 +4319,80 @@ def _ray_run(torch, strategy, cfg, steps, batch, n_train, callbacks,
                                n_val=batch)
     trainer = Trainer(device="cuda", strategy=strategy, max_steps=steps,
                       logger=False, enable_checkpointing=False, seed=0,
-                      callbacks=callbacks)
+                      callbacks=callbacks, default_root_dir=root)
     torch.cuda.synchronize()
     t = time.perf_counter()
     trainer.fit(module, datamodule=dm)
     torch.cuda.synchronize()
     return trainer, module, time.perf_counter() - t
+
+
+# what the telemetry checks measured, for the one ``telemetry ...`` line
+TELEMETRY = {}
+TELEMETRY_FILES = ("events.jsonl", "metrics.json", "metrics.prom",
+                   "summary.json", "trace.json")
+
+
+def check_telemetry_dir(run_dir, label, ranks, steps, spans, hbm=True,
+                        files=TELEMETRY_FILES):
+    """A run directory of the flight recorder (``observability/``): the
+    files, each rank's track in ``trace.json`` with ``spans``,
+    ``rlt_step_time_seconds`` counting ``steps`` - 1 a rank (the first
+    step is the ``compile`` span), and with ``hbm`` each rank's
+    ``rlt_hbm_bytes_in_use`` of ``cuda:0`` non-zero and at most its peak.
+    Returns (the trace's complete spans by track, the summary)."""
+    import os
+
+    have = sorted(os.listdir(run_dir))
+    check(set(files) <= set(have), f"{label}: telemetry files {have}, want "
+          f"{list(files)}")
+    with open(os.path.join(run_dir, "trace.json")) as f:
+        trace = json.load(f)
+    tracks = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"]
+              if e["name"] == "process_name"}
+    by_track = {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "X":
+            by_track.setdefault(tracks[e["pid"]], []).append(e)
+    with open(os.path.join(run_dir, "metrics.json")) as f:
+        metrics = json.load(f)
+    hist = metrics["per_rank_histograms"].get("rlt_step_time_seconds", {})
+    summary = metrics["summary"]
+    for r in ranks:
+        names = {e["name"] for e in by_track.get(f"rank {r}", ())}
+        check(set(spans) <= names, f"{label}: rank {r}'s spans {sorted(names)} "
+              f"lack {sorted(set(spans) - names)}")
+        key = '{rank="%d"}' % r
+        count = hist.get(key, {}).get("count")
+        check(count == steps - 1, f"{label}: rlt_step_time_seconds{key} "
+              f"counts {count}, want {steps - 1}")
+        if hbm:
+            info = summary["per_rank"][str(r)]
+            used, peak = info.get("hbm_bytes_in_use"), info.get(
+                "hbm_peak_bytes")
+            check(used and peak and 0 < used <= peak, f"{label}: rank {r}'s "
+                  f"rlt_hbm_bytes_in_use {used}, peak {peak}")
+    if hbm:
+        with open(os.path.join(run_dir, "metrics.prom")) as f:
+            prom = f.read()
+        check('rlt_hbm_bytes_in_use{device="cuda:0"' in prom,
+              f"{label}: no rlt_hbm_bytes_in_use of cuda:0 in metrics.prom")
+    if "events.jsonl" in files:
+        kinds = [json.loads(line)["event"] for line in
+                 open(os.path.join(run_dir, "events.jsonl"))]
+        check(kinds[:1] == ["run_started"] and kinds[-1:] == ["run_finished"],
+              f"{label}: events.jsonl {kinds}")
+    return by_track, summary
+
+
+def _beat_traffic(traffic):
+    """(median bytes, max bytes, spilled share, beats) of the heartbeat
+    ring's items, each a beat with its payload."""
+    sizes = sorted(b for b, _ in traffic)
+    check(sizes, "no beat came through the heartbeat ring")
+    return (sizes[len(sizes) // 2], sizes[-1],
+            sum(1 for _, spilled in traffic if spilled) / len(traffic),
+            len(traffic))
 
 
 def _weights_gap(torch, got, want):
@@ -4321,8 +4431,15 @@ def train_ray_ddp(torch, card):
     run of the same seed; the step median beside the single-device one; the
     launcher's start-up and the weights' way back. The three worker
     processes are forked from the zygote (warmed by ``main`` before the
-    training phases)."""
+    training phases). The RayStrategy run has telemetry on: its run
+    directory (``check_telemetry_dir``), its step median against the others'
+    (telemetry off) and its beats' sizes on the heartbeat ring."""
+    import os
+    import shutil
+    import tempfile
+
     from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch import observability as obs
     from ray_lightning_tpu_torch import runtime as rt
     from ray_lightning_tpu_torch.models.llama import LlamaConfig
     from ray_lightning_tpu_torch.strategies import (
@@ -4353,9 +4470,10 @@ def train_ray_ddp(torch, card):
         f"{single_ms:.1f} ms over {len(clock.step_ms) - 2} steps")
     del single
     out, by_path = {}, {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
     for name, strategy in (
         ("train_ray_ddp", RayStrategy(num_workers=1, use_gpu=True,
-                                      debug_collectives=True)),
+                                      debug_collectives=True, telemetry=True)),
         ("train_ray_zero3", RayShardedStrategy(num_workers=1, use_gpu=True,
                                                zero_stage=3)),
         ("train_ray_horovod", HorovodRayStrategy(num_workers=1, use_gpu=True)),
@@ -4364,7 +4482,9 @@ def train_ray_ddp(torch, card):
         kernels.reset_launch_counts()
         with _zygote():
             trainer, module, fit_s = _ray_run(torch, strategy, cfg, RAY_STEPS,
-                                              TRAIN_BATCH, n_train, [clock])
+                                              TRAIN_BATCH, n_train, [clock],
+                                              root=root)
+        obs.reset()  # the main process's recorder: later fits run without
         main_counts = kernels.launch_counts()
         check(set(main_counts.values()) == {0},
               f"{name}: the main process launched kernels: {main_counts}")
@@ -4398,11 +4518,33 @@ def train_ray_ddp(torch, card):
         out[name] = {"step_ms": med, "single_step_ms": single_ms,
                      "setup_s": tm["setup_s"], "weights_s": tm["weights_s"],
                      "fit_s": fit_s, "bitwise": bitwise}
+        if strategy.telemetry:
+            run_dir = os.path.join(root, "telemetry")
+            _, summary = check_telemetry_dir(
+                run_dir, name, [0], RAY_STEPS,
+                ["boot/payload_load", "fit/setup", "compile", "step"])
+            used = summary["per_rank"]["0"]["hbm_bytes_in_use"]
+            peak = summary["per_rank"]["0"]["hbm_peak_bytes"]
+            b_med, b_max, spilled, beats = _beat_traffic(
+                launcher.heartbeat_traffic)
+            TELEMETRY["ray"] = dict(step_ms=med, single_ms=single_ms,
+                                    b_med=b_med, b_max=b_max, spilled=spilled,
+                                    beats=beats, used=used, peak=peak,
+                                    files=sorted(os.listdir(run_dir)))
+            log(f"{name} telemetry on {card}: {run_dir} holds "
+                f"{sorted(os.listdir(run_dir))}; rank 0's "
+                f"rlt_hbm_bytes_in_use {used / 2**30:.2f} GiB of a "
+                f"{peak / 2**30:.2f} GiB peak; {beats} beats on the "
+                f"heartbeat ring, {b_med} bytes median, {b_max} max, "
+                f"{spilled:.0%} spilled past the 16 KiB slot")
+        else:
+            TELEMETRY.setdefault("off_ms", {})[name] = med - single_ms
         by_path[name] = counts
         del trainer, module
         gc.collect()
         torch.cuda.empty_cache()
     del want, single_module
+    shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return by_path, out
@@ -4449,9 +4591,20 @@ def ray_two_ranks(torch, card):
     stages 1, 2 and 3. (AdamW's first step is lr x g / (|g| + 1e-8): an
     element whose gradient is at the rounding floor moves by a part of lr
     on a rounding difference, which a one-step comparison cannot tell from
-    a fault; train_ray_ddp holds AdamW bitwise.)"""
+    a fault; train_ray_ddp holds AdamW bitwise.) The forked RayStrategy fit
+    has telemetry on: both ranks' tracks in its merged trace, and
+    ``step_time_stats`` over the two ranks' steps (one step each: the
+    ``compile`` span's)."""
+    import os
+    import shutil
+    import tempfile
+
     from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch import observability as obs
     from ray_lightning_tpu_torch.core import DataLoader, Trainer
+    from ray_lightning_tpu_torch.observability.aggregator import (
+        step_time_stats,
+    )
     from ray_lightning_tpu_torch.models.llama import SyntheticLMDataModule
     from ray_lightning_tpu_torch.strategies import (
         RayShardedStrategy,
@@ -4487,7 +4640,8 @@ def ray_two_ranks(torch, card):
         # the same fit again, its workers forked from the zygote (warm since
         # main booted it, or warmed above), and the rest so too
         ("ddp_zygote", RayStrategy(num_workers=2, use_gpu=True,
-                                   resources_per_worker={"GPU": 0.5}), True),
+                                   resources_per_worker={"GPU": 0.5},
+                                   telemetry=True), True),
         ("zero1", RayShardedStrategy(num_workers=2, use_gpu=True, zero_stage=1,
                                      resources_per_worker={"GPU": 0.5}), True),
         ("zero2", RayShardedStrategy(num_workers=2, use_gpu=True, zero_stage=2,
@@ -4498,17 +4652,33 @@ def ray_two_ranks(torch, card):
         ranks = smoke.RankParams()
         clock = smoke.StepTimes()
         module = smoke.SGDLlama(cfg, lr=1.0, warmup_steps=0, total_steps=1)
+        root = tempfile.mkdtemp(prefix="chip_smoke_two_ranks_")
         trainer = Trainer(device="cuda", strategy=strategy, max_steps=1,
                           logger=False, seed=0, enable_checkpointing=False,
-                          callbacks=[ranks, clock])
+                          callbacks=[ranks, clock], default_root_dir=root)
         dmr = SyntheticLMDataModule(cfg, batch_size=batch, n_train=n_train)
         dmr.setup("fit")
         t = time.perf_counter()
         with _zygote(forked):
             trainer.fit(module, train_dataloaders=dmr.train_dataloader())
         fit_s = time.perf_counter() - t
+        obs.reset()
         launcher = strategy.launcher
         start_ups[name] = launcher.timings["setup_s"]
+        if strategy.telemetry:
+            by_track, _ = check_telemetry_dir(
+                os.path.join(root, "telemetry"), f"two ranks {name}", [0, 1],
+                1, ["boot/payload_load", "fit/setup", "compile"])
+            stats = step_time_stats({
+                t: [e["dur"] / 1e6 for e in evs if e["name"] == "compile"]
+                for t, evs in by_track.items() if t.startswith("rank")})
+            check(len([t for t in by_track if t.startswith("rank")]) == 2
+                  and stats, f"two ranks {name}: tracks {sorted(by_track)}")
+            TELEMETRY["two_ranks"] = dict(tracks=sorted(by_track), **stats)
+            log(f"two ranks {name} telemetry on {card}: merged trace tracks "
+                f"{sorted(by_track)}; step_time_stats over both ranks' one "
+                f"(compile) step: {stats}")
+        shutil.rmtree(root, ignore_errors=True)
         check(launcher.backend == "gloo", f"two ranks {name}: backend "
               f"{launcher.backend}")
         check(ranks.max_gap == 0.0, f"two ranks {name}: the ranks' parameters "
@@ -5643,10 +5813,11 @@ def _fault_env(spec, fuse_dir=None):
 
 
 def _fault_fit(torch, strategy, cfg, steps, batch, epoch_steps, callbacks,
-               lr=3e-4, warmup=2, module_cls=None, ckpt=None):
+               lr=3e-4, warmup=2, module_cls=None, ckpt=None, root=None):
     """Trainer.fit of LlamaModule on the card through ``strategy``, epochs
     of ``epoch_steps`` steps of ``batch`` rows a rank and one validation
-    batch each, with the ModelCheckpoint ``ckpt`` (None: none)."""
+    batch each, with the ModelCheckpoint ``ckpt`` (None: none); ``root``
+    is the Trainer's ``default_root_dir``."""
     from ray_lightning_tpu_torch.core import Trainer
     from ray_lightning_tpu_torch.models.llama import (
         LlamaModule,
@@ -5661,7 +5832,8 @@ def _fault_fit(torch, strategy, cfg, steps, batch, epoch_steps, callbacks,
                                n_val=batch * world)
     trainer = Trainer(device="cuda", strategy=strategy, max_steps=steps,
                       logger=False, seed=0, enable_checkpointing=ckpt is not None,
-                      callbacks=list(callbacks) + ([ckpt] if ckpt else []))
+                      callbacks=list(callbacks) + ([ckpt] if ckpt else []),
+                      default_root_dir=root)
     torch.cuda.synchronize()
     t = time.perf_counter()
     trainer.fit(module, datamodule=dm)
@@ -5674,7 +5846,9 @@ def train_ray_faults(torch, card, root):
     use_gpu=True): a reference fit, then the same fit under a fused crash
     at step 5 and hang at step 7 with max_failures=2 and the hang
     supervisor; it must relaunch exactly twice and end bitwise on the
-    reference's weights."""
+    reference's weights. Telemetry is off, so the launcher's aggregator is
+    the flight record alone: ``events.jsonl`` must name the crash and the
+    hang, with an incident bundle for each."""
     import os
 
     from ray_lightning_tpu_torch.models.llama import LlamaConfig
@@ -5709,10 +5883,23 @@ def train_ray_faults(torch, card, root):
     try:
         trainer, module, fit_s = _fault_fit(
             torch, strategy, cfg, FAULT_STEPS, TRAIN_BATCH, FAULT_EPOCH_STEPS,
-            [clock, smoke.GroupClock(groups)], ckpt=ckpt)
+            [clock, smoke.GroupClock(groups)], ckpt=ckpt, root=root)
     finally:
         clear()
     launcher = strategy.launcher
+    record = os.path.join(root, "telemetry")
+    have = sorted(os.listdir(record))
+    check("trace.json" not in have and "events.jsonl" in have,
+          f"train_ray_faults: the flight record's directory holds {have}")
+    kinds = [json.loads(line)["event"]
+             for line in open(os.path.join(record, "events.jsonl"))]
+    bundles = sorted(os.listdir(os.path.join(record, "incidents")))
+    bundle_kinds = {b.split("_", 1)[1].split(".")[0] for b in bundles}
+    check({"crash", "hang"} <= set(kinds) and {"crash", "hang"} <= bundle_kinds,
+          f"train_ray_faults: events {kinds}, incident bundles {bundles}")
+    TELEMETRY["faults"] = dict(events=kinds, bundles=bundles)
+    log(f"train_ray_faults flight record on {card}: events.jsonl {kinds}; "
+        f"incident bundles {bundles}")
     _check_ring(launcher.transport, "train_ray_faults", ["heartbeat_queue"])
     failures = launcher.failures
     check([f["error"] for f in failures] == ["ActorError", "WorkerHangError"],
@@ -6574,6 +6761,32 @@ RAY_PHASES = {"ray", "ray_two_ranks", "ray_ep", "tune", "faults", "elastic",
               "fleet"}
 
 
+def log_telemetry(card):
+    """The one ``telemetry ...`` line: what the telemetry checks found."""
+    bits = []
+    ray = TELEMETRY.get("ray")
+    if ray:
+        off = TELEMETRY.get("off_ms", {})
+        bits.append(
+            f"train_ray_ddp files {ray['files']}; step median "
+            f"{ray['step_ms']:.1f} ms with telemetry on vs single device "
+            f"{ray['single_ms']:.1f} ms ({ray['step_ms'] - ray['single_ms']:+.1f}"
+            " ms), telemetry off in this run "
+            + ", ".join(f"{k} {v:+.1f} ms" for k, v in off.items())
+            + " (earlier telemetry-off runs, PERF.md section 5: +0.6 to "
+            "+4.5 ms); beats "
+            f"{ray['beats']}, payload bytes median {ray['b_med']} max "
+            f"{ray['b_max']}, spilled {ray['spilled']:.0%}; "
+            f"rlt_hbm_bytes_in_use {ray['used']} of peak {ray['peak']}")
+    if "two_ranks" in TELEMETRY:
+        bits.append(f"ray_two_ranks {TELEMETRY['two_ranks']}")
+    if "faults" in TELEMETRY:
+        bits.append(f"train_ray_faults {TELEMETRY['faults']}")
+    if "local_dump" in TELEMETRY:
+        bits.append(f"local dump {TELEMETRY['local_dump']}")
+    log(f"telemetry on {card}: " + "; ".join(bits))
+
+
 def main(argv=None):
     import argparse
 
@@ -6695,6 +6908,8 @@ def main(argv=None):
         by_path["fleet"] = fleet_phase(torch, card)
     if "elastic" in phases:
         by_path.update(elastic_phase(torch, card))
+    if TELEMETRY:
+        log_telemetry(card)
     if only is not None:
         log(f"phases {phases} done in {time.perf_counter() - T0:.1f}s; a "
             "partial run prints no result")

@@ -1,6 +1,8 @@
 """ModelCheckpoint (``ray_lightning_tpu/callbacks/checkpoint.py``): monitor a
 metric, keep the top-k checkpoints, write ``last.ckpt`` on request, expose
-``best_model_path``. The checkpoints are the Trainer's ``torch.save`` files."""
+``best_model_path``. The checkpoints are the Trainer's ``torch.save`` files.
+A new best is a ``checkpoint/new_best`` event on the trace timeline (plain
+saves are already the Trainer's ``checkpoint/save`` spans)."""
 from __future__ import annotations
 
 import os
@@ -8,6 +10,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ray_lightning_tpu_torch import observability as obs
 from ray_lightning_tpu_torch.callbacks.base import Callback
 
 
@@ -131,6 +134,9 @@ class ModelCheckpoint(Callback):
                 ):
                     self.best_model_score = score
                     self.best_model_path = path
+                    obs.event("checkpoint/new_best", step=trainer.global_step,
+                              monitor=self.monitor, score=float(score),
+                              path=path)
                 # trim in case save_top_k shrank
                 while self.save_top_k != -1 and len(self.best_k_models) > self.save_top_k:
                     worst = self._worst_kept()

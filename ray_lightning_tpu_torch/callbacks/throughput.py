@@ -2,9 +2,10 @@
 throughput.py``): per-step time, samples/s, tokens/s per card and
 model-FLOPs utilisation against the card's peak bf16 tensor-core rate.
 
-The JAX callback also publishes its numbers to the flight recorder's
-registry (``_publish_telemetry``); that waits for the port's observability
-slice (ROADMAP.md, queue 1 item 9) and is left out here.
+At each sync point the numbers also go to the flight recorder's registry
+as gauges (``_publish_telemetry``; one ``None`` check with telemetry
+off), so the main process's aggregator reports the cluster's samples/s
+and MFU.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ray_lightning_tpu_torch import observability as _obs
 from ray_lightning_tpu_torch.callbacks.base import Callback
 from ray_lightning_tpu_torch.utils.common import rank_zero_warn
 from ray_lightning_tpu_torch.utils.tree import tree_leaves
@@ -25,6 +27,10 @@ _PEAK_TFLOPS = {
 }
 _DEFAULT_PEAK_TFLOPS = 989.0
 _CPU_ESTIMATE_TFLOPS = 0.1  # so CPU runs give finite MFU numbers
+
+SAMPLES_PER_SEC_METRIC = "rlt_samples_per_sec"
+TRAIN_MFU_METRIC = "rlt_train_mfu"
+TOKENS_PER_CHIP_METRIC = "rlt_tokens_per_sec_per_chip"
 
 
 def peak_tflops_for(device_name: str) -> float:
@@ -118,11 +124,25 @@ class ThroughputMonitor(Callback):
             done.record()
             done.synchronize()
         self._record_interval(time.perf_counter())
+        self._publish_telemetry(trainer)
         if (self.log_every_n_steps
                 and trainer.global_step % self.log_every_n_steps == 0
                 and trainer.logger is not None):
             trainer.logger.log_metrics(self.summary(trainer),
                                        step=trainer.global_step)
+
+    def _publish_telemetry(self, trainer) -> None:
+        """The rolling numbers as gauges of the flight recorder's registry
+        (at sync points only; nothing with telemetry off)."""
+        reg = _obs.registry()
+        if reg is None:
+            return
+        summary = self.summary(trainer)
+        for name, key in ((SAMPLES_PER_SEC_METRIC, "samples_per_sec"),
+                          (TRAIN_MFU_METRIC, "train_mfu"),
+                          (TOKENS_PER_CHIP_METRIC, "tokens_per_sec_per_chip")):
+            if key in summary:
+                reg.gauge(name).set(summary[key])
 
     def summary(self, trainer) -> dict:
         if not self._times or not self._batch_size:

@@ -1,5 +1,5 @@
-"""The port's command line (``ray_lightning_tpu/cli.py``): the ``serve``
-subcommand.
+"""The port's command line (``ray_lightning_tpu/cli.py``): the ``serve``,
+``top``, ``goodput`` and ``incidents`` subcommands.
 
     python -m ray_lightning_tpu_torch.cli serve --preset tiny \\
         --random-requests 8 --device cpu
@@ -15,32 +15,32 @@ package's does, without its ``compile_stats`` (the port has no jit caches).
 ``--device`` (default ``cuda``) names the device; ``--preset`` names a
 ``LlamaConfig`` preset (``tiny``, ``small``, ``llama3_8b``, ...).
 
-Not ported (ROADMAP.md, queue 1 item 9: observability): ``--telemetry``,
-``--telemetry-dir`` and ``--cost`` exit non-zero, and the JAX package's other
-subcommands are absent.
+``top --dir <run>/telemetry`` renders a run's ``summary.json`` and the
+last events of its ``events.jsonl`` (``--follow`` refreshes, ``--serve-port``
+also serves ``metrics.prom`` to Prometheus); ``goodput`` prints the goodput
+section and ``incidents`` lists the incident bundles (``--show`` one). The
+files are the JAX package's, so each package renders the other's run
+directories.
+
+Not ported: ``serve --telemetry`` and ``--telemetry-dir`` (the serving side
+of observability, ROADMAP.md queue 1 item 9b) and ``--cost`` (item 9c)
+exit non-zero, and the JAX package's other subcommands are absent.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import List, Optional
 
+from ray_lightning_tpu_torch.observability.reqtrace import disposition_for
+
 __all__ = ["disposition_for", "main"]
 
-_UNPORTED = ("ROADMAP.md, queue 1 item 9: observability")
-
-
-def disposition_for(finish_reason: str) -> str:
-    """A finish reason as the client-facing disposition (completed, shed,
-    expired, cancelled, migrated or failed), as the JAX package's
-    ``observability/reqtrace.py`` collapses it."""
-    if finish_reason in ("eos", "length"):
-        return "completed"
-    if finish_reason in ("shed", "expired", "cancelled", "migrated"):
-        return finish_reason
-    return "failed"
+_UNPORTED_SERVING = "ROADMAP.md, queue 1 item 9b: serving observability"
+_UNPORTED_COST = "ROADMAP.md, queue 1 item 9c: the profiler's cost accounting"
 
 
 def _parse_prompt(spec: str) -> List[int]:
@@ -56,11 +56,12 @@ def _parse_prompt(spec: str) -> List[int]:
 def _cmd_serve(args) -> int:
     """Serve token-id prompts on random weights: one engine, or a fleet when
     retries, replicas or a prefill pool are asked for."""
-    refused = [flag for flag, on in (("--telemetry", args.telemetry),
-                                     ("--telemetry-dir", args.telemetry_dir),
-                                     ("--cost", args.cost)) if on]
+    refused = [f"{flag}: not ported yet ({why})" for flag, on, why in (
+        ("--telemetry", args.telemetry, _UNPORTED_SERVING),
+        ("--telemetry-dir", args.telemetry_dir, _UNPORTED_SERVING),
+        ("--cost", args.cost, _UNPORTED_COST)) if on]
     if refused:
-        raise SystemExit(f"{', '.join(refused)}: not ported yet ({_UNPORTED})")
+        raise SystemExit("; ".join(refused))
 
     import numpy as np
     import torch
@@ -202,9 +203,120 @@ def _cmd_serve(args) -> int:
     return 0
 
 
+def _cmd_goodput(args) -> int:
+    """The goodput section that the aggregator folds into ``summary.json``:
+    the fraction, seconds a category and the sources' breakdown."""
+    from ray_lightning_tpu_torch.observability.aggregator import _read_summary
+
+    summary = _read_summary(args.dir)
+    gp = (summary or {}).get("goodput")
+    if not gp:
+        print(f"no goodput section in the summary under {args.dir} "
+              "(needs a run with TORCHRT_TELEMETRY=1 that has reported "
+              "beats)")
+        return 1
+    if args.json:
+        print(json.dumps(gp, indent=2, sort_keys=True))
+        return 0
+    total = float(gp.get("total_s") or 0.0)
+    print(f"goodput fraction: {gp.get('fraction', 0.0):.4f}  "
+          f"({total:.1f}s classified wall time across sources)")
+    print(f"{'category':<22}{'seconds':>12}{'share':>9}")
+    for cat, secs in sorted(gp.get("by_category", {}).items(),
+                            key=lambda kv: -kv[1]):
+        share = (secs / total) if total > 0 else 0.0
+        print(f"{cat:<22}{secs:>12.3f}{share:>9.1%}")
+    per = gp.get("per_rank", {})
+    if per:
+        print()
+        print(f"{'source':<18}{'wall(s)':>10}{'fraction':>10}  top categories")
+        for key, info in sorted(per.items()):
+            cats = sorted((info.get("seconds") or {}).items(),
+                          key=lambda kv: -kv[1])[:3]
+            tops = ", ".join(f"{c} {s:.1f}s" for c, s in cats)
+            print(f"{key:<18}{info.get('wall_s', 0.0):>10.1f}"
+                  f"{info.get('fraction', 0.0):>10.4f}  {tops}")
+    return 0
+
+
+def _cmd_incidents(args) -> int:
+    """List the incident bundles under ``<dir>/incidents/``, or one
+    bundle's contents with ``--show``."""
+    from ray_lightning_tpu_torch.observability import incidents
+
+    def when(ts) -> str:
+        return (time.strftime("%Y-%m-%d %H:%M:%S", time.localtime(ts))
+                if ts else "-")
+
+    bundles = incidents.list_bundles(args.dir)
+    if args.show is not None:
+        match = [b for b in bundles if b["name"] == args.show]
+        if not match:
+            print(f"no incident bundle named {args.show!r} under {args.dir}")
+            return 1
+        detail = incidents.load_bundle(match[0]["path"])
+        if args.json:
+            print(json.dumps(detail, indent=2, sort_keys=True))
+            return 0
+        meta = detail.get("incident", {})
+        print(f"bundle:  {match[0]['name']}")
+        print(f"kind:    {meta.get('kind', '-')}")
+        print(f"time:    {when(meta.get('ts'))}")
+        ev = meta.get("event")
+        if ev:
+            print(f"trigger: {json.dumps(ev, sort_keys=True)}")
+        print("files:")
+        for name, info in sorted(detail.get("files", {}).items()):
+            bits = ", ".join(f"{k}={v}" for k, v in sorted(info.items()))
+            print(f"  {name:<24} {bits}")
+        return 0
+    if not bundles:
+        print("no incident bundles under "
+              f"{os.path.join(args.dir, incidents.INCIDENTS_DIRNAME)}")
+        return 1
+    if args.json:
+        for b in bundles:
+            print(json.dumps(b, sort_keys=True))
+        return 0
+    print(f"{'time':<20}{'kind':<24}{'files':>6}  name")
+    for b in bundles:
+        print(f"{when(b.get('ts')):<20}{b.get('kind', '-'):<24}"
+              f"{len(b.get('files', [])):>6}  {b['name']}")
+    return 0
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m ray_lightning_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command")
+    tdir = "telemetry directory (e.g. <default_root_dir>/telemetry)"
+    top = sub.add_parser(
+        "top", help="live cluster summary from a run's telemetry directory")
+    top.add_argument("--dir", required=True, help=tdir)
+    top.add_argument("--follow", "-f", action="store_true",
+                     help="keep refreshing until interrupted")
+    top.add_argument("--interval", type=float, default=2.0,
+                     help="refresh period seconds")
+    top.add_argument(
+        "--serve-port", type=int, default=None,
+        help="also expose the run's metrics.prom at "
+        "http://127.0.0.1:PORT/metrics for Prometheus scraping (0 picks an "
+        "ephemeral port; see also TORCHRT_PROM_PORT for the endpoint in the "
+        "main process)")
+    goodput = sub.add_parser(
+        "goodput", help="wall-time goodput breakdown (category seconds + "
+        "fraction) from a run's telemetry directory")
+    goodput.add_argument("--dir", required=True, help=tdir)
+    goodput.add_argument("--json", action="store_true",
+                         help="emit the raw goodput section")
+    incidents = sub.add_parser(
+        "incidents", help="list or inspect black-box incident bundles "
+        "captured under <telemetry>/incidents/")
+    incidents.add_argument("--dir", required=True, help=tdir)
+    incidents.add_argument(
+        "--show", default=None, metavar="BUNDLE",
+        help="inspect one bundle by directory name instead of listing")
+    incidents.add_argument("--json", action="store_true",
+                           help="emit JSON instead of a table")
     serve = sub.add_parser(
         "serve",
         help="continuous-batching inference demo on random-init params",
@@ -271,24 +383,34 @@ def _parser() -> argparse.ArgumentParser:
     )
     serve.add_argument(
         "--telemetry", action="store_true",
-        help=f"not ported yet ({_UNPORTED})",
+        help=f"not ported yet ({_UNPORTED_SERVING})",
     )
     serve.add_argument(
         "--telemetry-dir", default=None,
-        help=f"not ported yet ({_UNPORTED})",
+        help=f"not ported yet ({_UNPORTED_SERVING})",
     )
     serve.add_argument(
         "--cost", action="store_true",
-        help=f"not ported yet ({_UNPORTED})",
+        help=f"not ported yet ({_UNPORTED_COST})",
     )
     return parser
 
 
 def main(argv: Optional[list] = None) -> int:
-    """``serve``: stand up a continuous-batching engine (or fleet) on random
-    weights and serve token-id prompts."""
+    """``top``, ``goodput`` and ``incidents`` read a run's telemetry
+    directory; ``serve`` stands up a continuous-batching engine (or fleet)
+    on random weights and serves token-id prompts."""
     parser = _parser()
     args = parser.parse_args(argv)
+    if args.command == "top":
+        from ray_lightning_tpu_torch.observability.aggregator import render_top
+
+        return render_top(args.dir, follow=args.follow, interval=args.interval,
+                          serve_port=args.serve_port)
+    if args.command == "goodput":
+        return _cmd_goodput(args)
+    if args.command == "incidents":
+        return _cmd_incidents(args)
     if args.command == "serve":
         return _cmd_serve(args)
     parser.print_help()

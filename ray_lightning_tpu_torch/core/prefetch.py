@@ -74,6 +74,12 @@ class AsyncLoader:
         if prefetch_factor is None:
             prefetch_factor = getattr(loader, "prefetch_factor", None)
         self.prefetch_factor = max(1, int(prefetch_factor)) if prefetch_factor else 2
+        self._q: Optional[queue.Queue] = None
+
+    def qsize(self) -> int:
+        """How many batches wait in the queue now (0 outside an epoch)."""
+        q = self._q
+        return q.qsize() if q is not None else 0
 
     def set_epoch(self, epoch: int) -> None:
         inner = getattr(self.loader, "set_epoch", None)
@@ -92,6 +98,7 @@ class AsyncLoader:
 
     def _iter_pooled(self, plan: Callable, assemble: Callable):
         q: "queue.Queue" = queue.Queue(maxsize=self.num_workers * self.prefetch_factor)
+        self._q = q
         stop = threading.Event()
         pool = ThreadPoolExecutor(max_workers=self.num_workers,
                                   thread_name_prefix=f"{_THREAD_PREFIX}-pool")
@@ -125,6 +132,7 @@ class AsyncLoader:
 
     def _iter_serial(self):
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_factor)
+        self._q = q
         stop = threading.Event()
 
         def feed():
@@ -155,6 +163,7 @@ class AsyncLoader:
 
     def _shutdown(self, q: "queue.Queue", stop: threading.Event, feeder) -> None:
         stop.set()
+        self._q = None
         # unblock a feeder stuck on a full queue; cancel queued work
         while True:
             try:
@@ -183,14 +192,20 @@ class DevicePrefetcher:
     Error contract (the synchronous loop's): a batch that fails to load or
     to copy does not swallow the good batches before it; they are yielded
     first, then the exception is raised. ``starved_s`` adds up the time
-    the training thread waited on the host loader.
+    the training thread waited on the host loader; with a flight
+    ``recorder`` (``observability/trace.py``) it is also the
+    ``rlt_input_starved_seconds`` counter, beside the
+    ``rlt_prefetch_queue_depth`` gauge and ``host_batch``/``h2d`` spans of
+    each batch (``h2d`` times the issue of the copies, not the copies).
     """
 
     def __init__(self, shard_fn: Callable[[Any], Any], depth: int = 2,
-                 stream: Optional["torch.cuda.Stream"] = None):
+                 stream: Optional["torch.cuda.Stream"] = None,
+                 recorder: Any = None):
         self.shard_fn = shard_fn
         self.depth = max(0, int(depth))
         self.stream = stream
+        self.recorder = recorder
         self.starved_s = 0.0
         self.batches = 0
 
@@ -214,6 +229,15 @@ class DevicePrefetcher:
 
     def iterate(self, loader: Iterable, limit: Optional[int] = None):
         """Yield ``(idx, host_batch, device_batch)`` with the lookahead."""
+        rec = self.recorder
+        starved_c = depth_g = None
+        if rec is not None:
+            from ray_lightning_tpu_torch.observability import metrics
+
+            reg = metrics.get_registry()
+            starved_c = reg.counter("rlt_input_starved_seconds")
+            depth_g = reg.gauge("rlt_prefetch_queue_depth")
+        qsize = getattr(loader, "qsize", None)
         it = iter(loader)
         pending: deque = deque()
         error: Optional[BaseException] = None
@@ -235,9 +259,22 @@ class DevicePrefetcher:
                         error = exc
                         exhausted = True
                         break
-                    self.starved_s += time.perf_counter() - t0
+                    wait = time.perf_counter() - t0
+                    self.starved_s += wait
+                    if rec is not None:
+                        starved_c.inc(wait)
+                        rec.add_span("host_batch", time.time() - wait, wait,
+                                     step=next_idx)
+                        if qsize is not None:
+                            depth_g.set(qsize())
                     try:
-                        device_batch, done = self._issue(batch)
+                        if rec is not None:
+                            wall, t1 = time.time(), time.perf_counter()
+                            device_batch, done = self._issue(batch)
+                            rec.add_span("h2d", wall, time.perf_counter() - t1,
+                                         step=next_idx)
+                        else:
+                            device_batch, done = self._issue(batch)
                     except BaseException as exc:
                         error = exc
                         exhausted = True

@@ -24,7 +24,18 @@ runs in each worker process, where the strategy's rank shards the data
 and only rank 0 logs and writes checkpoints; the main process gets rank 0's
 weights and metrics back. One process drives one device: ``devices > 1``
 and a strategy named by a string are refused (ROADMAP.md). Not ported: the
-TPU accelerator (``accelerator="tpu"``) and telemetry.
+TPU accelerator (``accelerator="tpu"``).
+
+With ``strategy.telemetry`` (``observability/``) a fit records spans
+(``fit/setup``, ``compile`` for the first step and ``step`` after it,
+``validate``, ``checkpoint/save``/``restore``, ``elastic/*``), the
+``rlt_step_time_seconds`` histogram (the host's interval of each step,
+with no sync: the device's step time once the launches back up), the
+input pipeline's counters and a goodput ledger that classes every second
+of the fit. In a worker the session's beats carry them to the main
+process; an in-process fit writes them itself under
+``<default_root_dir>/telemetry`` when it ends. With telemetry off the step
+loop pays one ``None`` check.
 
 Each training and validation batch starts with a health tick: a fault
 scripted for this rank at this step fires (``runtime/faults.py``), then a
@@ -48,6 +59,7 @@ live state and the spare that joins (``_elastic_join``) loads it.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import os
 import tempfile
@@ -58,6 +70,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from ray_lightning_tpu_torch import observability as obs
 from ray_lightning_tpu_torch import session as worker_session
 from ray_lightning_tpu_torch.callbacks.base import (
     Callback,
@@ -548,6 +561,11 @@ class Trainer:
         # worker by the launcher), and what its resizes did
         self._elastic_agent = None
         self.elastic_log: List[Dict[str, Any]] = []
+        # the flight recorder and the goodput ledger of the running fit:
+        # None with telemetry off, the hot loop's only check
+        self._obs = None
+        self._goodput = None
+        self._first_step_dispatched = False
 
     def __getstate__(self):
         """What ships to a worker: no optimizer, stream, engine or parameter
@@ -555,7 +573,7 @@ class Trainer:
         state = dict(self.__dict__)
         state.update(_optim=None, _updates=[], _copy_stream=None, _dp=None,
                      _input_prefetcher=None, _step_log_buffer=[], _params=None,
-                     _elastic_agent=None)
+                     _elastic_agent=None, _obs=None, _goodput=None)
         return state
 
     # ------------------------------------------------------------------ #
@@ -924,6 +942,22 @@ class Trainer:
         self._micro_step = 0
         if self._dp is not None:
             self._dp.setup(self._updates)
+            if self._dp.zero_stage:
+                self._publish_zero_telemetry()
+
+    def _publish_zero_telemetry(self) -> None:
+        """The ZeRO parameter all-gather's bytes as gauges: as gathered
+        and as fp32 would be, beside the leaves sharded (nothing with
+        telemetry off)."""
+        reg = obs.registry()
+        if reg is None:
+            return
+        sizes = self._dp.zero_gather_bytes()
+        reg.gauge("rlt_zero_allgather_bytes",
+                  program="zero_train_step").set(float(sizes["wire"]))
+        reg.gauge("rlt_zero_allgather_fp32_bytes",
+                  program="zero_train_step").set(float(sizes["fp32"]))
+        reg.gauge("rlt_zero_sharded_params").set(float(sizes["leaves"]))
 
     def whole_params(self):
         """The parameter tree with every expert leaf whole: under an ep mesh
@@ -990,6 +1024,15 @@ class Trainer:
     # ------------------------------------------------------------------ #
     def _fit_impl(self, model, train_dataloaders, val_dataloaders, datamodule,
                   ckpt_path):
+        if getattr(self.strategy, "telemetry", False):
+            obs.enable()
+        self._obs = obs.get_recorder()
+        # every second of the fit classified into a goodput category,
+        # published on each beat (collect_beat_payload)
+        self._goodput = (obs.goodput.new_ledger("train")
+                         if self._obs is not None else None)
+        self._first_step_dispatched = False
+        setup_wall, setup_t0 = time.time(), time.perf_counter()
         agent = self._elastic_agent
         if agent is not None:
             agent.beat = lambda: worker_session.emit_heartbeat(
@@ -1048,6 +1091,11 @@ class Trainer:
             self._load_elastic_handoff(agent)
         if self._optim.alternating:
             self._check_optimizer_idx()
+        if self._obs is not None:
+            # data, parameters, engine and optimizers, restore included
+            self._obs.add_span("fit/setup", setup_wall,
+                               time.perf_counter() - setup_t0,
+                               step=self.global_step)
 
         if self.logger is not None and self.is_global_zero:
             self.logger.log_hyperparams(dict(model.hparams))
@@ -1095,6 +1143,8 @@ class Trainer:
             self._gather_params()
         finally:
             data_parallel.set_collective_beat(None)
+            if self._goodput is not None:
+                self._goodput.enter("drain")
             self._drain_step_logs()
             self._fold_input_stats()
             self._hook("on_train_end")
@@ -1106,6 +1156,18 @@ class Trainer:
             if datamodule is not None:
                 datamodule.teardown("fit")
         model._params = self._params
+        in_process = (getattr(self.strategy, "launcher", None) is None
+                      and not getattr(self.strategy, "_is_remote", False))
+        if in_process and self._obs is not None:
+            # no aggregator in the main process: this process's ring and
+            # registry go straight to the files a launched fit leaves
+            from ray_lightning_tpu_torch.observability.aggregator import (
+                telemetry_dir,
+                write_local_dump,
+            )
+
+            write_local_dump(telemetry_dir(self.default_root_dir), self._obs,
+                             obs.metrics.get_registry())
 
     def _prefetch_shard(self, loader, limit):
         """``(idx, host_batch, device_batch)`` through the input pipeline:
@@ -1119,7 +1181,7 @@ class Trainer:
             loader = AsyncLoader(loader, num_workers=num_workers)
         self._input_prefetcher = DevicePrefetcher(
             self._to_device, depth=self.strategy.prefetch_depth,
-            stream=self._copy_stream)
+            stream=self._copy_stream, recorder=self._obs)
         return self._input_prefetcher.iterate(loader, limit)
 
     def _fold_input_stats(self) -> None:
@@ -1167,8 +1229,23 @@ class Trainer:
                     f"a fraction >= {1.0 / n_train:.4g} or an int step interval"
                 )
 
+        # hoisted: with telemetry off the loop pays one `rec is not None`
+        # check a batch
+        rec = self._obs
+        led = self._goodput
+        step_hist = (obs.metrics.get_registry().histogram(
+            "rlt_step_time_seconds") if rec is not None else None)
+        # the time between iterations is the prefetcher pulling the next
+        # batch: input wait until the body reclassifies it
+        if led is not None:
+            led.enter("input_wait")
         for batch_idx, batch, device_batch in self._prefetch_shard(
                 train_loader, limit_train):
+            if led is not None:
+                led.enter("productive_compute" if self._first_step_dispatched
+                          else "compile")
+            if rec is not None:
+                it_wall, it_t0 = time.time(), time.perf_counter()
             self._health_tick(train=True)
             self._cb("on_train_batch_start", batch, batch_idx)
             logs = self._train_step(device_batch)
@@ -1176,6 +1253,20 @@ class Trainer:
             self._cb("on_train_batch_end", logs, batch, batch_idx)
             self.global_step += 1
             n_batches += 1
+            if rec is not None:
+                dt = time.perf_counter() - it_t0
+                if not self._first_step_dispatched:
+                    # the first step builds the kernels: out of the
+                    # step-time histogram
+                    rec.add_span("compile", it_wall, dt,
+                                 step=self.global_step - 1)
+                else:
+                    # the host's interval of the step: the device's step
+                    # time once the launch queue backs up
+                    rec.add_span("step", it_wall, dt,
+                                 step=self.global_step - 1)
+                    step_hist.observe(dt)
+            self._first_step_dispatched = True
             if val_loader is not None and (
                 (val_every_n_batches is not None
                  and (batch_idx + 1) % val_every_n_batches == 0)
@@ -1184,6 +1275,8 @@ class Trainer:
                     and self.global_step % self.val_check_interval == 0)
             ):
                 self._run_validation(val_loader)
+            if led is not None:
+                led.enter("input_wait")
             if 0 <= self.max_steps <= self.global_step:
                 self.should_stop = True
                 break
@@ -1191,6 +1284,8 @@ class Trainer:
             # only a max_steps break leaves the epoch marked partial
             self._epoch_ended = True
 
+        if led is not None:
+            led.enter("idle")
         self._drain_step_logs()
         self._fold_input_stats()
         epoch_metrics = self._reduce_over_ranks(
@@ -1299,14 +1394,18 @@ class Trainer:
     def _run_validation(self, val_loader):
         # a drain point: deferred step rows land before the val rows
         self._drain_step_logs()
-        self._gather_params()
-        self._hook("on_validation_epoch_start")
-        self._cb("on_validation_start")
-        metrics = self._run_eval_epoch(val_loader, limit=self.limit_val_batches,
-                                       record=True)
-        self._val_ran_this_epoch = True
-        self._hook("on_validation_epoch_end")
-        self._cb("on_validation_end")
+        led = self._goodput
+        ctx = (led.phase("productive_compute") if led is not None
+               else contextlib.nullcontext())
+        with ctx, obs.span("validate", step=self.global_step):
+            self._gather_params()
+            self._hook("on_validation_epoch_start")
+            self._cb("on_validation_start")
+            metrics = self._run_eval_epoch(
+                val_loader, limit=self.limit_val_batches, record=True)
+            self._val_ran_this_epoch = True
+            self._hook("on_validation_epoch_end")
+            self._cb("on_validation_end")
         return metrics
 
     def _run_eval_epoch(self, loader, limit=None, record=True, phase="val"):
@@ -1504,28 +1603,36 @@ class Trainer:
         """``torch.save`` of :meth:`dump_checkpoint`, written to a temporary
         file in the same directory and renamed into place, so a reader never
         sees a half-written checkpoint."""
-        ckpt = self.dump_checkpoint(weights_only, whole)
-        if not self.is_global_zero_writer:
-            return
-        # a checkpoint of GBs can outlast a hang_timeout: it is written in
-        # synced steps with a beat after each (_SyncedFile), so that only a
-        # stalled write goes silent
-        worker_session.emit_heartbeat(self.global_step, force=True)
-        filepath = os.path.abspath(filepath)
-        directory = os.path.dirname(filepath)
-        os.makedirs(directory, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
-        try:
-            with os.fdopen(fd, "wb") as f:
-                torch.save(ckpt, _SyncedFile(f, self.global_step))
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp, filepath)
-        except BaseException:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-            raise
-        worker_session.emit_heartbeat(self.global_step, force=True)
+        led = self._goodput
+        ctx = (led.phase("checkpoint") if led is not None
+               else contextlib.nullcontext())
+        with ctx, obs.span("checkpoint/save", step=self.global_step,
+                           path=filepath):
+            ckpt = self.dump_checkpoint(weights_only, whole)
+            if not self.is_global_zero_writer:
+                return
+            # a checkpoint of GBs can outlast a hang_timeout: it is written
+            # in synced steps with a beat after each (_SyncedFile), so that
+            # only a stalled write goes silent
+            worker_session.emit_heartbeat(self.global_step, force=True)
+            filepath = os.path.abspath(filepath)
+            directory = os.path.dirname(filepath)
+            os.makedirs(directory, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+            try:
+                with os.fdopen(fd, "wb") as f:
+                    torch.save(ckpt, _SyncedFile(f, self.global_step))
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, filepath)
+            except BaseException:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+                raise
+            worker_session.emit_heartbeat(self.global_step, force=True)
+        reg = obs.registry()
+        if reg is not None:
+            reg.counter("rlt_checkpoint_saves_total").inc()
 
     def await_checkpoint_writer(self) -> None:
         """Every rank, after a checkpoint that rank 0 writes: over several
@@ -1549,8 +1656,9 @@ class Trainer:
         size, ZeRO stage) they were written under: under ZeRO each rank
         cuts its shards from them. A mid-epoch save re-runs its epoch from
         the start."""
-        self._load_state(torch.load(ckpt_path, map_location="cpu",
-                                    weights_only=True))
+        with obs.span("checkpoint/restore", path=ckpt_path):
+            self._load_state(torch.load(ckpt_path, map_location="cpu",
+                                        weights_only=True))
 
     def _load_state(self, ckpt: Dict[str, Any], progress: bool = True) -> None:
         """A checkpoint's state (a file's, an elastic handoff's or this
@@ -1608,13 +1716,14 @@ class Trainer:
         from ray_lightning_tpu_torch.runtime import elastic
 
         t = time.perf_counter()
-        while True:
-            cmd = agent.wait_for_join()
-            try:
-                cmd = agent.connect(cmd)
-                break
-            except elastic.MembershipChanged:
-                continue  # superseded before it connected: wait again
+        with obs.span("elastic/join", boot_id=agent.boot_id):
+            while True:
+                cmd = agent.wait_for_join()
+                try:
+                    cmd = agent.connect(cmd)
+                    break
+                except elastic.MembershipChanged:
+                    continue  # superseded before it connected: wait again
         self._set_rank(cmd.rank_of(agent.boot_id), cmd.world)
         self.elastic_log.append({"kind": "join", "epoch": cmd.epoch,
                                  "world": cmd.world, "join_s":
@@ -1636,18 +1745,21 @@ class Trainer:
 
         cmd, agent.pending_handoff_cmd = agent.pending_handoff_cmd, None
         t = time.perf_counter()
-        payload = elastic.read_handoff(cmd.handoff, timeout=agent.join_timeout,
-                                       allow_failed=True)
-        if payload is not None:
-            self._load_state(payload["ckpt"], progress=False)
-            self.current_epoch = int(payload["meta"]["epoch"])
-            self.global_step = int(payload["meta"]["global_step"])
-        elif cmd.restore:
-            self._restore_checkpoint(cmd.restore)
-        else:
-            raise RuntimeError(f"elastic grow (membership epoch {cmd.epoch}): "
-                               "the survivors' state was not handed over and "
-                               "no checkpoint is available")
+        with obs.span("elastic/handoff_load", epoch=cmd.epoch):
+            payload = elastic.read_handoff(cmd.handoff,
+                                           timeout=agent.join_timeout,
+                                           allow_failed=True)
+            if payload is not None:
+                self._load_state(payload["ckpt"], progress=False)
+                self.current_epoch = int(payload["meta"]["epoch"])
+                self.global_step = int(payload["meta"]["global_step"])
+            elif cmd.restore:
+                self._restore_checkpoint(cmd.restore)
+            else:
+                raise RuntimeError(
+                    f"elastic grow (membership epoch {cmd.epoch}): the "
+                    "survivors' state was not handed over and no checkpoint "
+                    "is available")
         self.elastic_log[-1]["handoff_read_s"] = time.perf_counter() - t
         agent.ack(cmd)
         self.elastic_log[-1]["ack_wall"] = time.time()
@@ -1698,6 +1810,11 @@ class Trainer:
 
         agent = self._elastic_agent
         t0, wall0 = time.perf_counter(), time.time()
+        if self._goodput is not None:
+            # a planned resize is an elastic transition; one that a failure
+            # forced is fault recovery
+            self._goodput.enter("fault_recovery" if err is not None
+                                else "elastic_transition")
         my_rank = cmd.rank_of(agent.boot_id)
         if my_rank is None:  # evicted while transitioning: not our group
             raise elastic.MembershipChanged(cmd)
@@ -1747,7 +1864,8 @@ class Trainer:
         t = time.perf_counter()
         if dist.is_initialized():
             agent.backend = dist.get_backend()
-        cmd = agent.reconnect(cmd)
+        with obs.span("elastic/reconnect", epoch=cmd.epoch, world=cmd.world):
+            cmd = agent.reconnect(cmd)
         record["reconnect_s"] = time.perf_counter() - t
         my_rank = cmd.rank_of(agent.boot_id)
         self._set_rank(my_rank, cmd.world)
@@ -1788,6 +1906,11 @@ class Trainer:
         record.update(rank=my_rank, resize_s=time.perf_counter() - t0,
                       ack_wall=time.time())
         self.elastic_log.append(record)
+        # the first step after a resize is a compile again, as in JAX
+        self._first_step_dispatched = False
+        if self._obs is not None:
+            self._obs.add_span("elastic/resize", wall0, record["resize_s"],
+                               step=self.global_step)
         worker_session.emit_heartbeat(self.global_step, force=True)
 
     def _resize_sampler(self, loader) -> None:

@@ -55,7 +55,16 @@ resizes come back in ``elastic`` beside the controller's.
 
 The queues (tune, heartbeats) are the native ring (``runtime/queue.py``)
 when the workers share this host and the library builds, else actors.
-Telemetry is not ported (ROADMAP.md).
+
+Telemetry (``observability/``): the heartbeat channel exists whenever
+``hang_timeout`` or ``telemetry`` is set, and then a ``DriverAggregator``
+sits behind the supervisor. With telemetry on it merges the workers' beat
+payloads (spans, metrics, goodput) into ``trace.json``, ``metrics.json``,
+``metrics.prom`` and ``summary.json`` under ``<default_root_dir>/telemetry``
+(``TORCHRT_TELEMETRY_DIR`` wins); with it off it is the flight record
+alone: ``events.jsonl`` of the run's start and end, the supervisor's
+verdicts, the launcher's crashes and the elastic controller's resizes,
+with an incident bundle for each fault.
 """
 from __future__ import annotations
 
@@ -73,6 +82,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ray_lightning_tpu_torch import observability as obs
 from ray_lightning_tpu_torch import runtime as rt
 from ray_lightning_tpu_torch.callbacks.checkpoint import ModelCheckpoint
 from ray_lightning_tpu_torch.runtime import faults
@@ -89,6 +99,7 @@ from ray_lightning_tpu_torch.launchers.utils import (
 )
 from ray_lightning_tpu_torch.session import (
     emit_done,
+    flush_telemetry,
     init_session,
     reset_session,
 )
@@ -216,10 +227,16 @@ def _wrapping_function(global_rank: int, num_workers: int, payload_ref,
     from ray_lightning_tpu_torch import kernels
     from ray_lightning_tpu_torch.runtime import elastic
 
-    payload = payload_ref if isinstance(payload_ref, bytes) else rt.get(payload_ref)
-    trainer, fn_name, fn_args = torch.load(io.BytesIO(payload),
-                                           map_location="cpu",
-                                           weights_only=False)
+    # TORCHRT_TELEMETRY is pinned in the worker's environment before it
+    # starts (RayLauncher._worker_env): boot is recorded before the payload
+    # that holds the strategy is even loaded
+    obs.maybe_enable_from_env()
+    with obs.span("boot/payload_load"):
+        payload = (payload_ref if isinstance(payload_ref, bytes)
+                   else rt.get(payload_ref))
+        trainer, fn_name, fn_args = torch.load(io.BytesIO(payload),
+                                               map_location="cpu",
+                                               weights_only=False)
     strategy = trainer.strategy
     strategy.set_remote(True)
     strategy._set_worker_context(global_rank, num_workers,
@@ -242,7 +259,13 @@ def _wrapping_function(global_rank: int, num_workers: int, payload_ref,
     module.trainer = trainer
     kernels.reset_launch_counts()
     trainer.state.status = "running"
-    results = getattr(trainer, fn_name)(*fn_args)
+    try:
+        with obs.span(f"worker/{fn_name}"):
+            results = getattr(trainer, fn_name)(*fn_args)
+    finally:
+        # one forced last beat with the whole ring and a cumulative
+        # snapshot: short runs and error exits included
+        flush_telemetry(getattr(trainer, "global_step", 0))
     emit_done()
     trainer.state.status = "finished"
     if trainer.device.type == "cuda":
@@ -320,6 +343,10 @@ class RayLauncher:
         self._tune_queue: Optional[rt.Queue] = None
         self._hb_queue: Optional[rt.Queue] = None
         self._supervisor: Optional[Supervisor] = None
+        # the main process's telemetry collector of the last stage (the
+        # flight record when telemetry is off), None without a heartbeat
+        # channel
+        self._aggregator = None
         self.backend: Optional[str] = None
         self.timings: Dict[str, float] = {}
         self.failures: List[Dict[str, Any]] = []
@@ -338,6 +365,9 @@ class RayLauncher:
         # heartbeat queues ("shm", "actor" or None) and the payload's
         # object-store backend ("inline" to remote workers)
         self.transport: Dict[str, Optional[str]] = {}
+        # (pickled bytes, spilled) of each item the last stage's heartbeat
+        # ring delivered (the ring's ``traffic``; empty for an actor queue)
+        self.heartbeat_traffic: List[Tuple[int, bool]] = []
 
     # ------------------------------------------------------------------ #
     def launch(self, function, *args, trainer=None) -> Any:
@@ -363,6 +393,8 @@ class RayLauncher:
         self._launch_ctx = (trainer, launch_t0)
         trainer._relaunch_ckpt_path = None
         self.failures = []
+        if strategy.telemetry:
+            obs.enable()  # the main process's own track in the merged trace
         attempt = 0
         try:
             # pickled before any worker starts: what cannot be shipped fails
@@ -374,9 +406,11 @@ class RayLauncher:
                 failed = False
                 try:
                     t = time.perf_counter()
-                    self.setup_workers(device)
+                    with obs.span("boot/setup_workers", attempt=attempt):
+                        self.setup_workers(device)
                     self.timings = {"setup_s": time.perf_counter() - t}
-                    output = self.run_function_on_workers(payload)
+                    output = self.run_function_on_workers(
+                        payload, function.__name__)
                     self._recover_results_in_main_process(output, trainer)
                     return output.trainer_results
                 except rt.ActorError as e:
@@ -389,12 +423,20 @@ class RayLauncher:
                     # only a dead (or killed) worker is worth a relaunch: a
                     # user exception would fail again in a fresh group
                     if attempt >= strategy.max_failures or not e.is_process_failure:
+                        self._record_event("crash", attempt=attempt,
+                                           fatal=True,
+                                           error=f"{type(e).__name__}: {e}")
                         raise
                 finally:
                     self.teardown_workers(force=failed)
                 attempt += 1
                 resume = self._find_relaunch_checkpoint(trainer, launch_t0)
                 record["resume"] = resume
+                self._record_event("crash", attempt=attempt,
+                                   max_failures=strategy.max_failures,
+                                   resume=resume,
+                                   error=f"{record['error']}: "
+                                         f"{record['message']}")
                 print(f"RayLauncher: worker failure ({record['error']}); "
                       f"relaunching (attempt {attempt}/{strategy.max_failures})"
                       + (f" from {resume}" if resume else " from scratch"),
@@ -405,6 +447,9 @@ class RayLauncher:
             trainer.seed = original_seed
             trainer._relaunch_ckpt_path = None
             self._launch_ctx = None
+            # its incident sources reach the elastic controller, whose
+            # restore scan holds the trainer: the launch keeps neither
+            self._aggregator = None
 
     @staticmethod
     def _find_relaunch_checkpoint(trainer, not_before: float) -> Optional[str]:
@@ -487,11 +532,13 @@ class RayLauncher:
                 env[elastic.ELASTIC_DIR_ENV] = self._elastic_dir
             # the spare's zygote imports while the workers boot
             rt.api.warm_zygote()
-        self._workers = rt.create_actors(
-            [(RayExecutor, (), {}) for _ in range(n)],
-            names=[f"torchrt-worker-{i}-{os.getpid()}-{tag}" for i in range(n)],
-            per_actor_env=per_actor_env, demands=demands,
-            assignments=assignments, timeout=timeout)
+        with obs.span("boot/spawn_workers", workers=n):
+            self._workers = rt.create_actors(
+                [(RayExecutor, (), {}) for _ in range(n)],
+                names=[f"torchrt-worker-{i}-{os.getpid()}-{tag}"
+                       for i in range(n)],
+                per_actor_env=per_actor_env, demands=demands,
+                assignments=assignments, timeout=timeout)
         self._any_remote = any(rt.actor_node_id(w) != 0 for w in self._workers)
         if self._any_remote:
             ips = rt.get([w.get_node_ip.remote() for w in self._workers],
@@ -519,30 +566,9 @@ class RayLauncher:
         if strategy.init_hook is not None:
             rt.get([w.execute.remote(strategy.init_hook) for w in self._workers],
                    timeout=timeout)
-        if elastic_group:
-            from ray_lightning_tpu_torch.runtime import elastic
-            from ray_lightning_tpu_torch.utils.ports import node_ip_address
-
-            # the main process hosts the rendezvous, so that it outlives
-            # any worker: a store per membership epoch
-            self._store_host = elastic.StoreHost(
-                node_ip_address() if self._any_remote else "127.0.0.1")
-            coordinator = self._store_host.new_address(n)
-            joined = rt.get([w.init_elastic_distributed.remote(
-                coordinator, n, rank, self.backend, idx, timeout)
-                for rank, (w, idx) in enumerate(zip(self._workers, indices))],
-                timeout=timeout + 30)
-        else:
-            host = ips[0]
-            port = rt.get(self._workers[0].find_free_port.remote(),
-                          timeout=timeout)
-            init_method = f"tcp://{host}:{port}"
-            joined = rt.get([w.init_distributed.remote(init_method, n, rank,
-                                                       self.backend, idx,
-                                                       timeout)
-                             for rank, (w, idx) in
-                             enumerate(zip(self._workers, indices))],
-                            timeout=timeout + 30)
+        with (obs.span("boot/init_distributed", workers=n) if n > 1
+              else obs.NOOP_SPAN):
+            joined = self._join_group(ips, indices, elastic_group)
         if sorted(j["rank"] for j in joined) != list(range(n)):
             raise RuntimeError(f"the workers joined as {joined}")
         if strategy.debug_collectives:
@@ -553,12 +579,40 @@ class RayLauncher:
         if tune_session.is_session_enabled():
             self._tune_queue = rt.make_queue(cross_host=self._any_remote,
                                              timeout=timeout)
-        if strategy.hang_timeout:
+        if strategy.hang_timeout or strategy.telemetry:
+            # the channel of the hang watchdog and of telemetry: payloads
+            # ride the beats. With neither, no beats and no supervisor
             self._hb_queue = rt.make_queue(cross_host=self._any_remote,
                                            timeout=timeout)
         self.transport = {
             "tune_queue": getattr(self._tune_queue, "kind", None),
             "heartbeat_queue": getattr(self._hb_queue, "kind", None)}
+
+    def _join_group(self, ips: List[str], indices: List[Optional[int]],
+                    elastic_group: bool) -> List[Dict[str, Any]]:
+        """Every worker's ``init_process_group`` at once: through a store
+        that the main process hosts for an elastic group (so that it
+        outlives any worker, one a membership epoch), else at worker 0's
+        address. Returns what each worker joined as."""
+        n, timeout = len(self._workers), self._strategy.timeout_s
+        if elastic_group:
+            from ray_lightning_tpu_torch.runtime import elastic
+            from ray_lightning_tpu_torch.utils.ports import node_ip_address
+
+            self._store_host = elastic.StoreHost(
+                node_ip_address() if self._any_remote else "127.0.0.1")
+            coordinator = self._store_host.new_address(n)
+            return rt.get([w.init_elastic_distributed.remote(
+                coordinator, n, rank, self.backend, idx, timeout)
+                for rank, (w, idx) in enumerate(zip(self._workers, indices))],
+                timeout=timeout + 30)
+        port = rt.get(self._workers[0].find_free_port.remote(), timeout=timeout)
+        init_method = f"tcp://{ips[0]}:{port}"
+        return rt.get([w.init_distributed.remote(init_method, n, rank,
+                                                 self.backend, idx, timeout)
+                       for rank, (w, idx) in
+                       enumerate(zip(self._workers, indices))],
+                      timeout=timeout + 30)
 
     def _worker_env(self, boot_id: int, demand: Dict[str, float]
                     ) -> Dict[str, str]:
@@ -566,16 +620,21 @@ class RayLauncher:
         fault scripted @boot fires before its ready line) and, as Ray does
         for an actor, ``OMP_NUM_THREADS`` = the CPUs it demands unless the
         caller set it: a host shared by several workers is not
-        oversubscribed."""
-        env = {faults.RANK_ENV: str(boot_id)}
+        oversubscribed. The strategy's telemetry verdict is pinned there
+        too."""
+        env = {faults.RANK_ENV: str(boot_id),
+               # explicit in the child: a constructor-only telemetry=True
+               # must reach the boot spans before the payload loads
+               obs.trace.ENABLE_ENV: "1" if self._strategy.telemetry else "0"}
         if "OMP_NUM_THREADS" not in os.environ:
             env["OMP_NUM_THREADS"] = str(max(1, math.ceil(demand["CPU"])))
         return env
 
     # ------------------------------------------------------------------ #
-    def run_function_on_workers(self, payload: bytes) -> WorkerOutput:
-        """Ship the payload and run the stage in every worker; rank 0's
-        output, with the launch counts summed over the ranks."""
+    def run_function_on_workers(self, payload: bytes,
+                                fn_name: str = "fit") -> WorkerOutput:
+        """Ship the payload and run the stage ``fn_name`` in every worker;
+        rank 0's output, with the launch counts summed over the ranks."""
         t0 = time.perf_counter()
         payload_ref: Any = payload if self._any_remote else rt.put(payload)
         self.transport["payload"] = getattr(payload_ref, "backend", "inline")
@@ -586,15 +645,20 @@ class RayLauncher:
         interval = self._strategy.heartbeat_interval
         supervisor = None
         hb_handle = hb.handle() if hb is not None else None
-        controller = self._controller = self._make_elastic_controller()
+        aggregator = self._make_aggregator(fn_name)
+        controller = self._controller = self._make_elastic_controller(
+            aggregator)
         if hb is not None:
+            # hang_timeout None: monitor only, the thread pumps the beats
+            # into the aggregator and never classifies or kills
             supervisor = self._supervisor = Supervisor(
                 n, drain=lambda: hb.get_all(timeout=5.0),
                 hang_timeout=self._strategy.hang_timeout,
                 heartbeat_interval=interval,
                 kill_group=self._kill_worker_group, is_alive=self._worker_alive,
                 label=f"worker group ({n} ranks)",
-                on_hung=controller.on_hung if controller is not None else None)
+                on_hung=controller.on_hung if controller is not None else None,
+                aggregator=aggregator)
             if controller is not None:
                 controller.supervisor = supervisor
             supervisor.start()
@@ -623,6 +687,23 @@ class RayLauncher:
             if supervisor is not None:
                 # the thread ends at once, or after its kill of the group
                 supervisor.stop(timeout=_KILL_WAIT_S + 10)
+                # the last forced beats (flush_telemetry) may still be in
+                # the queue: the aggregator's last view takes every rank's
+                # whole snapshot
+                try:
+                    for beat in hb.get_all(timeout=5.0):
+                        supervisor.ingest(beat)
+                except Exception:
+                    pass
+                self.heartbeat_traffic = list(getattr(hb, "traffic", ()))
+            if aggregator is not None:
+                aggregator.record_event("run_finished", fn=fn_name)
+                rec = obs.get_recorder()
+                out_dir = aggregator.finalize(
+                    driver_events=rec.drain() if rec is not None else None)
+                if out_dir:
+                    print(f"RayLauncher: telemetry written to {out_dir}",
+                          file=sys.stderr)
             if not isinstance(payload_ref, bytes):
                 rt.delete(payload_ref)
         self.timings["run_s"] = time.perf_counter() - t0
@@ -664,21 +745,51 @@ class RayLauncher:
         restore_callback_states(trainer.callbacks, output.callback_states)
         trainer.worker_launch_counts = dict(output.launch_counts)
 
-    def _make_elastic_controller(self):
-        """The stage's membership controller, in an elastic group only."""
+    def _make_aggregator(self, fn_name: str):
+        """The main process's collector on the heartbeat channel, whenever
+        the channel exists: ``full`` (trace and metrics files) only with
+        telemetry, else the flight record of the verdicts alone."""
+        self._aggregator = None
+        if self._hb_queue is None:
+            return None
+        from ray_lightning_tpu_torch.observability.aggregator import (
+            DriverAggregator,
+            telemetry_dir,
+        )
+
+        trainer = self._launch_ctx[0] if self._launch_ctx else None
+        root = getattr(trainer, "default_root_dir", None)
+        n = self._strategy.num_workers
+        aggregator = DriverAggregator(telemetry_dir(root), num_workers=n,
+                                      full=self._strategy.telemetry)
+        aggregator.record_event("run_started", fn=fn_name, workers=n)
+        self._aggregator = aggregator
+        return aggregator
+
+    def _record_event(self, kind: str, **fields) -> None:
+        """A line of the last stage's flight record, if it has one."""
+        if self._aggregator is not None:
+            self._aggregator.record_event(kind, **fields)
+
+    def _make_elastic_controller(self, aggregator=None):
+        """The stage's membership controller, in an elastic group only;
+        its events and gauges go to ``aggregator``."""
         if self._store_host is None:
             return None
         from ray_lightning_tpu_torch.runtime import elastic
 
         trainer, launch_t0 = self._launch_ctx
         strategy = self._strategy
-        return elastic.ElasticController(
+        controller = elastic.ElasticController(
             ledger=elastic.MembershipLedger(self._elastic_dir),
             host=self._store_host, num_workers=len(self._workers),
             min_workers=strategy.min_workers, kill_worker=self._kill_worker,
             spawn_worker=self._spawn_spare,
             find_restore=lambda: self._find_relaunch_checkpoint(trainer,
-                                                                launch_t0))
+                                                                launch_t0),
+            aggregator=aggregator)
+        controller._publish()  # the world-size gauge before any resize
+        return controller
 
     def _kill_worker(self, boot_id: int) -> None:
         """Evict one worker (an elastic shrink): kill it now and keep its
@@ -710,12 +821,13 @@ class RayLauncher:
         env.update({elastic.ELASTIC_DIR_ENV: self._elastic_dir,
                     elastic.ELASTIC_JOINER_ENV: "1"})
         t = time.perf_counter()
-        [w] = rt.create_actors(
-            [(RayExecutor, (), {})],
-            names=[f"torchrt-worker-{boot_id}-{os.getpid()}-"
-                   f"{secrets.token_hex(3)}"],
-            per_actor_env=[env], demands=[demand],
-            timeout=strategy.timeout_s, zygote=True)
+        with obs.span("elastic/spawn_spare", boot_id=boot_id):
+            [w] = rt.create_actors(
+                [(RayExecutor, (), {})],
+                names=[f"torchrt-worker-{boot_id}-{os.getpid()}-"
+                       f"{secrets.token_hex(3)}"],
+                per_actor_env=[env], demands=[demand],
+                timeout=strategy.timeout_s, zygote=True)
         self.timings["spare_spawn_s"] = time.perf_counter() - t
         # workers are indexed by boot id: a spare's id is the next one
         self._workers.append(w)

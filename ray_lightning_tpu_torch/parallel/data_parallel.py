@@ -403,6 +403,18 @@ class DataParallel:
                                                  for fg in made})
             self._groups[u] = groups
 
+    def zero_gather_bytes(self) -> Dict[str, int]:
+        """The ZeRO parameter all-gather of one update (stages 1-2 after
+        the step, stage 3 before the next forward): ``wire`` bytes as
+        gathered (the flat buffers in their own dtype), ``fp32`` bytes of
+        the same elements in fp32, and the ``leaves`` sharded (the JAX
+        ``ZeroContext``'s ``gather_wire_bytes``, ``gather_fp32_bytes`` and
+        ``big_leaves``; the port shards every trained leaf)."""
+        groups = [fg for gs in self._groups.values() for fg in gs]
+        return {"wire": sum(fg.size * fg.shard.element_size() for fg in groups),
+                "fp32": sum(4 * fg.size for fg in groups),
+                "leaves": sum(len(fg.leaves) for fg in groups)}
+
     @torch.no_grad()
     def sync_shards(self) -> None:
         """Copy each flat buffer's slice into this rank's shard: after the

@@ -28,10 +28,13 @@ import secrets
 import socket
 import struct
 import threading
+import time
 import traceback
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as _FuturesTimeout
 from typing import Any, Dict, Optional, Tuple
+
+from ray_lightning_tpu_torch import observability as _obs
 
 _LEN = struct.Struct("!Q")
 _SHUTDOWN = "__torchrt_shutdown__"
@@ -179,10 +182,19 @@ class CallFuture:
         self._fut = fut
         self.actor = actor
         self.method = method
+        # telemetry off costs one enabled() check at dispatch
+        self._t0 = time.perf_counter() if _obs.enabled() else None
 
     def result(self, timeout: Optional[float] = None) -> Any:
         try:
             status, value = self._fut.result(timeout)
+            if self._t0 is not None:
+                reg = _obs.registry()
+                if reg is not None:
+                    reg.histogram("rlt_actor_call_seconds",
+                                  method=self.method).observe(
+                        time.perf_counter() - self._t0)
+                self._t0 = None  # a polled result() counts the call once
         except (_FuturesTimeout, TimeoutError):
             raise ActorTimeout(
                 f"{self.actor.name}.{self.method}: no reply within {timeout}s "

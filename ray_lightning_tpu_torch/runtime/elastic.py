@@ -44,6 +44,8 @@ import time
 from dataclasses import asdict, dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from ray_lightning_tpu_torch.utils import fsio
+
 logger = logging.getLogger(__name__)
 
 ELASTIC_DIR_ENV = "TORCHRT_ELASTIC_DIR"
@@ -222,17 +224,6 @@ class ResizeCommand:
         return ResizeCommand(**data)
 
 
-def _atomic_write(path: str, data: bytes) -> None:
-    """Write to a temporary file of the same directory, sync, rename into
-    place: a reader sees all of the file or none of it."""
-    tmp = f"{path}.tmp{os.getpid()}.{threading.get_ident()}"
-    with open(tmp, "wb") as f:
-        f.write(data)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-
-
 class MembershipLedger:
     """Append-only commands and acks in a directory every member can read.
     A command is ``epoch_%06d.json``, written atomically; polling for the
@@ -246,7 +237,8 @@ class MembershipLedger:
         return os.path.join(self.root, f"epoch_{epoch:06d}.json")
 
     def announce(self, cmd: ResizeCommand) -> None:
-        _atomic_write(self._cmd_path(cmd.epoch), cmd.to_json().encode())
+        fsio.atomic_write_bytes(self._cmd_path(cmd.epoch),
+                                cmd.to_json().encode(), fsync=True)
 
     def read(self, epoch: int) -> Optional[ResizeCommand]:
         path = self._cmd_path(epoch)
@@ -266,8 +258,8 @@ class MembershipLedger:
         return os.path.join(self.root, f"ack_{epoch:06d}_b{boot_id}.json")
 
     def ack(self, epoch: int, boot_id: int) -> None:
-        _atomic_write(self._ack_path(epoch, boot_id), json.dumps(
-            {"ts": time.time(), "pid": os.getpid()}).encode())
+        fsio.atomic_write_bytes(self._ack_path(epoch, boot_id), json.dumps(
+            {"ts": time.time(), "pid": os.getpid()}).encode(), fsync=True)
 
     def acks_present(self, epoch: int, boot_ids: Sequence[int]) -> bool:
         return all(os.path.exists(self._ack_path(epoch, b)) for b in boot_ids)
@@ -301,7 +293,7 @@ def write_handoff(path: str, payload: Dict[str, Any]) -> int:
 
 
 def write_handoff_failed(path: str) -> None:
-    _atomic_write(path + ".failed", b"{}")
+    fsio.atomic_write_bytes(path + ".failed", b"{}", fsync=True)
 
 
 def read_handoff(path: str, timeout: float,
@@ -491,31 +483,42 @@ class ElasticController:
     boot id, announces a shrink applied now, then spawns a warm spare and
     announces a grow applied at the next epoch boundary. It declines
     (returns False) when the survivors would be fewer than ``min_workers``,
-    and the caller runs the relaunch of the whole group. (The JAX
-    controller's telemetry aggregator is not ported.)"""
+    and the caller runs the relaunch of the whole group.
+
+    With an ``aggregator`` (``observability/aggregator.py``) every event
+    also lands in its flight record, the world size, membership epoch,
+    resize counts and recovery times in its gauges, and the membership
+    ledger's view (:meth:`_ledger_snapshot`) in every incident bundle."""
 
     def __init__(self, ledger: MembershipLedger, host: Any, num_workers: int,
                  min_workers: int, kill_worker: Callable[[int], None],
                  spawn_worker: Callable[[int, int], Any],
                  find_restore: Callable[[], Optional[str]],
-                 readmit: bool = True):
+                 aggregator: Any = None, readmit: bool = True):
         self.ledger = ledger
         self.host = host
         self.min_workers = max(1, int(min_workers))
         self._kill_worker = kill_worker
         self._spawn_worker = spawn_worker
         self._find_restore = find_restore
+        self._aggregator = aggregator
         self._readmit = readmit
         self.supervisor: Any = None  # wired by the launcher
+        if hasattr(aggregator, "register_incident_source"):
+            # incident bundles freeze the membership view at fault time
+            aggregator.register_incident_source("membership_ledger",
+                                                self._ledger_snapshot)
         self._lock = threading.RLock()
         self.members: List[int] = list(range(num_workers))
         self.epoch = 0
         self._next_boot_id = num_workers
         self._fut_owner: Dict[int, int] = {}
         self._new_futures: List[Any] = []
-        self._grow_pending: Optional[Tuple[int, Tuple[int, ...]]] = None
+        # (epoch, members, monotonic time of the announce)
+        self._grow_pending: Optional[Tuple[int, Tuple[int, ...], float]] = None
         self._unacked: Dict[int, Tuple[int, ...]] = {}  # epoch -> boot ids
         self.resizes = {"shrink": 0, "grow": 0}
+        self.last_recovery_s: Optional[float] = None
         self.events: List[Dict[str, Any]] = []
         self.ack_timeout = _env_float(ACK_TIMEOUT_ENV, _DEFAULT_ACK_TIMEOUT)
 
@@ -581,9 +584,15 @@ class ElasticController:
                                "falling back to the relaunch",
                                len(survivors), self.min_workers)
                 return False
+            t0 = time.monotonic()
             if self.supervisor is not None:
                 try:
                     self.supervisor.forget_rank(boot_id, drop_telemetry=True)
+                except Exception:  # pragma: no cover
+                    pass
+            elif self._aggregator is not None:
+                try:
+                    self._aggregator.drop_rank(boot_id)
                 except Exception:  # pragma: no cover
                     pass
             try:
@@ -612,7 +621,10 @@ class ElasticController:
                                failed=boot_id, world=cmd.world, reason=reason)
             acked = self.ledger.wait_acks(cmd.epoch, cmd.members,
                                           self.ack_timeout)
+            recovery = time.monotonic() - t0
             self.resizes["shrink"] += 1
+            self.last_recovery_s = recovery
+            self._publish(recovery_s=recovery if acked else None)
             if not acked:
                 logger.warning("elastic: shrink epoch %d not fully acked "
                                "after %.0fs; continuing", cmd.epoch,
@@ -652,7 +664,7 @@ class ElasticController:
             return
         self.members = list(new_members)
         self._unacked[cmd.epoch] = cmd.members
-        self._grow_pending = (cmd.epoch, cmd.members)
+        self._grow_pending = (cmd.epoch, cmd.members, time.monotonic())
         if self.supervisor is not None:
             try:
                 self.supervisor.track_rank(joiner)
@@ -662,6 +674,7 @@ class ElasticController:
         self._new_futures.append(fut)
         self._record_event("elastic_grow_announced", epoch=cmd.epoch,
                            joiner=joiner, world=cmd.world)
+        self._publish()
 
     def stranded_joiner(self, futures: Sequence[Any]) -> Optional[int]:
         """The boot id of a spare that no survivor will admit: ``futures``
@@ -671,7 +684,7 @@ class ElasticController:
         pending = self._grow_pending
         if pending is None or not futures:
             return None
-        epoch, boots = pending
+        epoch, boots, _ = pending
         joiner = boots[-1]
         if any(self._fut_owner.get(id(f)) != joiner for f in futures):
             return None
@@ -703,12 +716,53 @@ class ElasticController:
         pending = self._grow_pending
         if pending is None:
             return
-        epoch, boots = pending
+        epoch, boots, t0 = pending
         if self.ledger.acks_present(epoch, boots):
             self._grow_pending = None
             self._unacked.pop(epoch, None)
+            recovery = time.monotonic() - t0
             self.resizes["grow"] += 1
+            self.last_recovery_s = recovery
             self._record_event("elastic_grow", epoch=epoch, world=len(boots))
+            self._publish(recovery_s=recovery)
+
+    def _ledger_snapshot(self) -> Dict[str, Any]:
+        """Membership state for an incident bundle: the members, epoch,
+        resize counts and last recovery, and the ledger's transitions."""
+        with self._lock:
+            out: Dict[str, Any] = {
+                "members": list(self.members),
+                "epoch": self.epoch,
+                "resizes": dict(self.resizes),
+                "last_recovery_s": self.last_recovery_s,
+            }
+        cmds = []
+        epoch = 1
+        while self.ledger.has(epoch):
+            cmd = self.ledger.read(epoch)
+            if cmd is not None:
+                cmds.append({"epoch": cmd.epoch, "kind": cmd.kind,
+                             "world": cmd.world, "members": list(cmd.members)})
+            epoch += 1
+        out["transitions"] = cmds
+        return out
 
     def _record_event(self, kind: str, **detail: Any) -> None:
         self.events.append({"event": kind, "wall": time.time(), **detail})
+        if self._aggregator is not None:
+            try:
+                self._aggregator.record_event(kind, **detail)
+            except Exception:  # pragma: no cover
+                logger.debug("elastic event emit failed", exc_info=True)
+
+    def _publish(self, recovery_s: Optional[float] = None) -> None:
+        """The membership gauges of the aggregator, if there is one."""
+        if self._aggregator is None:
+            return
+        try:
+            self._aggregator.set_elastic(
+                world_size=len(self.members), membership_epoch=self.epoch,
+                shrinks=self.resizes["shrink"], grows=self.resizes["grow"],
+                recovery_s=recovery_s)
+        except Exception:  # pragma: no cover
+            logger.debug("elastic gauge publish failed", exc_info=True)

@@ -30,6 +30,7 @@ import secrets
 import time
 from typing import Any, List, Optional
 
+from ray_lightning_tpu_torch import observability as _obs
 from ray_lightning_tpu_torch.runtime import api, native
 from ray_lightning_tpu_torch.runtime.actor import (
     ActorError,
@@ -47,9 +48,20 @@ from ray_lightning_tpu_torch.utils.ports import node_ip_address
 Full = _queue_mod.Full
 
 
+def _record_put_wait(impl: str, seconds: float) -> None:
+    """Queue back-pressure into ``rlt_queue_put_wait_seconds{impl}``; the
+    call sites take the time only with telemetry on."""
+    reg = _obs.registry()
+    if reg is not None:
+        reg.histogram("rlt_queue_put_wait_seconds", impl=impl).observe(seconds)
+
+
 def _actor_put(actor, item: Any, timeout: Optional[float]) -> None:
+    t0 = time.perf_counter() if _obs.enabled() else None
     try:
         ok = actor.call("put", item).result(timeout=timeout)
+        if t0 is not None:
+            _record_put_wait("actor", time.perf_counter() - t0)
     except ActorTimeout:
         raise Full(f"queue actor {actor.name!r}: put got no reply within "
                    f"{timeout}s (is the main process gone?)") from None
@@ -178,9 +190,12 @@ class _ShmQueueBase:
             payload = dumps({_SPILL_KEY: spill}, "a spill ref")
         buf = (ctypes.c_uint8 * len(payload)).from_buffer_copy(payload)
         deadline = None if timeout is None else time.monotonic() + timeout
+        t0 = time.perf_counter() if _obs.enabled() else None
         while True:
             rc = lib.rlt_queue_push(self._queue, buf, len(payload))
             if rc == 0:
+                if t0 is not None:
+                    _record_put_wait("shm", time.perf_counter() - t0)
                 return
             if rc == _EAGAIN and deadline is not None and (
                     time.monotonic() < deadline):
@@ -228,13 +243,16 @@ class ShmQueue(_ShmQueueBase):
         if rc != 0:
             raise RuntimeError(f"rlt_queue_create({name}) failed: {rc}")
         super().__init__(name)
+        # (pickled bytes, spilled) of the last items read, newest last
+        self.traffic: collections.deque = collections.deque(maxlen=65536)
 
     def handle(self) -> ShmQueueHandle:
         return ShmQueueHandle(self._name)
 
     def get_all(self, timeout: Optional[float] = None) -> List[Any]:
         """Every item queued so far, oldest first (never blocks:
-        ``timeout`` is taken for the actor queue's signature)."""
+        ``timeout`` is taken for the actor queue's signature). Each item's
+        pickled size and whether it spilled go into :attr:`traffic`."""
         lib = self._attach()
         slot_bytes = int(lib.rlt_queue_slot_bytes(self._queue))
         out = (ctypes.c_uint8 * slot_bytes)()
@@ -242,17 +260,27 @@ class ShmQueue(_ShmQueueBase):
         while True:
             n = lib.rlt_queue_pop(self._queue, out, slot_bytes)
             if n == _EAGAIN:
-                return items
+                break
             if n < 0:
                 raise RuntimeError(f"rlt_queue_pop({self._name}) failed: {n}")
-            item = pickle.loads(bytes(out[:n]))
-            if isinstance(item, dict) and _SPILL_KEY in item:
+            blob = bytes(out[:n])
+            item = pickle.loads(blob)
+            spilled = isinstance(item, dict) and _SPILL_KEY in item
+            if spilled:
                 ref = item[_SPILL_KEY]
                 try:
-                    item = pickle.loads(get_object(ref))
+                    blob = get_object(ref)
+                    item = pickle.loads(blob)
                 finally:
                     release(ref)
+            self.traffic.append((len(blob), spilled))
             items.append(item)
+        if items:
+            reg = _obs.registry()
+            if reg is not None:
+                reg.counter("rlt_queue_get_items_total", impl="shm").inc(
+                    len(items))
+        return items
 
     def empty(self) -> bool:
         return self.qsize() == 0

@@ -37,13 +37,14 @@ was admitted. A hook that returns False or raises trips the group as before.
 
 The aggregator tap: an ``aggregator`` (any object with ``on_beat(rank,
 step, wall_time, payload)``, ``heartbeat_age(rank, age)`` and
-``record_event(kind, **fields)``) receives every beat, the serving
-replicas' ``(rank, step, wall_time, payload)`` beats' payloads included,
-each rank's beat age at every check, and the straggler and hang events.
-The serving fleet's load tap is one (``serving/replica.py``); the training
-paths pass none. The JAX supervisor's SLO monitor and its publishing of
-the beats to the main process's telemetry aggregator are not ported (ROADMAP.md,
-queue 1 item 9: observability).
+``record_event(kind, **fields)``) receives every beat, the
+``(rank, step, wall_time, payload)`` beats' telemetry payloads included,
+each rank's beat age at every check (and its last at its ``DONE``), and
+the straggler and hang events. The launcher's ``DriverAggregator``
+(``observability/aggregator.py``) is one, on the training paths; the
+serving fleet's load tap is another (``serving/replica.py``). With
+``hang_timeout`` None the supervisor only pumps the beats into it. The JAX
+supervisor's SLO monitor is not ported (ROADMAP.md, queue 1 item 9b).
 """
 from __future__ import annotations
 
@@ -175,7 +176,11 @@ class Supervisor:
         hand it to the aggregator; a ``DONE`` beat ends the watch of its
         rank."""
         if int(step) == DONE:
-            self.finished[rank] = self.health.pop(rank, None)
+            h = self.finished[rank] = self.health.pop(rank, None)
+            if h is not None and h.last_beat is not None:
+                # the rank's last age: a stage shorter than one poll would
+                # otherwise never publish one
+                self._publish_age(rank, time.monotonic() - h.last_beat)
             return
         h = self.health.get(rank)
         if h is None:
@@ -198,14 +203,9 @@ class Supervisor:
         without ``hang_timeout`` reports every rank ok."""
         now = time.monotonic() if now is None else now
         out: Dict[int, str] = {}
-        agg = self._aggregator
         for rank, h in list(self.health.items()):
-            if agg is not None and h.last_beat is not None:
-                try:
-                    agg.heartbeat_age(rank, now - h.last_beat)
-                except Exception:
-                    logger.debug("aggregator.heartbeat_age failed",
-                                 exc_info=True)
+            if h.last_beat is not None:
+                self._publish_age(rank, now - h.last_beat)
             if self.hang_timeout is None:
                 out[rank] = OK
                 continue
@@ -223,6 +223,14 @@ class Supervisor:
                                    hang_timeout=self.hang_timeout)
             out[rank] = verdict
         return out
+
+    def _publish_age(self, rank: int, age: float) -> None:
+        agg = self._aggregator
+        if agg is not None:
+            try:
+                agg.heartbeat_age(rank, age)
+            except Exception:
+                logger.debug("aggregator.heartbeat_age failed", exc_info=True)
 
     def forget_rank(self, rank: int, drop_telemetry: bool = False) -> None:
         """Stop watching ``rank`` (evicted by a shrink, or mid-transition: a

@@ -66,7 +66,7 @@ DRR queues, tenant classes in the shed policy, token-bucket quotas at
 submit (:class:`~.tenancy.QuotaExceeded`). Scripted serving faults
 (``TORCHRT_FAULT`` ``replica<R>:`` specs, ``runtime/faults.py``) fire in an
 engine built with ``replica_index=R``. Request tracing and the engine's
-metrics are not ported yet (ROADMAP.md, queue 1 item 9: observability):
+metrics are not ported yet (ROADMAP.md, queue 1 item 9b):
 :meth:`InferenceEngine.drain_request_records` returns no records, as the JAX
 engine's does with telemetry off, and the JAX engine's ``compile_stats``
 (its jit caches) has no counterpart.

@@ -28,7 +28,7 @@ An actor executes its calls on one thread, in order, so the actor surface
 is non-blocking: ``submit`` returns at once (the engine's loop does the
 work) and ``poll`` reports completion.
 
-Not ported (ROADMAP.md, queue 1 item 9: observability): the metrics, the
+Not ported (ROADMAP.md, queue 1 item 9b): the metrics, the
 events and the request traces the JAX fleet publishes with telemetry on,
 and ``publish_breaker_states``; this module behaves as the JAX one does
 with telemetry off. An actor's builder is pickled by reference: a
@@ -73,8 +73,8 @@ TTFT_COMPONENT_METRIC = "rlt_serve_ttft_component_seconds"
 
 _TELEMETRY_REFUSED = (
     "telemetry=True: the replicas' telemetry (metrics, request traces, "
-    "beat payloads beyond the load) is not ported yet (ROADMAP.md, queue 1 "
-    "item 9: observability)"
+    "beat payloads beyond the load), the serving side of observability, is "
+    "not ported yet (ROADMAP.md, queue 1 item 9b)"
 )
 
 

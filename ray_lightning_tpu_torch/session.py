@@ -8,14 +8,19 @@ entry point in each worker; ``put_queue`` hands the main process a callable
 per ``heartbeat_interval``, to the queue that the main process's
 ``runtime/supervisor.py`` drains to tell live workers from hung ones;
 ``emit_done`` sends the last, of step -1, when the stage has returned. A
-beat is lossy and never raises. The JAX session's telemetry payload on the
-beats (and ``flush_telemetry``) is not ported (ROADMAP.md).
+beat is lossy and never raises. With telemetry on (``observability/``) a
+beat samples the device-memory gauges and carries the drained trace ring
+and the metrics' delta as a fourth item, ``(rank, step, wall_time,
+payload)``; ``flush_telemetry(step)`` forces one last beat with the full
+snapshot when the stage returns, so a run shorter than one interval still
+reaches the main process's aggregator.
 """
 from __future__ import annotations
 
 import time
 from typing import Any, Callable, Optional
 
+from ray_lightning_tpu_torch import observability as _obs
 from ray_lightning_tpu_torch.runtime import faults
 from ray_lightning_tpu_torch.runtime.supervisor import DONE
 
@@ -65,9 +70,29 @@ class RayLightningSession:
         if faults.heartbeats_dropped(step):
             return
         self._last_beat = now
+        _obs.sample_device_memory()  # the memory gauges ride the beat
+        payload = _obs.collect_beat_payload()
+        beat = ((self._rank, int(step), time.time()) if payload is None
+                else (self._rank, int(step), time.time(), payload))
         try:
-            self._heartbeat.put((self._rank, int(step), time.time()),
-                                timeout=1.0)
+            self._heartbeat.put(beat, timeout=1.0)
+        except Exception:
+            pass
+
+    def flush_telemetry(self, step: int) -> None:
+        """One last beat with the whole ring and a cumulative metrics
+        snapshot, when the stage returns (short runs and error exits
+        included). Best-effort like every beat; nothing without telemetry
+        or a heartbeat channel."""
+        if self._heartbeat is None:
+            return
+        _obs.sample_device_memory(force=True)
+        payload = _obs.collect_beat_payload(final=True)
+        if payload is None:
+            return
+        try:
+            self._heartbeat.put((self._rank, int(step), time.time(), payload),
+                                timeout=2.0)
         except Exception:
             pass
 
@@ -110,6 +135,12 @@ def put_queue(item: Callable) -> None:
 def heartbeat_enabled() -> bool:
     """Whether this process's session beats to a supervisor."""
     return _session is not None and _session._heartbeat is not None
+
+
+def flush_telemetry(step: int) -> None:
+    """The session's final telemetry beat (a no-op without a session)."""
+    if _session is not None:
+        _session.flush_telemetry(step)
 
 
 def emit_done() -> None:

@@ -22,14 +22,16 @@ class Strategy:
     zero_stage = 0
 
     def __init__(self, prefetch_depth: int = 2,
-                 loader_num_workers: Optional[int] = None):
+                 loader_num_workers: Optional[int] = None,
+                 telemetry: Optional[bool] = None):
         """``prefetch_depth``: how many batches beyond the one being trained
         have their host-to-device copies issued ahead (``core/prefetch.py``,
         ``DevicePrefetcher``); each costs one resident batch on the device,
         and 0 is the synchronous path. ``loader_num_workers``: background
         threads assembling host batches (``AsyncLoader``); ``None`` defers
         to the loader's own ``num_workers`` (else one feeder thread), 0
-        keeps host loading on the training thread."""
+        keeps host loading on the training thread. ``telemetry``: see
+        :attr:`telemetry`."""
         prefetch_depth = int(prefetch_depth)
         if prefetch_depth < 0:
             raise ValueError(
@@ -43,10 +45,24 @@ class Strategy:
                 )
         self.prefetch_depth = prefetch_depth
         self.loader_num_workers = loader_num_workers
+        self._telemetry = telemetry
 
     @property
     def launcher(self):
         return None
+
+    @property
+    def telemetry(self) -> bool:
+        """Whether the flight recorder is on (spans and metrics, shipped to
+        the main process's aggregator on the heartbeats; see
+        ``observability/``). Off by default: the instrumented paths reduce
+        to one attribute check. The constructor argument wins, else the
+        ``TORCHRT_TELEMETRY`` variable (``1``/``true``/``yes``/``on``)."""
+        if self._telemetry is not None:
+            return bool(self._telemetry)
+        from ray_lightning_tpu_torch.observability import env_enabled
+
+        return env_enabled()
 
     # ------------------------------------------------------------------ #
     # topology

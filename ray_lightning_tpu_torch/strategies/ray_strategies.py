@@ -42,10 +42,17 @@ clamped to 1) survive; below that the relaunch runs. These are constructor
 arguments only: the port reads no environment variable for them (the JAX
 strategies also read ``RLT_ELASTIC`` and ``RLT_MIN_WORKERS``).
 
+``telemetry`` (the argument, else ``TORCHRT_TELEMETRY``) turns the flight
+recorder on (``observability/``): the launcher pins the verdict into each
+worker's environment, the workers' beats carry their spans and metrics to
+the main process's ``DriverAggregator``, and the fit leaves ``trace.json``,
+``metrics.json``, ``metrics.prom``, ``summary.json`` and ``events.jsonl``
+under ``<default_root_dir>/telemetry`` (or ``TORCHRT_TELEMETRY_DIR``).
+
 The constructors take the JAX strategies' arguments. Those that steer what
 the port does not have (other mesh axes, partition rules, gradient
-compression, several devices per worker, telemetry, the XLA cache) refuse
-any value but their default with a message that names ROADMAP.md.
+compression, several devices per worker, the XLA cache) refuse any value
+but their default with a message that names ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -79,7 +86,7 @@ class RayStrategy(Strategy):
     ``MeshSpec`` over 'dp' and 'ep' whose resolved sizes multiply to
     ``num_workers`` (see the module's note). ``max_failures``,
     ``hang_timeout``, ``heartbeat_interval``, ``elastic`` and
-    ``min_workers``: see the module's note.
+    ``min_workers``, ``telemetry``: see the module's note.
     """
 
     strategy_name = "ddp_ray"
@@ -115,7 +122,7 @@ class RayStrategy(Strategy):
         **kwargs: Any,
     ):
         super().__init__(2 if prefetch_depth is None else prefetch_depth,
-                         loader_num_workers)
+                         loader_num_workers, telemetry)
         if num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
         if use_tpu:
@@ -131,7 +138,6 @@ class RayStrategy(Strategy):
             ("chips_per_host", chips_per_host, "TPU chip partitioning"),
             ("dcn_grad_compression", dcn_grad_compression,
              "gradient compression (parallel/compression.py)"),
-            ("telemetry", telemetry or None, "telemetry publishing"),
             ("xla_cache_dir", xla_cache_dir, "XLA's compilation cache"),
             ("partition_rules", partition_rules, "partition rules"),
             ("zero_quantized_allgather", zero_quantized_allgather or None,

@@ -13,6 +13,7 @@ unaligned inputs, a vocabulary that is no power of two),
 beside the main-path shapes chip_smoke.py checks.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1675,3 +1676,46 @@ def test_replica_group_of_two_actors_on_the_card(cuda):
     while not all(pid_exited(p) for p in pids):
         assert time.monotonic() < deadline, pids
         time.sleep(0.1)
+
+
+def test_device_memory_gauges_read_the_allocator(cuda, tmp_path):
+    """``rlt_hbm_bytes_in_use`` and ``rlt_hbm_peak_bytes`` of this
+    process's current card are the caching allocator's allocated bytes, now
+    and at peak (``torch.cuda.memory_allocated``/``max_memory_allocated``),
+    and the limit is the card's memory; a process that has not touched CUDA
+    gets ``[]`` and opens no context."""
+    import subprocess
+    import sys
+
+    from ray_lightning_tpu_torch import observability as obs
+    from ray_lightning_tpu_torch.observability import metrics
+
+    obs.reset()
+    obs.enable()
+    try:
+        x = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+        torch.cuda.synchronize()
+        (stats,) = metrics.device_memory_stats()
+        assert stats["device"] == f"cuda:{torch.cuda.current_device()}"
+        assert stats["bytes_in_use"] == torch.cuda.memory_allocated()
+        assert stats["peak_bytes"] == torch.cuda.max_memory_allocated()
+        assert stats["bytes_limit"] == torch.cuda.mem_get_info()[1]
+        assert stats["bytes_in_use"] >= x.numel()
+        obs.sample_device_memory(force=True)
+        reg = obs.registry()
+        dev = stats["device"]
+        assert reg.get(metrics.HBM_IN_USE_METRIC, device=dev).value == float(
+            stats["bytes_in_use"])
+        assert reg.get(metrics.HBM_PEAK_METRIC, device=dev).value == float(
+            stats["peak_bytes"])
+        del x
+    finally:
+        obs.reset()
+    probe = ("import torch; from ray_lightning_tpu_torch.observability "
+             "import metrics; print(metrics.device_memory_stats(), "
+             "torch.cuda.is_initialized())")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120, check=True,
+                         cwd=str(tmp_path), env=dict(
+                             os.environ, PYTHONPATH=os.pathsep.join(sys.path)))
+    assert out.stdout.split() == ["[]", "False"]

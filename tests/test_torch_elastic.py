@@ -412,17 +412,107 @@ def _controller(pkg, tmp_path, clean_env, *, num_workers=2, min_workers=1,
               host=_StubHost(), num_workers=num_workers,
               min_workers=min_workers, kill_worker=killed.append,
               spawn_worker=spawn or default_spawn,
-              find_restore=find_restore or (lambda: None), readmit=readmit)
-    if pkg == "jax":
-        kw["aggregator"] = _StubAgg()
+              find_restore=find_restore or (lambda: None), readmit=readmit,
+              aggregator=_StubAgg())
     ctl = mod.ElasticController(**kw)
     ctl.supervisor = _StubSupervisor()
     return ctl, killed, spawned
 
 
 def _kinds(pkg, ctl):
-    return (ctl._aggregator.events if pkg == "jax"
-            else [e["event"] for e in ctl.events])
+    """The events the controller sent its aggregator (the port's also in
+    its own ``events``)."""
+    if pkg == "port":
+        assert [e["event"] for e in ctl.events] == ctl._aggregator.events
+    return ctl._aggregator.events
+
+
+def _fed_controller(pkg, run, clean_env, spawn):
+    """A three-worker controller beside its package's own DriverAggregator,
+    after a shrink around boot id 1 whose survivors acked it."""
+    from ray_lightning_tpu.observability import aggregator as jagg
+    from ray_lightning_tpu_torch.observability import aggregator as pagg
+
+    mod = PACKAGES[pkg][0]
+    clean_env.setenv(mod.ACK_TIMEOUT_ENV, "0.3")
+    agg = (jagg if pkg == "jax" else pagg).DriverAggregator(
+        str(run / "telemetry"), num_workers=3)
+    ctl = mod.ElasticController(
+        ledger=mod.MembershipLedger(str(run / "ledger")), host=_StubHost(),
+        num_workers=3, min_workers=1, kill_worker=lambda b: None,
+        spawn_worker=spawn, find_restore=lambda: None, aggregator=agg)
+    ctl.supervisor = _StubSupervisor()
+    ctl._publish()
+    ctl.ledger.ack(1, 0)
+    ctl.ledger.ack(1, 2)
+    assert ctl.handle_failure(1, "process failure: gone") is True
+    return ctl, agg
+
+
+def _record(run):
+    import json
+
+    events = [{k: v for k, v in json.loads(line).items() if k != "ts"}
+              for line in open(run / "telemetry" / "events.jsonl")]
+    bundles = {}
+    for bundle in sorted((run / "telemetry" / "incidents").iterdir()):
+        ledger = json.loads((bundle / "membership_ledger.json").read_text())
+        ledger.pop("last_recovery_s")
+        bundles[bundle.name.split("_", 1)[1]] = (
+            sorted(p.name for p in bundle.iterdir()), ledger)
+    return events, bundles
+
+
+def test_controller_feeds_a_driver_aggregator_as_jax_s(tmp_path, clean_env):
+    """Each package's controller beside its own ``DriverAggregator``: a
+    shrink, the spare's grow, its acks, then a crash verdict. The flight
+    record's events, the elastic summary and gauges, and the incident
+    bundle with the membership ledger's snapshot are JAX's (wall times and
+    the recoveries' durations masked)."""
+    out = {}
+    for pkg in PACKAGES:
+        run = tmp_path / pkg
+        ctl, agg = _fed_controller(pkg, run, clean_env,
+                                   lambda boot_id, world: f"fut-{boot_id}")
+        for boot in (0, 2, 3):
+            ctl.ledger.ack(2, boot)
+        ctl.poll()
+        agg.record_event("crash", attempt=0, fatal=True, error="x")
+        summary = agg.summary()["elastic"]
+        summary.pop("last_recovery_s", None)
+        snap = agg.registry.snapshot()
+        agg.finalize()
+        out[pkg] = (_record(run), summary, snap["gauges"], [
+            c for c in snap["counters"] if c[0].startswith("rlt_elastic")])
+    assert out["port"] == out["jax"]
+    (events, bundles), summary = out["port"][:2]
+    assert [e["event"] for e in events] == [
+        "elastic_shrink", "elastic_grow_announced", "elastic_grow", "crash"]
+    assert summary == {"world_size": 3, "membership_epoch": 2, "shrinks": 1,
+                       "grows": 1}
+    assert bundles["crash"][1]["members"] == [0, 2, 3]
+
+
+def test_a_failed_grow_leaves_its_bundle(tmp_path, clean_env):
+    """A spare that fails to spawn: the cancelled grow's
+    ``elastic_grow_failed`` is an incident, its bundle holding the
+    membership ledger. (The JAX controller deadlocks here: it records the
+    event under its own non-reentrant lock, and the bundle's ledger
+    snapshot takes that lock again; the port's lock is reentrant.)"""
+
+    def bad_spawn(boot_id, world_hint):
+        raise RuntimeError("no capacity")
+
+    ctl, agg = _fed_controller("port", tmp_path, clean_env, bad_spawn)
+    agg.finalize()
+    events, bundles = _record(tmp_path)
+    assert [e["event"] for e in events] == ["elastic_shrink",
+                                            "elastic_grow_failed"]
+    files, ledger = bundles["elastic_grow_failed"]
+    assert "membership_ledger.json" in files
+    assert ledger["members"] == [0, 2] and [
+        t["kind"] for t in ledger["transitions"]] == ["shrink", "grow",
+                                                       "shrink"]
 
 
 @pytest.mark.parametrize("pkg", list(PACKAGES))

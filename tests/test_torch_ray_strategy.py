@@ -130,12 +130,34 @@ def test_unported_strategy_arguments_are_refused(kw, monkeypatch):
     ``min_workers`` (tests/test_torch_elastic.py): each takes the JAX
     strategy's value (``min_workers`` clamped to 1 as there; the JAX
     strategy also reads ``RLT_ELASTIC`` and ``RLT_MIN_WORKERS``, cleared
-    here), and what stays refused beside the failure arguments is
-    telemetry; a negative ``hang_timeout`` or ``heartbeat_interval`` raises
-    ValueError naming it, as the JAX strategy's does."""
+    here), and so is ``telemetry``: the argument wins, else
+    ``TORCHRT_TELEMETRY`` as JAX reads ``RLT_TELEMETRY``, and it is
+    accepted beside the failure arguments; a negative ``hang_timeout`` or
+    ``heartbeat_interval`` raises ValueError naming it, as the JAX
+    strategy's does."""
     monkeypatch.delenv("RLT_ELASTIC", raising=False)
     monkeypatch.delenv("RLT_MIN_WORKERS", raising=False)
+    monkeypatch.delenv("RLT_TELEMETRY", raising=False)
+    monkeypatch.delenv("TORCHRT_TELEMETRY", raising=False)
     name, value = next(iter(kw.items()))
+    if name == "telemetry":
+        for v in (True, False, None):
+            ours = RayStrategy(num_workers=2, telemetry=v).telemetry
+            theirs = JRayStrategy(num_workers=2, telemetry=v).telemetry
+            assert ours == theirs == bool(v), (v, ours, theirs)
+        for env in ("1", "true", "on", "0", "no", ""):
+            monkeypatch.setenv("TORCHRT_TELEMETRY", env)
+            monkeypatch.setenv("RLT_TELEMETRY", env)
+            ours = RayStrategy(num_workers=2).telemetry
+            assert ours == JRayStrategy(num_workers=2).telemetry, env
+            assert ours == (env in ("1", "true", "on"))
+            # the argument wins over the variable
+            assert RayStrategy(num_workers=2, telemetry=False).telemetry is False
+        # the port reads its own variable, never JAX's
+        monkeypatch.setenv("RLT_TELEMETRY", "1")
+        monkeypatch.delenv("TORCHRT_TELEMETRY")
+        assert RayStrategy(num_workers=2).telemetry is False
+        return
     if name in ("elastic", "min_workers"):
         for v in (value, None, 0, 3) if name == "min_workers" else (
                 value, None, False):
@@ -149,8 +171,7 @@ def test_unported_strategy_arguments_are_refused(kw, monkeypatch):
             JRayStrategy(num_workers=2, **kw), name) == value
         for companion in (dict(elastic=True), dict(min_workers=1)):
             RayStrategy(num_workers=2, **kw, **companion)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RayStrategy(num_workers=2, **kw, telemetry=True)
+        assert RayStrategy(num_workers=2, **kw, telemetry=True).telemetry
         if name != "max_failures":
             for cls in (RayStrategy, JRayStrategy):
                 with pytest.raises(ValueError, match=name):
