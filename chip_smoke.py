@@ -47,7 +47,16 @@ final line):
    requests are then served again (the first 8, unprofiled and then under
    torch.profiler), which gives the
    device time by class (the port's kernels, matmuls, the rest) and the
-   device's busy share;
+   device's busy share. Then (``serving_telemetry``) the same 16 requests
+   three times more, each on a fresh paged engine over the same weights,
+   with the flight recorder on (``observability.enable()``), on, and off:
+   the same checks and exact launches in each, tokens/s and TTFT of the
+   four runs in order (off, on, on, off), in each run with the recorder on
+   16 request records whose TTFT components sum to their TTFT within 1 ms
+   and the ``rlt_serve_*`` series and the KV gauges in the registry, the
+   local dump's files (``write_local_dump``), and an ``SLOMonitor``'s burn
+   rates over the first such run's histograms; telemetry is off again
+   after it;
 4b. speculative serving (``serving_spec``) — the same weights and requests
    with ``speculate_k=4`` on the paged and then the slot layout: each tick
    verifies every slot's pending token and up to 3 prompt-lookup
@@ -98,7 +107,13 @@ final line):
    with 32 tokens, 16 migrated by the fleet's pump with no fallback, both
    decode replicas routed to, the launches exact summed per engine, the
    logits finite, every pool empty with no chain pinned; tokens/s and TTFT
-   beside the colocated main path's and ``serving_disagg``'s hand pump);
+   beside the colocated main path's and ``serving_disagg``'s hand pump),
+   with telemetry on: the fleet's request records are two hops a request
+   (the prefill hop ``migrated``, the decode hop ``completed``),
+   ``lineage.build_lineages`` finds 16 complete lineages with no orphan
+   hop, ``cli lineage <rid>`` renders one from a local dump, and the
+   records' ``transfer_s`` and the migration counters agree with
+   ``fleet.stats()["migration"]``;
    then two homogeneous replicas under ``replica0:crash@every:24`` with
    retries and a breaker (every request to its length, none failed,
    retries and a relaunch, the allocated memory back to its level before
@@ -341,15 +356,21 @@ final line):
    (``relaunches_total == 1``); each live actor's own launch counts exact
    for its prefills and decode steps; 8 more requests and a
    ``remove_replica()`` drop nothing; after the shutdown no process of the
-   group is left and the card's used memory is back. Printed: the forked
+   group is left and the card's used memory is back. The group runs with
+   ``telemetry=True``: the actors' beats carry their metric deltas, trace
+   events and request records. Printed: the forked
    start-up, the kill to the relaunched replica's first beat, tokens/s,
-   the phase's time beside a 45 s budget;
+   the beats' pickled bytes (median, max) and the share that spilled past
+   the heartbeat ring's 16 KiB slot, the phase's time beside a 45 s budget;
 19. the ``telemetry ...`` line — what the telemetry checks above found:
    the files, the step median with telemetry on beside off, the beats'
    payload bytes and spilled share, the two ranks' step statistics, the
-   flight record's events and bundles;
+   flight record's events and bundles; the serving path's tokens/s and
+   TTFT with the recorder on beside off, its records and files and the
+   SLO monitor's burn rates, the fleet's lineages, the replica group's
+   beats;
 20. the ``kernels`` JSON line (launches from the main paths: serving,
-   serving_slot, serving_spec, serving_spec_slot, serving_disagg,
+   serving_telemetry, serving_slot, serving_spec, serving_spec_slot, serving_disagg,
    serving_tenants, serving_faults, serving_fleet, fleet_exactness,
    fleet, generate_window,
    serving_qwen_yarn, generate_longrope, serving_moe, training,
@@ -1298,6 +1319,9 @@ MATMUL_NAMES = ("gemm", "gemv", "xmma", "cutlass", "splitk", "nvjet")
 
 PROFILED_REQUESTS = 8  # of the 16: the profiler's cost grows with its events
 
+# each serve_path run's sorted TTFTs (seconds), by label
+TTFTS = {}
+
 
 def profile_run(torch, engine, reqs, label):
     """Where the main path's device time goes: the first
@@ -1391,6 +1415,7 @@ def serve_path(torch, card, cfg, params, label, layout="paged",
         f"{kv_gib:.2f} GiB")
     # warm-up request (cuBLAS handles, allocator), not part of the run
     serve(engine, [([1, 2, 3, 4], 2)], 1)
+    engine.drain_request_records()  # its trace record, with telemetry on
     finite = []
     sample = engine._sample
 
@@ -1435,6 +1460,7 @@ def serve_path(torch, card, cfg, params, label, layout="paged",
         expect["paged_decode"] = 0
     check(counts == expect, f"{label}: launch counts {counts} != {expect}")
     ttfts = sorted(c.ttft_s for c in comps)
+    TTFTS[label] = ttfts
     hits = (f"shared-prefix block hits {engine.pool.allocator.prefix_hits_total}; "
             if paged else "")
     spec = ""
@@ -1476,6 +1502,8 @@ def main_path(torch, card):
     gc.collect()
     torch.cuda.empty_cache()
     by_path = {"serving": counts,
+               "serving_telemetry": serving_telemetry(
+                   torch, card, cfg, params, paged_tps, streams),
                "serving_slot": serving_slot(torch, card, cfg, params,
                                             paged_tps, streams)}
     by_path.update(serving_spec(torch, card, cfg, params, streams))
@@ -1494,6 +1522,129 @@ def main_path(torch, card):
     gc.collect()
     torch.cuda.empty_cache()
     return by_path, disagg_s, fleet_s
+
+
+SERVE_SERIES = ("rlt_serve_ttft_seconds", "rlt_serve_itl_seconds",
+                "rlt_serve_tokens_total", "rlt_serve_requests_total",
+                "rlt_serve_completions_total", "rlt_serve_queue_depth",
+                "rlt_serve_slot_occupancy", "rlt_serve_slot_highwater",
+                "rlt_serve_ttft_component_seconds")
+KV_GAUGES = ("rlt_serve_kv_blocks_used", "rlt_serve_kv_blocks_free",
+             "rlt_serve_kv_blocks_cached", "rlt_serve_prefix_hits_total")
+SERVE_DUMP_FILES = ("requests.jsonl", "trace.json", "metrics.json",
+                    "metrics.prom", "lineage.jsonl", "summary.json")
+
+
+def serving_telemetry(torch, card, cfg, params, off_tps, off_streams):
+    """The main path's 16 requests with the flight recorder on, in turns
+    with the telemetry-off runs (the main path's run, then on, on, off),
+    each on a fresh paged engine over the same weights: ``serve_path``'s
+    checks in each (exact launches, finite logits, full streams); in each
+    run with the recorder on, 16 request records, each ``completed`` with
+    32 tokens and TTFT components summing to its TTFT within 1 ms, the
+    ``rlt_serve_*`` series and the KV gauges in the registry; the first
+    one's local dump's files and an ``SLOMonitor`` fed its latency
+    samples. Printed: each run's tokens/s and TTFT (median, max) in
+    order, the streams equal to the main path's (bf16, not checked), the
+    burn rates. Telemetry is off again on return. Returns the launch counts
+    of the runs with the recorder on."""
+    import os
+    import shutil
+    import tempfile
+
+    from ray_lightning_tpu_torch import observability as obs
+    from ray_lightning_tpu_torch.observability.aggregator import (
+        write_local_dump,
+    )
+    from ray_lightning_tpu_torch.observability.slo import SLOMonitor
+
+    runs = [("main path", False, off_tps, off_streams)]
+    total, files, burn, comps = {}, None, None, {}
+    worst_gap = 0.0
+    for label, on in (("serving_telemetry", True),
+                      ("serving_telemetry 2", True),
+                      ("main path, telemetry off again", False)):
+        obs.reset()
+        if on:
+            obs.enable()
+        try:
+            counts, engine, tps, streams = serve_path(
+                torch, card, cfg, params, label, profile=False)
+            records = engine.drain_request_records()
+            reg = obs.registry()
+            if on:
+                snap = reg.snapshot(delta=False)
+                if files is None:
+                    root = tempfile.mkdtemp(
+                        prefix="chip_smoke_serving_telemetry_")
+                    write_local_dump(root, obs.get_recorder(), reg,
+                                     requests=records)
+                    files = sorted(os.listdir(root))
+                    shutil.rmtree(root, ignore_errors=True)
+                    mon = SLOMonitor()
+                    for name, _, h in snap["histograms"]:
+                        for v in h.get("samples", ()):
+                            mon.observe_latency(name, v)
+                    mon.evaluate(reg=reg)
+                    burn = {k: v for k, v in mon.burn_rates().items()
+                            if k in ("ttft_p95", "itl_p99")}
+            del engine
+        finally:
+            obs.reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs.append((label, on, tps, streams))
+        if not on:
+            check(records == [], f"{label}: records with telemetry off")
+            continue
+        _add(total, counts)
+        check(len(records) == 16 and all(
+            r["disposition"] == "completed" and r["tokens_out"] == 32
+            for r in records), f"{label}: {len(records)} records, "
+            f"{sorted({r['disposition'] for r in records})}")
+        gaps = [abs(sum(r["ttft_components"].values()) - r["ttft_s"])
+                for r in records]
+        worst_gap = max(worst_gap, max(gaps))
+        check(max(gaps) <= 1e-3, f"{label}: TTFT components off their TTFT "
+              f"by up to {max(gaps) * 1e3:.3f} ms")
+        names = {m[0] for kind in ("counters", "gauges", "histograms")
+                 for m in snap[kind]}
+        missing = sorted(set(SERVE_SERIES + KV_GAUGES) - names)
+        check(not missing, f"{label}: series {missing} missing")
+        for r in records:
+            for k, v in r["ttft_components"].items():
+                comps[k] = comps.get(k, 0.0) + v / (2 * len(records))
+    check(set(SERVE_DUMP_FILES) <= set(files),
+          f"serving_telemetry: local dump {files}")
+    order = [(label, "on" if on else "off", tps,
+              TTFTS[label][8] * 1e3, TTFTS[label][-1] * 1e3)
+             for label, on, tps, _ in runs]
+    same = [sum(a == b for a, b in zip(st, off_streams))
+            for _, on, _, st in runs[1:]]
+
+    def mean(on):
+        return [sum(x) / 2 for x in zip(*[r[2:] for r in order
+                                           if (r[1] == "on") == on])]
+
+    TELEMETRY["serving"] = dict(
+        order=[(o, round(t, 1), round(m, 1), round(x, 1))
+               for _, o, t, m, x in order],
+        on=mean(True), off=mean(False), files=files, burn=burn,
+        components={k: round(v * 1e3, 3) for k, v in comps.items()})
+    on_m, off_m = TELEMETRY["serving"]["on"], TELEMETRY["serving"]["off"]
+    log(f"serving_telemetry on {card}: the main path's 16 requests, recorder "
+        f"off, on, on, off (fresh engines): " + "; ".join(
+            f"{o} {t:.1f} tokens/s, TTFT median {m:.1f} ms max {x:.1f}"
+            for _, o, t, m, x in order)
+        + f"; means on {on_m[0]:.1f} tokens/s against off {off_m[0]:.1f} "
+        f"({(on_m[0] / off_m[0] - 1) * 100:+.1f} %), TTFT median "
+        f"{on_m[1]:.1f} against {off_m[1]:.1f} ms, max {on_m[2]:.1f} against "
+        f"{off_m[2]:.1f}; 2 x 16 records, TTFT components within "
+        f"{worst_gap * 1e3:.4f} ms of their TTFT, mean ms "
+        f"{TELEMETRY['serving']['components']}; local dump {files}; SLO burn "
+        f"rates {burn}; greedy streams equal to the main path's {same} of 16 "
+        f"(bf16; not checked)")
+    return total
 
 
 def serving_slot(torch, card, cfg, params, paged_tps, paged_streams):
@@ -2312,6 +2463,89 @@ def _check_full(label, entries, reqs, vocab):
               f"{len(e.tokens)} tokens")
 
 
+def fleet_lineages(fleet, records, reqs):
+    """The disaggregated fleet's request records with telemetry on: two
+    hops a request, the prefill hop ``migrated`` and the decode hop
+    ``completed``; ``lineage.build_lineages`` finds one complete lineage a
+    request with no orphan hop; ``cli lineage <rid>`` renders one from a
+    local dump; the migration counters equal ``fleet.stats()["migration"]``
+    and no record's ``transfer_s`` (send stamp to the receiver's admit)
+    passes the pump's send-verify-admit time. Returns the line to print."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from ray_lightning_tpu_torch import cli
+    from ray_lightning_tpu_torch import observability as obs
+    from ray_lightning_tpu_torch.observability import lineage
+    from ray_lightning_tpu_torch.observability.aggregator import (
+        write_local_dump,
+    )
+
+    n = len(reqs)
+    check(len(records) == 2 * n and sorted(
+        (r["hop"], r["disposition"]) for r in records) ==
+        [(0, "migrated")] * n + [(1, "completed")] * n,
+        f"serving_fleet telemetry: {len(records)} records of {n} requests: "
+        f"{sorted((r['hop'], r['disposition']) for r in records)}")
+    lins = lineage.build_lineages(records)
+    orphans = sorted(h for lin in lins.values() for h in lin.orphan_hops())
+    check(len(lins) == n and all(lin.complete and len(lin.hops) == 2
+                                 for lin in lins.values()) and not orphans,
+          f"serving_fleet telemetry: {len(lins)} lineages, orphans {orphans}")
+    snap = obs.registry().snapshot(delta=False)
+    counters = {m[0]: m[2] for m in snap["counters"] if not m[1]}
+    hist = {m[0]: m[2] for m in snap["histograms"] if not m[1]}
+    st = fleet.stats()["migration"]
+    got = (counters.get("rlt_serve_migration_verified_total"),
+           counters.get("rlt_serve_migration_attempts_total"),
+           counters.get("rlt_serve_migration_bytes_total"),
+           hist.get("rlt_serve_migration_transfer_ms", {}).get("count"))
+    want = (st["verified"], st["attempts"], st["bytes_shipped"],
+            len(fleet.migration_stats.transfer_ms))
+    check(got == want, f"serving_fleet telemetry: migration counters {got} "
+          f"!= stats {want}")
+    transfer = sorted(r["transfer_s"] for r in records if r["hop"] == 1)
+    pump_ms = sorted(fleet.migration_stats.transfer_ms[-n:])
+    if st["retries"] == 0:
+        # a shipment's send stamp and its admit both fall inside the
+        # pump's attempt (a retried shipment keeps its first send stamp)
+        check(transfer[-1] * 1e3 <= pump_ms[-1] + 1.0 and
+              sum(transfer) * 1e3 <= sum(pump_ms) + n,
+              f"serving_fleet telemetry: transfer_s {transfer} against the "
+              f"pump's send-verify-admit ms {pump_ms}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_lineage_")
+    try:
+        write_local_dump(root, obs.get_recorder(), obs.registry(),
+                         requests=records)
+        rid = sorted(lins)[0]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["lineage", "--dir", root, rid])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    text = buf.getvalue()
+    check(rc == 0 and f"{rid}~m1" in text,
+          f"serving_fleet telemetry: cli lineage {rid}: rc {rc}, {text!r}")
+    comps = [r["ttft_components"] for r in records if r["hop"] == 1]
+    mean = {k: round(sum(c.get(k, 0.0) for c in comps) / n * 1e3, 3)
+            for k in sorted({k for c in comps for k in c})}
+    TELEMETRY["fleet_lineage"] = dict(lineages=len(lins), components=mean,
+                                      transfer_ms=(transfer[n // 2] * 1e3,
+                                                   transfer[-1] * 1e3))
+    return (f"{len(records)} records, {len(lins)} complete two-hop lineages, "
+            f"no orphan; records' transfer_s median "
+            f"{transfer[n // 2] * 1e3:.1f} ms max {transfer[-1] * 1e3:.1f} "
+            f"(the pump's send-verify-admit median "
+            f"{pump_ms[n // 2]:.1f} ms, max {pump_ms[-1]:.1f}); decode hops' "
+            f"mean TTFT components ms {mean}; migration counters "
+            f"{dict(zip(('verified', 'attempts', 'bytes', 'transfers'), got))}"
+            f" = stats; `cli lineage {rid}` rendered {len(text.splitlines())}"
+            " lines")
+
+
 def _allocated_after_gc(torch):
     gc.collect()
     torch.cuda.synchronize()
@@ -2344,6 +2578,7 @@ def serving_fleet(torch, card, cfg, params, colocated_tps, pair_tps, streams):
     import numpy as np
 
     from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch import observability as obs
     from ray_lightning_tpu_torch.serving import Autoscaler, LocalReplicaFleet
 
     L, V = cfg.n_layers, cfg.vocab_size
@@ -2351,7 +2586,9 @@ def serving_fleet(torch, card, cfg, params, colocated_tps, pair_tps, streams):
     reqs = requests(np.random.default_rng(0), V, 16, 512, 32, 256)
     total = {}
 
-    # (1) disaggregated
+    # (1) disaggregated, with telemetry on
+    obs.reset()
+    obs.enable()
     fleet = LocalReplicaFleet(lambda: (params, cfg), engine_kwargs=ekw,
                               initial_replicas=3, prefill_replicas=1,
                               device="cuda")
@@ -2370,6 +2607,7 @@ def serving_fleet(torch, card, cfg, params, colocated_tps, pair_tps, streams):
         while any(e.pool.occupancy for e in fleet._replicas.values()):
             check(time.perf_counter() < deadline, "serving_fleet: warm-up")
             time.sleep(0.001)
+        fleet.drain_request_records()  # the warm-up's hops
         engines = dict(fleet._replicas)
         before = {i: dict(e.stats) for i, e in engines.items()}
         m0, routed0 = fleet.migration_stats.as_dict(), dict(fleet.routed_total)
@@ -2398,8 +2636,11 @@ def serving_fleet(torch, card, cfg, params, colocated_tps, pair_tps, streams):
                      e.pool.allocator.stats()["chains_pinned"],
                      e.pool.allocator.stats()["blocks_used"])
                  for i, e in engines.items()}
+        records = fleet.drain_request_records()
+        lineage_line = fleet_lineages(fleet, records, reqs)
     finally:
         fleet.shutdown()
+        obs.reset()
     _check_full("serving_fleet", entries, reqs, V)
     check(m["migrated"] == 16 and m["fallbacks"] == 0 and m["corrupt"] == 0,
           f"serving_fleet: migration {m}")
@@ -2435,6 +2676,7 @@ def serving_fleet(torch, card, cfg, params, colocated_tps, pair_tps, streams):
         f"{transfer[len(transfer) // 2]:.1f} ms max {transfer[-1]:.1f} ms; "
         f"{same} of 16 greedy streams equal the colocated main path's (bf16; "
         f"not checked); launches {counts}")
+    log(f"serving_fleet telemetry on {card}: {lineage_line}")
     del fleet, entries, engines
 
     # (2) the kill loop
@@ -6661,7 +6903,8 @@ def fleet_phase(torch, card):
                              engine_kwargs=dataclasses.asdict(
                                  main_engine_config()),
                              num_replicas=2, device="cuda",
-                             heartbeat_interval=0.2, max_retries=3).start()
+                             heartbeat_interval=0.2, max_retries=3,
+                             telemetry=True).start()
         start_s = time.perf_counter() - t
         pids += [h._pid for h in group.handles.values()]
         try:
@@ -6724,6 +6967,12 @@ def fleet_phase(torch, card):
                 th.join(timeout=120)
             check(list(group.handles) == [0],
                   f"fleet: replicas {list(group.handles)} after the removal")
+            # the actors' beats on the heartbeat ring: load, metric deltas,
+            # trace events and request records
+            check(getattr(group._queue, "kind", None) == "shm",
+                  f"fleet: the heartbeat queue is {group._queue!r}")
+            b_med, b_max, spilled, n_beats = _beat_traffic(
+                list(group._queue.traffic))
         finally:
             group.shutdown()
     _card_clean(apps, used, pids, "fleet")
@@ -6740,7 +6989,11 @@ def fleet_phase(torch, card):
         f"{elapsed:.2f}s -> {tokens / elapsed:.1f} tokens/s across the kill; "
         f"remove_replica() drained replica 1 with 8 more requests, none "
         f"dropped; (prefills, decode steps) of the live actors {per_actor}, "
-        f"their launches {counts}")
+        f"their launches {counts}; telemetry=True: {n_beats} beats, pickled "
+        f"bytes median {b_med} max {b_max}, {spilled:.1%} spilled past the "
+        f"ring's 16 KiB slot")
+    TELEMETRY["fleet_beats"] = dict(beats=n_beats, b_med=b_med, b_max=b_max,
+                                    spilled=spilled)
     log(f"fleet phase on {card}: {phase_s:.1f}s (budget "
         f"{FLEET_PHASE_BUDGET_S:.0f} s)")
     return counts
@@ -6784,6 +7037,21 @@ def log_telemetry(card):
         bits.append(f"train_ray_faults {TELEMETRY['faults']}")
     if "local_dump" in TELEMETRY:
         bits.append(f"local dump {TELEMETRY['local_dump']}")
+    serving = TELEMETRY.get("serving")
+    if serving:
+        bits.append(
+            f"serving_telemetry (recorder, tokens/s, TTFT median, max ms) in "
+            f"order {serving['order']}, files {serving['files']}, mean TTFT "
+            f"components ms {serving['components']}, SLO burn rates "
+            f"{serving['burn']}")
+    if "fleet_lineage" in TELEMETRY:
+        bits.append(f"serving_fleet lineages {TELEMETRY['fleet_lineage']}")
+    beats = TELEMETRY.get("fleet_beats")
+    if beats:
+        bits.append(
+            f"fleet ReplicaGroup(telemetry=True) beats {beats['beats']}, "
+            f"bytes median {beats['b_med']} max {beats['b_max']}, spilled "
+            f"{beats['spilled']:.1%}")
     log(f"telemetry on {card}: " + "; ".join(bits))
 
 

@@ -1,5 +1,6 @@
 """The port's command line (``ray_lightning_tpu/cli.py``): the ``serve``,
-``top``, ``goodput`` and ``incidents`` subcommands.
+``top``, ``goodput``, ``incidents``, ``requests`` and ``lineage``
+subcommands.
 
     python -m ray_lightning_tpu_torch.cli serve --preset tiny \\
         --random-requests 8 --device cpu
@@ -14,17 +15,24 @@ JSON row a request (``request_id``, ``finish_reason``, ``disposition``,
 package's does, without its ``compile_stats`` (the port has no jit caches).
 ``--device`` (default ``cuda``) names the device; ``--preset`` names a
 ``LlamaConfig`` preset (``tiny``, ``small``, ``llama3_8b``, ...).
+``--telemetry`` turns the flight recorder on and prints the Prometheus text
+after the summary; with ``--telemetry-dir`` the engine's (or every fleet
+replica's) request records, trace and metrics are written there too
+(``requests.jsonl``, ``trace.json``, ``metrics.json``, ``metrics.prom``,
+``lineage.jsonl``, ``summary.json``, ``events.jsonl``).
 
 ``top --dir <run>/telemetry`` renders a run's ``summary.json`` and the
 last events of its ``events.jsonl`` (``--follow`` refreshes, ``--serve-port``
 also serves ``metrics.prom`` to Prometheus); ``goodput`` prints the goodput
 section and ``incidents`` lists the incident bundles (``--show`` one). The
 files are the JAX package's, so each package renders the other's run
-directories.
+directories. ``requests --dir <dir>`` lists the slowest finished requests of
+a ``requests.jsonl``; ``lineage --dir <dir> [rid]`` lists every request's
+lineage or renders one request's hops (prefill, KV shipment, decode, retry
+branches).
 
-Not ported: ``serve --telemetry`` and ``--telemetry-dir`` (the serving side
-of observability, ROADMAP.md queue 1 item 9b) and ``--cost`` (item 9c)
-exit non-zero, and the JAX package's other subcommands are absent.
+Not ported: ``serve --cost`` (ROADMAP.md queue 1 item 9c) exits non-zero,
+and the JAX package's other subcommands are absent.
 """
 from __future__ import annotations
 
@@ -39,7 +47,6 @@ from ray_lightning_tpu_torch.observability.reqtrace import disposition_for
 
 __all__ = ["disposition_for", "main"]
 
-_UNPORTED_SERVING = "ROADMAP.md, queue 1 item 9b: serving observability"
 _UNPORTED_COST = "ROADMAP.md, queue 1 item 9c: the profiler's cost accounting"
 
 
@@ -56,15 +63,16 @@ def _parse_prompt(spec: str) -> List[int]:
 def _cmd_serve(args) -> int:
     """Serve token-id prompts on random weights: one engine, or a fleet when
     retries, replicas or a prefill pool are asked for."""
-    refused = [f"{flag}: not ported yet ({why})" for flag, on, why in (
-        ("--telemetry", args.telemetry, _UNPORTED_SERVING),
-        ("--telemetry-dir", args.telemetry_dir, _UNPORTED_SERVING),
-        ("--cost", args.cost, _UNPORTED_COST)) if on]
-    if refused:
-        raise SystemExit("; ".join(refused))
+    if args.cost:
+        raise SystemExit(f"--cost: not ported yet ({_UNPORTED_COST})")
 
     import numpy as np
     import torch
+
+    from ray_lightning_tpu_torch import observability as _obs
+
+    if args.telemetry:
+        _obs.enable()
 
     from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
     from ray_lightning_tpu_torch.serving import (
@@ -196,10 +204,107 @@ def _cmd_serve(args) -> int:
             engine.pool.block_utilization(), 4
         )
     print(json.dumps({"summary": summary}))
+    if args.telemetry:
+        reg = _obs.registry()
+        if reg is not None:
+            print(reg.prometheus_text())
+        if args.telemetry_dir:
+            from ray_lightning_tpu_torch.observability.aggregator import (
+                write_local_dump,
+            )
+
+            # a fleet drains every live engine, so that a migrated request
+            # lands both its prefill hop's and its decode hop's records
+            records = (fleet.drain_request_records() if fleet is not None
+                       else engine.drain_request_records())
+            write_local_dump(args.telemetry_dir, _obs.get_recorder(), reg,
+                             requests=records)
+            print(json.dumps({"telemetry_dir": args.telemetry_dir}))
     if fleet is not None:
         fleet.shutdown()
     else:
         engine.shutdown(drain=False)
+    return 0
+
+
+def _cmd_requests(args) -> int:
+    """List the slowest finished requests of a run's ``requests.jsonl``
+    (written by the driver aggregator or ``serve --telemetry-dir``)."""
+    from ray_lightning_tpu_torch.observability import reqtrace
+
+    path = os.path.join(args.dir, reqtrace.REQUESTS_FILE)
+    records = reqtrace.read_requests(path)
+    if not records:
+        print(f"no request records found at {path}")
+        return 1
+    key = args.sort
+    records.sort(key=lambda r: (r.get(key) or 0.0), reverse=True)
+    if args.limit > 0:
+        records = records[: args.limit]
+    if args.json:
+        for r in records:
+            print(json.dumps(r))
+        return 0
+    cols = (
+        ("request_id", 14), ("finish_reason", 8), ("disposition", 11),
+        ("retries", 7), ("prompt_len", 6),
+        ("tokens_out", 6), ("queue_wait_s", 12), ("prefill_s", 9),
+        ("ttft_s", 8), ("total_s", 8), ("itl_p50_ms", 10),
+        ("itl_max_ms", 10), ("deferred_ticks", 8), ("replica", 7),
+        ("hop", 3), ("pool", 7), ("origin_replica", 6),
+    )
+    print("  ".join(f"{name:>{w}}" for name, w in cols))
+    for r in records:
+        cells = []
+        for name, w in cols:
+            v = r.get(name)
+            if isinstance(v, float):
+                v = f"{v:.4f}"
+            cells.append(f"{'-' if v is None else v:>{w}}")
+        print("  ".join(cells))
+    return 0
+
+
+def _cmd_lineage(args) -> int:
+    """List every request's lineage in a run's ``requests.jsonl``, or render
+    one request's cross-replica timeline (prefill hop, KV shipment, decode
+    hop, retry branches)."""
+    from ray_lightning_tpu_torch.observability import lineage as _lineage
+    from ray_lightning_tpu_torch.observability import reqtrace
+
+    path = os.path.join(args.dir, reqtrace.REQUESTS_FILE)
+    lineages = _lineage.load_lineages(path)
+    if not lineages:
+        print(f"no request records found at {path}")
+        return 1
+    if args.rid is None:
+        # every lineage, the multi-hop (migrated or retried) ones first
+        rows = sorted(lineages.values(),
+                      key=lambda lin: (-len(lin.hops), lin.base_rid))
+        if args.json:
+            for lin in rows:
+                print(json.dumps(_lineage.summary(lin), sort_keys=True))
+            return 0
+        print(f"{'base_rid':>14}  {'hops':>4}  {'migr':>4}  {'retry':>5}  "
+              f"{'complete':>8}  {'disposition':>11}  {'ttft_s':>8}")
+        for lin in rows:
+            s = _lineage.summary(lin)
+            ttft = s.get("ttft_total_s")
+            print(f"{lin.base_rid:>14}  {len(lin.hops):>4}  "
+                  f"{s['migrations']:>4}  {s['retries']:>5}  "
+                  f"{str(s['complete']):>8}  "
+                  f"{s.get('disposition') or '-':>11}  "
+                  f"{f'{ttft:.4f}' if ttft is not None else '-':>8}")
+        return 0
+    base = reqtrace.base_rid(args.rid)
+    lin = lineages.get(base)
+    if lin is None:
+        print(f"no lineage for rid {args.rid!r} (base {base!r}) in {path}")
+        return 1
+    if args.json:
+        print(json.dumps(_lineage.summary(lin), sort_keys=True))
+        return 0
+    print(_lineage.render(lin))
     return 0
 
 
@@ -317,6 +422,33 @@ def _parser() -> argparse.ArgumentParser:
         help="inspect one bundle by directory name instead of listing")
     incidents.add_argument("--json", action="store_true",
                            help="emit JSON instead of a table")
+    requests_p = sub.add_parser(
+        "requests", help="slowest finished requests from a run's "
+        "requests.jsonl")
+    requests_p.add_argument(
+        "--dir", required=True,
+        help="telemetry directory containing requests.jsonl")
+    requests_p.add_argument(
+        "--sort", default="ttft_s",
+        choices=("ttft_s", "total_s", "queue_wait_s", "deferred_wait_s",
+                 "prefill_s", "itl_p50_ms", "itl_max_ms", "tokens_out"),
+        help="sort key (descending)")
+    requests_p.add_argument("--limit", type=int, default=20,
+                            help="show at most N requests")
+    requests_p.add_argument("--json", action="store_true",
+                            help="emit JSONL instead of a table")
+    lineage_p = sub.add_parser(
+        "lineage", help="cross-replica causal timeline for one request "
+        "(prefill -> shipment -> decode hops, retry branches)")
+    lineage_p.add_argument(
+        "--dir", required=True,
+        help="telemetry directory containing requests.jsonl")
+    lineage_p.add_argument(
+        "rid", nargs="?", default=None,
+        help="request id (any attempt rid; resolved to its base lineage). "
+        "Omit to list all lineages")
+    lineage_p.add_argument("--json", action="store_true",
+                           help="emit JSON summaries")
     serve = sub.add_parser(
         "serve",
         help="continuous-batching inference demo on random-init params",
@@ -383,11 +515,12 @@ def _parser() -> argparse.ArgumentParser:
     )
     serve.add_argument(
         "--telemetry", action="store_true",
-        help=f"not ported yet ({_UNPORTED_SERVING})",
+        help="enable spans/metrics and dump the Prometheus text exposition",
     )
     serve.add_argument(
         "--telemetry-dir", default=None,
-        help=f"not ported yet ({_UNPORTED_SERVING})",
+        help="with --telemetry: write trace.json / summary.json / "
+        "requests.jsonl to this directory on exit",
     )
     serve.add_argument(
         "--cost", action="store_true",
@@ -397,9 +530,10 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[list] = None) -> int:
-    """``top``, ``goodput`` and ``incidents`` read a run's telemetry
-    directory; ``serve`` stands up a continuous-batching engine (or fleet)
-    on random weights and serves token-id prompts."""
+    """``top``, ``goodput``, ``incidents``, ``requests`` and ``lineage``
+    read a run's telemetry directory; ``serve`` stands up a
+    continuous-batching engine (or fleet) on random weights and serves
+    token-id prompts."""
     parser = _parser()
     args = parser.parse_args(argv)
     if args.command == "top":
@@ -411,6 +545,10 @@ def main(argv: Optional[list] = None) -> int:
         return _cmd_goodput(args)
     if args.command == "incidents":
         return _cmd_incidents(args)
+    if args.command == "requests":
+        return _cmd_requests(args)
+    if args.command == "lineage":
+        return _cmd_lineage(args)
     if args.command == "serve":
         return _cmd_serve(args)
     parser.print_help()

@@ -12,16 +12,17 @@ Public surface (everything off-by-default-cheap):
   deltas for piggybacking on a heartbeat (``None`` when disabled/empty).
 
 Driver-side pieces (:class:`~.aggregator.DriverAggregator`,
-:func:`~.aggregator.render_top`) live in :mod:`.aggregator`. The serving
-side (the request tracer, the SLO monitor) and the profiler's ``"p"``
-records are not ported yet (ROADMAP.md, items 9b and 9c); a payload
-carries no ``"p"`` key, as JAX's does when no profile is armed.
+:func:`~.aggregator.render_top`) live in :mod:`.aggregator`; the serving
+side's request tracer in :mod:`.reqtrace` and its SLO monitor in
+:mod:`.slo`. The profiler's ``"p"`` records are not ported yet (ROADMAP.md,
+item 9c); a payload carries no ``"p"`` key, as JAX's does when no profile
+is armed.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from . import goodput, metrics, reqtrace, trace
+from . import goodput, metrics, reqtrace, slo, trace
 from .trace import (  # noqa: F401  (re-exported API)
     DRIVER,
     NOOP_SPAN,
@@ -58,6 +59,7 @@ __all__ = [
     "reqtrace",
     "reset",
     "sample_device_memory",
+    "slo",
     "span",
     "trace",
 ]

@@ -22,9 +22,13 @@ It maintains:
 ``python -m ray_lightning_tpu_torch.cli top`` — it re-reads the throttled
 ``summary.json`` the aggregator drops next to the trace.
 
-Not ported yet: the SLO monitor (``slo_monitor``, ROADMAP.md item 9b) and
-the folding of the profiler's ``"p"`` records into the summary's
-``profile`` section (item 9c).
+An ``slo_monitor`` (``slo.SLOMonitor``) is fed from the workers' metric
+snapshots (latency histograms' samples, counter deltas) and evaluated at
+every beat: its ``slo_breach`` / ``slo_clear`` verdicts land in
+``events.jsonl`` (a breach also freezes an incident bundle) and its burn
+rates in the summary's ``slo`` section. Not ported yet: the folding of the
+profiler's ``"p"`` records into the summary's ``profile`` section
+(ROADMAP.md, item 9c).
 """
 from __future__ import annotations
 
@@ -126,10 +130,7 @@ class DriverAggregator:
         self.run_dir = run_dir
         self.num_workers = int(num_workers)
         self.full = bool(full)
-        if slo_monitor is not None:
-            raise NotImplementedError(
-                "slo_monitor: the SLO monitor of the serving side of "
-                "telemetry is not ported yet; see ROADMAP.md, item 9b")
+        self.slo = slo_monitor
         self.registry = _metrics.MetricsRegistry()
         self._trace_by_rank: Dict[Any, deque] = {}
         self._skew_samples: Dict[Any, deque] = {}
@@ -137,6 +138,8 @@ class DriverAggregator:
         self._last_step: Dict[Any, int] = {}
         self._last_beat: Dict[Any, float] = {}
         self._rank_gauges: Dict[Any, Dict[str, float]] = {}
+        # (rank, counter, labels) -> the value last fed to the SLO monitor
+        self._slo_counter_last: Dict[Any, float] = {}
         self._events = _reqtrace.JsonlWriter(os.path.join(run_dir, EVENTS_FILE))
         self._requests: Optional[_reqtrace.JsonlWriter] = None
         self.requests_total = 0
@@ -194,6 +197,7 @@ class DriverAggregator:
         reg.gauge("rlt_worker_step", rank=rank).set(step)
         if payload:
             self.ingest_payload(rank, payload)
+        self._evaluate_slo()
         self._maybe_write_summary(recv)
 
     def ingest_payload(self, rank: int, payload: dict) -> None:
@@ -243,6 +247,8 @@ class DriverAggregator:
                 elif name == ITL_METRIC and self.anomaly is not None:
                     for v in h.get("samples", ()):
                         self.anomaly.observe_itl(v)
+            if self.slo is not None:
+                self._feed_slo(rank, snap)
 
     def drop_rank(self, rank: Any) -> None:
         """Forget live state for a rank evicted by elastic shrink, so
@@ -257,11 +263,48 @@ class DriverAggregator:
             self._last_beat,
         ):
             store.pop(rank, None)
+        self._slo_counter_last = {
+            k: v for k, v in self._slo_counter_last.items() if k[0] != rank
+        }
         self._goodput.pop(rank, None)
         if self.anomaly is not None:
             self.anomaly.drop_rank(rank)
         self.registry.drop_series(rank=rank)
         self.record_event("rank_dropped", rank=rank)
+
+    # ----------------------------------------------------------------- #
+    # SLO routing: worker metric snapshots -> burn-rate observations
+    # ----------------------------------------------------------------- #
+    def _feed_slo(self, rank: int, snap: dict) -> None:
+        slo = self.slo
+        for name, labels, h in snap.get("histograms", ()):
+            m = slo.monitor_for_metric(name)
+            if m is not None and m.objective.kind == "latency":
+                for v in h.get("samples", ()):
+                    m.observe(v)
+        for name, labels, value in snap.get("counters", ()):
+            m = slo.monitor_for_metric(name)
+            if m is None:
+                continue
+            key = (rank, name, tuple(labels))
+            delta = value - self._slo_counter_last.get(key, 0.0)
+            self._slo_counter_last[key] = value
+            if delta <= 0:
+                continue
+            if m.objective.kind == "ratio":
+                # serving completions: `reason=error` burns budget
+                bad = dict(labels).get("reason") == "error"
+                m.record(0 if bad else int(delta), int(delta) if bad else 0)
+            else:
+                # cumulative-seconds counters (input starvation): the
+                # per-beat increase is the latency-style observation
+                m.observe(delta)
+
+    def _evaluate_slo(self) -> None:
+        if self.slo is None:
+            return
+        for v in self.slo.evaluate(reg=self.registry):
+            self.record_event(v.pop("event"), **v)
 
     def heartbeat_age(self, rank: int, age: float) -> None:
         """Supervisor-reported time since a rank's last beat."""
@@ -481,6 +524,11 @@ class DriverAggregator:
         }
         if self.requests_total:
             cluster["requests_total"] = self.requests_total
+        if self.slo is not None:
+            out["slo"] = {
+                name: {k: round(v, 3) for k, v in rates.items()}
+                for name, rates in self.slo.burn_rates().items()
+            }
         if self._elastic is not None:
             out["elastic"] = dict(self._elastic)
         gp = self.goodput_summary()

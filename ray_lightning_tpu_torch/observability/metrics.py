@@ -44,6 +44,52 @@ HISTORY_DEFAULT = 64
 PROM_PORT_ENV = "TORCHRT_PROM_PORT"
 
 
+# Serving-resilience metric names, shared by serving/resilience.py, the
+# engine's shed/expiry paths and the replica router, so that the emit
+# sites agree on one spelling.
+SERVE_RETRIES_METRIC = "rlt_serve_retries_total"
+SERVE_SHED_METRIC = "rlt_serve_shed_total"
+SERVE_DEADLINE_EXPIRED_METRIC = "rlt_serve_deadline_expired_total"
+SERVE_BREAKER_STATE_METRIC = "rlt_serve_breaker_state"
+SERVE_CAPACITY_BLOCKED_METRIC = "rlt_serve_capacity_blocked_total"
+
+# Disaggregated-serving migration metrics (the fleet's KV-shipment pump
+# in serving/replica.py is the single emit site).
+SERVE_MIGRATION_ATTEMPTS_METRIC = "rlt_serve_migration_attempts_total"
+SERVE_MIGRATION_VERIFIED_METRIC = "rlt_serve_migration_verified_total"
+SERVE_MIGRATION_CORRUPT_METRIC = "rlt_serve_migration_corrupt_total"
+SERVE_MIGRATION_RETRIES_METRIC = "rlt_serve_migration_retries_total"
+SERVE_MIGRATION_FALLBACKS_METRIC = "rlt_serve_migration_fallbacks_total"
+SERVE_MIGRATION_BYTES_METRIC = "rlt_serve_migration_bytes_total"
+SERVE_MIGRATION_TRANSFER_MS_METRIC = "rlt_serve_migration_transfer_ms"
+
+# Multi-tenant QoS metric names (serving/tenancy.py, the engine's
+# per-tenant admission/finish paths, and the scheduler's per-tenant
+# queue gauges are the emit sites). Every series carries a `tenant`
+# label whose value passes through MetricsRegistry.tenant_label — the
+# cardinality cap below — so a million-user tenant population cannot
+# mint unbounded label values.
+TENANT_REQUESTS_METRIC = "rlt_tenant_requests_total"
+TENANT_COMPLETIONS_METRIC = "rlt_tenant_completions_total"
+TENANT_QUOTA_REJECTED_METRIC = "rlt_tenant_quota_rejected_total"
+TENANT_SHED_METRIC = "rlt_tenant_shed_total"
+TENANT_QUEUE_DEPTH_METRIC = "rlt_tenant_queue_depth"
+TENANT_TTFT_METRIC = "rlt_tenant_ttft_seconds"
+
+# Cross-replica request lineage: per-component TTFT decomposition
+# (observability/reqtrace.py is the single emit site, on the hop that
+# delivers the first token). Components telescope across hops — their
+# sum per request equals the measured end-to-end TTFT.
+SERVE_TTFT_COMPONENT_METRIC = "rlt_serve_ttft_component_seconds"
+# Same shape as the serving latency histograms: sub-millisecond buckets
+# at the fast end (tiny-model queue/transfer segments), tens of seconds
+# at the slow end.
+TTFT_COMPONENT_BOUNDS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+)
+
+
 def history_cap() -> int:
     try:
         return max(0, int(os.environ.get(HISTORY_ENV, HISTORY_DEFAULT)))

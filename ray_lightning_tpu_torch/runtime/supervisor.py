@@ -43,8 +43,12 @@ each rank's beat age at every check (and its last at its ``DONE``), and
 the straggler and hang events. The launcher's ``DriverAggregator``
 (``observability/aggregator.py``) is one, on the training paths; the
 serving fleet's load tap is another (``serving/replica.py``). With
-``hang_timeout`` None the supervisor only pumps the beats into it. The JAX
-supervisor's SLO monitor is not ported (ROADMAP.md, queue 1 item 9b).
+``hang_timeout`` None the supervisor only pumps the beats into it. An
+``slo_monitor`` (``observability/slo.SLOMonitor``) is evaluated at every
+check, and its ``slo_breach`` / ``slo_clear`` verdicts are recorded as
+events, so a monitor-only supervisor reports burn rates too (give the
+monitor to the supervisor or to its aggregator, not to both, or each
+verdict is recorded twice).
 """
 from __future__ import annotations
 
@@ -120,7 +124,8 @@ class Supervisor:
                  is_alive: Optional[Callable[[int], bool]] = None,
                  label: str = "workers",
                  on_hung: Optional[Callable[[List[int]], bool]] = None,
-                 aggregator: Optional[Any] = None):
+                 aggregator: Optional[Any] = None,
+                 slo_monitor: Optional[Any] = None):
         # a timeout below two heartbeat periods would flag healthy workers:
         # clamp it, so the two arguments stay independent. None or 0 only
         # watches
@@ -133,6 +138,7 @@ class Supervisor:
         self._label = label
         self.on_hung = on_hung
         self._aggregator = aggregator
+        self._slo_monitor = slo_monitor
         self.health: Dict[int, WorkerHealth] = {
             r: WorkerHealth(rank=r) for r in range(num_workers)}
         # the ranks whose stage returned, with their last health
@@ -203,6 +209,12 @@ class Supervisor:
         without ``hang_timeout`` reports every rank ok."""
         now = time.monotonic() if now is None else now
         out: Dict[int, str] = {}
+        if self._slo_monitor is not None:
+            try:
+                for v in self._slo_monitor.evaluate():
+                    self._record_event(v.pop("event"), **v)
+            except Exception:  # SLO math must never break supervision
+                logger.debug("slo evaluate failed", exc_info=True)
         for rank, h in list(self.health.items()):
             if h.last_beat is not None:
                 self._publish_age(rank, now - h.last_beat)

@@ -65,11 +65,21 @@ Multi-tenant QoS (:meth:`InferenceEngine.configure_tenants`): per-tenant
 DRR queues, tenant classes in the shed policy, token-bucket quotas at
 submit (:class:`~.tenancy.QuotaExceeded`). Scripted serving faults
 (``TORCHRT_FAULT`` ``replica<R>:`` specs, ``runtime/faults.py``) fire in an
-engine built with ``replica_index=R``. Request tracing and the engine's
-metrics are not ported yet (ROADMAP.md, queue 1 item 9b):
-:meth:`InferenceEngine.drain_request_records` returns no records, as the JAX
-engine's does with telemetry off, and the JAX engine's ``compile_stats``
+engine built with ``replica_index=R``. The JAX engine's ``compile_stats``
 (its jit caches) has no counterpart.
+
+Telemetry (``observability.enable()`` before the engine is built): a
+:class:`~ray_lightning_tpu_torch.observability.reqtrace.RequestTracer`
+traces each head-sampled request (its ``requests.jsonl`` records, drained by
+:meth:`InferenceEngine.drain_request_records`, and its Perfetto track), a
+goodput ledger classifies the engine's wall time, the ``serve_prefill`` and
+``serve_decode`` spans go to the trace ring, and the ``rlt_serve_*`` and
+``rlt_tenant_*`` series (TTFT and ITL histograms with exemplars, tokens,
+requests, completions, sheds, quota refusals, expiries, the pools' gauges)
+to the metrics registry. An ``slo_monitor`` set on the engine sheds
+priority >= 1 work while its serving objectives burn. With telemetry off
+every site is one ``is None`` check, and none of them reads the device: the
+tick's one synchronisation stays the sampled tokens' copy to the host.
 
 Threading: ``submit`` and ``import_shipment`` may be called from any
 thread; ``start()`` spawns the loop thread (a daemon, joined by
@@ -90,7 +100,10 @@ import numpy as np
 import torch
 
 from ray_lightning_tpu_torch import kernels
+from ray_lightning_tpu_torch import observability as _obs
 from ray_lightning_tpu_torch.device import DeviceLike, resolve_device
+from ray_lightning_tpu_torch.observability import metrics as _metrics
+from ray_lightning_tpu_torch.observability import reqtrace as _reqtrace
 from ray_lightning_tpu_torch.runtime import faults as _faults
 from ray_lightning_tpu_torch.serving import migration as _migration
 from ray_lightning_tpu_torch.models.generation import (
@@ -132,18 +145,18 @@ __all__ = [
 ]
 
 
+# TTFT and ITL land in seconds; bounds down to 0.5 ms for the fast end
+LATENCY_BOUNDS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+)
+
+# tokens a slot delivers a verify step (1 = no proposal accepted)
+ACCEPTED_BOUNDS = (1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0)
+
+
 class EngineClosed(RuntimeError):
     """submit() after drain/shutdown."""
-
-
-def percentile(samples: Sequence[float], q: float) -> float:
-    """Nearest-rank percentile of an unsorted sample list; q in [0, 100]
-    (``ray_lightning_tpu/observability/metrics.py::percentile``)."""
-    s = sorted(samples)
-    if not s:
-        raise ValueError("percentile of empty sample list")
-    idx = min(len(s) - 1, max(0, int(round(q / 100.0 * (len(s) - 1)))))
-    return s[idx]
 
 
 # numpy's name of a cache dtype, as the KV fingerprint names it, and the
@@ -418,6 +431,8 @@ class InferenceEngine:
         # multi-tenant QoS: None until configure_tenants installs a registry
         self._tenancy: Optional[Any] = None
         self._tenancy_admission = False
+        # an SLOMonitor whose serving breach sheds priority >= 1 work
+        self.slo_monitor: Optional[Any] = None
         self._ticks = 0
         self._admit_seq = 0
         # request_id -> the token budget a drop-stream fault armed
@@ -459,6 +474,22 @@ class InferenceEngine:
         self._stop_when_idle = False
         self._abort = False  # shutdown without drain: leave the loop now
         self.failed: Optional[BaseException] = None
+        # request tracing: None with telemetry off, so every trace site is
+        # one attribute check
+        self._tracer: Optional[_reqtrace.RequestTracer] = (
+            _reqtrace.RequestTracer(
+                pool=self._role if self._role in ("prefill", "decode")
+                else "serve")
+            if _obs.enabled() else None
+        )
+        # the goodput ledger of the engine's wall time; a relaunch under the
+        # same replica index adopts its predecessor's totals
+        self._goodput = (
+            _obs.goodput.new_ledger(
+                f"serve{replica_index}" if replica_index is not None
+                else "serve", category="idle")
+            if _obs.enabled() else None
+        )
         self.stats: Dict[str, float] = {
             "decode_steps": 0,
             "prefills": 0,
@@ -517,9 +548,13 @@ class InferenceEngine:
         return names
 
     def drain_request_records(self) -> List[Dict[str, Any]]:
-        """Finished requests' trace records: none, since request tracing is
-        not ported (the JAX engine's returns none with telemetry off)."""
-        return []
+        """Pop the finished requests' trace records (``requests.jsonl``
+        lines); none with telemetry off. A replica's beat loop ships them;
+        a local caller hands them to
+        ``observability.aggregator.write_local_dump``."""
+        if self._tracer is None:
+            return []
+        return self._tracer.drain()
 
     # ------------------------------------------------------------------ #
     # submission
@@ -529,13 +564,17 @@ class InferenceEngine:
                on_token: Optional[Callable[[str, int], Any]] = None,
                deadline_ms: Optional[float] = None,
                priority: int = 0, retries: int = 0,
+               trace_ctx: Optional[_reqtrace.TraceContext] = None,
                tenant: Optional[str] = None) -> Completion:
         """Enqueue one request; returns its :class:`Completion`.
 
         ``deadline_ms`` is a TTL from now (past it the request finishes
         ``"expired"``); ``priority`` 0 is never shed; ``retries`` is the
-        journal's attempt number; ``tenant`` names the submitting tenant
-        once a registry is installed (its DRR queue, shed class and quota).
+        journal's attempt number; ``trace_ctx`` is the fleet's lineage
+        context of the hop (its parent attempt, hop index and upstream TTFT
+        components; observability only); ``tenant`` names the submitting
+        tenant once a registry is installed (its DRR queue, shed class,
+        quota and per-tenant metric labels).
         Raises :class:`RequestQueueFull`, :class:`RequestShed`,
         :class:`~.tenancy.QuotaExceeded`, :class:`EngineClosed`, or
         ``ValueError`` for prompts that do not fit."""
@@ -552,7 +591,14 @@ class InferenceEngine:
         tenant_class = None
         if self._tenancy is not None:
             tenant_class = self._tenancy.tenant_class(tenant)
+            reg = _obs.registry()
+            if reg is not None and tenant is not None:
+                reg.counter(_metrics.TENANT_REQUESTS_METRIC,
+                            tenant=reg.tenant_label(tenant)).inc()
             if self._tenancy_admission and not self._tenancy.admit(tenant):
+                if reg is not None and tenant is not None:
+                    reg.counter(_metrics.TENANT_QUOTA_REJECTED_METRIC,
+                                tenant=reg.tenant_label(tenant)).inc()
                 raise QuotaExceeded(
                     f"tenant {tenant!r} exceeded its admission quota "
                     "(token bucket empty); retry after the bucket refills"
@@ -560,11 +606,19 @@ class InferenceEngine:
         if self.shed_policy.should_shed(
             priority=int(priority), queue_depth=self.scheduler.queue_depth,
             max_queue=self.engine_config.max_queue,
+            slo_breached=self._slo_breached(),
             tenant_class=tenant_class,
         ):
+            reg = _obs.registry()
+            if reg is not None:
+                reg.counter(_metrics.SERVE_SHED_METRIC).inc()
+                if self._tenancy is not None and tenant is not None:
+                    reg.counter(_metrics.TENANT_SHED_METRIC,
+                                tenant=reg.tenant_label(tenant)).inc()
             raise RequestShed(
                 f"request shed (priority={priority}): the engine is past "
-                "its queue watermark; retry later or raise the priority"
+                "its queue watermark or burning SLO budget; retry later or "
+                "raise the priority"
             )
         rid = request_id or f"req-{next(self._req_counter)}"
         completion = Completion(rid, tenant=tenant)
@@ -575,6 +629,12 @@ class InferenceEngine:
                       if deadline_ms is not None else None),
             priority=int(priority), retries=int(retries), tenant=tenant,
         )
+        if self._tracer is not None:
+            req.trace = self._tracer.start(
+                rid, len(tokens), int(max_new_tokens),
+                replica=self.replica_index, retries=int(retries),
+                ctx=trace_ctx, tenant=tenant,
+            )
         with self._work:
             if self._closed:
                 raise EngineClosed(
@@ -587,6 +647,9 @@ class InferenceEngine:
             if on_token is not None:
                 self._on_token[rid] = on_token
             self._notify()
+        reg = _obs.registry()
+        if reg is not None:
+            reg.counter("rlt_serve_requests_total").inc()
         return completion
 
     # ------------------------------------------------------------------ #
@@ -637,6 +700,8 @@ class InferenceEngine:
 
     def _step(self) -> Dict[str, Any]:
         self._ticks += 1
+        if self._goodput is not None:
+            self._goodput.enter("productive_compute")
         # scripted serving faults: a crash raises out of step(), the loop
         # fails every in-flight request and dies
         _faults.fire_serve_tick_faults(self.replica_index, self._ticks)
@@ -652,7 +717,14 @@ class InferenceEngine:
                                                 self._admit_seq)
             if fspec is not None and fspec.kind == "drop-stream":
                 self._drop_stream[req.request_id] = max(1, int(fspec.arg or 1))
-            self._prefill_into(req.tokens, slot.index)
+            tr = req.trace
+            t0 = time.perf_counter() if tr is not None else 0.0
+            with _obs.span("serve_prefill", prompt_len=req.prompt_len):
+                self._prefill_into(req.tokens, slot.index)
+            if tr is not None:
+                # the host's time to queue the prefill: its device time
+                # lands in the first token's "decode" component
+                tr.prefilled(time.perf_counter() - t0)
             slot.pos = req.prompt_len - 1
             slot.pending_token = req.tokens[-1]
             if speculate:
@@ -749,21 +821,23 @@ class InferenceEngine:
                 block_tables = block_tables.copy()
                 block_tables[list(parked), :] = TRASH_BLOCK
             tables = torch.from_numpy(block_tables).to(dev)
-        if K > 1:
-            logits, _ = decode_step_verify(
-                self.params, self.pool.cache, token_d, pos_d, self.cfg,
-                self._table, block_tables=tables)
-            logits = logits.view(n * K, -1)
-        elif self._paged:
-            logits, _ = decode_step_paged(
-                self.params, self.pool.cache, token_d[:, 0], pos_d, tables,
-                self.cfg, self._table)
-        else:
-            logits, _ = decode_step_ragged(
-                self.params, self.pool.cache, token_d[:, 0], pos_d, self.cfg,
-                self._table)
-        sampled = self._sample(logits).view(n, K).cpu().numpy()  # the sync
+        with _obs.span("serve_decode"):
+            if K > 1:
+                logits, _ = decode_step_verify(
+                    self.params, self.pool.cache, token_d, pos_d, self.cfg,
+                    self._table, block_tables=tables)
+                logits = logits.view(n * K, -1)
+            elif self._paged:
+                logits, _ = decode_step_paged(
+                    self.params, self.pool.cache, token_d[:, 0], pos_d,
+                    tables, self.cfg, self._table)
+            else:
+                logits, _ = decode_step_ragged(
+                    self.params, self.pool.cache, token_d[:, 0], pos_d,
+                    self.cfg, self._table)
+            sampled = self._sample(logits).view(n, K).cpu().numpy()  # sync
         now = time.perf_counter()
+        reg = _obs.registry()
         for slot in decode_slots:
             rid = slot.request_id
             if rid is None:  # released re-entrantly by a callback
@@ -776,15 +850,19 @@ class InferenceEngine:
                 accepted += 1
             before = self.stats["tokens_out"]
             for j in range(accepted):
-                if not self._deliver_token(slot, rid, int(out[j]), now,
+                if not self._deliver_token(slot, rid, int(out[j]), now, reg,
                                            completed):
                     break  # EOS, length, or the callback detached it
             if K > 1:
+                delivered = int(self.stats["tokens_out"] - before)
                 self.stats["spec_row_ticks"] += 1
-                self.stats["accepted_tokens"] += (self.stats["tokens_out"]
-                                                  - before)
+                self.stats["accepted_tokens"] += delivered
+                if delivered > 0 and reg is not None:
+                    reg.histogram("rlt_serve_accepted_tokens",
+                                  bounds=ACCEPTED_BOUNDS).observe(
+                        float(delivered), exemplar=rid)
 
-    def _deliver_token(self, slot, rid: str, tok: int, now: float,
+    def _deliver_token(self, slot, rid: str, tok: int, now: float, reg,
                        completed: List[str]) -> bool:
         """Deliver one sampled token to the slot's request. Returns False
         once the slot stops consuming tokens (its stream cut by a scripted
@@ -800,6 +878,8 @@ class InferenceEngine:
             self._finish(rid, "error", _faults.ServeFault(
                 f"scripted serving fault: {rid} stream dropped after "
                 f"{slot.generated} tokens"))
+            if slot.trace is not None:
+                self._tracer.finish(slot.trace, "error")
             self.pool.release(slot.index)
             return False
         completion = self._completions.get(rid)
@@ -808,8 +888,33 @@ class InferenceEngine:
             if completion.ttft_s is None:
                 completion.ttft_s = now - completion.submitted_at
                 self._recent_ttfts.append(completion.ttft_s)
+                if reg is not None:
+                    reg.histogram("rlt_serve_ttft_seconds",
+                                  bounds=LATENCY_BOUNDS).observe(
+                        completion.ttft_s, exemplar=rid)
+                    if (self._tenancy is not None
+                            and completion.tenant is not None):
+                        reg.histogram(
+                            _metrics.TENANT_TTFT_METRIC,
+                            bounds=LATENCY_BOUNDS,
+                            tenant=reg.tenant_label(completion.tenant),
+                        ).observe(completion.ttft_s, exemplar=rid)
+                if (self.slo_monitor is not None
+                        and self._tenancy is not None
+                        and completion.tenant is not None):
+                    try:
+                        self.slo_monitor.observe_latency(
+                            f"tenant_ttft_{completion.tenant}",
+                            completion.ttft_s)
+                    except Exception:
+                        pass  # no objective for this tenant
             elif slot.last_token_at is not None:
-                self._recent_itls.append(now - slot.last_token_at)
+                itl = now - slot.last_token_at
+                self._recent_itls.append(itl)
+                if reg is not None:
+                    reg.histogram("rlt_serve_itl_seconds",
+                                  bounds=LATENCY_BOUNDS).observe(
+                        itl, exemplar=rid)
             cb = self._on_token.get(rid)
             if cb is not None:
                 try:
@@ -819,6 +924,9 @@ class InferenceEngine:
             if slot.request_id != rid:
                 return False  # the callback finished this request
         slot.last_token_at = now
+        tr = slot.trace
+        if tr is not None:
+            tr.token()
         slot.generated += 1
         slot.pos += 1
         slot.pending_token = tok
@@ -826,6 +934,8 @@ class InferenceEngine:
         if hist is not None:
             hist.append(tok)
         self.stats["tokens_out"] += 1
+        if reg is not None:
+            reg.counter("rlt_serve_tokens_total").inc()
         reason = None
         if slot.eos_id is not None and tok == slot.eos_id:
             reason = "eos"
@@ -834,6 +944,8 @@ class InferenceEngine:
         if reason is not None:
             completed.append(rid)
             self._finish(rid, reason)
+            if tr is not None:
+                self._tracer.finish(tr, reason)
             self.pool.release(slot.index)
             return False
         return True
@@ -846,6 +958,14 @@ class InferenceEngine:
         if completion is not None:
             completion._finish(reason, error)
         self.stats["completed"] += 1
+        reg = _obs.registry()
+        if reg is not None:
+            reg.counter("rlt_serve_completions_total", reason=reason).inc()
+            if (self._tenancy is not None and completion is not None
+                    and completion.tenant is not None):
+                reg.counter(_metrics.TENANT_COMPLETIONS_METRIC,
+                            tenant=reg.tenant_label(completion.tenant),
+                            reason=reason).inc()
 
     # ------------------------------------------------------------------ #
     # disaggregated serving: KV export (prefill role) and import
@@ -901,6 +1021,7 @@ class InferenceEngine:
             n_blocks = (slot.prompt_len - 1) // bs + 1
             blocks = list(self.pool._alloc_of[rec["slot"]].blocks[:n_blocks])
             prompt = tuple(rec["prompt"])
+            trace = slot.trace
         cache = self.pool.cache
         k = cache["k"]
         with self._stream_scope():
@@ -911,11 +1032,16 @@ class InferenceEngine:
             # block-major on the device, so that each block's payload is a
             # contiguous view of the one host copy: [n, 2, L, Hkv, bs, hd]
             host = _to_wire(both.permute(2, 0, 1, 3, 4, 5).contiguous().cpu())
+        # the lineage context of the next hop (the parent rid, the TTFT
+        # components so far, the send stamp after the copy, as JAX's), so
+        # that the receiver records a linked child hop
+        trace_ctx = trace.export_context() if trace is not None else None
         return _migration.build_shipment(
             request_id=request_id, prompt=prompt,
             fingerprint=self.kv_fingerprint(), block_size=bs,
             block_k=tuple(host[j, 0] for j in range(len(blocks))),
             block_v=tuple(host[j, 1] for j in range(len(blocks))),
+            trace_ctx=trace_ctx,
         )
 
     def finish_export(self, request_id: str) -> None:
@@ -951,6 +1077,8 @@ class InferenceEngine:
             slot.export_pending = False
             if action == "finish":
                 self._finish(rid, "migrated")
+                if slot.trace is not None:
+                    self._tracer.finish(slot.trace, "migrated")
                 self.pool.release(slot.index)
 
     def import_shipment(self, shipment: "_migration.KVShipment",
@@ -1079,18 +1207,40 @@ class InferenceEngine:
         if self.engine_config.speculate_k > 0:
             self._history[rid] = list(prompt)
         completion = Completion(rid)
+        if self._tracer is not None:
+            # the receiving hop's trace, seeded from the shipment's lineage
+            # context: its parent attempt, hop index and the TTFT seconds
+            # spent upstream (the gap since the send stamp is "transfer")
+            slot.trace = self._tracer.start(
+                rid, len(prompt), int(ticket.max_new_tokens),
+                replica=self.replica_index, retries=ticket.retries,
+                ctx=shipment.trace_ctx,
+            )
         with self._work:
             self._completions[rid] = completion
             if ticket.on_token is not None:
                 self._on_token[rid] = ticket.on_token
         self.stats["prefills"] += 1
+        reg = _obs.registry()
+        if reg is not None:
+            reg.counter("rlt_serve_requests_total").inc()
         return completion
 
     # ------------------------------------------------------------------ #
-    # deadlines
+    # deadlines and shedding
     # ------------------------------------------------------------------ #
+    def _slo_breached(self) -> bool:
+        mon = self.slo_monitor
+        if mon is None:
+            return False
+        try:
+            return bool(mon.serving_breached())
+        except AttributeError:
+            return bool(mon.breached())
+
     def _on_queue_expired(self, req: Request) -> None:
-        self._finish(req.request_id, "expired")
+        """The scheduler evicted a queued request past its deadline."""
+        self._expire(req.request_id, req.trace)
 
     def _evict_expired_slots(self) -> None:
         now = time.perf_counter()
@@ -1103,8 +1253,16 @@ class InferenceEngine:
                         rec = self._exports.pop(slot.request_id, None)
                     if rec is not None:
                         self.pool.allocator.unpin(rec["pinned"])
-                self._finish(slot.request_id, "expired")
+                self._expire(slot.request_id, slot.trace)
                 self.pool.release(slot.index)
+
+    def _expire(self, request_id: str, trace: Optional[Any]) -> None:
+        self._finish(request_id, "expired")
+        if trace is not None:
+            self._tracer.finish(trace, "expired")
+        reg = _obs.registry()
+        if reg is not None:
+            reg.counter(_metrics.SERVE_DEADLINE_EXPIRED_METRIC).inc()
 
     # ------------------------------------------------------------------ #
     # loop thread + lifecycle
@@ -1120,6 +1278,7 @@ class InferenceEngine:
             self._thread.start()
 
     def _loop(self) -> None:
+        led = self._goodput
         while True:
             with self._work:
                 while self._abort or not self.scheduler.has_work():
@@ -1128,6 +1287,8 @@ class InferenceEngine:
                         break  # migration work needs a tick, idle or not
                     if self._abort or self._stop_when_idle:
                         return
+                    if led is not None:
+                        led.enter("idle")
                     self._work.wait(timeout=0.05)
                 seq = self._wake_seq
             try:
@@ -1146,10 +1307,17 @@ class InferenceEngine:
 
     def _fail_all(self, error: BaseException) -> None:
         self.failed = error
+        if self._goodput is not None:
+            # until a successor adopts the ledger: recovery, not idle
+            self._goodput.enter("fault_recovery")
         for req in self.scheduler.drain_queue():
             self._finish(req.request_id, "error", error)
+            if req.trace is not None:
+                self._tracer.finish(req.trace, "error")
         for slot in self.pool.active_slots():
             self._finish(slot.request_id, "error", error)
+            if slot.trace is not None:
+                self._tracer.finish(slot.trace, "error")
             self.pool.release(slot.index)
 
     @property
@@ -1169,9 +1337,13 @@ class InferenceEngine:
         elsewhere, no failure charged"."""
         with self._work:
             self._closed = True
+        if self._goodput is not None:
+            self._goodput.enter("drain")
         out: List[Dict[str, Any]] = []
         for req in self.scheduler.drain_queue():
             self._finish(req.request_id, "cancelled")
+            if req.trace is not None:
+                self._tracer.finish(req.trace, "cancelled")
             out.append({
                 "request_id": req.request_id,
                 "prompt": list(req.tokens),
@@ -1194,6 +1366,8 @@ class InferenceEngine:
 
     def drain(self, timeout: Optional[float] = 60.0) -> None:
         """Stop admitting; finish in-flight and queued work; stop the loop."""
+        if self._goodput is not None:
+            self._goodput.enter("drain")
         with self._work:
             self._closed = True
             self._stop_when_idle = True
@@ -1228,9 +1402,9 @@ class InferenceEngine:
         the p95 of the last ~128 first-token latencies and the p99 of the
         last ~256 inter-token latencies (0.0 before any), and the role."""
         ttfts = list(self._recent_ttfts)
-        p95 = percentile(ttfts, 95.0) * 1000.0 if ttfts else 0.0
+        p95 = _metrics.percentile(ttfts, 95.0) * 1000.0 if ttfts else 0.0
         itls = list(self._recent_itls)
-        itl_p99 = percentile(itls, 99.0) * 1000.0 if itls else 0.0
+        itl_p99 = _metrics.percentile(itls, 99.0) * 1000.0 if itls else 0.0
         return {
             "queue_depth": self.scheduler.queue_depth,
             "active": self.pool.occupancy,

@@ -17,6 +17,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
+from ray_lightning_tpu_torch import observability as _obs
 from ray_lightning_tpu_torch.device import DeviceLike, resolve_device
 from ray_lightning_tpu_torch.models.generation import init_kv_cache
 
@@ -46,6 +47,9 @@ class Slot:
     deadline: Optional[float] = None
     # when the request's latest token was delivered (inter-token latency)
     last_token_at: Optional[float] = None
+    # the request's RequestTrace (None with telemetry off or when sampling
+    # dropped it): the decode loop's only tracing cost a token is reading it
+    trace: Optional[object] = None
     # a prefill-role engine parks a prefilled slot here while its KV is in
     # flight to a decode engine: the decode tick skips it, and a cancelled
     # migration clears the flag so the request decodes in place
@@ -65,6 +69,7 @@ class Slot:
         self.eos_id = None
         self.deadline = None
         self.last_token_at = None
+        self.trace = None
         self.export_pending = False
 
 
@@ -146,6 +151,7 @@ class KVSlotPool:
         self.admitted_total += 1
         self.tenancies[slot.index].append(request_id)
         self.highwater = max(self.highwater, self.occupancy)
+        self._publish_gauges()
         return slot
 
     def release(self, index: int) -> Slot:
@@ -156,6 +162,7 @@ class KVSlotPool:
         slot.reset()
         self._free.append(index)
         self.recycled_total += 1
+        self._publish_gauges()
         return slot
 
     @property
@@ -186,3 +193,9 @@ class KVSlotPool:
                 i: len(v) for i, v in self.tenancies.items()
             },
         }
+
+    def _publish_gauges(self) -> None:
+        reg = _obs.registry()
+        if reg is not None:
+            reg.gauge("rlt_serve_slot_occupancy").set(self.occupancy)
+            reg.gauge("rlt_serve_slot_highwater").set(self.highwater)

@@ -1,5 +1,5 @@
 """Paged KV cache: block allocation + shared-prefix reuse for serving
-(``ray_lightning_tpu/serving/paged_kv.py`` in PyTorch, without the gauges).
+(``ray_lightning_tpu/serving/paged_kv.py`` in PyTorch).
 
 - :class:`BlockAllocator` — pure host logic: a free list of physical
   blocks, per-request allocations with a worst-case growth RESERVATION (so
@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ray_lightning_tpu_torch import observability as _obs
 from ray_lightning_tpu_torch.device import DeviceLike, resolve_device
 from ray_lightning_tpu_torch.serving.kv_pool import Slot
 
@@ -484,6 +485,8 @@ class PagedKVPool:
         self.admitted_total = 0
         self.recycled_total = 0
         self.highwater = 0
+        # prefix hits already added to rlt_serve_prefix_hits_total
+        self._published_hits = 0.0
         # slot -> the request ids it served, in order
         self.tenancies: Dict[int, List[str]] = {
             i: [] for i in range(self.num_slots)
@@ -516,6 +519,7 @@ class PagedKVPool:
             prompt_tokens=prompt_tokens,
         )
         if alloc is None:
+            self._publish_gauges()
             return None
         slot = self.slots[self._free.pop()]
         slot.request_id = request_id
@@ -531,6 +535,7 @@ class PagedKVPool:
         self.admitted_total += 1
         self.tenancies[slot.index].append(request_id)
         self.highwater = max(self.highwater, self.occupancy)
+        self._publish_gauges()
         return slot
 
     def release(self, index: int) -> Slot:
@@ -543,6 +548,7 @@ class PagedKVPool:
         slot.reset()
         self._free.append(index)
         self.recycled_total += 1
+        self._publish_gauges()
         return slot
 
     def prompt_write_table(self, slot_index: int,
@@ -610,3 +616,19 @@ class PagedKVPool:
         }
         out.update(self.allocator.stats())
         return out
+
+    def _publish_gauges(self) -> None:
+        reg = _obs.registry()
+        if reg is None:
+            return
+        reg.gauge("rlt_serve_slot_occupancy").set(self.occupancy)
+        reg.gauge("rlt_serve_slot_highwater").set(self.highwater)
+        alloc = self.allocator
+        reg.gauge("rlt_serve_kv_blocks_used").set(alloc.used_blocks)
+        reg.gauge("rlt_serve_kv_blocks_free").set(alloc.free_blocks)
+        reg.gauge("rlt_serve_kv_blocks_cached").set(alloc.cached_blocks)
+        if alloc.prefix_hits_total > self._published_hits:
+            reg.counter("rlt_serve_prefix_hits_total").inc(
+                alloc.prefix_hits_total - self._published_hits
+            )
+            self._published_hits = float(alloc.prefix_hits_total)

@@ -28,10 +28,17 @@ An actor executes its calls on one thread, in order, so the actor surface
 is non-blocking: ``submit`` returns at once (the engine's loop does the
 work) and ``poll`` reports completion.
 
-Not ported (ROADMAP.md, queue 1 item 9b): the metrics, the
-events and the request traces the JAX fleet publishes with telemetry on,
-and ``publish_breaker_states``; this module behaves as the JAX one does
-with telemetry off. An actor's builder is pickled by reference: a
+Telemetry (``observability.enable()``): the fleet mints each attempt's
+:class:`~ray_lightning_tpu_torch.observability.reqtrace.TraceContext` at
+dispatch, so that every hop's request record knows its parent, and
+publishes the replica-count gauge, the breakers' states, the migration
+counters and transfer histogram, the capacity-blocked, retry and expiry
+counters and the ``req/route``, ``serve/replica_dead`` and migration events;
+:meth:`LocalReplicaFleet.drain_request_records` drains every live engine's
+records. ``ServeReplicaActor(telemetry=True)`` enables telemetry in its
+process and beats its metric deltas, trace events and ``"r"`` request
+records beside the load; the group's :class:`_LoadTap` keeps only the load,
+as the JAX package's does. An actor's builder is pickled by reference: a
 module-level function, or a ``functools.partial`` of one.
 """
 from __future__ import annotations
@@ -44,7 +51,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ray_lightning_tpu_torch import observability as _obs
 from ray_lightning_tpu_torch.device import DeviceLike, resolve_device
+from ray_lightning_tpu_torch.observability import metrics as _metrics
+from ray_lightning_tpu_torch.observability import reqtrace as _reqtrace
 from ray_lightning_tpu_torch.runtime import faults as _faults
 from ray_lightning_tpu_torch.serving import migration as _migration
 from ray_lightning_tpu_torch.serving.resilience import (
@@ -53,6 +63,7 @@ from ray_lightning_tpu_torch.serving.resilience import (
     JournalEntry,
     RequestJournal,
     RequestShed,
+    publish_breaker_states,
 )
 
 __all__ = [
@@ -67,14 +78,10 @@ __all__ = [
     "pick_least_loaded",
 ]
 
-# the JAX package's histogram of lineage-attributed TTFT components, which
-# an Autoscaler reads from a metrics registry handed to _component_signal
-TTFT_COMPONENT_METRIC = "rlt_serve_ttft_component_seconds"
-
-_TELEMETRY_REFUSED = (
-    "telemetry=True: the replicas' telemetry (metrics, request traces, "
-    "beat payloads beyond the load), the serving side of observability, is "
-    "not ported yet (ROADMAP.md, queue 1 item 9b)"
+# the migration transfer-time histogram's bounds (milliseconds)
+_TRANSFER_MS_BOUNDS = (
+    0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+    1000.0, 5000.0,
 )
 
 
@@ -204,8 +211,13 @@ class Autoscaler:
     :func:`autoscale_decision`'s; this class adds the hysteresis: at most
     one replica of change a :meth:`tick`, ``cooldown_s`` between two
     actions, and ``idle_ticks_down`` consecutive idle verdicts before a
-    drain. ``slo_monitor``, when given, is asked ``evaluate(reg=None)``
-    then ``breached()`` each tick (no metrics registry is ported)."""
+    drain. ``slo_monitor``, when given, is evaluated over the process's
+    metrics registry each tick, and its ``breached()`` forces a scale-up
+    and vetoes a drain; with ``ttft_component_high_s`` the pool's mean TTFT
+    component since the last tick (``rlt_serve_ttft_component_seconds``)
+    is a scale-up signal. With telemetry on, each tick publishes the
+    ``rlt_serve_replicas`` gauge, and a capacity-blocked scale-up its
+    counter and a ``serve_capacity_blocked`` event."""
 
     # which lineage TTFT component charges a pool
     POOL_COMPONENT = {"prefill": "queue_wait", "decode": "decode"}
@@ -263,7 +275,7 @@ class Autoscaler:
             return None
         total_sum, total_count = 0.0, 0.0
         for (name, labels), metric in reg.items():
-            if name != TTFT_COMPONENT_METRIC:
+            if name != _metrics.SERVE_TTFT_COMPONENT_METRIC:
                 continue
             if dict(labels).get("component") != comp:
                 continue
@@ -291,7 +303,7 @@ class Autoscaler:
             )
         slo_breached = False
         if self.slo_monitor is not None:
-            self.slo_monitor.evaluate(reg=None)
+            self.slo_monitor.evaluate(reg=_obs.registry())
             slo_breached = self.slo_monitor.breached()
         delta = autoscale_decision(
             loads,
@@ -303,7 +315,7 @@ class Autoscaler:
             slo_breached=slo_breached,
             itl_high_ms=self.itl_high_ms,
             role=self.role,
-            ttft_component_s=self._component_signal(None),
+            ttft_component_s=self._component_signal(_obs.registry()),
             ttft_component_high_s=self.ttft_component_high_s,
         )
         if delta <= 0:
@@ -325,10 +337,19 @@ class Autoscaler:
                     self.fleet.add_replica()
                 else:
                     self.fleet.add_replica(role=self.role)
-            except CapacityBlocked:
+            except CapacityBlocked as exc:
                 self.capacity_blocked_total += 1
                 self.capacity_blocked_streak += 1
                 self.last_outcome = "capacity_blocked"
+                reg = _obs.registry()
+                if reg is not None:
+                    reg.counter(_metrics.SERVE_CAPACITY_BLOCKED_METRIC).inc()
+                _obs.event(
+                    "serve_capacity_blocked",
+                    replicas=n,
+                    streak=self.capacity_blocked_streak,
+                    error=str(exc),
+                )
                 delta = 0
             else:
                 self.scale_ups += 1
@@ -345,6 +366,11 @@ class Autoscaler:
         if delta != 0:
             self._last_action_at = now
             self.history.append((now, int(self.fleet.num_replicas), delta))
+        reg = _obs.registry()
+        if reg is not None:
+            reg.gauge("rlt_serve_replicas").set(
+                int(self.fleet.num_replicas)
+            )
         return delta
 
 
@@ -626,6 +652,7 @@ class LocalReplicaFleet:
             self.routed_total.setdefault(index, 0)
         self._breaker(index)
         self.added_total += 1
+        self._publish_size()
         return index
 
     def num_replicas_of(self, role: str) -> int:
@@ -674,6 +701,7 @@ class LocalReplicaFleet:
         t.start()
         self._drain_threads.append(t)
         self.removed_total += 1
+        self._publish_size()
         return index
 
     def preempt_replica(self, index: int) -> bool:
@@ -685,6 +713,7 @@ class LocalReplicaFleet:
             if engine is None:
                 return False
             self._draining[index] = engine
+        self._publish_size()
         engine.handback_queued()
 
         def finish_and_discard():
@@ -750,6 +779,12 @@ class LocalReplicaFleet:
         ):
             from ray_lightning_tpu_torch.serving.tenancy import QuotaExceeded
 
+            reg = _obs.registry()
+            if reg is not None:
+                reg.counter(
+                    _metrics.TENANT_QUOTA_REJECTED_METRIC,
+                    tenant=reg.tenant_label(tenant),
+                ).inc()
             err = QuotaExceeded(
                 f"tenant {tenant!r} exceeded its admission quota "
                 "(token bucket empty); retry after the bucket refills"
@@ -811,6 +846,11 @@ class LocalReplicaFleet:
                 closed, probe = _scan(
                     [i for i in live if self.roles.get(i) != "prefill"]
                 )
+                if closed or probe is not None:
+                    _obs.event(
+                        "serve_migration_route_fallback",
+                        request_id=entry.request_id,
+                    )
         else:
             closed, probe = _scan(list(live))
         if probe is not None:
@@ -830,7 +870,27 @@ class LocalReplicaFleet:
             with self._lock:
                 self._pending.append(entry)
             return False
+        prev_rid = entry.attempt_rid
         rid, prompt, budget = self.journal.begin_attempt(entry, index)
+        # the hop's lineage context: hop 0 for the first attempt, parented
+        # on the previous attempt's rid for a redispatch. The first dispatch
+        # anchors the send stamp at the fleet's submit, so time parked in
+        # the fleet lands in the "dispatch" component and the components
+        # sum to the TTFT the client saw
+        sent_wall = time.time()
+        if prev_rid is None:
+            sent_wall -= max(0.0, time.perf_counter() - entry.submitted_at)
+        trace_ctx = _reqtrace.TraceContext(
+            rid=prev_rid or rid,
+            base_rid=entry.request_id,
+            attempt=entry.attempts,
+            hop=max(0, len(entry.replica_history) - 1),
+            origin_replica=(
+                entry.replica_history[0] if entry.replica_history else index
+            ),
+            sent_wall=sent_wall,
+            tenant=entry.tenant,
+        )
         remaining_ms = (
             max((entry.deadline - time.perf_counter()) * 1e3, 0.0)
             if entry.deadline is not None
@@ -846,6 +906,7 @@ class LocalReplicaFleet:
                 deadline_ms=remaining_ms,
                 priority=entry.priority,
                 retries=entry.attempts - 1,
+                trace_ctx=trace_ctx,
                 tenant=entry.tenant,
             )
         except RequestShed as e:
@@ -876,6 +937,10 @@ class LocalReplicaFleet:
                 if len(self._affinity) > 4096:
                     self._affinity.clear()  # bounded, best effort
                 self._affinity[self._affinity_key(entry.prompt)] = index
+        _obs.event(
+            "req/route", request_id=rid, replica=index,
+            attempt=entry.attempts, track=f"req {entry.request_id}",
+        )
         return True
 
     def _affinity_key(self, prompt: Sequence[int]) -> bytes:
@@ -889,6 +954,9 @@ class LocalReplicaFleet:
 
     def _expire(self, entry: JournalEntry) -> None:
         self.journal.finish(entry, "expired", finish_reason="expired")
+        reg = _obs.registry()
+        if reg is not None:
+            reg.counter(_metrics.SERVE_DEADLINE_EXPIRED_METRIC).inc()
 
     def _retry_or_fail(
         self,
@@ -923,8 +991,8 @@ class LocalReplicaFleet:
     def pump_once(self) -> None:
         """One sweep: drive the migrations, settle finished attempts
         (feeding the breakers), relaunch dead engines, redispatch parked
-        work. The pump thread calls it continuously; tests call it
-        directly."""
+        work, publish the breakers' gauges. The pump thread calls it
+        continuously; tests call it directly."""
         with self._pump_gate:
             self._pump_locked()
 
@@ -966,6 +1034,10 @@ class LocalReplicaFleet:
                 self._replicas.pop(i, None)
         for index, engine in dead:
             self.relaunches_total += 1
+            _obs.event(
+                "serve/replica_dead", replica=index,
+                error=repr(engine.failed),
+            )
             if self._aggregator is not None:
                 self._aggregator.record_event(
                     "serve_replica_dead",
@@ -974,12 +1046,18 @@ class LocalReplicaFleet:
                 )
             if self.relaunch:
                 self.add_replica(index=index)
+            else:
+                self._publish_size()
         # 3) redispatch parked entries
         with self._lock:
             pending, self._pending = self._pending, []
         for entry in pending:
             if not entry.done:
                 self._dispatch(entry)
+        # 4) the breakers' state gauges
+        with self._lock:
+            breakers = dict(self.breakers)
+        publish_breaker_states(breakers)
 
     # ---------------- the disaggregated KV migration -------------------- #
     def _pump_migrations(self) -> None:
@@ -1075,14 +1153,18 @@ class LocalReplicaFleet:
             # stages own that recovery
             return True
         policy = self.migration_policy
+        reg = _obs.registry()
         mig.attempts += 1
         self.migration_stats.attempts += 1
+        if reg is not None:
+            reg.counter(_metrics.SERVE_MIGRATION_ATTEMPTS_METRIC).inc()
         failure: Optional[str] = None
         corrupt = False
         began = False
         charge_dst: Optional[int] = None
         dst_idx: Optional[int] = None
         completion = None
+        rid2 = None
         t0 = time.perf_counter()
         try:
             if mig.shipment is None:
@@ -1159,15 +1241,29 @@ class LocalReplicaFleet:
         if failure is None:
             self.journal.bind(entry, completion)
             src.finish_export(mig.source_rid)
+            transfer_ms = (time.perf_counter() - t0) * 1e3
+            nbytes = mig.shipment.nbytes()
             st = self.migration_stats
             st.verified += 1
             st.migrated += 1
-            st.bytes_shipped += mig.shipment.nbytes()
-            st.transfer_ms.append((time.perf_counter() - t0) * 1e3)
+            st.bytes_shipped += nbytes
+            st.transfer_ms.append(transfer_ms)
+            if reg is not None:
+                reg.counter(_metrics.SERVE_MIGRATION_VERIFIED_METRIC).inc()
+                reg.counter(_metrics.SERVE_MIGRATION_BYTES_METRIC).inc(nbytes)
+                reg.histogram(
+                    _metrics.SERVE_MIGRATION_TRANSFER_MS_METRIC,
+                    bounds=_TRANSFER_MS_BOUNDS,
+                ).observe(transfer_ms, exemplar=rid2)
             with self._lock:
                 self.routed_total[dst_idx] = (
                     self.routed_total.get(dst_idx, 0) + 1
                 )
+            _obs.event(
+                "serve_migration", request_id=entry.request_id,
+                source=mig.source, dest=dst_idx,
+                attempt=mig.attempts, bytes=nbytes,
+            )
             return True
         # ---- a failed attempt -------------------------------------------- #
         if began:
@@ -1181,12 +1277,22 @@ class LocalReplicaFleet:
         st = self.migration_stats
         if corrupt:
             st.corrupt += 1
+            if reg is not None:
+                reg.counter(_metrics.SERVE_MIGRATION_CORRUPT_METRIC).inc()
         if mig.attempts >= policy.max_attempts:
             # the budget is spent: un-park, decode on the prefill replica
             st.fallbacks += 1
+            if reg is not None:
+                reg.counter(_metrics.SERVE_MIGRATION_FALLBACKS_METRIC).inc()
+            _obs.event(
+                "serve_migration_fallback", request_id=entry.request_id,
+                source=mig.source, attempts=mig.attempts, error=failure,
+            )
             src.cancel_export(mig.source_rid)
             return True
         st.retries += 1
+        if reg is not None:
+            reg.counter(_metrics.SERVE_MIGRATION_RETRIES_METRIC).inc()
         mig.next_at = time.perf_counter() + policy.backoff(mig.attempts)
         return False
 
@@ -1211,13 +1317,17 @@ class LocalReplicaFleet:
         return out
 
     def drain_request_records(self) -> List[Dict[str, Any]]:
-        """Every live engine's finished-request trace records (none while
-        request tracing is not ported)."""
+        """Every live engine's finished-request trace records (none with
+        telemetry off). A disaggregated request's hops finish on different
+        replicas, so a lineage-complete ``requests.jsonl`` needs them all."""
         out: List[Dict[str, Any]] = []
         with self._lock:
             engines = list(self._replicas.values())
         for engine in engines:
-            out.extend(engine.drain_request_records())
+            try:
+                out.extend(engine.drain_request_records())
+            except Exception:
+                continue
         return out
 
     def shutdown(self) -> None:
@@ -1253,6 +1363,11 @@ class LocalReplicaFleet:
                 error=RuntimeError("fleet shut down"),
             )
 
+    def _publish_size(self) -> None:
+        reg = _obs.registry()
+        if reg is not None:
+            reg.gauge("rlt_serve_replicas").set(self.num_replicas)
+
 
 # --------------------------------------------------------------------- #
 # the replica actor
@@ -1263,8 +1378,11 @@ class ServeReplicaActor:
     ``device="cpu"``), so the weights never cross from the main process. The
     kernels' libraries are loaded before the ready handshake. With a
     ``heartbeat`` queue handle, a thread puts ``(replica_index,
-    decode_steps, wall_time, {"load": engine.load()})`` every
-    ``heartbeat_interval`` seconds."""
+    decode_steps, wall_time, payload)`` every ``heartbeat_interval``
+    seconds, ``payload`` being ``{"load": engine.load()}``; with
+    ``telemetry`` (enabled in the actor's process before the engine is
+    built) also the metric deltas and trace events (``"m"``, ``"t"``) and
+    the finished requests' records (``"r"``)."""
 
     def __init__(
         self,
@@ -1282,7 +1400,7 @@ class ServeReplicaActor:
         )
 
         if telemetry:
-            raise NotImplementedError(_TELEMETRY_REFUSED)
+            _obs.enable()
         params, cfg = builder()
         self.replica_index = int(replica_index)
         # replica_index arms this replica's TORCHRT_FAULT serving specs
@@ -1305,13 +1423,21 @@ class ServeReplicaActor:
 
     def _beat_loop(self) -> None:
         while not self._hb_stop.wait(self._hb_interval):
+            _obs.sample_device_memory()  # the memory gauges ride the beat
+            payload: Dict[str, Any] = {"load": self.engine.load()}
+            telemetry = _obs.collect_beat_payload()
+            if telemetry is not None:
+                payload.update(telemetry)
+            records = self.engine.drain_request_records()
+            if records:
+                payload["r"] = records
             try:
                 self._hb.put(
                     (
                         self.replica_index,
                         int(self.engine.stats["decode_steps"]),
                         time.time(),
-                        {"load": self.engine.load()},
+                        payload,
                     ),
                     timeout=1.0,
                 )
@@ -1444,7 +1570,12 @@ class ReplicaGroup:
     :class:`ServeFuture` of it was collected. Requests carry group-minted
     ids (``g<N>``, ``~r<k>`` for a retry) and are resubmitted as ``prompt +
     tokens so far`` when their replica dies, hangs or times out its drain,
-    up to ``max_retries``. ``telemetry=True`` is refused."""
+    up to ``max_retries``. ``telemetry=True`` turns telemetry on in every
+    actor (their beats carry metric deltas, trace events and request
+    records, which the group's :class:`_LoadTap` drops, keeping the load,
+    as the JAX package's does) and, where it is on in this process, the
+    ``rlt_serve_replicas`` gauge, the retries counter and ``req/route``
+    events."""
 
     def __init__(
         self,
@@ -1464,8 +1595,6 @@ class ReplicaGroup:
     ):
         if num_replicas < 1:
             raise ValueError("num_replicas must be >= 1")
-        if telemetry:
-            raise NotImplementedError(_TELEMETRY_REFUSED)
         self._builder = builder
         self._engine_kwargs = dict(engine_kwargs or {})
         self._initial_replicas = int(num_replicas)
@@ -1473,6 +1602,7 @@ class ReplicaGroup:
         self.startup_timeout = startup_timeout
         self.heartbeat_interval = float(heartbeat_interval)
         self._env = env
+        self._telemetry = bool(telemetry)
         self._device = None if device is None else str(device)
         self._actor_timeout = float(actor_timeout)
         self.handles: Dict[int, Any] = {}
@@ -1576,6 +1706,7 @@ class ReplicaGroup:
             self.handles[index] = handle
         self.added_total += 1
         self.tap.record_event("serve_replica_added", replica=index)
+        self._publish_size()
         return index
 
     def remove_replica(self, index: Optional[int] = None) -> Optional[int]:
@@ -1633,7 +1764,13 @@ class ReplicaGroup:
         t.start()
         self._drain_threads.append(t)
         self.removed_total += 1
+        self._publish_size()
         return index
+
+    def _publish_size(self) -> None:
+        reg = _obs.registry()
+        if reg is not None:
+            reg.gauge("rlt_serve_replicas").set(self.num_replicas)
 
     def _spec(self, index: int):
         return (
@@ -1644,7 +1781,7 @@ class ReplicaGroup:
                 index,
                 self._queue.handle(),
                 self.heartbeat_interval,
-                False,
+                self._telemetry,
                 self._device,
             ),
             None,
@@ -1781,6 +1918,16 @@ class ReplicaGroup:
             )
         if attempt > 1:
             self.retries_total += 1
+            reg = _obs.registry()
+            if reg is not None:
+                reg.counter(_metrics.SERVE_RETRIES_METRIC).inc()
+        # the routing leg of the request's trace: an instant on the
+        # request's own track in this process (the engine's spans are in
+        # the replica's)
+        _obs.event(
+            "req/route", request_id=rid, replica=replica,
+            attempt=attempt, track=f"req {rid}",
+        )
         return replica
 
     def _poll(self, replica: int, request_id: str) -> Dict[str, Any]:

@@ -13,14 +13,16 @@ drain. Pure host logic, each piece testable without a model:
   half-open: consecutive failures open it; after a cooldown exactly one
   probe goes through, whose outcome closes or re-opens it.
 - :class:`ShedPolicy` — admission control: priority 0 is never shed;
-  priority >= 1 is rejected past the queue watermark (or under SLO burn,
-  which stays inert until an SLO monitor is ported: the engine passes
-  ``slo_breached=False``). Tenant classes generalise the priority rule.
+  priority >= 1 is rejected past the queue watermark, or while the
+  engine's SLO monitor reports a serving breach
+  (``InferenceEngine.slo_monitor``). Tenant classes generalise the
+  priority rule.
 - :func:`install_sigterm_drain` — a SIGTERM handler that drains a target.
 
 The journal holds requests, not engines: all it needs from the caller is
 "dispatch this (prompt, budget) somewhere and wire my guard as on_token".
-The breaker states' gauges wait for the port's metrics registry.
+With telemetry on, :func:`publish_breaker_states` publishes the breakers'
+state gauges and the journal counts ``rlt_serve_retries_total``.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ray_lightning_tpu_torch import observability as _obs
+from ray_lightning_tpu_torch.observability import metrics as _metrics
 from ray_lightning_tpu_torch.serving.scheduler import RequestQueueFull
 
 log = logging.getLogger(__name__)
@@ -170,6 +174,17 @@ class CircuitBreaker:
                 self._probe_outstanding = True
                 return True
             return False
+
+
+def publish_breaker_states(breakers: Dict[int, CircuitBreaker]) -> None:
+    """Publish each breaker's state gauge (labeled by replica index)."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    for index, breaker in breakers.items():
+        reg.gauge(
+            _metrics.SERVE_BREAKER_STATE_METRIC, replica=str(index)
+        ).set(breaker.state_value())
 
 
 # --------------------------------------------------------------------------
@@ -427,6 +442,9 @@ class RequestJournal:
         if new_retries > 0:
             with self._lock:
                 self.retries_total += new_retries
+            reg = _obs.registry()
+            if reg is not None:
+                reg.counter(_metrics.SERVE_RETRIES_METRIC).inc(new_retries)
 
     def abort_attempt(self, entry: JournalEntry) -> None:
         """Roll back a begin_attempt whose dispatch never reached an

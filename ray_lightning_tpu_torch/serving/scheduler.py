@@ -34,6 +34,8 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
+from ray_lightning_tpu_torch import observability as _obs
+from ray_lightning_tpu_torch.observability import metrics as _metrics
 from ray_lightning_tpu_torch.serving.kv_pool import Slot
 
 
@@ -58,6 +60,9 @@ class Request:
     retries: int = 0
     # ticks this request spent as a deferred queue head (aging signal)
     deferred_ticks: int = 0
+    # the request's trace (observability/reqtrace.RequestTrace), minted at
+    # engine submit; None with telemetry off or when sampling dropped it
+    trace: Optional[Any] = None
     # the submitting tenant; None = classless traffic (the default DRR
     # queue once tenancy is configured)
     tenant: Optional[str] = None
@@ -191,6 +196,8 @@ class ContinuousBatchScheduler:
             else:
                 self._queue.append(request)
             self.queued_total += 1
+            depth = self._depth_locked()
+        self._publish_depth(depth)
 
     def _depth_locked(self) -> int:
         if self._tenancy is not None:
@@ -240,6 +247,8 @@ class ContinuousBatchScheduler:
                     if i == 0:
                         req.deferred_ticks += 1
                         self.deferred_total += 1
+                        if req.trace is not None:
+                            req.trace.deferred()
                         if self.head_skip_limit == 0:
                             break
                     i += 1
@@ -249,8 +258,13 @@ class ContinuousBatchScheduler:
                 del self._queue[i]
                 if i > 0:
                     self.skipped_total += 1
+                if req.trace is not None:
+                    req.trace.admitted(slot.index)
+                    slot.trace = req.trace
                 prefills.append((req, slot))
                 # do not advance i: the next element shifted into place
+            depth = len(self._queue)
+        self._publish_depth(depth)
         if expired and self.on_evict is not None:
             for req in expired:
                 self.on_evict(req)
@@ -297,6 +311,9 @@ class ContinuousBatchScheduler:
                 elif self._deficit.get(key, 0.0) < 1.0:
                     self._order.rotate(-1)  # credit spent: next tenant
                 # else: the tick's prefill budget is spent with credit left
+            depth = self._depth_locked()
+            tenant_depths = {k: len(q) for k, q in self._tqueues.items()}
+        self._publish_depth(depth, tenant_depths)
         if expired and self.on_evict is not None:
             for req in expired:
                 self.on_evict(req)
@@ -324,6 +341,8 @@ class ContinuousBatchScheduler:
                 if i == 0:
                     req.deferred_ticks += 1
                     self.deferred_total += 1
+                    if req.trace is not None:
+                        req.trace.deferred()
                     if self.head_skip_limit == 0:
                         return True
                 i += 1
@@ -333,6 +352,9 @@ class ContinuousBatchScheduler:
             del q[i]
             if i > 0:
                 self.skipped_total += 1
+            if req.trace is not None:
+                req.trace.admitted(slot.index)
+                slot.trace = req.trace
             prefills.append((req, slot))
             self._deficit[key] = self._deficit.get(key, 0.0) - 1.0
             self.admitted_by_tenant[key] = (
@@ -355,4 +377,17 @@ class ContinuousBatchScheduler:
                 out.extend(self._tqueues[key])
                 self._tqueues[key].clear()
                 self._retire_tenant(key)
+        self._publish_depth(0)
         return out
+
+    def _publish_depth(self, depth: int,
+                       tenant_depths: Optional[Dict[str, int]] = None) -> None:
+        reg = _obs.registry()
+        if reg is not None:
+            reg.gauge("rlt_serve_queue_depth").set(depth)
+            if tenant_depths:
+                for key, tdepth in tenant_depths.items():
+                    label = reg.tenant_label(key or "default")
+                    reg.gauge(
+                        _metrics.TENANT_QUEUE_DEPTH_METRIC, tenant=label
+                    ).set(tdepth)

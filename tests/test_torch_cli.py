@@ -2,10 +2,12 @@
 its rows equal the port's fleet (or engine) driven directly with the same
 seed and flags; its row schema, dispositions and summary keys match the
 JAX package's ``cli.main(["serve", ...])`` run with the same flags (the
-summary without ``compile_stats``); its argument errors are JAX's; and
-``--telemetry``, ``--telemetry-dir`` and ``--cost`` are refused."""
+summary without ``compile_stats``); its argument errors are JAX's;
+``--telemetry`` and ``--telemetry-dir`` serve with the flight recorder on,
+and ``--cost`` is refused."""
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -19,6 +21,7 @@ from ray_lightning_tpu.observability.reqtrace import (
     disposition_for as jax_disposition_for,
 )
 from ray_lightning_tpu_torch import cli
+from ray_lightning_tpu_torch import observability as pobs
 from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
 from ray_lightning_tpu_torch.serving import (
     EngineConfig,
@@ -125,13 +128,34 @@ def test_serve_rows_equal_the_port_driven_directly(flags, capsys):
     assert summary["generated_tokens"] == 20
 
 
-@pytest.mark.parametrize("flag", [["--telemetry"], ["--telemetry-dir", "x"],
+@pytest.mark.parametrize("flag", [["--telemetry"],
+                                  ["--telemetry", "--telemetry-dir", "DIR"],
                                   ["--cost"]], ids=["telemetry", "dir", "cost"])
-def test_unported_flags_are_refused(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(BASE + flag + ["--device", "cpu"])
-    assert "item 9" in str(exc.value.code)
-    assert capsys.readouterr().out == ""
+def test_unported_flags_are_refused(flag, capsys, tmp_path):
+    """``--telemetry`` serves and prints the Prometheus text after the
+    summary; with ``--telemetry-dir`` the run's files are written there;
+    ``--cost`` (the profiler's, item 9c) is still refused."""
+    flag = [str(tmp_path / "t") if f == "DIR" else f for f in flag]
+    argv = BASE + flag + ["--device", "cpu"]
+    try:
+        if "--cost" in flag:
+            with pytest.raises(SystemExit) as exc:
+                cli.main(argv)
+            assert "item 9c" in str(exc.value.code)
+            assert capsys.readouterr().out == ""
+            return
+        assert cli.main(argv) == 0
+    finally:
+        pobs.reset()
+    out = capsys.readouterr().out
+    assert "rlt_serve_requests_total 4" in out
+    assert "rlt_serve_ttft_seconds_count 4" in out
+    if "--telemetry-dir" in flag:
+        run_dir = str(tmp_path / "t")
+        assert json.loads(out.splitlines()[-1]) == {"telemetry_dir": run_dir}
+        assert {"requests.jsonl", "trace.json", "metrics.json",
+                "metrics.prom", "lineage.jsonl", "summary.json"} <= set(
+            os.listdir(run_dir))
 
 
 @pytest.mark.parametrize("argv", [

@@ -1719,3 +1719,53 @@ def test_device_memory_gauges_read_the_allocator(cuda, tmp_path):
                          cwd=str(tmp_path), env=dict(
                              os.environ, PYTHONPATH=os.pathsep.join(sys.path)))
     assert out.stdout.split() == ["[]", "False"]
+
+
+def test_engine_records_with_telemetry_on_card(cuda):
+    """The paged engine on the card with the flight recorder on: every
+    request's record (``completed``, its token count, TTFT components that
+    sum to its TTFT), the ``rlt_serve_*`` series and the KV gauges, the
+    serving kernels launched as with telemetry off, and the greedy streams
+    of the telemetry-off engine on the same weights."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch import observability as obs
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_lightning_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    ecfg = EngineConfig(num_slots=2, max_prompt_len=12, max_len=32,
+                        block_size=4, kv_layout="paged")
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6, 7], [3, 1, 4, 1, 5, 9, 2, 6, 8, 8],
+               [11, 12]]
+    runs = []
+    for telemetry in (False, True):
+        obs.reset()
+        if telemetry:
+            obs.enable()
+        try:
+            kernels.reset_launch_counts()
+            engine = InferenceEngine(params, cfg, ecfg, device=cuda)
+            comps = [engine.submit(p, max_new_tokens=6) for p in prompts]
+            engine.run_until_idle()
+            torch.cuda.synchronize()
+            records = engine.drain_request_records()
+            names = ({m[0] for kind in ("counters", "gauges", "histograms")
+                      for m in obs.registry().snapshot(delta=False)[kind]}
+                     if telemetry else set())
+            runs.append(([c.tokens for c in comps], kernels.launch_counts(),
+                         records, names))
+        finally:
+            obs.reset()
+    (off_streams, off_counts, off_records, _), (streams, counts, records,
+                                                 names) = runs
+    assert streams == off_streams and counts == off_counts
+    assert off_records == [] and len(records) == len(prompts)
+    for rec in records:
+        assert rec["disposition"] == "completed" and rec["tokens_out"] == 6
+        assert abs(sum(rec["ttft_components"].values()) - rec["ttft_s"]) < 1e-3
+    assert {"rlt_serve_ttft_seconds", "rlt_serve_itl_seconds",
+            "rlt_serve_tokens_total", "rlt_serve_kv_blocks_used",
+            "rlt_serve_kv_blocks_free", "rlt_serve_ttft_component_seconds"
+            } <= names

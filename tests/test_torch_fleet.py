@@ -443,8 +443,8 @@ def test_sigterm_drain_with_a_real_fleet(model):
 
 
 def test_warmup_and_request_records_on_the_cpu(model):
-    """On the CPU ``warmup`` loads nothing and launches nothing; the
-    request records are empty (request tracing is not ported)."""
+    """On the CPU ``warmup`` loads nothing and launches nothing; with
+    telemetry off the request records are empty, as the JAX engine's."""
     fleet = _port_fleet(model, initial_replicas=1)
     try:
         engine = fleet._replicas[0]

@@ -8,7 +8,9 @@ import itertools
 
 import pytest
 
+from ray_lightning_tpu.observability import metrics as jmetrics
 from ray_lightning_tpu.serving import replica as jax_replica
+from ray_lightning_tpu_torch.observability import metrics as pmetrics
 from ray_lightning_tpu_torch.serving import replica as port_replica
 
 LOADS = [
@@ -213,7 +215,8 @@ class _Registry:
 def test_component_signal_matches_jax():
     """The lineage TTFT signal read from a registry: the mean over the
     samples since the last read of the pool's own component."""
-    name = port_replica.TTFT_COMPONENT_METRIC
+    name = pmetrics.SERVE_TTFT_COMPONENT_METRIC
+    assert name == jmetrics.SERVE_TTFT_COMPONENT_METRIC
     reg = _Registry()
     scalers = {}
     for mod in (port_replica, jax_replica):

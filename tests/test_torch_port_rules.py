@@ -63,11 +63,12 @@ def test_port_imports_without_jax_or_a_build():
 
 
 @pytest.mark.parametrize("module", ["ray_lightning_tpu_torch.serving.replica",
-                                    "ray_lightning_tpu_torch.cli"])
+                                    "ray_lightning_tpu_torch.cli",
+                                    "ray_lightning_tpu_torch.observability.slo"])
 def test_fleet_and_cli_import_without_a_thread_or_process(module):
-    """The fleet's module and the command line import with JAX blocked and
-    build, load, start and parse nothing: one thread, no child process, no
-    kernel library, no runtime, no zygote."""
+    """The fleet's module, the command line and the SLO monitor import with
+    JAX blocked and build, load, start and parse nothing: one thread, no
+    child process, no kernel library, no runtime, no zygote."""
     code = (
         "import sys, os, threading, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -4,7 +4,8 @@ and the monitor-mode Supervisor with its load tap) on the CPU, two actors
 of the tiny fp32 model whose weights the builder reads from a file: the
 streams equal JAX's ``generate`` on the same weights; a SIGKILLed actor is
 relaunched by ``check()`` and its requests resume; a replica added then
-removed drops nothing; ``telemetry=True`` is refused."""
+removed drops nothing; ``telemetry=True`` reaches the actors, whose beats
+carry their request records."""
 import functools
 import os
 import signal
@@ -12,6 +13,7 @@ import signal
 import pytest
 import torch
 
+from ray_lightning_tpu_torch import observability as pobs
 from ray_lightning_tpu_torch import runtime as rt
 from ray_lightning_tpu_torch.runtime.api import pid_exited
 from ray_lightning_tpu_torch.serving import ReplicaGroup, ServeReplicaActor
@@ -130,11 +132,34 @@ def test_add_and_remove_a_replica_with_zero_dropped(model):
 
 
 def test_telemetry_and_unpicklable_builders_are_refused(model):
+    """``telemetry=True`` is taken: the group hands it to its actors, and an
+    actor built with it traces its requests and beats their records, its
+    metric deltas and trace events beside its load. A lambda builder (not
+    picklable by reference) and ``num_replicas=0`` are refused."""
     _, _, builder, _ = model
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ReplicaGroup(builder, telemetry=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ServeReplicaActor(builder, telemetry=True)
+    assert ReplicaGroup(builder, telemetry=True)._telemetry is True
+    beats = []
+
+    class Beats:
+        def put(self, item, timeout=None):
+            beats.append(item)
+
+    actor = ServeReplicaActor(builder, engine_kwargs=ENGINE_KW,
+                              heartbeat=Beats(), heartbeat_interval=0.05,
+                              telemetry=True, device="cpu")
+    try:
+        rid = actor.submit([1, 2, 3], max_new_tokens=3, request_id="t0")
+        wait_for(lambda: any(r["request_id"] == rid for b in list(beats)
+                             for r in b[3].get("r", ())))
+        assert actor.poll(rid)["finish_reason"] == "length"
+        payloads = [b[3] for b in list(beats)]
+        assert all("load" in p for p in payloads)
+        assert any("m" in p and "t" in p for p in payloads)
+        rec = [r for p in payloads for r in p.get("r", ())][0]
+        assert rec["disposition"] == "completed" and rec["tokens_out"] == 3
+    finally:
+        actor.drain()
+        pobs.reset()
     group = ReplicaGroup(lambda: None, engine_kwargs=ENGINE_KW,
                          num_replicas=1, device="cpu")
     with pytest.raises(TypeError, match="module level"):

@@ -31,8 +31,10 @@ from ray_lightning_tpu import observability as jobs
 from ray_lightning_tpu.cli import main as jmain
 from ray_lightning_tpu.observability import aggregator as jagg
 from ray_lightning_tpu.observability import metrics as jmetrics
+from ray_lightning_tpu.observability import slo as jslo
 from ray_lightning_tpu_torch import observability as pobs
 from ray_lightning_tpu_torch import runtime as rt
+from ray_lightning_tpu_torch.observability import slo as pslo
 from ray_lightning_tpu_torch.cli import main as pmain
 from ray_lightning_tpu_torch.core import Trainer
 from ray_lightning_tpu_torch.models.llama import (
@@ -170,9 +172,20 @@ def test_same_beats_give_equal_summaries_and_files(full, tmp_path, monkeypatch):
 
 
 def test_an_slo_monitor_is_refused_naming_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        pagg.DriverAggregator(str(tmp_path), num_workers=1,
-                              slo_monitor=object())
+    """The aggregator takes an SLO monitor: its burn rates land in the
+    summary's ``slo`` section, as the JAX aggregator's do from the same
+    (empty) monitor."""
+    summaries = []
+    for agg, slo in ((pagg, pslo), (jagg, jslo)):
+        run_dir = str(tmp_path / agg.__name__)
+        a = agg.DriverAggregator(run_dir, num_workers=1,
+                                 slo_monitor=slo.SLOMonitor())
+        a.finalize()
+        with open(os.path.join(run_dir, "summary.json")) as fh:
+            summaries.append(json.load(fh)["slo"])
+    assert summaries[0] == summaries[1]
+    assert summaries[0]["ttft_p95"] == {"fast": 0.0, "slow": 0.0,
+                                        "breached": 0.0}
 
 
 def test_telemetry_dir_resolution(tmp_path, monkeypatch):
