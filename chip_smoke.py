@@ -23,7 +23,10 @@ final line):
    a library call's times (CUDA events around the replay of a CUDA graph
    of the calls, so the host's launch rate is out of them; the kernel's
    eager back-to-back time beside it as ``ms_eager``), every kernel's
-   share of its bound and the flash kernels' TFLOP/s. RMSNorm is timed at
+   share of its bound (its bytes and FLOPs from the cost function beside
+   the kernel, ``rmsnorm_cost``, ``flash_fwd_cost``, ..., which the
+   profiler's counts read too) and the flash kernels' TFLOP/s. RMSNorm is
+   timed at
    the decode, prefill and training shapes, at ``generate_window``'s
    decode and prefill shapes, at a verify step's [32,4096], at
    Qwen2.5-7B's and Phi-3-mini's prefill and decode shapes and at [1,64]
@@ -56,7 +59,12 @@ final line):
    and the ``rlt_serve_*`` series and the KV gauges in the registry, the
    local dump's files (``write_local_dump``), and an ``SLOMonitor``'s burn
    rates over the first such run's histograms; telemetry is off again
-   after it;
+   after it. Before those (``serving_cost``), ``engine.cost_summary()`` on
+   the main path's engine: both serving programs counted on meta tensors,
+   ``serve_decode`` bandwidth-bound with its bytes over the HBM rate within
+   5 % of this script's bytes bound for the same step (the weights and
+   every row's KV read once), and the engine's stats, free blocks and the
+   launch counts unchanged by the count;
 4b. speculative serving (``serving_spec``) — the same weights and requests
    with ``speculate_k=4`` on the paged and then the slot layout: each tick
    verifies every slot's pending token and up to 3 prompt-lookup
@@ -241,7 +249,17 @@ final line):
    ``summary.json`` and ``events.jsonl`` (``run_started`` to
    ``run_finished``); its step median beside the other two runs'
    (telemetry off), and its beats' pickled sizes on the heartbeat ring with
-   the share that spilled past a slot;
+   the share that spilled past a slot. It also arms a profile window from
+   the driver's environment (``TORCHRT_PROFILE_AT_STEP=3``,
+   ``TORCHRT_PROFILE_STEPS=2``) and runs ``ThroughputMonitor``:
+   ``summary.json``'s ``profile`` section must hold the train step's cost,
+   its FLOPs equal to this script's count on meta tensors of the same
+   shapes (``check_profile``), rank 0's capture from step 3 whose
+   ``torch.profiler`` trace names the flash forward, both flash backward
+   and the RMSNorm kernels, and rank 0's attribution with its compute no
+   longer than its step; printed: the FLOPs and bytes, ``rlt_cost_mfu``
+   beside the run's ``ThroughputMonitor`` MFU, the cost FLOPs over
+   ``flops_per_token()`` x tokens, and the seconds the window added;
 13. two ranks on one card (``ray_two_ranks``) — two worker processes over
    gloo (NCCL refuses two ranks on one device), a narrow fp32 config, one
    AdamW step of 2 rows each: both ranks hold the same parameters, equal to
@@ -497,6 +515,14 @@ def bound(bytes_moved, flops, flop_rate):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_of(cost, flop_rate):
+    """``bound`` of one kernel call's work, a ``kernels.KernelCost`` from the
+    cost function beside the kernel (``rmsnorm_cost``, ``flash_fwd_cost``,
+    ...): the profiler's counts read the same numbers, so the two cannot
+    drift apart."""
+    return bound(cost.bytes, cost.flops, flop_rate)
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -594,7 +620,11 @@ def report_registers(usage_of):
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------- #
 def check_rmsnorm(torch, F):
-    from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
+    from ray_lightning_tpu_torch.ops.rmsnorm import (
+        rmsnorm,
+        rmsnorm_cost,
+        rmsnorm_plain,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(1)
     rows_out = {}
@@ -622,7 +652,7 @@ def check_rmsnorm(torch, F):
         err = max_err(got, want)
         lib = (time_ms(torch, lambda: F.rms_norm(x, (dim,), w, 1e-5))
                if hasattr(F, "rms_norm") else None)
-        b, by = bound(2 * x.numel() * 2 + dim * 2, 4 * x.numel(), FP32_FLOPS)
+        b, by = bound_of(rmsnorm_cost(x.shape, x.dtype), FP32_FLOPS)
         # a practical ceiling: torch's copy kernel moving x's bytes once each way
         y = torch.empty_like(x)
         copy = time_ms(torch, lambda: y.copy_(x))
@@ -665,6 +695,7 @@ def check_flash(torch, F):
     from ray_lightning_tpu_torch.ops.attention import (
         flash_attention,
         flash_attention_plain,
+        flash_fwd_cost,
     )
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -701,10 +732,8 @@ def check_flash(torch, F):
             vr = v.repeat_interleave(4, dim=1)
             lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, kr, vr, is_causal=True))
-            pairs = S * (S + 1) // 2
-            nbytes = (q.numel() * 2 + k.numel() * 2 * 2 + q.numel() * 2
-                      + 32 * S * 4)
-            b, by = bound(nbytes, 4 * 32 * pairs * 128, BF16_FLOPS)
+            b, by = bound_of(flash_fwd_cost(q.shape, k.shape, q.dtype),
+                             BF16_FLOPS)
             main = dict(
                 ms=time_ms(torch, lambda: flash_attention(q, k, v)),
                 ms_eager=time_ms(torch, lambda: flash_attention(q, k, v),
@@ -722,9 +751,8 @@ def check_flash(torch, F):
         if name == "qwen2.5 group 7 bf16":
             kr = k.repeat_interleave(7, dim=1)
             vr = v.repeat_interleave(7, dim=1)
-            pairs = S * (S + 1) // 2
-            nbytes = (q.numel() * 2 * 2 + k.numel() * 2 * 2 + hq * S * 4)
-            b, by = bound(nbytes, 4 * hq * pairs * hd, BF16_FLOPS)
+            b, by = bound_of(flash_fwd_cost(q.shape, k.shape, q.dtype),
+                             BF16_FLOPS)
             main["at_qwen_group_7"] = dict(
                 shape=f"q[{B},{hq},{S},{hd}] kv[{B},{hkv},{S},{hd}] bf16 causal "
                       "(serving_qwen_yarn's prefill, G 7)",
@@ -762,10 +790,9 @@ def check_flash(torch, F):
     worst = max(worst, err)
     del po, plse
     kr, vr = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
-    pairs = 8 * 16 * 2048 * 2049 // 2
-    flops = 4 * pairs * 128
-    b, by = bound(q.numel() * 2 * 2 + k.numel() * 2 * 2 + lse.numel() * 4,
-                  flops, BF16_FLOPS)
+    cost = flash_fwd_cost(q.shape, k.shape, q.dtype)
+    flops = cost.flops
+    b, by = bound_of(cost, BF16_FLOPS)
     main["at_training_shape"] = dict(
         shape="q[8,16,2048,128] kv[8,8,2048,128] bf16 causal",
         ms=time_ms(torch, lambda: flash_attention(q, k, v), iters=10),
@@ -804,6 +831,7 @@ def check_flash_window(torch, F, g, hq, hkv, hd, W, path):
     from ray_lightning_tpu_torch.ops.attention import (
         flash_attention,
         flash_attention_plain,
+        flash_fwd_cost,
     )
 
     B, S = 4, 4608
@@ -832,10 +860,9 @@ def check_flash_window(torch, F, g, hq, hkv, hd, W, path):
     band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
     kr = k.repeat_interleave(hq // hkv, dim=1)
     vr = v.repeat_interleave(hq // hkv, dim=1)
-    pairs = B * sum(min(t + 1, W) for t in range(S))
-    flops = 4 * hq * pairs * hd
-    b_ms, by = bound(q.numel() * 2 * 2 + k.numel() * 2 * 2 + lse.numel() * 4,
-                     flops, BF16_FLOPS)
+    cost = flash_fwd_cost(q.shape, k.shape, q.dtype, True, W)
+    flops = cost.flops
+    b_ms, by = bound_of(cost, BF16_FLOPS)
     entry = dict(
         shape=shape, max_abs_err=err,
         ms=time_ms(torch, lambda: flash_attention(q, k, v, window=W), iters=10),
@@ -868,6 +895,8 @@ def check_flash_bwd(torch, F):
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
         flash_attention_bwd_plain,
+        flash_bwd_dkv_cost,
+        flash_bwd_dq_cost,
     )
 
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -947,12 +976,11 @@ def check_flash_bwd(torch, F):
     lib_ms = (time_ms(torch, sdpa_fwd_bwd, iters=10)
               - time_ms(torch, sdpa_fwd, iters=10))
     del kr, vr, qr
-    pairs = B * hq * S * (S + 1) // 2  # causal (row, key) pairs
-    in_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 \
-        + 2 * lse.numel() * 4
-    flops_dq, flops_dkv = 3 * 2 * pairs * 128, 4 * 2 * pairs * 128
-    b_dq, by_dq = bound(in_bytes + q.numel() * 2, flops_dq, BF16_FLOPS)
-    b_dkv, by_dkv = bound(in_bytes + 2 * k.numel() * 2, flops_dkv, BF16_FLOPS)
+    cost_dq = flash_bwd_dq_cost(q.shape, k.shape, q.dtype)
+    cost_dkv = flash_bwd_dkv_cost(q.shape, k.shape, q.dtype)
+    flops_dq, flops_dkv = cost_dq.flops, cost_dkv.flops
+    b_dq, by_dq = bound_of(cost_dq, BF16_FLOPS)
+    b_dkv, by_dkv = bound_of(cost_dkv, BF16_FLOPS)
     shape = f"q[{B},{hq},{S},128] kv[{B},{hq // 2},{S},128] bf16 causal"
     common = dict(plain_ms=plain_ms, library_ms=lib_ms, shape=shape,
                   plain_and_library_compute="dq, dk and dv together")
@@ -992,6 +1020,7 @@ def check_paged(torch, F):
     from ray_lightning_tpu_torch.ops.paged_attention import (
         paged_decode_attention,
         paged_decode_attention_plain,
+        paged_decode_cost,
     )
 
     B, hd, bs, maxb = 8, 128, 16, 64
@@ -1039,12 +1068,12 @@ def check_paged(torch, F):
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qq, kk, vv, attn_mask=mask), cold=True)
         del kk, vv
-        positions = int((pos + 1).sum())
         # K and V of every position read, q read and the output written, the
         # table entries up to pos // bs and pos
-        nbytes = (positions * hkv * hd * 2 * 2 + q.numel() * 4 * 2
-                  + int((pos // bs + 1).sum()) * 4 + pos.nbytes)
-        b, by = bound(nbytes, 4 * hkv * G * hd * positions, FP32_FLOPS)
+        cost = paged_decode_cost(q.shape, kc.shape, kc.dtype, maxb,
+                                 pos=pos.tolist())
+        nbytes = cost.bytes
+        b, by = bound_of(cost, FP32_FLOPS)
         r = dict(
             max_abs_err=err,
             ms=time_ms(torch, lambda: paged_decode_attention(
@@ -1127,6 +1156,7 @@ def check_argmax(torch):
         ARGMAX_MAX_CHUNKS,
         _launch_argmax,
         _sm_count,
+        argmax_cost,
         argmax_plan,
         blockwise_argmax,
         blockwise_argmax_plain,
@@ -1186,8 +1216,7 @@ def check_argmax(torch):
         rows = xx.shape[0]
         # x (and the noise) read once, the indices written; a compare per
         # element, and an add with the noise
-        nbytes = xx.numel() * 4 * (1 if nz is None else 2) + rows * 4
-        b, by = bound(nbytes, xx.numel() * (1 if nz is None else 2), FP32_FLOPS)
+        b, by = bound_of(argmax_cost(xx.shape, nz is not None), FP32_FLOPS)
         return dict(**timings(xx, nz, cold=True), bound_ms=b, bound_by=by,
                     chunks=argmax_plan(rows, xx.shape[1], sms)["chunks"],
                     l2_hot=timings(xx, nz, cold=False))
@@ -1498,6 +1527,7 @@ def main_path(torch, card):
         "GiB allocated")
     counts, engine, paged_tps, streams = serve_path(torch, card, cfg, params,
                                                     "main path")
+    serving_cost(torch, card, cfg, engine)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1522,6 +1552,61 @@ def main_path(torch, card):
     gc.collect()
     torch.cuda.empty_cache()
     return by_path, disagg_s, fleet_s
+
+
+# the largest gap allowed between serve_decode's counted bytes and the bytes
+# bound this script reckons for the same step, as a share of the bound
+COST_BYTES_TOL = 0.05
+
+
+def serving_cost(torch, card, cfg, engine):
+    """``engine.cost_summary()`` on the main path's paged engine after its
+    requests: both serving programs counted on meta tensors of the tick's
+    shapes, ``serve_decode`` bandwidth-bound, its bytes over the HBM rate
+    within ``COST_BYTES_TOL`` of the bytes bound this script reckons for the
+    same step (every weight read once but the embedding, of which each row's
+    token; every row's K and V read once over its whole table, as the count
+    takes positions it cannot see), and the engine's ``stats``, free blocks
+    and the launch counts unchanged by the count."""
+    from ray_lightning_tpu_torch import kernels
+
+    stats, free = dict(engine.stats), engine.pool.allocator.free_blocks
+    launches = kernels.launch_counts()
+    t = time.perf_counter()
+    summary = engine.cost_summary()
+    count_s = time.perf_counter() - t
+    check(engine.stats == stats and engine.pool.allocator.free_blocks == free
+          and kernels.launch_counts() == launches,
+          "cost_summary changed the engine's stats, pool or launch counts")
+    check(set(summary) == {"serve_prefill", "serve_decode"}
+          and all(summary.values()), f"cost_summary: {summary}")
+    decode = summary["serve_decode"]
+    check(decode["roofline"]["verdict"] == "bandwidth-bound",
+          f"serve_decode: {decode['roofline']}")
+    params = engine.params
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    rows = engine.engine_config.num_slots
+    embed = params["embed"]
+    weights += (rows - embed.shape[0]) * embed.shape[1] * embed.element_size()
+    k = engine.pool.cache["k"]
+    positions = rows * engine.pool.block_tables.shape[1] * k.shape[3]
+    kv = cfg.n_layers * 2 * positions * k.shape[2] * k.shape[4] * k.element_size()
+    b_ms, _ = bound(weights + kv, 0, BF16_FLOPS)
+    count_ms = decode["step_bytes"] / HBM_BYTES_PER_S * 1e3
+    gap = abs(count_ms - b_ms) / b_ms
+    check(gap <= COST_BYTES_TOL, f"serve_decode's bytes {count_ms:.4f} ms at "
+          f"the HBM rate, the bound {b_ms:.4f} ms: {gap:.2%} apart")
+    log(f"serving cost on {card} (counted on meta tensors in {count_s:.2f}s, "
+        "engine unchanged): " + "; ".join(
+            f"{name} {r['step_flops']:.4g} FLOPs {r['step_bytes']:.4g} bytes "
+            f"intensity {r['roofline']['arithmetic_intensity']:.1f} "
+            f"(balance {r['roofline']['machine_balance']:.1f}) "
+            f"{r['roofline']['verdict']}" for name, r in summary.items())
+        + f"; serve_decode's bytes {count_ms:.4f} ms at 3.35 TB/s against "
+        f"the bound's {b_ms:.4f} ms (weights {weights / 1e9:.3f} GB, KV "
+        f"{kv / 1e9:.3f} GB at every row's full table): {gap:.3%} apart "
+        f"(tol {COST_BYTES_TOL:.0%})")
+    return summary
 
 
 SERVE_SERIES = ("rlt_serve_ttft_seconds", "rlt_serve_itl_seconds",
@@ -4657,6 +4742,108 @@ def _weights_gap(torch, got, want):
     return bitwise, worst, differ, total
 
 
+# the profile window of train_ray_ddp's telemetry run: two steps from the
+# fourth (global step 3), armed from the driver's environment
+PROFILE_AT_STEP = 3
+PROFILE_STEPS = 2
+TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rmsnorm")
+
+
+def train_step_meta_flops(torch, cfg, params, batch):
+    """FLOPs of one train step of ``LlamaModule``'s loss on ``batch`` rows
+    of ``cfg.max_seq`` tokens, counted here on meta tensors of ``params``'
+    shapes (the forward, remat's recompute and the backward; the update
+    adds no product): what the worker's profiler must have counted."""
+    from ray_lightning_tpu_torch.models.llama import lm_loss
+    from ray_lightning_tpu_torch.observability import profiler
+
+    meta = profiler.to_meta(params)
+    for leaf in _leaves(meta):
+        if leaf.is_floating_point():
+            leaf.requires_grad_()
+    tokens = torch.empty((batch, cfg.max_seq), dtype=torch.int64,
+                         device="meta")
+
+    def step(params, tokens):
+        lm_loss(params, tokens, cfg)[0].backward()
+
+    return profiler.count_program(step, meta, tokens).flops
+
+
+def check_profile(torch, card, cfg, name, run_dir, params, clock):
+    """The worker's profiler in a telemetry run armed at PROFILE_AT_STEP for
+    PROFILE_STEPS steps: ``summary.json``'s ``profile`` section holds the
+    train step's cost, its FLOPs equal to this script's own count on meta
+    tensors of the same shapes; rank 0's capture, from the armed step, whose
+    directory holds a torch.profiler trace naming the four training
+    kernels; and rank 0's attribution, its compute no longer than its
+    step. Returns the numbers it prints."""
+    import os
+
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    profile = summary.get("profile") or {}
+    cost = (profile.get("cost") or {}).get("train_step")
+    check(cost is not None, f"{name}: no train_step cost in the profile "
+          f"section {sorted(profile)}")
+    want = train_step_meta_flops(torch, cfg, params, TRAIN_BATCH)
+    check(cost["step_flops"] == want, f"{name}: the worker counted "
+          f"{cost['step_flops']} FLOPs a step, this script {want}")
+    caps = [c for c in profile.get("captures", ()) if c.get("rank") == 0]
+    check(len(caps) == 1 and caps[0]["actual_start"] == PROFILE_AT_STEP
+          and caps[0]["num_steps"] == PROFILE_STEPS,
+          f"{name}: captures {profile.get('captures')}")
+    trace_dir = caps[0]["trace_dir"]
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"{name}: trace files {os.listdir(trace_dir)}")
+    trace_path = os.path.join(trace_dir, traces[0])
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    seen = {v for e in events for k, v in PORT_KERNEL_NAMES.items()
+            if k in str(e.get("name", ""))}
+    check(set(TRAINING_KERNELS) <= seen, f"{name}: the window's trace names "
+          f"{sorted(seen)} of the port's kernels, want {TRAINING_KERNELS}")
+    attr = (profile.get("attribution") or {}).get("0")
+    check(attr is not None and 0 < attr["compute_s"] <= attr["step_time_s"],
+          f"{name}: rank 0's attribution {attr}")
+    tokens = TRAIN_BATCH * cfg.max_seq
+    model_flops = cfg.flops_per_token() * tokens
+    cost_mfu = cost["roofline"].get("mfu")
+    # ThroughputMonitor's rlt_train_mfu gauge, as the aggregator folds it
+    tm_mfu = summary["per_rank"]["0"].get("mfu")
+    check(cost_mfu is not None and tm_mfu is not None and tm_mfu > 0,
+          f"{name}: rlt_cost_mfu {cost_mfu}, ThroughputMonitor's mfu {tm_mfu}")
+    # the window's steps (and the step before, which opens it) against a
+    # step clear of it, from the device clock
+    ms = clock.step_ms
+    added_s = (sum(ms[PROFILE_AT_STEP - 1:PROFILE_AT_STEP + PROFILE_STEPS])
+               - (PROFILE_STEPS + 1) * ms[1]) / 1e3
+    out = dict(flops=cost["step_flops"], bytes=cost["step_bytes"],
+               cost_mfu=cost_mfu, throughput_mfu=tm_mfu,
+               ratio=cost["step_flops"] / model_flops, added_s=added_s,
+               trace_mb=os.path.getsize(trace_path) / 2**20,
+               attribution=attr)
+    log(f"{name} profile on {card}: train_step {cost['step_flops']:.6g} FLOPs "
+        f"(this script's meta count {want:.6g}: equal) and "
+        f"{cost['step_bytes']:.6g} bytes a step, intensity "
+        f"{cost['roofline']['arithmetic_intensity']:.1f}, "
+        f"{cost['roofline']['verdict']}; rlt_cost_mfu {cost_mfu} against the "
+        f"same run's ThroughputMonitor train_mfu {tm_mfu:.4f}; the cost FLOPs "
+        f"{out['ratio']:.4f}x flops_per_token() x {tokens} tokens "
+        f"({model_flops:.6g}); capture at step {caps[0]['actual_start']} for "
+        f"{caps[0]['num_steps']} steps, {traces[0]} ({out['trace_mb']:.1f} "
+        f"MiB) naming {sorted(seen)}; rank 0's attribution: step "
+        f"{attr['step_time_s'] * 1e3:.1f} ms, compute {attr['compute_s'] * 1e3:.1f}"
+        f" ms, collective {attr['collective_s'] * 1e3:.3f} ms, h2d "
+        f"{attr['device_transfer_s'] * 1e3:.4f} ms, input "
+        f"{attr['host_input_s'] * 1e3:.3f} ms, other "
+        f"{attr['unattributed_s'] * 1e3:.1f} ms; the window added "
+        f"{added_s:.3f}s (device clock: steps {PROFILE_AT_STEP - 1}-"
+        f"{PROFILE_AT_STEP + PROFILE_STEPS - 1} against step 1's "
+        f"{ms[1]:.1f} ms)")
+    return out
+
+
 # the Ray runs of the training path against its single-device run: bf16
 # weights after RAY_STEPS AdamW steps. The kernels are deterministic, so
 # the weights are expected bitwise; any gap must stay within 2 bf16 ulps of
@@ -4683,7 +4870,9 @@ def train_ray_ddp(torch, card):
     from ray_lightning_tpu_torch import kernels
     from ray_lightning_tpu_torch import observability as obs
     from ray_lightning_tpu_torch import runtime as rt
+    from ray_lightning_tpu_torch.callbacks import ThroughputMonitor
     from ray_lightning_tpu_torch.models.llama import LlamaConfig
+    from ray_lightning_tpu_torch.observability import profiler
     from ray_lightning_tpu_torch.strategies import (
         HorovodRayStrategy,
         RayShardedStrategy,
@@ -4722,10 +4911,23 @@ def train_ray_ddp(torch, card):
     ):
         clock = smoke.StepTimes()
         kernels.reset_launch_counts()
-        with _zygote():
-            trainer, module, fit_s = _ray_run(torch, strategy, cfg, RAY_STEPS,
-                                              TRAIN_BATCH, n_train, [clock],
-                                              root=root)
+        # the telemetry run also arms a profile window from the driver's
+        # environment and measures its MFU with ThroughputMonitor
+        armed = {profiler.PROFILE_AT_STEP_ENV: str(PROFILE_AT_STEP),
+                 profiler.PROFILE_STEPS_ENV: str(PROFILE_STEPS)} \
+            if strategy.telemetry else {}
+        os.environ.update(armed)
+        try:
+            with _zygote():
+                trainer, module, fit_s = _ray_run(
+                    torch, strategy, cfg, RAY_STEPS, TRAIN_BATCH, n_train,
+                    # a sync every 2 steps: intervals within RAY_STEPS
+                    [clock] + ([ThroughputMonitor(sync_every=2)] if armed
+                               else []),
+                    root=root)
+        finally:
+            for knob in armed:
+                os.environ.pop(knob, None)
         obs.reset()  # the main process's recorder: later fits run without
         main_counts = kernels.launch_counts()
         check(set(main_counts.values()) == {0},
@@ -4742,7 +4944,9 @@ def train_ray_ddp(torch, card):
         bitwise, gap, differ, total = _weights_gap(torch, module.params, want)
         check(gap <= RAY_BF16_TOL, f"{name}: weights {gap:.3g} of a leaf's "
               f"max from the single-device run (tol {RAY_BF16_TOL:.3g})")
-        med = _median(clock.step_ms[1:-1])
+        # the telemetry run: the steps clear of its profile window
+        med = _median(clock.step_ms[1:PROFILE_AT_STEP - 1]
+                      if strategy.telemetry else clock.step_ms[1:-1])
         tm = launcher.timings
         log(f"{name} on {card}: {type(strategy).__name__}(num_workers=1, "
             f"use_gpu=True{', zero_stage=3' if 'zero' in name else ''}), one "
@@ -4773,6 +4977,8 @@ def train_ray_ddp(torch, card):
                                     b_med=b_med, b_max=b_max, spilled=spilled,
                                     beats=beats, used=used, peak=peak,
                                     files=sorted(os.listdir(run_dir)))
+            TELEMETRY["profile"] = check_profile(
+                torch, card, cfg, name, run_dir, module.params, clock)
             log(f"{name} telemetry on {card}: {run_dir} holds "
                 f"{sorted(os.listdir(run_dir))}; rank 0's "
                 f"rlt_hbm_bytes_in_use {used / 2**30:.2f} GiB of a "
@@ -6377,8 +6583,15 @@ def check_new_path_shapes(torch, F, results):
         flash_attention_bwd_dq,
         flash_attention_bwd_plain,
         flash_attention_plain,
+        flash_bwd_dkv_cost,
+        flash_bwd_dq_cost,
+        flash_fwd_cost,
     )
-    from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
+    from ray_lightning_tpu_torch.ops.rmsnorm import (
+        rmsnorm,
+        rmsnorm_cost,
+        rmsnorm_plain,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(31)
     # RMSNorm at train_moe's [4096,4096] bf16 (1e-2: one bf16 ulp either way)
@@ -6386,7 +6599,7 @@ def check_new_path_shapes(torch, F, results):
     w = (1 + 0.1 * torch.randn(4096, generator=g, device="cuda")).bfloat16()
     got, want = rmsnorm(x, w, 1e-5), rmsnorm_plain(x, w, 1e-5)
     check(within(got, want, 1e-2, 1e-2), "rmsnorm [4096,4096] vs plain")
-    b, by = bound(2 * x.numel() * 2 + 4096 * 2, 4 * x.numel(), FP32_FLOPS)
+    b, by = bound_of(rmsnorm_cost(x.shape, x.dtype), FP32_FLOPS)
     r = dict(shape="[4096,4096] bf16 (train_moe)", max_abs_err=max_err(got, want),
              ms=time_ms(torch, lambda: rmsnorm(x, w, 1e-5)),
              plain_ms=time_ms(torch, lambda: rmsnorm_plain(x, w, 1e-5)),
@@ -6410,9 +6623,7 @@ def check_new_path_shapes(torch, F, results):
     ferr = max(max_err(o, po), max_err(lse, plse))
     del po, plse
     kr, vr = k.repeat_interleave(4, dim=1), v.repeat_interleave(4, dim=1)
-    pairs = B * hq * S * (S + 1) // 2
-    fb, fby = bound((q.numel() * 2 + k.numel() * 2) * 2 + lse.numel() * 4,
-                    4 * pairs * hd, BF16_FLOPS)
+    fb, fby = bound_of(flash_fwd_cost(q.shape, k.shape, q.dtype), BF16_FLOPS)
     shape = f"q[{B},{hq},{S},{hd}] kv[{B},{hkv},{S},{hd}] bf16 causal (train_moe)"
     results["flash_fwd"]["at_train_moe_shape"] = dict(
         shape=shape, max_abs_err=ferr,
@@ -6448,14 +6659,13 @@ def check_new_path_shapes(torch, F, results):
 
     lib_bwd = (time_ms(torch, sdpa_fwd_bwd, iters=10)
                - time_ms(torch, sdpa_fwd, iters=10))
-    in_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 \
-        + 2 * lse.numel() * 4
-    for kname, fn, flops, out_bytes, err in (
-            ("flash_bwd_dq", flash_attention_bwd_dq, 3 * 2 * pairs * hd,
-             q.numel() * 2, errs["dq"]),
-            ("flash_bwd_dkv", flash_attention_bwd_dkv, 4 * 2 * pairs * hd,
-             2 * k.numel() * 2, max(errs["dk"], errs["dv"]))):
-        bb, bby = bound(in_bytes + out_bytes, flops, BF16_FLOPS)
+    for kname, fn, cost, err in (
+            ("flash_bwd_dq", flash_attention_bwd_dq,
+             flash_bwd_dq_cost(q.shape, k.shape, q.dtype), errs["dq"]),
+            ("flash_bwd_dkv", flash_attention_bwd_dkv,
+             flash_bwd_dkv_cost(q.shape, k.shape, q.dtype),
+             max(errs["dk"], errs["dv"]))):
+        bb, bby = bound_of(cost, BF16_FLOPS)
         results[kname]["at_train_moe_shape"] = dict(
             shape=shape, max_abs_err=err,
             ms=time_ms(torch, lambda: fn(q, k, v, do, lse, delta, True, scale,
@@ -7031,6 +7241,14 @@ def log_telemetry(card):
             f"{ray['beats']}, payload bytes median {ray['b_med']} max "
             f"{ray['b_max']}, spilled {ray['spilled']:.0%}; "
             f"rlt_hbm_bytes_in_use {ray['used']} of peak {ray['peak']}")
+    prof = TELEMETRY.get("profile")
+    if prof:
+        bits.append(
+            f"train_ray_ddp profile window: {prof['flops']:.6g} FLOPs, "
+            f"{prof['bytes']:.6g} bytes a step, rlt_cost_mfu "
+            f"{prof['cost_mfu']}, ThroughputMonitor {prof['throughput_mfu']:.4f}, "
+            f"{prof['ratio']:.4f}x flops_per_token() x tokens, the window "
+            f"added {prof['added_s']:.3f}s")
     if "two_ranks" in TELEMETRY:
         bits.append(f"ray_two_ranks {TELEMETRY['two_ranks']}")
     if "faults" in TELEMETRY:

@@ -1,6 +1,6 @@
 """The port's command line (``ray_lightning_tpu/cli.py``): the ``serve``,
-``top``, ``goodput``, ``incidents``, ``requests`` and ``lineage``
-subcommands.
+``top``, ``goodput``, ``incidents``, ``requests``, ``lineage`` and
+``profile`` subcommands.
 
     python -m ray_lightning_tpu_torch.cli serve --preset tiny \\
         --random-requests 8 --device cpu
@@ -13,6 +13,9 @@ repeatable, and ``--random-requests N``). With ``--replicas > 1``,
 JSON row a request (``request_id``, ``finish_reason``, ``disposition``,
 ``retries``, ``ttft_s``, ``tokens``) and a ``summary`` row, as the JAX
 package's does, without its ``compile_stats`` (the port has no jit caches).
+``--cost`` then prints ``{"cost_summary": ...}``: both serving programs'
+FLOPs, bytes and roofline verdict, counted on meta tensors of the engine's
+shapes (``InferenceEngine.cost_summary``).
 ``--device`` (default ``cuda``) names the device; ``--preset`` names a
 ``LlamaConfig`` preset (``tiny``, ``small``, ``llama3_8b``, ...).
 ``--telemetry`` turns the flight recorder on and prints the Prometheus text
@@ -31,8 +34,15 @@ a ``requests.jsonl``; ``lineage --dir <dir> [rid]`` lists every request's
 lineage or renders one request's hops (prefill, KV shipment, decode, retry
 branches).
 
-Not ported: ``serve --cost`` (ROADMAP.md queue 1 item 9c) exits non-zero,
-and the JAX package's other subcommands are absent.
+``profile --dir <run>/telemetry --steps N`` arms a coordinated
+``torch.profiler`` capture: it writes ``profile_cmd.json``, which every rank
+of the run polls, so that each opens its window at the same absolute global
+step (``--at-step``, or the cluster's latest step plus ``--lead``); each
+rank's trace lands under ``<run>/telemetry/profile/rank<k>/``. ``profile
+--report`` renders the cost accounting, captures and step-time attribution
+that the aggregator folded into ``summary.json``.
+
+The JAX package's other subcommands are absent.
 """
 from __future__ import annotations
 
@@ -47,9 +57,6 @@ from ray_lightning_tpu_torch.observability.reqtrace import disposition_for
 
 __all__ = ["disposition_for", "main"]
 
-_UNPORTED_COST = "ROADMAP.md, queue 1 item 9c: the profiler's cost accounting"
-
-
 def _parse_prompt(spec: str) -> List[int]:
     try:
         tokens = [int(t) for t in spec.replace(" ", "").split(",") if t != ""]
@@ -63,9 +70,6 @@ def _parse_prompt(spec: str) -> List[int]:
 def _cmd_serve(args) -> int:
     """Serve token-id prompts on random weights: one engine, or a fleet when
     retries, replicas or a prefill pool are asked for."""
-    if args.cost:
-        raise SystemExit(f"--cost: not ported yet ({_UNPORTED_COST})")
-
     import numpy as np
     import torch
 
@@ -204,6 +208,9 @@ def _cmd_serve(args) -> int:
             engine.pool.block_utilization(), 4
         )
     print(json.dumps({"summary": summary}))
+    if args.cost:
+        # counted on meta tensors of the engine's shapes, off the loop
+        print(json.dumps({"cost_summary": engine.cost_summary()}))
     if args.telemetry:
         reg = _obs.registry()
         if reg is not None:
@@ -224,6 +231,55 @@ def _cmd_serve(args) -> int:
         fleet.shutdown()
     else:
         engine.shutdown(drain=False)
+    return 0
+
+
+def _cmd_profile(args) -> int:
+    """Coordinate a fleet profile capture, or render the profile report.
+
+    Without ``--report``: write ``profile_cmd.json`` into the run's
+    telemetry directory. Every rank polls the file from its train loop and
+    starts ``torch.profiler`` at the same absolute global step
+    (``--at-step``, or the cluster's latest step plus ``--lead``). With
+    ``--report``: render the cost/capture/attribution tables that the
+    driver aggregator folded into ``summary.json``."""
+    from ray_lightning_tpu_torch.observability import profiler as _profiler
+    from ray_lightning_tpu_torch.observability.aggregator import _read_summary
+
+    if args.report:
+        print(_profiler.format_profile_report(_read_summary(args.dir)))
+        return 0
+
+    start = args.at_step
+    if start is None:
+        summary = _read_summary(args.dir)
+        steps_max = (summary or {}).get("cluster", {}).get("steps_max")
+        if steps_max is None:
+            if summary is None:
+                print(
+                    f"no live summary under {args.dir} to anchor the start "
+                    "step — pass --at-step N (absolute global step), or "
+                    "start the run with TORCHRT_TELEMETRY=1"
+                )
+            else:
+                print(
+                    f"summary under {args.dir} has no live worker step "
+                    "counter (finished or in-process run) — pass --at-step "
+                    "N (absolute global step) to arm a future window"
+                )
+            return 1
+        start = int(steps_max) + args.lead
+    cmd = _profiler.write_profile_command(
+        args.dir, num_steps=args.steps, start_step=start
+    )
+    print(
+        json.dumps(
+            {
+                "profile_cmd": f"{args.dir}/{_profiler.PROFILE_CMD_FILE}",
+                **cmd,
+            }
+        )
+    )
     return 0
 
 
@@ -449,6 +505,33 @@ def _parser() -> argparse.ArgumentParser:
         "Omit to list all lineages")
     lineage_p.add_argument("--json", action="store_true",
                            help="emit JSON summaries")
+    profile_p = sub.add_parser(
+        "profile",
+        help="coordinate a fleet torch.profiler capture, or show the report",
+    )
+    profile_p.add_argument(
+        "--dir", required=True,
+        help="telemetry directory of the live run "
+        "(e.g. <default_root_dir>/telemetry)",
+    )
+    profile_p.add_argument(
+        "--steps", type=int, default=3, help="capture window length in steps"
+    )
+    profile_p.add_argument(
+        "--at-step", type=int, default=None,
+        help="absolute global step to start at (default: the cluster's "
+        "latest step from summary.json plus --lead)",
+    )
+    profile_p.add_argument(
+        "--lead", type=int, default=20,
+        help="steps of headroom past the latest observed step, so every "
+        "rank sees the command before the window opens",
+    )
+    profile_p.add_argument(
+        "--report", action="store_true",
+        help="render cost accounting / captures / step-time attribution "
+        "from summary.json instead of arming a capture",
+    )
     serve = sub.add_parser(
         "serve",
         help="continuous-batching inference demo on random-init params",
@@ -524,14 +607,16 @@ def _parser() -> argparse.ArgumentParser:
     )
     serve.add_argument(
         "--cost", action="store_true",
-        help=f"not ported yet ({_UNPORTED_COST})",
+        help="also print both serving programs' counted FLOPs, bytes and "
+        "roofline verdict (cost_summary)",
     )
     return parser
 
 
 def main(argv: Optional[list] = None) -> int:
     """``top``, ``goodput``, ``incidents``, ``requests`` and ``lineage``
-    read a run's telemetry directory; ``serve`` stands up a
+    read a run's telemetry directory; ``profile`` arms a coordinated
+    capture in one, or renders its profile report; ``serve`` stands up a
     continuous-batching engine (or fleet) on random weights and serves
     token-id prompts."""
     parser = _parser()
@@ -549,6 +634,8 @@ def main(argv: Optional[list] = None) -> int:
         return _cmd_requests(args)
     if args.command == "lineage":
         return _cmd_lineage(args)
+    if args.command == "profile":
+        return _cmd_profile(args)
     if args.command == "serve":
         return _cmd_serve(args)
     parser.print_help()

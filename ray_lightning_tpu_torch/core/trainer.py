@@ -573,7 +573,8 @@ class Trainer:
         state = dict(self.__dict__)
         state.update(_optim=None, _updates=[], _copy_stream=None, _dp=None,
                      _input_prefetcher=None, _step_log_buffer=[], _params=None,
-                     _elastic_agent=None, _obs=None, _goodput=None)
+                     _elastic_agent=None, _obs=None, _goodput=None,
+                     _profiler=None)
         return state
 
     # ------------------------------------------------------------------ #
@@ -827,6 +828,109 @@ class Trainer:
         self._micro_step = 0 if update else self._micro_step + 1
         return logs
 
+    def _train_program(self) -> str:
+        """The train step's program name in the cost records, as the JAX
+        Trainer's ``_train_program``."""
+        zero = self._dp is not None and self._dp.zero_stage
+        return "zero_train_step" if zero else "train_step"
+
+    def _analyze_train_step(self, prof, batch) -> None:
+        """The step's cost, counted once on meta tensors of its shapes (off
+        with ``TORCHRT_COST_ANALYSIS=0``); a step that cannot be counted
+        ships no cost record. Never raises."""
+        if not obs.profiler.cost_analysis_enabled():
+            return
+        try:
+            program = self._train_cost_program(batch)
+        except Exception:
+            return
+        prof.analyze(self._train_program(), *program)
+
+    def _train_cost_program(self, batch):
+        """``(fn, args, collectives)`` for the profiler's count of one train
+        step (``observability.profiler.FleetProfiler.analyze``): ``fn(params,
+        batch)`` runs, on meta copies of the parameters and of ``batch``, what
+        ``_train_step`` runs for one micro-batch (the compute view, the
+        module's ``training_step``, the backward with remat's recompute)
+        and one update (the mean over the micro-batches, the clip, each
+        optimizer's step, on fresh optimizers of the same classes and
+        settings over the meta leaves, their state made outside the count).
+        It touches no leaf, gradient, optimizer, scheduler or counter of the
+        trainer. ``collectives`` are the data-parallel engine's for the step
+        (``DataParallel.step_collectives``)."""
+        to_meta = obs.profiler.to_meta
+        params = to_meta(self._params, requires_grad=True)
+        meta_of = {id(t): m for t, m in zip(tree_leaves(self._params),
+                                             tree_leaves(params))}
+        units = []
+        for unit in self._updates:
+            opts = []
+            for opt in unit.optimizers:
+                groups = []
+                for g in opt.param_groups:
+                    held = [meta_of.get(id(p)) for p in g["params"]]
+                    held = [m if m is not None else to_meta(p, True)
+                            for m, p in zip(held, g["params"])]
+                    groups.append({**g, "params": held})
+                accepted = inspect.signature(type(opt)).parameters
+                meta_opt = type(opt)(groups, **{
+                    k: v for k, v in opt.defaults.items() if k in accepted})
+                # the state a live optimizer already holds after its first
+                # step, made outside the count
+                for g in meta_opt.param_groups:
+                    for p in g["params"]:
+                        p.grad = torch.empty_like(p)
+                meta_opt.step()
+                meta_opt.zero_grad(set_to_none=True)
+                opts.append(meta_opt)
+            leaves = [meta_of[id(t)] for t in unit.leaves]
+            units.append((opts, leaves))
+        module = self._module
+        policy = self.precision_policy
+        alternating = self._optim.alternating
+        step = self.global_step
+        accumulate = self.accumulate_grad_batches
+        clip = self.gradient_clip_val
+
+        def update(opts, leaves):
+            for m in leaves:
+                if m.grad is None:
+                    m.grad = torch.zeros_like(m)
+            grads = [m.grad for m in leaves]
+            if accumulate > 1:
+                torch._foreach_div_(grads, float(accumulate))
+            if clip:
+                _clip_by_global_norm(grads, clip)
+            for opt in opts:
+                for g in opt.param_groups:
+                    for p in g["params"]:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                opt.step()
+
+        def fn(params, batch):
+            batch = round_matmul_inputs(self.matmul_precision,
+                                        cast_floats(batch, policy.compute_dtype))
+            with matmul_precision_scope(self.matmul_precision):
+                for i, (opts, leaves) in enumerate(units):
+                    extra = {"optimizer_idx": i} if alternating else {}
+                    out = module.training_step(self._compute_view(params),
+                                               batch, step, **extra)
+                    loss = out["loss"] if isinstance(out, dict) else out
+                    if not alternating:
+                        loss.backward()
+                    else:
+                        grads = torch.autograd.grad(loss, leaves,
+                                                    allow_unused=True)
+                        for m, g in zip(leaves, grads):
+                            m.grad = g
+                    with torch.no_grad():
+                        update(opts, leaves)
+
+        collectives = (self._dp.step_collectives(self._updates, clip)
+                       if self._dp is not None else {})
+        return fn, (params, to_meta(batch)), collectives
+
     def _forward_backward(self, batch, optimizer_idx: Optional[int] = None,
                           unit: Optional[_Update] = None):
         module = self._module
@@ -1032,6 +1136,23 @@ class Trainer:
         self._goodput = (obs.goodput.new_ledger("train")
                          if self._obs is not None else None)
         self._first_step_dispatched = False
+        # the fleet profiler: armed by telemetry (the driver's command file)
+        # or by TORCHRT_PROFILE_AT_STEP; absent otherwise, so that the hot
+        # loop keeps its one attribute check
+        self._profiler = None
+        if self._obs is not None or os.environ.get(
+                obs.profiler.PROFILE_AT_STEP_ENV):
+            from ray_lightning_tpu_torch.observability.aggregator import (
+                telemetry_dir,
+            )
+
+            try:
+                self._profiler = obs.profiler.FleetProfiler(
+                    telemetry_dir(self.default_root_dir),
+                    rank=self.global_rank or 0, recorder=self._obs,
+                    device=self.device)
+            except Exception:
+                self._profiler = None
         setup_wall, setup_t0 = time.time(), time.perf_counter()
         agent = self._elastic_agent
         if agent is not None:
@@ -1147,6 +1268,11 @@ class Trainer:
                 self._goodput.enter("drain")
             self._drain_step_logs()
             self._fold_input_stats()
+            if self._profiler is not None:
+                # a window cut short by should_stop or an exception still
+                # stops its trace and ships its records
+                self._profiler.close()
+                self._profiler = None
             self._hook("on_train_end")
             self._hook("on_fit_end")
             if self.logger is not None and self.is_global_zero:
@@ -1158,7 +1284,10 @@ class Trainer:
         model._params = self._params
         in_process = (getattr(self.strategy, "launcher", None) is None
                       and not getattr(self.strategy, "_is_remote", False))
-        if in_process and self._obs is not None:
+        # a worker leaves its pending profile records to its final beat; an
+        # in-process fit drains them here or loses them
+        profile_records = obs.profiler.drain_pending() if in_process else None
+        if in_process and (self._obs is not None or profile_records):
             # no aggregator in the main process: this process's ring and
             # registry go straight to the files a launched fit leaves
             from ray_lightning_tpu_torch.observability.aggregator import (
@@ -1166,8 +1295,10 @@ class Trainer:
                 write_local_dump,
             )
 
-            write_local_dump(telemetry_dir(self.default_root_dir), self._obs,
-                             obs.metrics.get_registry())
+            write_local_dump(
+                telemetry_dir(self.default_root_dir), self._obs,
+                obs.metrics.get_registry() if self._obs is not None else None,
+                profile=profile_records)
 
     def _prefetch_shard(self, loader, limit):
         """``(idx, host_batch, device_batch)`` through the input pipeline:
@@ -1230,8 +1361,10 @@ class Trainer:
                 )
 
         # hoisted: with telemetry off the loop pays one `rec is not None`
-        # check a batch
+        # check a batch (and one for the profiler, which exists only with
+        # telemetry or an armed TORCHRT_PROFILE_AT_STEP)
         rec = self._obs
+        prof = self._profiler
         led = self._goodput
         step_hist = (obs.metrics.get_registry().histogram(
             "rlt_step_time_seconds") if rec is not None else None)
@@ -1244,8 +1377,10 @@ class Trainer:
             if led is not None:
                 led.enter("productive_compute" if self._first_step_dispatched
                           else "compile")
-            if rec is not None:
+            if rec is not None or prof is not None:
                 it_wall, it_t0 = time.time(), time.perf_counter()
+                if prof is not None:
+                    prof.before_step(self.global_step, device_batch)
             self._health_tick(train=True)
             self._cb("on_train_batch_start", batch, batch_idx)
             logs = self._train_step(device_batch)
@@ -1253,19 +1388,28 @@ class Trainer:
             self._cb("on_train_batch_end", logs, batch, batch_idx)
             self.global_step += 1
             n_batches += 1
-            if rec is not None:
+            if rec is not None or prof is not None:
                 dt = time.perf_counter() - it_t0
-                if not self._first_step_dispatched:
+                first = not self._first_step_dispatched
+                if rec is not None and first:
                     # the first step builds the kernels: out of the
                     # step-time histogram
                     rec.add_span("compile", it_wall, dt,
                                  step=self.global_step - 1)
-                else:
+                elif rec is not None:
                     # the host's interval of the step: the device's step
                     # time once the launch queue backs up
                     rec.add_span("step", it_wall, dt,
                                  step=self.global_step - 1)
                     step_hist.observe(dt)
+                if prof is not None and first:
+                    self._analyze_train_step(prof, device_batch)
+                elif prof is not None:
+                    prof.after_step(
+                        self.global_step - 1, dt, sync=logs,
+                        starved_s=(self._input_prefetcher.starved_s
+                                   if self._input_prefetcher is not None
+                                   else 0.0))
             self._first_step_dispatched = True
             if val_loader is not None and (
                 (val_every_n_batches is not None

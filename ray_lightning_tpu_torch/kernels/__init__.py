@@ -11,6 +11,13 @@ is not 0. A failed build raises with nvcc's output: nothing falls back.
 
 Nothing here builds or loads at import time (the CPU tests import every
 module, and the CPU has no nvcc).
+
+Every wrapper routes by its inputs' device: CPU tensors take the plain
+version, CUDA tensors launch the kernel (or raise), and meta tensors, which
+the profiler counts programs on, record the kernel's cost
+(:meth:`CudaKernel.record_cost`, a :class:`KernelCost` from the cost
+function beside the kernel) and return empty meta outputs of the kernel's
+shapes. The meta branch is no fallback: it computes nothing.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -39,6 +46,21 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 KERNELS: List["CudaKernel"] = []
+# the cost counters counting a program on meta tensors right now
+# (observability/profiler.py's CostCounter): a kernel wrapper given meta
+# tensors records its kernel's cost in them (CudaKernel.record_cost) instead
+# of launching it
+COST_SINKS: List[Any] = []
+
+
+class KernelCost(NamedTuple):
+    """The work of one kernel call, from its shapes: FLOPs and the bytes the
+    function must move (each input read once, each output written once).
+    The cost functions beside the kernels give it; the profiler's counts and
+    ``chip_smoke.py``'s bounds both read it."""
+
+    flops: float
+    bytes: float
 
 
 def _nvcc() -> str:
@@ -185,6 +207,13 @@ class CudaKernel:
         fn.restype = ctypes.c_int
         self._fn = fn
         return fn
+
+    def record_cost(self, cost: KernelCost) -> None:
+        """What a wrapper does with meta tensors in place of the launch:
+        hand the call's cost to every active cost counter. Launches nothing
+        and counts no launch."""
+        for sink in COST_SINKS:
+            sink.add_kernel(self.name, cost.flops, cost.bytes)
 
     def launch(self, *args) -> None:
         fn = self._fn or self._load()

@@ -621,11 +621,16 @@ class RayLauncher:
         for an actor, ``OMP_NUM_THREADS`` = the CPUs it demands unless the
         caller set it: a host shared by several workers is not
         oversubscribed. The strategy's telemetry verdict is pinned there
-        too."""
+        too, and the profiler's knobs as the driver has them now (empty when
+        unset): a worker forked from the zygote inherits the zygote's
+        boot-time environment, and a window armed in the driver after that
+        would otherwise never open in it."""
         env = {faults.RANK_ENV: str(boot_id),
                # explicit in the child: a constructor-only telemetry=True
                # must reach the boot spans before the payload loads
                obs.trace.ENABLE_ENV: "1" if self._strategy.telemetry else "0"}
+        for knob in obs.profiler.ENV_KNOBS:
+            env[knob] = os.environ.get(knob, "")
         if "OMP_NUM_THREADS" not in os.environ:
             env["OMP_NUM_THREADS"] = str(max(1, math.ceil(demand["CPU"])))
         return env

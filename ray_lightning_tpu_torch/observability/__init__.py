@@ -14,15 +14,14 @@ Public surface (everything off-by-default-cheap):
 Driver-side pieces (:class:`~.aggregator.DriverAggregator`,
 :func:`~.aggregator.render_top`) live in :mod:`.aggregator`; the serving
 side's request tracer in :mod:`.reqtrace` and its SLO monitor in
-:mod:`.slo`. The profiler's ``"p"`` records are not ported yet (ROADMAP.md,
-item 9c); a payload carries no ``"p"`` key, as JAX's does when no profile
-is armed.
+:mod:`.slo`; the cost accounting, coordinated capture and step-time
+attribution in :mod:`.profiler`, whose records ride the beats under ``"p"``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from . import goodput, metrics, reqtrace, slo, trace
+from . import goodput, metrics, profiler, reqtrace, slo, trace
 from .trace import (  # noqa: F401  (re-exported API)
     DRIVER,
     NOOP_SPAN,
@@ -55,6 +54,7 @@ __all__ = [
     "maybe_enable_from_env",
     "merge_traces",
     "metrics",
+    "profiler",
     "registry",
     "reqtrace",
     "reset",
@@ -80,20 +80,26 @@ def collect_beat_payload(final: bool = False) -> Optional[Dict[str, Any]]:
     ``None`` when telemetry is disabled or (unless ``final``) there is
     nothing new to ship. ``final=True`` forces a full cumulative metrics
     snapshot so the driver's last view is complete even if some earlier
-    delta beats were dropped.
+    delta beats were dropped. Pending profile records (cost, capture,
+    attribution) ride along under ``"p"``, also with telemetry off, so that
+    an env-armed profile window on a bare run still reports.
     """
     rec = trace.get_recorder()
+    prof = profiler.drain_pending()
     if rec is None:
-        return None
+        return {"p": prof} if prof else None
     events = rec.drain()
     reg = metrics.get_registry()
     # goodput ledgers publish just-in-time so the wall-time counters on
     # this beat are current up to this instant
     goodput.publish_all(reg)
     snap = reg.snapshot(delta=not final)
-    if not final and not events and reg.is_empty_snapshot(snap):
+    if not final and not events and not prof and reg.is_empty_snapshot(snap):
         return None
-    return {"m": snap, "t": events}
+    payload: Dict[str, Any] = {"m": snap, "t": events}
+    if prof:
+        payload["p"] = prof
+    return payload
 
 
 def sample_device_memory(force: bool = False) -> None:
@@ -109,4 +115,5 @@ def reset() -> None:
     """Disable telemetry and drop all recorded state (test isolation)."""
     trace.disable()
     metrics.reset_registry()
+    profiler.reset_pending()
     goodput.reset()

@@ -26,9 +26,8 @@ An ``slo_monitor`` (``slo.SLOMonitor``) is fed from the workers' metric
 snapshots (latency histograms' samples, counter deltas) and evaluated at
 every beat: its ``slo_breach`` / ``slo_clear`` verdicts land in
 ``events.jsonl`` (a breach also freezes an incident bundle) and its burn
-rates in the summary's ``slo`` section. Not ported yet: the folding of the
-profiler's ``"p"`` records into the summary's ``profile`` section
-(ROADMAP.md, item 9c).
+rates in the summary's ``slo`` section. The profiler's ``"p"`` records
+(``ingest_profile``) fold into the summary's ``profile`` section.
 """
 from __future__ import annotations
 
@@ -138,6 +137,9 @@ class DriverAggregator:
         self._last_step: Dict[Any, int] = {}
         self._last_beat: Dict[Any, float] = {}
         self._rank_gauges: Dict[Any, Dict[str, float]] = {}
+        self._profile_cost: Dict[str, dict] = {}
+        self._profile_captures: Dict[Any, dict] = {}
+        self._profile_attr: Dict[Any, dict] = {}
         # (rank, counter, labels) -> the value last fed to the SLO monitor
         self._slo_counter_last: Dict[Any, float] = {}
         self._events = _reqtrace.JsonlWriter(os.path.join(run_dir, EVENTS_FILE))
@@ -209,6 +211,8 @@ class DriverAggregator:
             buf.extend(events)
         for rec in payload.get("r", ()):
             self.record_request(rec, rank=rank)
+        for rec in payload.get("p", ()) or ():
+            self.ingest_profile(rank, rec)
         snap = payload.get("m")
         if snap:
             self.registry.merge_snapshot(snap, extra_labels={"rank": rank})
@@ -250,6 +254,36 @@ class DriverAggregator:
             if self.slo is not None:
                 self._feed_slo(rank, snap)
 
+    def ingest_profile(self, rank: int, rec: Any) -> None:
+        """One profiler record off a beat payload (``"p"`` key): ``cost``
+        records are latest-wins per program (measured, MFU-bearing ones
+        beat analytic-only ones), ``capture``/``attribution`` records are
+        latest-wins per rank. Captures land in the flight record so the
+        trace directories survive even without a summary."""
+        if not isinstance(rec, dict):
+            return
+        rec = dict(rec)
+        rec.setdefault("rank", rank)
+        kind = rec.get("kind")
+        if kind == "cost":
+            program = str(rec.get("program", "train_step"))
+            old = self._profile_cost.get(program)
+            new_measured = "mfu" in (rec.get("roofline") or {})
+            old_measured = old is not None and "mfu" in (old.get("roofline") or {})
+            if old is None or new_measured or not old_measured:
+                self._profile_cost[program] = rec
+        elif kind == "capture":
+            self._profile_captures[rank] = rec
+            self.record_event(
+                "profile_capture",
+                rank=rank,
+                trace_dir=rec.get("trace_dir"),
+                start_step=rec.get("start_step"),
+                steps=rec.get("num_steps"),
+            )
+        elif kind == "attribution":
+            self._profile_attr[rank] = rec
+
     def drop_rank(self, rank: Any) -> None:
         """Forget live state for a rank evicted by elastic shrink, so
         summaries and Prometheus output stop reporting the dead worker.
@@ -261,6 +295,8 @@ class DriverAggregator:
             self._skew_samples,
             self._last_step,
             self._last_beat,
+            self._profile_captures,
+            self._profile_attr,
         ):
             store.pop(rank, None)
         self._slo_counter_last = {
@@ -531,9 +567,37 @@ class DriverAggregator:
             }
         if self._elastic is not None:
             out["elastic"] = dict(self._elastic)
+        profile = self._profile_summary()
+        if profile:
+            out["profile"] = profile
         gp = self.goodput_summary()
         if gp["total_s"] > 0:
             out["goodput"] = gp
+        return out
+
+    def _profile_summary(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        if self._profile_cost:
+            out["cost"] = {
+                program: {
+                    k: v for k, v in rec.items() if k not in ("kind", "ts")
+                }
+                for program, rec in self._profile_cost.items()
+            }
+        if self._profile_captures:
+            out["captures"] = [
+                {k: v for k, v in rec.items() if k not in ("kind", "ts")}
+                for _, rec in sorted(
+                    self._profile_captures.items(), key=lambda kv: str(kv[0])
+                )
+            ]
+        if self._profile_attr:
+            out["attribution"] = {
+                str(rank): {
+                    k: v for k, v in rec.items() if k not in ("kind", "ts")
+                }
+                for rank, rec in self._profile_attr.items()
+            }
         return out
 
     # ----------------------------------------------------------------- #
@@ -647,11 +711,13 @@ def write_local_dump(
     registry: Optional[_metrics.MetricsRegistry],
     rank: int = 0,
     requests: Optional[List[dict]] = None,
+    profile: Optional[List[dict]] = None,
 ) -> str:
     """Dump a single process's telemetry (no launcher / in-process
     strategies): same file set as the driver aggregator, one rank track.
     ``requests`` carries finished-request records (an engine tracer's
-    drain) into ``requests.jsonl``."""
+    drain) into ``requests.jsonl``; ``profile`` carries drained profiler
+    records (cost / capture / attribution)."""
     agg = DriverAggregator(run_dir, num_workers=1, full=True)
     payload: Dict[str, Any] = {}
     if registry is not None:
@@ -660,6 +726,8 @@ def write_local_dump(
         payload["t"] = recorder.drain()
     if requests:
         payload["r"] = list(requests)
+    if profile:
+        payload["p"] = list(profile)
     if payload:
         agg.ingest_payload(rank, payload)
     agg.finalize()

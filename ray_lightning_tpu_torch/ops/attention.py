@@ -16,7 +16,8 @@ Hq % Hkv == 0 (GQA: query head h reads KV head h // (Hq / Hkv)).
 
 The dispatcher sends CUDA tensors to the kernels (through
 ``FlashAttentionFunction`` when a gradient is wanted) and CPU tensors to the
-reference. There is no ``flash_supported`` gate: the kernels mask the ragged
+reference; meta tensors take the kernels' route and record their costs
+(``flash_fwd_cost``, ``flash_bwd_dq_cost``, ``flash_bwd_dkv_cost``). There is no ``flash_supported`` gate: the kernels mask the ragged
 last tile themselves, so every length self-attention takes them.
 """
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from ray_lightning_tpu_torch.kernels import (
     CudaKernel,
+    KernelCost,
     dtype_code,
     refuse_untracked_grad,
     require_cuda,
@@ -118,6 +120,66 @@ def flash_attention_plain(q, k, v, causal=True, sm_scale=None, window=None):
     return reference_attention(q, k, v, causal, scale, window), lse
 
 
+def attention_pairs(s: int, causal: bool = True,
+                    window: Optional[int] = None) -> int:
+    """(query, key) pairs one head of self-attention over ``s`` positions
+    scores: every pair, the causal triangle, or the causal band of
+    ``window`` positions (``window`` already normalised)."""
+    if not causal:
+        return s * s
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    # rows t < window see t + 1 keys, the rest see window
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _sizes(q_shape, kv_shape, dtype):
+    b, hq, s, d = q_shape
+    size = dtype.itemsize
+    return b, hq, s, d, math.prod(q_shape) * size, math.prod(kv_shape) * size
+
+
+def flash_fwd_cost(q_shape, kv_shape, dtype: torch.dtype, causal: bool = True,
+                   window: Optional[int] = None) -> KernelCost:
+    """The forward kernel's work: two products (QKᵀ and PV) of 2·d FLOPs a
+    scored pair; q, k and v read once, O and lse (fp32) written once."""
+    b, hq, s, d, q_bytes, kv_bytes = _sizes(q_shape, kv_shape, dtype)
+    pairs = b * hq * attention_pairs(s, causal, window)
+    return KernelCost(flops=4 * pairs * d,
+                      bytes=2 * q_bytes + 2 * kv_bytes + b * hq * s * 4)
+
+
+def _bwd_in_bytes(b, hq, s, q_bytes, kv_bytes) -> int:
+    # q, dO, k, v, and lse and delta (fp32 [B, Hq, S, 1])
+    return 2 * q_bytes + 2 * kv_bytes + 2 * b * hq * s * 4
+
+
+def flash_bwd_dq_cost(q_shape, kv_shape, dtype: torch.dtype,
+                      causal: bool = True,
+                      window: Optional[int] = None) -> KernelCost:
+    """The dQ kernel's work: three products a scored pair (S = QKᵀ again,
+    dP = dO Vᵀ, dQ = dS K); q, k, v, dO, lse and delta read once, dQ
+    written once."""
+    b, hq, s, d, q_bytes, kv_bytes = _sizes(q_shape, kv_shape, dtype)
+    pairs = b * hq * attention_pairs(s, causal, window)
+    return KernelCost(flops=3 * 2 * pairs * d,
+                      bytes=_bwd_in_bytes(b, hq, s, q_bytes, kv_bytes)
+                      + q_bytes)
+
+
+def flash_bwd_dkv_cost(q_shape, kv_shape, dtype: torch.dtype,
+                       causal: bool = True,
+                       window: Optional[int] = None) -> KernelCost:
+    """The dK/dV kernel's work: four products a scored pair (S again, dV =
+    Pᵀ dO, dP = dO Vᵀ, dK = dSᵀ Q); the dQ kernel's inputs read once, dK and
+    dV written once."""
+    b, hq, s, d, q_bytes, kv_bytes = _sizes(q_shape, kv_shape, dtype)
+    pairs = b * hq * attention_pairs(s, causal, window)
+    return KernelCost(flops=4 * 2 * pairs * d,
+                      bytes=_bwd_in_bytes(b, hq, s, q_bytes, kv_bytes)
+                      + 2 * kv_bytes)
+
+
 def _check_self_attention(q, k, v) -> None:
     hq, s = q.shape[1], q.shape[2]
     if k.shape[2] != s or v.shape != k.shape:
@@ -155,6 +217,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale, window)
+    if q.is_meta:
+        FLASH_FWD_KERNEL.record_cost(
+            flash_fwd_cost(q.shape, k.shape, q.dtype, causal, window))
+        return (torch.empty_like(q),
+                torch.empty((b, hq, s, 1), dtype=torch.float32, device="meta"))
     require_cuda("flash_attention", q, k, v)
     refuse_untracked_grad("flash_attention", q, k, v)
     code = _kernel_dtype("flash_attention", q, k, v)
@@ -205,7 +272,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients of flash attention from the forward's O and lse
     (``ops/attention.py::_flash_bwd``): (dq, dk, dv). CPU tensors take the
     plain version; CUDA tensors launch the dQ and dK/dV kernels (or
-    raise)."""
+    raise); meta tensors record the two kernels' costs on the same route,
+    with ``delta`` computed as on the card."""
     _check_self_attention(q, k, v)
     b, hq, s, d = q.shape
     hkv = k.shape[1]
@@ -220,9 +288,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
                                          window)
-    require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
-    refuse_untracked_grad("flash_attention_bwd", q, k, v, o, lse, do)
-    _kernel_dtype("flash_attention_bwd", q, k, v, o, do)
+    if not q.is_meta:
+        require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
+        refuse_untracked_grad("flash_attention_bwd", q, k, v, o, lse, do)
+        _kernel_dtype("flash_attention_bwd", q, k, v, o, do)
     delta = (o.float() * do.float()).sum(dim=-1, keepdim=True)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale, window)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
@@ -248,6 +317,10 @@ def _bwd_kernel_args(name, q, k, v, do, lse, delta, causal, scale, window):
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale, window):
     """Launch the dQ kernel: dq [B, Hq, S, D] in q's dtype from the
     forward's lse and ``delta = rowsum(dO * O)`` (fp32 [B, Hq, S, 1])."""
+    if q.is_meta:
+        FLASH_BWD_DQ_KERNEL.record_cost(
+            flash_bwd_dq_cost(q.shape, k.shape, q.dtype, causal, window))
+        return torch.empty_like(q)
     tail = _bwd_kernel_args("flash_attention_bwd_dq", q, k, v, do, lse, delta,
                             causal, scale, window)
     dq = torch.empty_like(q)
@@ -261,6 +334,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale, window):
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale, window):
     """Launch the dK/dV kernel: dk, dv [B, Hkv, S, D] in k's dtype with the
     GQA group summed, from the same inputs as the dQ kernel."""
+    if q.is_meta:
+        FLASH_BWD_DKV_KERNEL.record_cost(
+            flash_bwd_dkv_cost(q.shape, k.shape, q.dtype, causal, window))
+        return torch.empty_like(k), torch.empty_like(v)
     tail = _bwd_kernel_args("flash_attention_bwd_dkv", q, k, v, do, lse,
                             delta, causal, scale, window)
     dk = torch.empty_like(k)

@@ -14,7 +14,8 @@
   package's by design, while greedy streams do not.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels (or
-raise). top-k / top-p sampling stays on the plain sampler
+raise); meta tensors record their costs (``paged_decode_cost``,
+``argmax_cost``). top-k / top-p sampling stays on the plain sampler
 (``fused_sample_supported`` gates callers, as in the JAX engine).
 """
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from ray_lightning_tpu_torch.kernels import (
     CudaKernel,
+    KernelCost,
     dtype_code,
     load_library,
     require_cuda,
@@ -85,6 +87,29 @@ def paged_decode_attention_plain(q, k_cache, v_cache, block_tables, pos,
     logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhgt,bhtd->bhgd", probs, vv)
+
+
+def paged_decode_cost(q_shape, cache_shape, cache_dtype: torch.dtype,
+                      max_blocks: int, pos=None) -> KernelCost:
+    """The paged decode's work: each row's K and V read once up to its
+    position, q (fp32) read and the output (fp32) written once, the table
+    entries up to ``pos // bs`` and ``pos`` read once; two products of 2·hd
+    FLOPs for each query head and attended position. ``pos`` (a sequence
+    of ints, one a row) counts the positions this call's data attends;
+    without it (a meta trace, whose positions are not known) every row
+    attends its whole table, the step's largest read."""
+    B, hkv, group, hd = q_shape
+    bs = cache_shape[2]
+    if pos is None:
+        positions, entries = B * max_blocks * bs, B * max_blocks
+    else:
+        positions = sum(int(p) + 1 for p in pos)
+        entries = sum(int(p) // bs + 1 for p in pos)
+    return KernelCost(
+        flops=4 * hkv * group * hd * positions,
+        bytes=(positions * hkv * hd * 2 * cache_dtype.itemsize
+               + 2 * math.prod(q_shape) * 4
+               + entries * 4 + B * 4))
 
 
 def paged_group(group: int) -> int:
@@ -223,6 +248,10 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return paged_decode_attention_plain(
             q, k_cache, v_cache, block_tables, pos, sm_scale
         )
+    if q.is_meta:
+        PAGED_DECODE_KERNEL.record_cost(paged_decode_cost(
+            q.shape, k_cache.shape, k_cache.dtype, block_tables.shape[1]))
+        return torch.empty(q.shape, dtype=torch.float32, device="meta")
     require_cuda("paged_decode_attention", q, k_cache, v_cache, block_tables,
                  pos)
     B, hkv, group, hd = q.shape
@@ -283,6 +312,15 @@ def blockwise_argmax_plain(x: torch.Tensor,
     return torch.argmax(v, dim=-1).to(torch.int32)
 
 
+def argmax_cost(shape, noisy: bool = False) -> KernelCost:
+    """The argmax's work on fp32 x of ``shape`` [B, V]: x (and the noise,
+    when given) read once, the indices written once; a compare an element,
+    and an add with the noise."""
+    n = math.prod(shape)
+    reads = 2 if noisy else 1
+    return KernelCost(flops=n * reads, bytes=n * 4 * reads + shape[0] * 4)
+
+
 def argmax_plan(batch: int, vocab: int, sms: int = 132) -> dict:
     """The argmax kernel's launch plan, from host-known sizes: ``chunks``
     blocks per row, which form one thread-block cluster, so that
@@ -323,6 +361,9 @@ def blockwise_argmax(x: torch.Tensor,
     (the first NaN in a row that holds one)."""
     if x.device.type == "cpu":
         return blockwise_argmax_plain(x, noise)
+    if x.is_meta:
+        ARGMAX_KERNEL.record_cost(argmax_cost(x.shape, noise is not None))
+        return torch.empty((x.shape[0],), dtype=torch.int32, device="meta")
     tensors = (x,) if noise is None else (x, noise)
     require_cuda("blockwise_argmax", *tensors)
     if x.dim() != 2 or any(t.dtype != torch.float32 for t in tensors):

@@ -10,11 +10,13 @@ recompute. That backward was never a Pallas kernel, so torch autograd over
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from ray_lightning_tpu_torch.kernels import (
     CudaKernel,
+    KernelCost,
     dtype_code,
     refuse_untracked_grad,
     require_cuda,
@@ -37,6 +39,14 @@ def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor,
     return (xf * scale * weight.float()).to(dtype)
 
 
+def rmsnorm_cost(shape, dtype: torch.dtype) -> KernelCost:
+    """The kernel's work on x of ``shape`` [..., D] in ``dtype``: x read and
+    the output written once, the weight [D] read once; four operations an
+    element (square, sum, scale, weight)."""
+    n, dim = math.prod(shape), shape[-1]
+    return KernelCost(flops=4 * n, bytes=(2 * n + dim) * dtype.itemsize)
+
+
 def rmsnorm_fwd(x: torch.Tensor, weight: torch.Tensor,
                 eps: float = 1e-6) -> torch.Tensor:
     """The forward wrapper: CPU tensors take the plain version; CUDA tensors
@@ -45,6 +55,9 @@ def rmsnorm_fwd(x: torch.Tensor, weight: torch.Tensor,
     the differentiable entry)."""
     if x.device.type == "cpu":
         return rmsnorm_plain(x, weight, eps)
+    if x.is_meta:
+        RMSNORM_KERNEL.record_cost(rmsnorm_cost(x.shape, x.dtype))
+        return torch.empty_like(x)
     require_cuda("rmsnorm", x, weight)
     refuse_untracked_grad("rmsnorm", x, weight)
     code = dtype_code("rmsnorm", x.dtype)
@@ -88,7 +101,8 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x: [..., D], weight: [D] of x's dtype. CPU tensors take the plain
     version; CUDA tensors launch the kernel (or raise), through
-    ``RMSNormFunction`` when a gradient is wanted."""
+    ``RMSNormFunction`` when a gradient is wanted; meta tensors record its
+    cost (``rmsnorm_cost``) on the same route."""
     if x.device.type == "cpu":
         return rmsnorm_plain(x, weight, eps)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):

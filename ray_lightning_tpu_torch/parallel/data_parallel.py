@@ -550,10 +550,9 @@ class DataParallel:
     # ------------------------------------------------------------------ #
     # the update
     # ------------------------------------------------------------------ #
-    @torch.no_grad()
-    def all_reduce_mean_(self, grads: List[torch.Tensor]) -> None:
-        """Stage 0: each gradient becomes its mean over the ranks, bucketed
-        by dtype and device over the flat list."""
+    def _buckets(self, grads: List[torch.Tensor]) -> List[List[torch.Tensor]]:
+        """Stage 0's buckets: runs of the flat list of at most
+        ``bucket_bytes``, each in one dtype on one device."""
         buckets: List[List[torch.Tensor]] = []
         size = 0
         for g in grads:
@@ -565,7 +564,51 @@ class DataParallel:
                 size = 0
             buckets[-1].append(g)
             size += nbytes
-        for bucket in buckets:
+        return buckets
+
+    def step_collectives(self, updates, clip: Optional[float]
+                         ) -> Dict[str, Dict[str, int]]:
+        """The collectives of one train step over the dp group, by the JAX
+        package's op names, each with its count and its result bytes (the
+        profiler's cost report): stage 0's all-reduce of each bucket of
+        gradients; under ZeRO, each flat group's all-reduce (stage 1) or
+        reduce-scatter (stages 2-3) of its gradients, the clip's all-reduce
+        of two floats, and the all-gather of the parameters (after the
+        update, or at stage 3 before the next forward). None for a group of
+        one rank, whose collectives are skipped; an ep group's clip term is
+        not counted."""
+        out: Dict[str, Dict[str, int]] = {}
+        if self._solo:
+            return out
+
+        def add(op: str, nbytes: int) -> None:
+            d = out.setdefault(op, {"count": 0, "bytes": 0})
+            d["count"] += 1
+            d["bytes"] += int(nbytes)
+
+        for u, unit in enumerate(updates):
+            if not self.zero_stage:
+                for bucket in self._buckets(
+                        [t for t in unit.leaves if t.requires_grad]):
+                    add("all-reduce", sum(t.numel() * t.element_size()
+                                          for t in bucket))
+                continue
+            for fg in self._groups.get(u, ()):
+                size = fg.dtype.itemsize
+                if self.zero_stage == 1:
+                    add("all-reduce", fg.size * size)
+                else:
+                    add("reduce-scatter", fg.shard_size * size)
+                add("all-gather", fg.size * size)
+            if clip:
+                add("all-reduce", 8)
+        return out
+
+    @torch.no_grad()
+    def all_reduce_mean_(self, grads: List[torch.Tensor]) -> None:
+        """Stage 0: each gradient becomes its mean over the ranks, bucketed
+        by dtype and device over the flat list."""
+        for bucket in self._buckets(grads):
             flat = torch.cat([g.reshape(-1) for g in bucket])
             self._all_reduce_(flat)
             flat.div_(self.world)

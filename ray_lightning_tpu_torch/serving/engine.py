@@ -656,31 +656,131 @@ class InferenceEngine:
     # one iteration
     # ------------------------------------------------------------------ #
     def _prefill_into(self, tokens: Sequence[int], slot_index: int):
-        cfg = self.cfg
         ecfg = self.engine_config
         padded = np.zeros((1, ecfg.max_prompt_len), np.int64)
         padded[0, : len(tokens)] = tokens
         prompt = torch.from_numpy(padded).to(self.device)
-        prefill_hidden(self.params, prompt, cfg, self._scratch, self._table)
+        where: Any = slot_index
+        if self._paged:
+            write_table = self.pool.prompt_write_table(slot_index,
+                                                       self._n_prompt_blocks)
+            where = torch.from_numpy(write_table.astype(np.int64)).to(
+                self.device)
+        self._prefill_program(self.params, self.pool.cache, self._scratch,
+                              prompt, where, self._table)
+
+    def _prefill_program(self, params, cache, scratch, prompt, where,
+                         table) -> None:
+        """The ``serve_prefill`` program: the padded prompt [1, P] through
+        every layer into ``scratch``, then into the pool: at slot ``where``
+        (the slot layout) or through the write table ``where`` [nb] (the
+        paged layout)."""
+        cfg = self.cfg
+        ecfg = self.engine_config
+        prefill_hidden(params, prompt, cfg, scratch, table)
         if not self._paged:
             # prefill writes positions [0, max_prompt_len) only; the slot's
             # later positions keep a former tenant's entries, which no row
             # attends before decode overwrites them
             P = ecfg.max_prompt_len
             for name in ("k", "v"):
-                self.pool.cache[name][:, slot_index, :, :P] = (
-                    self._scratch[name][:, 0])
+                cache[name][:, where, :, :P] = scratch[name][:, 0]
             return
-        write_table = self.pool.prompt_write_table(slot_index,
-                                                   self._n_prompt_blocks)
         L, hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
         nb, bs = self._n_prompt_blocks, ecfg.block_size
-        wt = torch.from_numpy(write_table.astype(np.int64)).to(self.device)
         for name in ("k", "v"):
             # [L, Hkv, nb*bs, hd] -> [L, nb, Hkv, bs, hd]; duplicate trash
-            # entries in wt race harmlessly (trash is never read)
-            blocks = self._scratch[name][:, 0].view(L, hkv, nb, bs, hd)
-            self.pool.cache[name][:, wt] = blocks.transpose(1, 2)
+            # entries in the write table race harmlessly (trash is never
+            # read)
+            blocks = scratch[name][:, 0].view(L, hkv, nb, bs, hd)
+            cache[name][:, where] = blocks.transpose(1, 2)
+
+    def _decode_program(self, params, cache, token, pos, tables, table,
+                        sample: Callable[[torch.Tensor], torch.Tensor]
+                        ) -> torch.Tensor:
+        """The ``serve_decode`` program: one batched step over every slot
+        (token [n, K] int32, pos [n], the paged layout's tables [n,
+        max_blocks]) and ``sample`` of its logits; [n * K] tokens."""
+        n = token.shape[0]
+        if token.shape[1] > 1:
+            logits, _ = decode_step_verify(
+                params, cache, token, pos, self.cfg, table,
+                block_tables=tables)
+            logits = logits.view(n * token.shape[1], -1)
+        elif self._paged:
+            logits, _ = decode_step_paged(
+                params, cache, token[:, 0], pos, tables, self.cfg, table)
+        else:
+            logits, _ = decode_step_ragged(
+                params, cache, token[:, 0], pos, self.cfg, table)
+        return sample(logits)
+
+    def _program_specs(self):
+        """``(name, fn, args)`` of both serving programs, with meta tensors
+        of exactly the shapes and dtypes that :meth:`step` gives them (the
+        parameters, the pool, the scratch cache, the prompt, the write table
+        or slot, the tokens, positions and tables, the rope table): the
+        programs :meth:`cost_summary` counts are the ones the serving loop
+        runs. Sampling takes no generator on meta (the noise of a
+        temperature > 0 is drawn on the device, as in the loop)."""
+        to_meta = _obs.profiler.to_meta
+        ecfg = self.engine_config
+        n = self.pool.num_slots
+        K = max(ecfg.speculate_k, 1)
+        params, cache = to_meta(self.params), to_meta(self.pool.cache)
+        table = to_meta(self._table)
+        prompt = torch.empty((1, ecfg.max_prompt_len), dtype=torch.int64,
+                             device="meta")
+        where: Any = 0
+        tables = None
+        if self._paged:
+            where = torch.empty((self._n_prompt_blocks,), dtype=torch.int64,
+                                device="meta")
+            tables = torch.empty(self.pool.block_tables.shape,
+                                 dtype=torch.int32, device="meta")
+        token = torch.empty((n, K), dtype=torch.int32, device="meta")
+        pos = torch.empty((n,), dtype=torch.int32, device="meta")
+
+        def sample(logits):
+            if self._use_fused:
+                return fused_sample(logits, None, ecfg.temperature,
+                                    ecfg.top_k, ecfg.top_p)
+            return _sample_logits(logits, None, ecfg.temperature, ecfg.top_k,
+                                  ecfg.top_p)
+
+        return (
+            ("serve_prefill", self._prefill_program,
+             (params, cache, to_meta(self._scratch), prompt, where, table)),
+            ("serve_decode", self._decode_program,
+             (params, cache, token, pos, tables, table, sample)),
+        )
+
+    def cost_summary(self) -> Dict[str, Any]:
+        """The counted cost of the two serving programs
+        (``observability.profiler.analyze_program`` on meta tensors of the
+        tick's shapes, :meth:`_program_specs`): publishes the
+        ``rlt_step_flops``/``rlt_step_bytes`` gauges labelled
+        ``program=serve_prefill|serve_decode`` (with telemetry on) and
+        returns each program's report with its analytic roofline on this
+        engine's device (``None`` for a program that cannot be counted). The
+        decode step is counted with every row at its table's full length
+        (the meta trace knows no positions). Runs nothing on the device and
+        leaves ``stats``, the pool, the allocator and the launch counts as
+        they were."""
+        profiler = _obs.profiler
+        out: Dict[str, Any] = {}
+        reg = _obs.registry()
+        for name, fn, args in self._program_specs():
+            rep = profiler.analyze_program(fn, *args, program=name)
+            if rep is None:
+                out[name] = None
+                continue
+            if reg is not None:
+                profiler.publish_cost_report(reg, rep, device=self.device)
+            d = rep.to_dict()
+            d["roofline"] = profiler.roofline(rep, device=self.device)
+            out[name] = d
+        return out
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         ecfg = self.engine_config
@@ -822,20 +922,9 @@ class InferenceEngine:
                 block_tables[list(parked), :] = TRASH_BLOCK
             tables = torch.from_numpy(block_tables).to(dev)
         with _obs.span("serve_decode"):
-            if K > 1:
-                logits, _ = decode_step_verify(
-                    self.params, self.pool.cache, token_d, pos_d, self.cfg,
-                    self._table, block_tables=tables)
-                logits = logits.view(n * K, -1)
-            elif self._paged:
-                logits, _ = decode_step_paged(
-                    self.params, self.pool.cache, token_d[:, 0], pos_d,
-                    tables, self.cfg, self._table)
-            else:
-                logits, _ = decode_step_ragged(
-                    self.params, self.pool.cache, token_d[:, 0], pos_d,
-                    self.cfg, self._table)
-            sampled = self._sample(logits).view(n, K).cpu().numpy()  # sync
+            sampled = self._decode_program(
+                self.params, self.pool.cache, token_d, pos_d, tables,
+                self._table, self._sample).view(n, K).cpu().numpy()  # sync
         now = time.perf_counter()
         reg = _obs.registry()
         for slot in decode_slots:

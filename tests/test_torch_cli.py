@@ -4,7 +4,7 @@ seed and flags; its row schema, dispositions and summary keys match the
 JAX package's ``cli.main(["serve", ...])`` run with the same flags (the
 summary without ``compile_stats``); its argument errors are JAX's;
 ``--telemetry`` and ``--telemetry-dir`` serve with the flight recorder on,
-and ``--cost`` is refused."""
+and ``--cost`` prints both serving programs' counted cost."""
 import dataclasses
 import json
 import os
@@ -134,20 +134,25 @@ def test_serve_rows_equal_the_port_driven_directly(flags, capsys):
 def test_unported_flags_are_refused(flag, capsys, tmp_path):
     """``--telemetry`` serves and prints the Prometheus text after the
     summary; with ``--telemetry-dir`` the run's files are written there;
-    ``--cost`` (the profiler's, item 9c) is still refused."""
+    ``--cost`` (item 9c, ported) serves and then prints the cost summary of
+    both serving programs, as the JAX package's does."""
     flag = [str(tmp_path / "t") if f == "DIR" else f for f in flag]
     argv = BASE + flag + ["--device", "cpu"]
     try:
-        if "--cost" in flag:
-            with pytest.raises(SystemExit) as exc:
-                cli.main(argv)
-            assert "item 9c" in str(exc.value.code)
-            assert capsys.readouterr().out == ""
-            return
         assert cli.main(argv) == 0
     finally:
         pobs.reset()
     out = capsys.readouterr().out
+    if "--cost" in flag:
+        lines = [json.loads(x) for x in out.splitlines()]
+        assert "summary" in lines[-2] and lines[-2]["summary"]["requests"] == 4
+        cost = lines[-1]["cost_summary"]
+        assert set(cost) == {"serve_prefill", "serve_decode"}
+        for rep in cost.values():
+            assert rep["step_flops"] > 0 and rep["step_bytes"] > 0
+            assert rep["roofline"]["verdict"] in ("compute-bound",
+                                                  "bandwidth-bound")
+        return
     assert "rlt_serve_requests_total 4" in out
     assert "rlt_serve_ttft_seconds_count 4" in out
     if "--telemetry-dir" in flag:

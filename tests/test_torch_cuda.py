@@ -1769,3 +1769,107 @@ def test_engine_records_with_telemetry_on_card(cuda):
             "rlt_serve_tokens_total", "rlt_serve_kv_blocks_used",
             "rlt_serve_kv_blocks_free", "rlt_serve_ttft_component_seconds"
             } <= names
+
+
+def test_kernel_costs_on_meta_match_the_card_route(cuda):
+    """At the shapes the kernel phase of chip_smoke.py times (the serving,
+    training and decode shapes), each wrapper given meta tensors records
+    the cost that its cost function gives for the CUDA tensors it launches
+    on, launches nothing, and returns outputs of the card's shapes and
+    dtypes."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.observability import profiler
+    from ray_lightning_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_bwd_dkv_cost,
+        flash_bwd_dq_cost,
+        flash_fwd_cost,
+    )
+    from ray_lightning_tpu_torch.ops.paged_attention import (
+        argmax_cost,
+        blockwise_argmax,
+        paged_decode_attention,
+        paged_decode_cost,
+    )
+    from ray_lightning_tpu_torch.ops.rmsnorm import rmsnorm_cost, rmsnorm_fwd
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(0)
+    scale = 1.0 / 128 ** 0.5
+
+    def both(fn, *tensors):
+        """fn on the card's tensors and on meta copies: (card out, meta out,
+        the meta call's recorded kernel costs)."""
+        on_card = fn(*tensors)
+        meta = [profiler.to_meta(t) for t in tensors]
+        before = kernels.launch_counts()
+        with profiler.CostCounter() as c:
+            on_meta = fn(*meta)
+        assert kernels.launch_counts() == before
+        return on_card, on_meta, c.kernels
+
+    def same(card, meta):
+        card = card if isinstance(card, tuple) else (card,)
+        meta = meta if isinstance(meta, tuple) else (meta,)
+        assert [(t.shape, t.dtype) for t in card] == [
+            (t.shape, t.dtype) for t in meta]
+
+    for rows, dim in ((8, 4096), (512, 4096), (16384, 2048)):
+        x = torch.randn(rows, dim, generator=g, device=cuda).to(bf)
+        w = torch.randn(dim, generator=g, device=cuda).to(bf)
+        card, meta, costs = both(lambda a, b: rmsnorm_fwd(a, b, 1e-5), x, w)
+        same(card, meta)
+        c = rmsnorm_cost(x.shape, bf)
+        assert costs == {"rmsnorm": {"launches": 1, "flops": c.flops,
+                                     "bytes": c.bytes}}
+    for B, hq, hkv, S in ((1, 32, 8, 512), (8, 16, 8, 2048)):
+        q = torch.randn(B, hq, S, 128, generator=g, device=cuda).to(bf)
+        k = torch.randn(B, hkv, S, 128, generator=g, device=cuda).to(bf)
+        v = torch.randn(B, hkv, S, 128, generator=g, device=cuda).to(bf)
+        card, meta, costs = both(lambda a, b, c: flash_attention(a, b, c),
+                                 q, k, v)
+        same(card, meta)
+        c = flash_fwd_cost(q.shape, k.shape, bf)
+        assert costs["flash_fwd"]["flops"] == c.flops
+        assert costs["flash_fwd"]["bytes"] == c.bytes
+        o, lse = card
+        do = torch.randn_like(q)
+        delta = (o.float() * do.float()).sum(dim=-1, keepdim=True)
+        for fn, cost, name in (
+                (flash_attention_bwd_dq, flash_bwd_dq_cost, "flash_bwd_dq"),
+                (flash_attention_bwd_dkv, flash_bwd_dkv_cost,
+                 "flash_bwd_dkv")):
+            card_b, meta_b, costs = both(
+                lambda *t, fn=fn: fn(*t, True, scale, None),
+                q, k, v, do, lse, delta)
+            same(card_b, meta_b)
+            c = cost(q.shape, k.shape, bf)
+            assert (costs[name]["flops"], costs[name]["bytes"]) == (
+                c.flops, c.bytes)
+        del q, k, v, o, lse, do, delta
+    B, hkv, G, bs, maxb = 8, 8, 4, 16, 64
+    n_blocks = B * maxb + 1
+    kc = torch.randn(n_blocks, hkv, bs, 128, generator=g, device=cuda).to(bf)
+    vc = torch.randn_like(kc)
+    q = torch.randn(B, hkv, G, 128, generator=g, device=cuda)
+    tables = torch.arange(1, n_blocks, device=cuda, dtype=torch.int32).view(
+        B, maxb)
+    pos = torch.full((B,), maxb * bs - 1, device=cuda, dtype=torch.int32)
+    card, meta, costs = both(paged_decode_attention, q, kc, vc, tables, pos)
+    same(card, meta)
+    # every row at its table's last position: the meta count (no positions)
+    # equals the count of this call's data
+    c = paged_decode_cost(q.shape, kc.shape, bf, maxb, pos=pos.tolist())
+    assert c == paged_decode_cost(q.shape, kc.shape, bf, maxb)
+    assert (costs["paged_decode"]["flops"], costs["paged_decode"]["bytes"]) == (
+        c.flops, c.bytes)
+    x = torch.randn(8, 128256, generator=g, device=cuda)
+    for noise in (None, torch.rand_like(x)):
+        args = (x,) if noise is None else (x, noise)
+        card, meta, costs = both(blockwise_argmax, *args)
+        same(card, meta)
+        c = argmax_cost(x.shape, noise is not None)
+        assert (costs["argmax"]["flops"], costs["argmax"]["bytes"]) == (
+            c.flops, c.bytes)

@@ -230,8 +230,19 @@ def test_histogram_pending_cap_and_kind_conflict():
 
 def test_prometheus_help_registry_is_jax_s():
     """The port's help texts are JAX's; the JAX modules that are not ported
-    (the profiler, the compile cache) add theirs at import."""
-    assert pmetrics.HELP == {k: jmetrics.HELP[k] for k in pmetrics.HELP}
+    (the compile cache) add theirs at import. The profiler's cost series
+    have help in both packages, each naming where its counts come from
+    (XLA's cost analysis; meta tensors of the program's shapes)."""
+    from ray_lightning_tpu.observability import profiler as jprof
+    from ray_lightning_tpu_torch.observability import profiler as pprof
+
+    cost = {pprof.STEP_FLOPS_METRIC, pprof.STEP_BYTES_METRIC,
+            pprof.COLLECTIVE_BYTES_METRIC, pprof.COST_MFU_METRIC}
+    assert cost == {jprof.STEP_FLOPS_METRIC, jprof.STEP_BYTES_METRIC,
+                    jprof.COLLECTIVE_BYTES_METRIC, jprof.COST_MFU_METRIC}
+    assert cost <= set(pmetrics.HELP) and cost <= set(jmetrics.HELP)
+    assert ({k: v for k, v in pmetrics.HELP.items() if k not in cost}
+            == {k: jmetrics.HELP[k] for k in pmetrics.HELP if k not in cost})
     for name in ("rlt_step_time_seconds", "rlt_unknown_thing_total"):
         assert pmetrics.help_for(name) == jmetrics.help_for(name)
 

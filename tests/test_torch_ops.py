@@ -366,18 +366,34 @@ def test_fused_temperature_sample_is_gumbel_argmax():
 
 @pytest.mark.parametrize("op", ["rmsnorm", "flash", "paged", "argmax"])
 def test_wrappers_refuse_non_cpu_non_cuda_tensors(op):
-    """Only a CPU tensor takes the plain version; anything else must be a
-    CUDA tensor for the kernel."""
+    """Only a CPU tensor takes the plain version. A meta tensor, which the
+    profiler counts programs on, takes the kernel's route without computing
+    anything: it records the kernel's cost once, launches nothing and
+    returns meta outputs of the kernel's shapes. The kernel's own guard
+    still refuses every tensor that is not a CUDA tensor."""
+    from ray_lightning_tpu_torch import kernels
+    from ray_lightning_tpu_torch.observability.profiler import CostCounter
+
     m = torch.empty((2, 4, 8, 16), device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
+    kernel = {"rmsnorm": "rmsnorm", "flash": "flash_fwd",
+              "paged": "paged_decode", "argmax": "argmax"}[op]
+    before = kernels.launch_counts()
+    with CostCounter() as counter:
         if op == "rmsnorm":
-            rmsnorm(m, torch.empty((16,), device="meta"))
+            out = (rmsnorm(m, torch.empty((16,), device="meta")),)
         elif op == "flash":
-            tattn.flash_attention(m, m, m)
+            out = tattn.flash_attention(m, m, m)
         elif op == "paged":
-            tpa.paged_decode_attention(
+            out = (tpa.paged_decode_attention(
                 m, m, m, torch.empty((2, 3), dtype=torch.int32, device="meta"),
                 torch.empty((2,), dtype=torch.int32, device="meta"),
-            )
+            ),)
         else:
-            tpa.blockwise_argmax(m[0, 0])
+            out = (tpa.blockwise_argmax(m[0, 0]),)
+    assert all(t.is_meta for t in out)
+    assert set(counter.kernels) == {kernel}
+    assert counter.kernels[kernel]["launches"] == 1
+    assert kernels.launch_counts() == before
+    for t in (m, torch.zeros(2)):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.require_cuda(kernel, t)

@@ -37,7 +37,8 @@ def test_port_imports_without_jax_or_a_build():
     """A fresh interpreter imports every module of the port with JAX made
     unimportable, and no kernel library is loaded or built by the import;
     nor is the native runtime library (``runtime/native/``), and no zygote
-    or other process is started."""
+    or other process is started. The profiler (``observability.profiler``)
+    imports with them and opens no ``torch.profiler`` session."""
     code = (
         "import sys, importlib, pkgutil, os\n"
         "sys.modules['jax'] = None\n"
@@ -52,6 +53,10 @@ def test_port_imports_without_jax_or_a_build():
         "assert native._lib is None and not native._build_failed\n"
         "assert not any('librlt_shm' in l for l in open('/proc/self/maps'))\n"
         "assert api._state.zygote is None and not api._state.initialized\n"
+        "import torch\n"
+        "from ray_lightning_tpu_torch.observability import profiler\n"
+        "assert profiler._SESSION == [None]\n"
+        "assert not torch.autograd._profiler_enabled()\n"
         "kids = f'/proc/self/task/{os.getpid()}/children'\n"
         "assert not os.path.exists(kids) or not open(kids).read().split()\n"
         "print('ok')\n"
@@ -64,11 +69,13 @@ def test_port_imports_without_jax_or_a_build():
 
 @pytest.mark.parametrize("module", ["ray_lightning_tpu_torch.serving.replica",
                                     "ray_lightning_tpu_torch.cli",
-                                    "ray_lightning_tpu_torch.observability.slo"])
+                                    "ray_lightning_tpu_torch.observability.slo",
+                                    "ray_lightning_tpu_torch.observability.profiler"])
 def test_fleet_and_cli_import_without_a_thread_or_process(module):
-    """The fleet's module, the command line and the SLO monitor import with
-    JAX blocked and build, load, start and parse nothing: one thread, no
-    child process, no kernel library, no runtime, no zygote."""
+    """The fleet's module, the command line, the SLO monitor and the
+    profiler import with JAX blocked and build, load, start and parse
+    nothing: one thread, no child process, no kernel library, no runtime,
+    no zygote, no ``torch.profiler`` session."""
     code = (
         "import sys, os, threading, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -79,6 +86,8 @@ def test_fleet_and_cli_import_without_a_thread_or_process(module):
         "assert not kernels._LIBS and native._lib is None\n"
         "assert api._state.zygote is None and not api._state.initialized\n"
         "assert threading.active_count() == 1, threading.enumerate()\n"
+        "import torch\n"
+        "assert not torch.autograd._profiler_enabled()\n"
         "kids = f'/proc/self/task/{os.getpid()}/children'\n"
         "assert not os.path.exists(kids) or not open(kids).read().split()\n"
         "print('ok')\n"

@@ -49,13 +49,11 @@ from ray_lightning_tpu_torch.strategies import RayStrategy
 from ray_lightning_tpu_torch.strategies.base import SingleDeviceStrategy
 
 # series the JAX fit publishes from modules not ported yet: the XLA
-# compile cache (ROADMAP.md item 9h) and the profiler's cost analysis
-# (item 9c)
+# compile cache (ROADMAP.md item 9h); the profiler's cost series and the
+# summary's profile section (item 9c) are the port's too
 JAX_ONLY_SERIES = {"rlt_compile_ms", "rlt_compile_cache_misses_total",
-                   "rlt_compile_cache_hits_total", "rlt_step_bytes",
-                   "rlt_step_flops", "rlt_collective_bytes_total"}
-# and the summary's section of the profiler's records (item 9c)
-JAX_ONLY_SUMMARY = {"profile"}
+                   "rlt_compile_cache_hits_total"}
+JAX_ONLY_SUMMARY = set()
 FILES = ["events.jsonl", "metrics.json", "metrics.prom", "summary.json",
          "trace.json"]
 

@@ -201,10 +201,21 @@ def test_flash_backward_checks_its_inputs():
         tattn.flash_attention_bwd(q, q, q, q, lse[:, :, :4], q)
     with pytest.raises(ValueError):
         tattn.flash_attention_bwd(q, q[:, :1, :4], q[:, :1, :4], q, lse, q)
+    # a meta tensor takes the kernels' route and records both kernels'
+    # costs (the profiler's count); the raw kernel wrappers refuse every
+    # tensor that is not a CUDA tensor
+    from ray_lightning_tpu_torch.observability.profiler import CostCounter
+
     m = torch.empty((1, 2, 8, 16), device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        tattn.flash_attention_bwd(m, m, m, m, torch.empty((1, 2, 8, 1),
-                                                           device="meta"), m)
+    lse_m = torch.empty((1, 2, 8, 1), device="meta")
+    with CostCounter() as counter:
+        grads = tattn.flash_attention_bwd(m, m, m, m, lse_m, m)
+    assert [g.shape for g in grads] == [m.shape] * 3
+    assert set(counter.kernels) == {"flash_bwd_dq", "flash_bwd_dkv"}
+    delta = torch.zeros(1, 2, 8, 1)
+    for fn in (tattn.flash_attention_bwd_dq, tattn.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, q, q, q, lse, delta, True, 0.25, None)
 
 
 # --------------------------------------------------------------------- #
